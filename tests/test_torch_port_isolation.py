@@ -1,0 +1,70 @@
+"""The port stands alone: ``tpu_dist_torch`` imports neither ``jax`` nor
+``tpu_dist``, and its entry points do not move to the CPU on their own."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "tpu_dist_torch"
+FORBIDDEN = ("jax", "tpu_dist")
+
+
+def test_imports_with_jax_and_tpu_dist_blocked():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["tpu_dist"] = None
+        import tpu_dist_torch
+        import tpu_dist_torch.interop
+        import tpu_dist_torch.benchmarks.transformer_lm
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist")
+                        and sys.modules[m] is not None)
+        assert not loaded, loaded
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_file_imports_jax_or_tpu_dist(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (
+                f"{path.relative_to(REPO)}:{node.lineno} imports {name}")
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    """With no device argument and no CUDA device, the entry points raise
+    instead of running on the CPU."""
+    from tpu_dist_torch import dist
+    from tpu_dist_torch.benchmarks.transformer_lm import run
+    from tpu_dist_torch.models import TransformerLM
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TransformerLM(vocab_size=11, dim=8, depth=1, num_heads=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist.init_process_group()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA events"):
+        run(device="cpu")

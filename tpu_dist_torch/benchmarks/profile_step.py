@@ -1,0 +1,90 @@
+"""Where the time of one training step goes, on the card.
+
+Runs the slice of :mod:`tpu_dist_torch.benchmarks.transformer_lm` (same
+configuration) under ``torch.profiler`` for a few steps after warm-up and
+prints one JSON line: device time per step by kernel group and for the
+slowest kernels, and the device's idle share over the profiled window
+(1 − union of kernel intervals / the span from the first kernel's start to
+the last one's end).
+
+    python -m tpu_dist_torch.benchmarks.profile_step
+"""
+
+from __future__ import annotations
+
+import json
+from collections import defaultdict
+
+import torch
+
+from ..ops._build import resolve_device
+from .transformer_lm import build
+
+# kernel-name fragments → group (first match wins)
+_GROUPS = (("flash", "flash attention (K2)"),
+           ("cross_entropy", "cross-entropy (K1)"),
+           ("gemm", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
+           ("cutlass", "matmul"), ("elementwise", "elementwise"),
+           ("reduce", "reductions"))
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for frag, group in _GROUPS:
+        if frag in low:
+            return group
+    return "other"
+
+
+def profile(steps: int = 3, warmup: int = 3, device=None) -> dict:
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("profile() reads device kernels; it needs the card")
+    ddp, x, y = build(device=device)
+    state = ddp.init(seed=0)
+    for _ in range(warmup):
+        state, _ = ddp.train_step(state, x, y)
+    torch.cuda.synchronize(device)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            state, _ = ddp.train_step(state, x, y)
+        torch.cuda.synchronize(device)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device kernels")
+    by_name = defaultdict(float)
+    by_group = defaultdict(float)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_name[e.name] += us
+        by_group[_group(e.name)] += us
+    busy, cur_start, cur_end = 0.0, *spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    window = spans[-1][1] - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    return {
+        "device": torch.cuda.get_device_name(device),
+        "steps": steps,
+        "kernel_ms_per_step": sum(by_name.values()) / steps / 1e3,
+        "window_ms_per_step": window / steps / 1e3,
+        "idle_share": 1.0 - busy / window,
+        "groups_ms_per_step": {g: us / steps / 1e3 for g, us in
+                               sorted(by_group.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms_per_step": [[n[:120], us / steps / 1e3]
+                                    for n, us in top],
+        "kernel_launches_per_step": len(kernels) / steps,
+    }
+
+
+if __name__ == "__main__":
+    print(json.dumps(profile()))

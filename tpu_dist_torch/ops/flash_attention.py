@@ -1,0 +1,238 @@
+"""Flash attention — hand-written CUDA kernels for Hopper, with autograd.
+
+Counterpart of ``tpu_dist/ops/flash_attention.py``.  The kernels live in
+``tpu_dist_torch/csrc/flash_attention.cu`` (forward; backward as a dQ kernel
+and a dK/dV kernel) and are built for ``sm_90a`` at first use.  Beside each
+wrapper sits its plain PyTorch version: the CPU takes it, and the kernels are
+held against it on the card.
+
+Public layout as in the JAX package: ``q`` (..., Tq, H, D), ``k``/``v``
+(..., Tk, H, D); ``sm_scale=None`` means ``1/sqrt(D)``; rows that see no key
+get lse ≈ -1e30 and output 0.  ``causal`` is ``True`` or ``False``; the
+JAX package's ``"offdiag"`` mode and its ``split_diag`` variant serve ring
+attention and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+__all__ = ["flash_attention", "flash_attention_with_lse", "flash_fwd",
+           "flash_bwd", "flash_fwd_plain", "flash_bwd_plain"]
+
+_NEG_INF = -1e30  # finite, as in the TPU kernel: masked rows stay NaN-free
+_DTYPES = (torch.float32, torch.bfloat16)
+_LIB = "flash_attention"
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, o, lse | B, H, Tq, Tk, D | q/k/v strides | scale, causal,
+    # dtype, stream
+    "flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_F, _I, _I, _P],
+    # q, k, v, dO, lse, delta, dQ, dK, dV | ... as above
+    "flash_bwd": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _I, _I, _P],
+}
+
+
+def _check_operands(q, k, v):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_cuda_tensor(name, t, _DTYPES, 4)
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"{name}: {t.dtype} on {t.device} does not match "
+                            f"q ({q.dtype} on {q.device})")
+        vec = 16 // t.element_size()
+        if (t.stride(3) != 1 or any(s % vec for s in t.stride()[:3])
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"{name}: the kernel reads 16-byte row vectors; it needs unit "
+                f"stride in D, strides that are multiples of {vec} and a "
+                f"16-byte aligned base (strides {t.stride()})")
+    b, tq, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or tuple(k.shape[2:]) != (h, d):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}: need (B, T, H, D) with equal "
+                         f"B, H, D and equal k/v shapes")
+    if d % 8 or not 0 < d <= 128:
+        raise ValueError(f"head dim {d}: the kernel takes D % 8 == 0, D <= 128")
+    if max(tq, k.shape[1]) > 65535 * 32:
+        raise ValueError(f"sequence length {max(tq, k.shape[1])} exceeds the "
+                         f"kernel's grid")
+
+
+def _lib():
+    return _build.load_library(_LIB, _SIGNATURES)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _keep_mask(tq, tk, causal, device):
+    """(Tq, Tk) True = visible, or None when everything is."""
+    if not causal:
+        return None
+    qpos = torch.arange(tq, device=device)[:, None]
+    kpos = torch.arange(tk, device=device)[None, :]
+    return kpos <= qpos
+
+
+def flash_fwd_plain(q, k, v, causal: bool, sm_scale: float):
+    """Plain version of K2f: ``(o, lse)`` with lse (B, H, Tq) float32.
+    Scores and softmax in float32; the probabilities are rounded to the
+    input dtype before the PV product, as the kernel rounds them."""
+    tq, tk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
+    keep = _keep_mask(tq, tk, causal, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, _NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)
+    l = p.sum(-1, keepdim=True)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = torch.einsum("bhqk,bkhd->bhqd", p.to(q.dtype).float(), v.float()) / l
+    return o.transpose(1, 2).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_bwd_plain(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
+    """Plain version of K2b: ``(dq, dk, dv)`` from the saved lse and
+    ``delta = rowsum(dO·O) − dlse`` (both (B, H, Tq) float32).  The
+    probabilities and dS are rounded to the input dtype before their
+    products, as the kernels round them."""
+    tq, tk = q.shape[1], k.shape[1]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * sm_scale
+    p = torch.exp(s - lse[..., None])
+    keep = _keep_mask(tq, tk, causal, q.device)
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    p = p.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * sm_scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * sm_scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_fwd(q, k, v, causal: bool, sm_scale: float):
+    """K2f: flash-attention forward on (B, T, H, D) tensors → ``(o, lse)``
+    with o (B, Tq, H, D) contiguous and lse (B, H, Tq) float32.  A CPU tensor
+    takes :func:`flash_fwd_plain`; a CUDA tensor launches the kernel."""
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, causal, sm_scale)
+    _check_operands(q, k, v)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    lib = _lib()
+    err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        lse.data_ptr(), b, h, tq, tk, d,
+                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                        float(sm_scale), int(causal),
+                        int(q.dtype == torch.bfloat16), _stream(q))
+    _build.check(lib, _LIB, err, "flash_fwd")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+flash_fwd.launches = 0
+
+
+def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
+    """K2b: flash-attention backward → ``(dq, dk, dv)``, contiguous
+    (B, T, H, D).  One call launches two kernels, dQ then dK/dV; it counts
+    once.  A CPU tensor takes :func:`flash_bwd_plain`."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale)
+    _check_operands(q, k, v)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if tuple(do.shape) != (b, tq, h, d) or do.dtype != q.dtype:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} does not match "
+                         f"q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        _build.check_cuda_tensor(name, t, (torch.float32,), 3)
+        if tuple(t.shape) != (b, h, tq) or not t.is_contiguous():
+            raise ValueError(f"{name}: need contiguous (B, H, Tq) = "
+                             f"{(b, h, tq)}, got {tuple(t.shape)}")
+    do = do.contiguous()
+    dq = torch.empty_like(do)
+    dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lib = _lib()
+    err = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                        dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, d,
+                        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                        float(sm_scale), int(causal),
+                        int(q.dtype == torch.bfloat16), _stream(q))
+    _build.check(lib, _LIB, err, "flash_bwd")
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd.launches = 0
+
+
+class _FlashLse(torch.autograd.Function):
+    """Differentiable in both outputs: the lse cotangent folds into
+    ``delta`` (``_bwd_call`` in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        o, lse = flash_fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) - dlse
+        dq, dk, dv = flash_bwd(q, k, v, do, lse, delta.contiguous(),
+                               ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_with_lse(q, k, v, causal: bool = False, sm_scale=None):
+    """Flash attention returning ``(out, lse)``: out (..., Tq, H, D), lse
+    (..., Tq, H) float32, differentiable in both."""
+    if q.dim() < 3:
+        raise ValueError(f"expected (..., T, H, D), got {tuple(q.shape)}")
+    *lead, tq, h, d = q.shape
+    tk = k.shape[-3]
+    if not (q.shape[:-3] == k.shape[:-3] == v.shape[:-3]
+            and k.shape[-2:] == v.shape[-2:] == (h, d)
+            and v.shape[-3] == tk):
+        raise ValueError(
+            f"flash_attention needs identical batch/head dims for q, k, v; "
+            f"got q={tuple(q.shape)}, k={tuple(k.shape)}, v={tuple(v.shape)}")
+    if causal not in (True, False):
+        raise ValueError(f"causal={causal!r}: only True/False are ported")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    o, lse = _FlashLse.apply(q.reshape(-1, tq, h, d), k.reshape(-1, tk, h, d),
+                             v.reshape(-1, tk, h, d), bool(causal),
+                             float(sm_scale))
+    return (o.reshape(*lead, tq, h, d),
+            lse.transpose(1, 2).reshape(*lead, tq, h))
+
+
+def flash_attention(q, k, v, causal: bool = False, sm_scale=None):
+    """Flash attention.  ``q``: (..., Tq, H, D); ``k, v``: (..., Tk, H, D).
+    Drop-in for :func:`tpu_dist_torch.nn.attention.scaled_dot_product_attention`
+    with no mask; differentiable; O(T) memory."""
+    return flash_attention_with_lse(q, k, v, causal=causal,
+                                    sm_scale=sm_scale)[0]
