@@ -2,8 +2,11 @@
 
 Two ranks, each with half of the batch, must take the same steps as one
 rank with the whole batch: DDP averages the gradients of the two half-batch
-means, which is the gradient of the whole-batch mean.  float32; the
-tolerance covers the all-reduce summing in another order (1e-6 relative)."""
+means, which is the gradient of the whole-batch mean.  So must the dropless
+MoE model, whose routing is per token; its aux losses, averaged over the
+ranks as the JAX package averages module state, are the mean of the ranks'
+own.  float32; the tolerance covers the all-reduce summing in another order
+(1e-6 relative)."""
 
 import socket
 import subprocess
@@ -24,15 +27,17 @@ WORKER = textwrap.dedent("""
     from tpu_dist_torch.models import TransformerLM
     from tpu_dist_torch.parallel import DistributedDataParallel
 
-    rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
-                              sys.argv[3], sys.argv[4])
+    rank, world, port, out, experts = (int(sys.argv[1]), int(sys.argv[2]),
+                                       sys.argv[3], sys.argv[4],
+                                       int(sys.argv[5]))
     pg = dist.init_process_group(init_method=f"tcp://127.0.0.1:{port}",
                                  world_size=world, rank=rank, device="cpu",
                                  timeout=60)
     assert (dist.get_world_size(), dist.get_rank()) == (world, rank)
     assert pg.backend == "gloo"
     model = TransformerLM(vocab_size=31, dim=16, depth=1, num_heads=2,
-                          max_seq_len=8, device="cpu")
+                          max_seq_len=8, num_experts=experts,
+                          moe_dispatch="dropless", device="cpu")
     ddp = DistributedDataParallel(
         model, optimizer=optim.SGD(lr=0.5, momentum=0.9),
         loss_fn=nn.CrossEntropyLoss(fused=True), group=pg)
@@ -44,8 +49,13 @@ WORKER = textwrap.dedent("""
     for _ in range(2):
         state, m = ddp.train_step(state, torch.from_numpy(x[rows]),
                                   torch.from_numpy(y[rows]))
+    aux = {"aux:" + p: float(v["aux_loss"])
+           for p, v in state.model_state.items()}
+    local = {"local_aux:" + p: float(model.get_submodule(p).aux_loss)
+             for p in state.model_state}
     np.savez(out, loss=float(m["loss"]), correct=int(m["correct"]),
-             **{k: v.detach().numpy() for k, v in state.params.items()})
+             **{k: v.detach().numpy() for k, v in state.params.items()},
+             **aux, **local)
     dist.destroy_process_group()
     assert not dist.is_initialized()
 """)
@@ -57,11 +67,11 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _launch(world, tmp_path):
+def _launch(world, tmp_path, experts=0):
     port = _free_port()
     procs = [subprocess.Popen(
         [sys.executable, "-c", WORKER, str(r), str(world), str(port),
-         str(tmp_path / f"w{world}_r{r}.npz")],
+         str(tmp_path / f"w{world}_r{r}.npz"), str(experts)],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]
     for p in procs:
@@ -84,6 +94,22 @@ def test_ddp_world2_gloo_matches_world1(tmp_path):
         for key in one:
             np.testing.assert_allclose(res[key], one[key], rtol=1e-6,
                                        atol=1e-7, err_msg=key)
+
+
+def test_moe_ddp_world2_gloo_matches_world1(tmp_path):
+    (one,) = _launch(1, tmp_path, experts=4)
+    two = _launch(2, tmp_path, experts=4)
+    params = [k for k in one if ":" not in k and k not in ("loss", "correct")]
+    assert "block0.mlp.w1" in params
+    for res in two:
+        np.testing.assert_allclose(res["loss"], one["loss"], rtol=1e-6)
+        for key in params:
+            np.testing.assert_allclose(res[key], one[key], rtol=1e-6,
+                                       atol=1e-7, err_msg=key)
+        # model_state holds the mean of the two ranks' own aux losses
+        mean_local = np.mean([r["local_aux:block0.mlp"] for r in two])
+        np.testing.assert_allclose(res["aux:block0.mlp"], mean_local,
+                                   rtol=1e-6)
 
 
 def test_world1_group_without_init_method():

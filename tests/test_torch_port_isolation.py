@@ -23,6 +23,8 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch
         import tpu_dist_torch.interop
         import tpu_dist_torch.benchmarks.transformer_lm
+        import tpu_dist_torch.benchmarks.moe_lm
+        import tpu_dist_torch.benchmarks.profile_step
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist")
                         and sys.modules[m] is not None)

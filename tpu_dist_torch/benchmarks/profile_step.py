@@ -1,28 +1,34 @@
 """Where the time of one training step goes, on the card.
 
-Runs the slice of :mod:`tpu_dist_torch.benchmarks.transformer_lm` (same
-configuration) under ``torch.profiler`` for a few steps after warm-up and
-prints one JSON line: device time per step by kernel group and for the
-slowest kernels, and the device's idle share over the profiled window
-(1 − union of kernel intervals / the span from the first kernel's start to
-the last one's end).
+Runs the dense slice of :mod:`tpu_dist_torch.benchmarks.transformer_lm`
+or, with ``--model moe``, the dropless-MoE slice of
+:mod:`tpu_dist_torch.benchmarks.moe_lm` (same configurations) under
+``torch.profiler`` for a few steps after warm-up and prints one JSON line:
+device time per step by kernel group and for the slowest kernels, and the
+device's idle share over the profiled window (1 − union of kernel intervals
+/ the span from the first kernel's start to the last one's end).
 
-    python -m tpu_dist_torch.benchmarks.profile_step
+    python -m tpu_dist_torch.benchmarks.profile_step [--model dense|moe]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 from collections import defaultdict
 
 import torch
 
 from ..ops._build import resolve_device
-from .transformer_lm import build
+from . import moe_lm, transformer_lm
+
+_BUILDERS = {"dense": transformer_lm.build, "moe": moe_lm.build}
 
 # kernel-name fragments → group (first match wins)
 _GROUPS = (("flash", "flash attention (K2)"),
            ("cross_entropy", "cross-entropy (K1)"),
+           ("tgmm", "grouped matmul tgmm (K4)"),
+           ("gmm", "grouped matmul gmm (K3)"),
            ("gemm", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
            ("cutlass", "matmul"), ("elementwise", "elementwise"),
            ("reduce", "reductions"))
@@ -36,11 +42,12 @@ def _group(name: str) -> str:
     return "other"
 
 
-def profile(steps: int = 3, warmup: int = 3, device=None) -> dict:
+def profile(steps: int = 3, warmup: int = 3, model: str = "dense",
+            device=None) -> dict:
     device = resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError("profile() reads device kernels; it needs the card")
-    ddp, x, y = build(device=device)
+    ddp, x, y = _BUILDERS[model](device=device)
     state = ddp.init(seed=0)
     for _ in range(warmup):
         state, _ = ddp.train_step(state, x, y)
@@ -74,6 +81,7 @@ def profile(steps: int = 3, warmup: int = 3, device=None) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     return {
         "device": torch.cuda.get_device_name(device),
+        "model": model,
         "steps": steps,
         "kernel_ms_per_step": sum(by_name.values()) / steps / 1e3,
         "window_ms_per_step": window / steps / 1e3,
@@ -87,4 +95,8 @@ def profile(steps: int = 3, warmup: int = 3, device=None) -> dict:
 
 
 if __name__ == "__main__":
-    print(json.dumps(profile()))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(_BUILDERS), default="dense")
+    ap.add_argument("--steps", type=int, default=3)
+    args = ap.parse_args()
+    print(json.dumps(profile(steps=args.steps, model=args.model)))

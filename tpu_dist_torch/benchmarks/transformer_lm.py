@@ -24,7 +24,7 @@ from ..models import TransformerLM
 from ..ops._build import resolve_device
 from ..parallel import DistributedDataParallel
 
-__all__ = ["build", "run"]
+__all__ = ["build", "run", "time_steps"]
 
 
 def build(batch: int = 8, seq_len: int = 2048, dim: int = 768,
@@ -50,6 +50,30 @@ def build(batch: int = 8, seq_len: int = 2048, dim: int = 768,
             torch.from_numpy(y[rows]).to(device))
 
 
+def time_steps(ddp, x, y, steps: int, warmup: int) -> dict:
+    """Train ``warmup + steps`` steps from ``ddp.init(seed=0)`` and time the
+    last ``steps`` with CUDA events: step ms, peak device memory, the final
+    state and every step's loss (read after the timed window)."""
+    device = ddp.device
+    torch.cuda.reset_peak_memory_stats(device)
+    state = ddp.init(seed=0)
+    losses = []
+    for _ in range(warmup):
+        state, m = ddp.train_step(state, x, y)
+        losses.append(m["loss"])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        state, m = ddp.train_step(state, x, y)
+        losses.append(m["loss"])
+    end.record()
+    torch.cuda.synchronize(device)
+    return {"step_ms": start.elapsed_time(end) / steps,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
+            "state": state, "losses": [float(v) for v in losses]}
+
+
 def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
         depth: int = 12, heads: int = 12, vocab: int = 32768,
         steps: int = 20, warmup: int = 3, device=None) -> dict:
@@ -66,28 +90,13 @@ def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
     try:
         ddp, x, y = build(batch, seq_len, dim, depth, heads, vocab,
                           group=pg, device=pg.device)
-        torch.cuda.reset_peak_memory_stats(pg.device)
-        state = ddp.init(seed=0)
-        losses = []
-        for _ in range(warmup):
-            state, m = ddp.train_step(state, x, y)
-            losses.append(m["loss"])
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(steps):
-            state, m = ddp.train_step(state, x, y)
-            losses.append(m["loss"])
-        end.record()
-        torch.cuda.synchronize(pg.device)
-        step_ms = start.elapsed_time(end) / steps
-        peak = torch.cuda.max_memory_allocated(pg.device)
-        n_params = sum(p.numel() for p in state.params.values())
+        res = time_steps(ddp, x, y, steps, warmup)
+        n_params = sum(p.numel() for p in res["state"].params.values())
         world = pg.size()
     finally:
         if own_group:
             dist.destroy_process_group()
-    tok_s = batch * seq_len / (step_ms / 1e3)
+    tok_s = batch * seq_len / (res["step_ms"] / 1e3)
     # fwd+bwd ~= 3x fwd; fwd ~= 2*N matmul FLOPs/token + attention — the
     # JAX benchmark's accounting, kept so the two read alike
     flops_per_token = 3 * (2 * n_params + 4 * depth * seq_len * dim)
@@ -95,8 +104,8 @@ def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
         "metric": "transformer_lm_bf16_train_tokens_per_sec_per_gpu",
         "value": tok_s,
         "unit": "tokens/sec/gpu",
-        "step_ms": step_ms,
-        "peak_mem_bytes": peak,
+        "step_ms": res["step_ms"],
+        "peak_mem_bytes": res["peak_mem_bytes"],
         "n_params": n_params,
         "achieved_model_tflops": tok_s * flops_per_token / 1e12,
         "model": {"depth": depth, "dim": dim, "heads": heads,
@@ -105,7 +114,7 @@ def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
         "device": torch.cuda.get_device_name(pg.device),
         "world_size": world,
         "steps_run": warmup + steps,
-        "losses": [float(v) for v in losses],
+        "losses": res["losses"],
     }
 
 

@@ -12,6 +12,10 @@ Linear weight         (in, out)               (out, in)
 MultiheadSelfAttn     qkv_weight (d, 3d)      qkv_weight (3d, d)
                       out_weight (d, d)       out_weight (d, d), .T
 Embedding, LayerNorm  identical               identical
+MoELayer              router (d, E)           router (d, E)
+                      w1 (E, d, h), b1 (E, h) identical
+                      w2 (E, h, d), b2 (E, d) identical
+MoELayer state        aux_loss                not a parameter: skipped
 ====================  ======================  ==========================
 """
 
@@ -38,8 +42,11 @@ def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
     dtype and device) and return ``model``.  Raises ``KeyError`` on any
     missing or extra key and ``ValueError`` on a shape that does not map."""
     ours = dict(model.named_parameters())
+    # aux_loss is MoE module state, never a parameter (a tree that merges
+    # the JAX state in may carry it)
     theirs = {_join(path, leaf): np.asarray(a)
-              for path, leaves in params.items() for leaf, a in leaves.items()}
+              for path, leaves in params.items() for leaf, a in leaves.items()
+              if leaf != "aux_loss"}
     missing = sorted(set(ours) - set(theirs))
     extra = sorted(set(theirs) - set(ours))
     if missing or extra:

@@ -3,11 +3,16 @@
 
 Pre-LN blocks (LN → MHSA → residual, LN → MLP(4x, GELU) → residual),
 learned positional embeddings, weight-untied LM head, ``norm="layernorm"``.
-Module paths match the JAX package's (``tok``, ``pos``, ``block0.attn``,
-``block0.mlp.0``, ``ln_f``, ``head``).  MoE, remat, RMSNorm/rope, the KV
-cache and ``generate`` come with later slices."""
+With ``num_experts > 0`` every ``moe_every``-th block's MLP is a routed
+:class:`~tpu_dist_torch.nn.MoELayer` (``moe_dispatch="dropless"``).  Module
+paths match the JAX package's (``tok``, ``pos``, ``block0.attn``,
+``block0.mlp.0`` or, for an MoE block, ``block0.mlp``, ``ln_f``, ``head``).
+Remat, RMSNorm/rope, the KV cache and ``generate`` come with later
+slices."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -19,16 +24,17 @@ __all__ = ["TransformerLM", "TransformerBlock"]
 
 class TransformerBlock(torch.nn.Module):
     def __init__(self, dim: int, num_heads: int, causal: bool = True,
-                 device=None):
+                 mlp: Optional[torch.nn.Module] = None, device=None):
         super().__init__()
         device = resolve_device(device)
         self.ln1 = nn.LayerNorm(dim, device=device)
         self.attn = nn.MultiheadSelfAttention(dim, num_heads, causal=causal,
                                               device=device)
         self.ln2 = nn.LayerNorm(dim, device=device)
-        self.mlp = nn.Sequential(nn.Linear(dim, 4 * dim, device=device),
-                                 nn.GELU(),
-                                 nn.Linear(4 * dim, dim, device=device))
+        # mlp override: an nn.MoELayer for mixture-of-experts blocks
+        self.mlp = mlp if mlp is not None else nn.Sequential(
+            nn.Linear(dim, 4 * dim, device=device), nn.GELU(),
+            nn.Linear(4 * dim, dim, device=device))
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
@@ -41,11 +47,23 @@ class TransformerLM(torch.nn.Module):
 
     def __init__(self, vocab_size: int, dim: int = 128, depth: int = 2,
                  num_heads: int = 4, max_seq_len: int = 1024,
-                 causal: bool = True, norm: str = "layernorm", device=None):
+                 causal: bool = True, num_experts: int = 0,
+                 moe_top_k: int = 2, moe_every: int = 1,
+                 moe_capacity_factor: float = 1.25,
+                 moe_dispatch: str = "einsum", norm: str = "layernorm",
+                 device=None):
+        """``num_experts > 0`` makes the MLP of every block ``i`` with
+        ``i % moe_every == moe_every - 1`` a routed MoELayer; its aux loss
+        is the layer's ``aux_loss`` after each forward (the DDP collects it
+        into ``TrainState.model_state``).  As in the JAX package the
+        default dispatch is ``"einsum"``, which the port does not have yet:
+        pass ``moe_dispatch="dropless"``."""
         super().__init__()
         if norm != "layernorm":
             raise NotImplementedError(
                 f"norm={norm!r}: RMSNorm (with rope) comes with a later slice")
+        if num_experts > 0 and moe_every < 1:
+            raise ValueError(f"moe_every must be >= 1, got {moe_every}")
         device = resolve_device(device)
         self.vocab_size = vocab_size
         self.max_seq_len = max_seq_len
@@ -54,9 +72,13 @@ class TransformerLM(torch.nn.Module):
         self.tok = nn.Embedding(vocab_size, dim, device=device)
         self.pos = nn.Embedding(max_seq_len, dim, device=device)
         for i in range(depth):
-            setattr(self, f"block{i}",
-                    TransformerBlock(dim, num_heads, causal=causal,
-                                     device=device))
+            moe = num_experts > 0 and i % moe_every == moe_every - 1
+            setattr(self, f"block{i}", TransformerBlock(
+                dim, num_heads, causal=causal, device=device,
+                mlp=nn.MoELayer(dim, num_experts, top_k=moe_top_k,
+                                capacity_factor=moe_capacity_factor,
+                                dispatch=moe_dispatch, device=device)
+                if moe else None))
         self.ln_f = nn.LayerNorm(dim, device=device)
         self.head = nn.Linear(dim, vocab_size, device=device)
 

@@ -1,5 +1,5 @@
 """tpu_dist_torch.nn — counterpart of ``tpu_dist.nn`` (the TransformerLM
-training path)."""
+training path, dense and dropless-MoE)."""
 
 from . import functional, init
 from .attention import (MultiheadSelfAttention, attention_impl,
@@ -7,8 +7,9 @@ from .attention import (MultiheadSelfAttention, attention_impl,
 from .layers import GELU, Embedding, LayerNorm, Linear
 from .loss import CrossEntropyLoss
 from .module import Module, Sequential, reset_parameters
+from .moe import MoELayer
 
 __all__ = ["functional", "init", "Module", "Sequential", "reset_parameters",
            "Linear", "Embedding", "LayerNorm", "GELU", "CrossEntropyLoss",
            "MultiheadSelfAttention", "attention_impl",
-           "scaled_dot_product_attention"]
+           "scaled_dot_product_attention", "MoELayer"]

@@ -10,7 +10,7 @@ import math
 
 import torch
 
-__all__ = ["torch_default_uniform", "normal"]
+__all__ = ["torch_default_uniform", "normal", "uniform", "kaiming_uniform"]
 
 
 @torch.no_grad()
@@ -23,3 +23,29 @@ def torch_default_uniform(tensor, fan_in: int, generator=None):
 @torch.no_grad()
 def normal(tensor, std: float, generator=None):
     return tensor.normal_(0.0, std, generator=generator)
+
+
+@torch.no_grad()
+def uniform(tensor, minval: float, maxval: float, generator=None):
+    """U(minval, maxval)."""
+    return tensor.uniform_(minval, maxval, generator=generator)
+
+
+def _gain(nonlinearity: str, a: float) -> float:
+    if nonlinearity == "relu":
+        return math.sqrt(2.0)
+    if nonlinearity == "leaky_relu":
+        return math.sqrt(2.0 / (1 + a * a))
+    if nonlinearity == "linear":
+        return 1.0
+    raise ValueError(f"Unsupported nonlinearity {nonlinearity!r}")
+
+
+@torch.no_grad()
+def kaiming_uniform(tensor, fan: int, a: float = 0.0,
+                    nonlinearity: str = "leaky_relu", generator=None):
+    """torch's ``kaiming_uniform_``: U(±gain·sqrt(3/fan)).  ``fan`` is
+    passed in, since the port's layouts differ by module (the JAX package
+    reads it from an (in, out) or HWIO shape)."""
+    bound = _gain(nonlinearity, a) * math.sqrt(3.0 / fan)
+    return uniform(tensor, -bound, bound, generator)

@@ -22,12 +22,16 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 __all__ = ["resolve_device", "check_cuda_tensor", "load_library", "check",
-           "compile_log"]
+           "compile_log", "build_all", "SOURCES"]
+
+# every CUDA source of the port, in csrc/
+SOURCES = ("flash_attention", "gmm")
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
@@ -103,6 +107,13 @@ def _build(name: str) -> Path:
             os.unlink(tmp)
     _LOGS[name] = proc.stderr
     return so
+
+
+def build_all(names=SOURCES) -> None:
+    """Compile the named sources at once, one ``nvcc`` each, in parallel
+    (a later :func:`load_library` finds them built)."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(_build, names))
 
 
 def load_library(name: str, signatures: dict) -> ctypes.CDLL:

@@ -10,7 +10,13 @@ optimizer updates the masters in place.
 
 ``train_step`` consumes its state: the parameters and optimizer buffers are
 updated in place (the JAX package donates them), and the returned
-:class:`TrainState` holds the same tensors."""
+:class:`TrainState` holds the same tensors.
+
+Module state: each :class:`~tpu_dist_torch.nn.MoELayer` keeps its last
+load-balancing loss as its ``aux_loss`` attribute; the step collects it into
+``model_state`` as ``{path: {"aux_loss": float32 scalar}}`` (averaged over
+the group at world > 1), the JAX package's ``state[path]["aux_loss"]``.  As
+there, it is reported, not added to the objective."""
 
 from __future__ import annotations
 
@@ -19,14 +25,17 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from ..nn.module import reset_parameters
+from ..nn.moe import MoELayer
 
 __all__ = ["TrainState", "DistributedDataParallel"]
 
 
 class TrainState(NamedTuple):
     """Training state: ``params`` are the module's float32 master parameters
-    by name, ``model_state`` is ``{}`` on this path (no BatchNorm),
-    ``opt_state`` the optimizer's buffers, ``step`` the update count."""
+    by name; ``model_state`` holds ``{path: {"aux_loss": float32 scalar}}``
+    for each MoE layer (the last step's value; zeros after ``init``) and is
+    ``{}`` for a dense model; ``opt_state`` the optimizer's buffers; ``step``
+    the update count."""
     params: Dict[str, torch.Tensor]
     model_state: Dict[str, Any]
     opt_state: Dict[str, Any]
@@ -85,7 +94,13 @@ class DistributedDataParallel:
         reset_parameters(self.module, generator)
         params = dict(self.module.named_parameters())
         opt_state = self.optimizer.init(params) if self.optimizer else {}
-        return TrainState(params, {}, opt_state, 0)
+        model_state = {path: {"aux_loss": torch.zeros((), device=self.device)}
+                       for path, _ in self._moe_layers()}
+        return TrainState(params, model_state, opt_state, 0)
+
+    def _moe_layers(self):
+        return [(path, m) for path, m in self.module.named_modules()
+                if isinstance(m, MoELayer)]
 
     def train_step(self, state: TrainState, x, y):
         """One forward + backward + all-reduce + update step; returns
@@ -108,6 +123,11 @@ class DistributedDataParallel:
         with torch.no_grad():
             loss = loss.detach()
             correct = (out.argmax(-1) == y).sum()
+            # the aux losses in float32 under any compute dtype, as the JAX
+            # package keeps its state masters
+            model_state = {path: {"aux_loss": m.aux_loss.detach().to(
+                               torch.float32, copy=True)}
+                           for path, m in self._moe_layers()}
             if self.world_size > 1:
                 for g in grads.values():
                     torch.distributed.all_reduce(g)
@@ -115,8 +135,11 @@ class DistributedDataParallel:
                 torch.distributed.all_reduce(loss)
                 loss.div_(self.world_size)
                 torch.distributed.all_reduce(correct)
+                for leaves in model_state.values():
+                    torch.distributed.all_reduce(leaves["aux_loss"])
+                    leaves["aux_loss"].div_(self.world_size)
             new_params, new_opt = self.optimizer.update(
                 grads, state.opt_state, params)
-        return (TrainState(new_params, state.model_state, new_opt,
+        return (TrainState(new_params, model_state, new_opt,
                            state.step + 1),
                 {"loss": loss, "correct": correct})
