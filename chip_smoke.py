@@ -12,6 +12,9 @@ Phases, each printed as one JSON line:
    version on the card, at the paths' shapes and at ragged shapes, with the
    tolerance it is held to; kernel, plain and library-yardstick times (CUDA
    events, median) and the least time the card could take (``bound_ms``).
+   The grouped products (K3 in its four forms, K4) are also timed against
+   their older ``mma.sync`` design in the same run, and every case checks
+   which design each launch took (``gmm_design``).
 3. ``slice``: the dense GPT-2-small-shaped TransformerLM trained at full
    width through the port's DDP (bf16, fused cross-entropy, flash attention
    at T = 2048), with every kernel's launch count over that run; then
@@ -19,7 +22,8 @@ Phases, each printed as one JSON line:
    unfused loss) on the same weights and batch.
 4. ``moe_slice``: the same trunk with a top-2-of-8 dropless MoE in every
    block, trained at full width (grouped matmuls K3/K4 too), with the launch
-   counts over that run; ``moe_layer``: one full-width MoE layer forward and
+   counts over that run, by design for K3/K4 (every one must be the wgmma
+   design); ``moe_layer``: one full-width MoE layer forward and
    backward with the kernels against the plain grouped products on the same
    inputs; ``moe_composition``: one step against the plain composition
    (plain grouped products, dense attention, unfused loss).
@@ -85,8 +89,11 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    """Median CUDA-event time of ``fn()`` in milliseconds."""
+def time_ms(fn, reps: int = 10, warm: int = 2, batch: int = 5) -> float:
+    """Median CUDA-event time of ``fn()`` in milliseconds, each sample over
+    ``batch`` calls in a row: the host enqueues the next call while the card
+    runs the last, as in a training step, so a wrapper's host work (checks,
+    tensor maps, small setup ops) is not counted as card time."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -95,10 +102,11 @@ def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -382,8 +390,7 @@ def check_slice(results):
     from tpu_dist_torch.benchmarks.transformer_lm import run
     from tpu_dist_torch.ops import KERNELS
 
-    for k in KERNELS:
-        k.launches = 0
+    zero_launch_counts()
     res = run()
     counts = {k.__name__: k.launches for k in KERNELS}
     steps, depth = res["steps_run"], res["model"]["depth"]
@@ -463,13 +470,14 @@ def check_composition(results):
 # the grouped matmuls (K3 gmm, K4 tgmm) against their plain versions
 # ---------------------------------------------------------------------------
 
-def grouped_case(counts, b, d, h, dtype, g):
+def grouped_case(counts, b, d, h, dtype, g, g_w2=None):
     """The MoE layer's layout for the given tokens per expert: rows sorted
     by expert into segments padded to ``b`` rows (padding rows zero), the
     static bound of ``ceil(kN/b) + E`` blocks with the tail on the last
     expert.  Returns x (M, d), dy (M, h) (zero on padding rows, as the
-    backward gives), w (E, d, h), bias (E, h), the block map, the live-block
-    count and the padded segment ends."""
+    backward gives), w (E, d, h), w2 (E, h, d) (from ``g_w2`` if given),
+    bias (E, h), the block map, the live-block count and the padded segment
+    ends."""
     e, kn = len(counts), sum(counts)
     nb = -(-kn // b) + e
     mask = torch.zeros(nb * b, dtype=torch.bool)
@@ -490,10 +498,27 @@ def grouped_case(counts, b, d, h, dtype, g):
     w = (torch.randn(e, d, h, device=dev, generator=g) / math.sqrt(d)
          ).to(dtype)
     bias = torch.randn(e, h, device=dev, generator=g).to(dtype)
-    return dict(x=x, dy=dy, w=w, bias=bias,
+    w2 = (torch.randn(e, h, d, device=dev, generator=g_w2 or g)
+          / math.sqrt(h)).to(dtype)
+    return dict(x=x, dy=dy, w=w, w2=w2, bias=bias,
                 bg=torch.tensor(bg, dtype=torch.int32, device=dev),
                 n_live=torch.tensor([n_live], dtype=torch.int32, device=dev),
                 ends=ends.to(dev), routed=kn)
+
+
+def launches_by_design(gm):
+    """A copy of each grouped kernel's launch counts by design."""
+    return {k.__name__: dict(k.launches_by_design) for k in (gm.gmm, gm.tgmm)}
+
+
+def zero_launch_counts():
+    """Every kernel's launch count, and the grouped kernels' counts by
+    design, set to 0 just before a slice is driven."""
+    from tpu_dist_torch.ops import KERNELS
+    for k in KERNELS:
+        k.launches = 0
+        if hasattr(k, "launches_by_design"):
+            k.launches_by_design.update(dict.fromkeys(k.launches_by_design, 0))
 
 
 def library_grouped(fn_variants):
@@ -530,11 +555,14 @@ def check_gmm(results):
     def lims(tol):
         return tol["rtol"], tol["atol"], 0.0, tol["atol_all"]
 
-    def run_case(name, c, b, tol, out_dtype=None, timed=False):
+    def run_case(name, c, b, tol, design, out_dtype=None, timed=False):
+        """``design``: the kernel design every launch of the case must
+        take (gm.gmm_design of its shapes)."""
         nonlocal ok_all
         x, dy, w, bias, bg, n_live = (c[k] for k in ("x", "dy", "w", "bias",
                                                      "bg", "n_live"))
         e = w.shape[0]
+        before = launches_by_design(gm)
         t0 = time.perf_counter()
         out_k = gm.gmm(x, w, bg, n_live, bias=bias, block_rows=b,
                        out_dtype=out_dtype)
@@ -549,11 +577,23 @@ def check_gmm(results):
         dw_p, db_p = gm.tgmm_plain(x, dy, bg, e, block_rows=b,
                                    with_rowsum=True, out_dtype=out_dtype,
                                    n_live_blocks=n_live)
+        # the other two forms of the path: w2 (H -> D) forward, and its dx
+        # pass through the transpose view of the contiguous (E, H, D) w2
+        w2 = c["w2"]
+        pairs = {"out": (out_k, out_p), "dx": (dx_k, dx_p),
+                 "dw": (dw_k, dw_p), "db": (db_k, db_p)}
+        for key, (a, wm) in {"out_w2": (dy, w2),
+                             "dx_w2": (x, w2.transpose(1, 2))}.items():
+            if x.dtype == torch.bfloat16:  # float32 keeps its two forms
+                pairs[key] = (gm.gmm(a, wm, bg, n_live, block_rows=b),
+                              gm.gmm_plain(a, wm, bg, n_live, block_rows=b))
+        # a second tgmm launch must agree bit for bit: no atomics
+        dw_k2, db_k2 = gm.tgmm(x, dy, bg, e, block_rows=b, with_rowsum=True,
+                               out_dtype=out_dtype, n_live_blocks=n_live)
         torch.cuda.synchronize()
-        errs, margins, ok = {}, {}, True
-        for key, (got, want) in {"out": (out_k, out_p), "dx": (dx_k, dx_p),
-                                 "dw": (dw_k, dw_p),
-                                 "db": (db_k, db_p)}.items():
+        bitwise = torch.equal(dw_k, dw_k2) and torch.equal(db_k, db_k2)
+        errs, margins, ok = {}, {}, bitwise
+        for key, (got, want) in pairs.items():
             errs[key], _, margins[key], ok_t = compare(got, want, *lims(tol))
             ok = ok and ok_t
         # the dx form reads w^T through a transpose view; a contiguous copy
@@ -582,9 +622,16 @@ def check_gmm(results):
                                       *lims(tol))[2]}
             fields["planted_faults_margin"] = caught
             ok = ok and all(m > 1.0 for m in caught.values())
+        after = launches_by_design(gm)
+        ran = {k: {d: after[k][d] - before[k][d] for d in gm.DESIGNS}
+               for k in after}
+        ok_design = all(ran[k][design] > 0 and sum(ran[k].values())
+                        == ran[k][design] for k in ran)
+        ok = ok and ok_design
         ok_all = ok_all and ok
         counts = torch.diff(c["ends"], prepend=c["ends"][:1] * 0)
-        emit("kernel", name=name,
+        emit("kernel", name=name, design=design, launches_by_design=ran,
+             ok_design=ok_design, tgmm_repeat_bitwise=bitwise,
              shape={"x": list(x.shape), "w": list(w.shape),
                     "dtype": str(x.dtype).split(".")[-1], "block_rows": b,
                     "out_dtype": str(out_dtype or x.dtype).split(".")[-1],
@@ -607,15 +654,22 @@ def check_gmm(results):
                          a[:live], bmat.transpose(1, 2).contiguous()
                          .transpose(1, 2), offs=ends))]
 
+        def ab(new, old):
+            """Same-call times of the new design and the older one, taken
+            in turns (new, old, old, new): the mean of each pair."""
+            t_new, t_old = time_ms(new), time_ms(old)
+            t_old = (t_old + time_ms(old)) / 2
+            return (t_new + time_ms(new)) / 2, t_old
+
         forms = {}
-        # the three grouped products of the path: w1 (D->H), w2 (H->D) and
-        # the dx form against w^T; the kernels line keeps the w1 form
-        w2 = (torch.randn(e, w.shape[2], w.shape[1], device="cuda",
-                          generator=g) / math.sqrt(w.shape[2])).to(x.dtype)
-        hdn = dy
+        # the four grouped products of the path: w1 (D->H) and w2 (H->D)
+        # forward, and their dx passes against w^T (transpose views); the
+        # kernels line keeps the w1 form
+        w2 = c["w2"]
         for form, (a, bm, bb) in {"w1": (x, w, bias),
-                                  "w2": (hdn, w2, None),
-                                  "dx_w1T": (dy, w.transpose(1, 2), None)
+                                  "w2": (dy, w2, None),
+                                  "dx_w1T": (dy, w.transpose(1, 2), None),
+                                  "dx_w2T": (x, w2.transpose(1, 2), None)
                                   }.items():
             k_dim, n_dim = bm.shape[1], bm.shape[2]
             label, lib_fn = library_grouped(lib_gmm(a, bm))
@@ -623,19 +677,24 @@ def check_gmm(results):
                 dense = a[:c["routed"]]
                 label = "torch.matmul dense (same live-row product)"
                 lib_fn = (lambda dense=dense, w0=bm[0]: dense @ w0)
+            t_new, t_old = ab(
+                lambda a=a, bm=bm, bb=bb: gm.gmm(a, bm, bg, n_live, bias=bb,
+                                                 block_rows=b),
+                lambda a=a, bm=bm, bb=bb: gm.gmm(a, bm, bg, n_live, bias=bb,
+                                                 block_rows=b,
+                                                 _design="mma_sync"))
+            flop = 2 * c["routed"] * k_dim * n_dim
             forms[form] = {
-                "ms": time_ms(lambda a=a, bm=bm, bb=bb: gm.gmm(
-                    a, bm, bg, n_live, bias=bb, block_rows=b)),
+                "ms": t_new, "mma_sync_ms": t_old,
                 "plain_ms": time_ms(lambda a=a, bm=bm, bb=bb: gm.gmm_plain(
                     a, bm, bg, n_live, bias=bb, block_rows=b), reps=3),
                 "library_ms": time_ms(lib_fn), "library": label,
                 "bound": bound(c["routed"] * k_dim * el
                                + e * k_dim * n_dim * el
-                               + a.shape[0] * n_dim * el,
-                               2 * c["routed"] * k_dim * n_dim,
-                               "bf16_tensor")}
-            forms[form]["tflops"] = (2 * c["routed"] * k_dim * n_dim
-                                     / forms[form]["ms"] / 1e9)
+                               + a.shape[0] * n_dim * el, flop,
+                               "bf16_tensor"),
+                "tflops": flop / t_new / 1e9,
+                "mma_sync_tflops": flop / t_old / 1e9}
         d, h = x.shape[1], dy.shape[1]
         label, lib_fn = library_grouped([
             ("torch._grouped_mm (x^T . dy)", lambda: torch._grouped_mm(
@@ -647,28 +706,35 @@ def check_gmm(results):
             label = "torch.matmul dense (same live-row product)"
             xr, dyr = x[:c["routed"]], dy[:c["routed"]]
             lib_fn = lambda: xr.t() @ dyr  # noqa: E731
-        t_t = (time_ms(lambda: gm.tgmm(x, dy, bg, e, block_rows=b,
-                                       with_rowsum=True,
-                                       n_live_blocks=n_live)),
+        t_new, t_old = ab(
+            lambda: gm.tgmm(x, dy, bg, e, block_rows=b, with_rowsum=True,
+                            n_live_blocks=n_live),
+            lambda: gm.tgmm(x, dy, bg, e, block_rows=b, with_rowsum=True,
+                            n_live_blocks=n_live, _design="mma_sync"))
+        t_t = (t_new,
                time_ms(lambda: gm.tgmm_plain(x, dy, bg, e, block_rows=b,
                                              with_rowsum=True,
                                              n_live_blocks=n_live), reps=3),
                time_ms(lib_fn))
+        flop_t = 2 * c["routed"] * d * h
         bt = bound(c["routed"] * (d + h) * el + e * (d * h + h) * el,
-                   2 * c["routed"] * d * h, "bf16_tensor")
+                   flop_t, "bf16_tensor")
         for form, f in forms.items():
             emit("kernel", name=f"gmm_{form}", ms=f["ms"],
-                 plain_ms=f["plain_ms"], library_ms=f["library_ms"],
-                 library=f["library"], bound_ms=f["bound"][0],
-                 bound_by=f["bound"][1], tflops=f["tflops"])
-        emit("kernel", name="tgmm_w1", ms=t_t[0], plain_ms=t_t[1],
-             library_ms=t_t[2], library=label, bound_ms=bt[0],
-             bound_by=bt[1], tflops=2 * c["routed"] * d * h / t_t[0] / 1e9)
+                 mma_sync_ms=f["mma_sync_ms"], plain_ms=f["plain_ms"],
+                 library_ms=f["library_ms"], library=f["library"],
+                 bound_ms=f["bound"][0], bound_by=f["bound"][1],
+                 tflops=f["tflops"], mma_sync_tflops=f["mma_sync_tflops"])
+        emit("kernel", name="tgmm_w1", ms=t_t[0], mma_sync_ms=t_old,
+             plain_ms=t_t[1], library_ms=t_t[2], library=label,
+             bound_ms=bt[0], bound_by=bt[1], tflops=flop_t / t_t[0] / 1e9,
+             mma_sync_tflops=flop_t / t_old / 1e9)
         f = forms["w1"]
-        results["gmm"] = dict(max_abs_err=max(errs["out"], errs["dx"]),
-                              ms=f["ms"], plain_ms=f["plain_ms"],
-                              library_ms=f["library_ms"],
-                              bound_ms=f["bound"][0], bound_by=f["bound"][1])
+        results["gmm"] = dict(
+            max_abs_err=max(errs[k] for k in ("out", "dx", "out_w2",
+                                              "dx_w2")),
+            ms=f["ms"], plain_ms=f["plain_ms"], library_ms=f["library_ms"],
+            bound_ms=f["bound"][0], bound_by=f["bound"][1])
         results["tgmm"] = dict(max_abs_err=max(errs["dw"], errs["db"]),
                                ms=t_t[0], plain_ms=t_t[1],
                                library_ms=t_t[2], bound_ms=bt[0],
@@ -681,17 +747,27 @@ def check_gmm(results):
     counts = torch.bincount(top2, minlength=8).tolist()
     run_case("grouped_path", grouped_case(counts, 512, 768, 3072,
                                           torch.bfloat16, g),
-             512, bf16_tol, timed=True)
+             512, bf16_tol, "wgmma", timed=True)
     # ragged: block rows 8 and 24, D and H not multiples of 64, one expert
-    # with no rows, dead tail blocks; float32 output of bf16 once
+    # with no rows, dead tail blocks; float32 output of bf16 once.  Their w2
+    # (the forms added after these cases were first drawn) comes from a
+    # generator of its own, so x, dy, w and bias stay as they were
     ragged = [37, 0, 81, 5, 60]
-    for dtype, tol in ((torch.bfloat16, bf16_tol), (torch.float32, f32_tol)):
+    g_w2 = torch.Generator(device="cuda").manual_seed(5)
+    for dtype, tol, design in ((torch.bfloat16, bf16_tol, "mma_sync"),
+                               (torch.float32, f32_tol, "fma")):
         for b in (8, 24):
             out_dtype = (torch.float32 if dtype == torch.bfloat16 and b == 24
                          else None)
             run_case("grouped_ragged",
-                     grouped_case(ragged, b, 200, 360, dtype, g), b, tol,
-                     out_dtype=out_dtype)
+                     grouped_case(ragged, b, 200, 360, dtype, g, g_w2), b,
+                     tol, design, out_dtype=out_dtype)
+    # the wgmma design off the path's shapes: block rows 128, D = 256, H =
+    # 640 (a partial 192-wide column tile), one expert with no rows, dead
+    # tail blocks
+    run_case("grouped_wgmma_small",
+             grouped_case([300, 0, 517, 129, 64], 128, 256, 640,
+                          torch.bfloat16, g, g_w2), 128, bf16_tol, "wgmma")
     return ok_all
 
 
@@ -703,8 +779,7 @@ def check_moe_slice(results):
     from tpu_dist_torch.benchmarks.moe_lm import run
     from tpu_dist_torch.ops import KERNELS
 
-    for k in KERNELS:
-        k.launches = 0
+    zero_launch_counts()
     res = run()
     counts = {k.__name__: k.launches for k in KERNELS}
     steps, depth = res["steps_run"], res["model"]["depth"]
@@ -712,6 +787,10 @@ def check_moe_slice(results):
                 "cross_entropy_bwd": 1, "flash_fwd": depth,
                 "flash_bwd": depth}
     ok_counts = all(counts[n] == steps * c for n, c in per_step.items())
+    # every grouped launch of the path ran the wgmma design
+    by_design = {k.__name__: dict(k.launches_by_design)
+                 for k in KERNELS if hasattr(k, "launches_by_design")}
+    ok_design = all(d["wgmma"] == counts[n] for n, d in by_design.items())
     ok_loss = all(math.isfinite(x) for x in res["losses"])
     ok_aux = all(math.isfinite(x) for x in res["aux_losses_last_step"].values())
     for name in ("gmm", "tgmm"):
@@ -722,10 +801,11 @@ def check_moe_slice(results):
          achieved_model_tflops_active=res["achieved_model_tflops_active"],
          model=res["model"], steps_run=steps, launches=counts,
          launches_per_step_expected=per_step, ok_launches=ok_counts,
+         launches_by_design=by_design, ok_design=ok_design,
          losses=res["losses"], ok_losses_finite=ok_loss,
          aux_losses_last_step=res["aux_losses_last_step"], ok_aux_finite=ok_aux,
          tokens_per_expert_last_step=res["tokens_per_expert_last_step"])
-    return ok_counts and ok_loss and ok_aux
+    return ok_counts and ok_design and ok_loss and ok_aux
 
 
 MOE_LAYER_TOL = {

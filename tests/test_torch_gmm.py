@@ -192,3 +192,71 @@ def test_gmm_refuses_what_it_does_not_take():
         tgmm_mod.gmm(x, w.transpose(1, 2), bg, c["n_live"], block_rows=B)
     with pytest.raises(ValueError, match="rows"):
         tgmm_mod.tgmm(x, _t(c["dy"])[:-B], bg, E, block_rows=B)
+
+
+# (dtype, block_rows, D, H, 16-byte aligned bases) -> the kernel design a CUDA
+# call takes: the path's shapes and a small wgmma case, the ragged shapes, a
+# row block shorter than the 128-row tile, widths off the 64-wide TMA box, a
+# misaligned base, and float32
+DESIGN_CASES = {
+    "w1_fwd_and_tgmm": (torch.bfloat16, 512, 768, 3072, True, "wgmma"),
+    "w2_fwd_and_dx_of_w1": (torch.bfloat16, 512, 3072, 768, True, "wgmma"),
+    "small_wgmma": (torch.bfloat16, 128, 256, 640, True, "wgmma"),
+    "ragged_8": (torch.bfloat16, 8, 200, 360, True, "mma_sync"),
+    "ragged_24": (torch.bfloat16, 24, 200, 360, True, "mma_sync"),
+    "rows_64": (torch.bfloat16, 64, 768, 3072, True, "mma_sync"),
+    "rows_192": (torch.bfloat16, 192, 768, 3072, True, "mma_sync"),
+    "d_off_box": (torch.bfloat16, 512, 200, 3072, True, "mma_sync"),
+    "h_off_box": (torch.bfloat16, 512, 768, 360, True, "mma_sync"),
+    "misaligned_base": (torch.bfloat16, 512, 768, 3072, False, "mma_sync"),
+    "float32_path_shapes": (torch.float32, 512, 768, 3072, True, "fma"),
+    "float32_ragged": (torch.float32, 8, 200, 360, True, "fma"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DESIGN_CASES))
+def test_gmm_design_rule(case):
+    dtype, block_rows, d, h, aligned, want = DESIGN_CASES[case]
+    assert tgmm_mod.gmm_design(dtype, block_rows, d, h, aligned) == want
+    assert want in tgmm_mod.DESIGNS
+
+
+def test_forced_design_fits_the_shapes():
+    """The same-call comparison may force the older design onto a wgmma
+    shape, never the wgmma design onto a shape it does not take; a
+    misaligned base is seen from the tensors themselves."""
+    x = torch.zeros(1024, 768, dtype=torch.bfloat16)
+    pick = tgmm_mod._pick_design
+    assert pick(None, x.dtype, 512, 768, 3072, x) == "wgmma"
+    assert pick("mma_sync", x.dtype, 512, 768, 3072, x) == "mma_sync"
+    with pytest.raises(ValueError, match="does not fit"):
+        pick("wgmma", x.dtype, 8, 200, 360, x)
+    with pytest.raises(ValueError, match="does not fit"):
+        pick("fma", x.dtype, 512, 768, 3072, x)
+    shifted = x.view(-1)[1:1 + 512 * 768].view(512, 768)
+    assert pick(None, x.dtype, 512, 768, 3072, shifted) == "mma_sync"
+
+
+def _c_exports(source):
+    """Name -> parameter count of every function defined in the source's
+    ``extern "C"`` block."""
+    import re
+    block = source[source.index('extern "C" {'):]
+    out = {}
+    for m in re.finditer(r"^(?:int|const char\*) (\w+)\(([^)]*)\)\s*\{", block,
+                         re.M):
+        out[m.group(1)] = len([a for a in m.group(2).split(",") if a.strip()])
+    return out
+
+
+def test_c_entry_points_match_the_signatures():
+    """Every entry point the wrapper binds is exported by csrc/gmm.cu with
+    as many parameters as its ctypes signature (a source scan: no nvcc)."""
+    from pathlib import Path
+    src = (Path(tgmm_mod.__file__).resolve().parent.parent / "csrc"
+           / "gmm.cu").read_text()
+    exports = _c_exports(src)
+    for name, argtypes in tgmm_mod._SIGNATURES.items():
+        assert name in exports, name
+        assert exports[name] == len(argtypes), name
+    assert exports["gmm_error_string"] == 1

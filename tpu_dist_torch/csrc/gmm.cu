@@ -8,53 +8,81 @@
 // What bounds it on an H100: at the MoE training shapes (36864 allocated rows,
 // 32768 of them routed, D = 768, H = 3072, 8 experts) one launch is ~155 GFLOP
 // of bf16 products against ~0.3 GB of operands, so the bound is tensor-core
-// throughput (~0.16 ms at 989 TFLOP/s), not memory (~0.1 ms).
+// throughput (~0.16 ms at 989 TFLOP/s), not memory (~0.1 ms).  Only wgmma
+// reaches that rate, and only when its operands arrive without costing the
+// consumers instructions.
 //
-// What the design does about it.  Products run on the tensor cores as mma.sync
-// m16n8k16 with f32 accumulation, operands loaded from shared memory with
-// ldmatrix (the building blocks of csrc/flash_attention.cu), tiles streamed
-// through a four-stage cp.async ring so loads overlap the products.  A block
-// is 4 warps, each owning a 64 x 64 piece of the 128 x 128 tile: 64 products
-// a warp between two barriers, 32 FLOP per byte read from shared memory, two
-// blocks an SM.  Measured on an H100 (PERF.md), the first design (8 warps of
-// 64 x 32, three stages) was 3-11% slower, and 128 x 256 tiles of 8 such
-// warps (one block an SM) 20-40% slower, which points at latency with few
-// warps in flight rather than at shared-memory or L2 bandwidth (no hardware
-// counters were available to show it).  The grid
-// walks the output columns fastest, so the blocks in flight share one group's
-// weights and a few row tiles, which stay in the 50 MB L2: each operand comes
-// from device memory about once.
+// Three designs; ops/gmm.py's gmm_design() picks one from the shapes alone
+// (never on failure):
 //
-//   gmm: one block per (128-row tile, 128-column tile).  The row tile lies
-//   inside one row block (block_rows may be any multiple of 8: a tile is cut
-//   at its block's end and the rows past it are masked), so it has one group.
-//   Each block reads its group id and the live-block count from device memory
-//   (the TPU kernel's scalar prefetch): no host sync.  A dead tail block writes
-//   zeros and issues no product.  The TPU kernel keeps D whole in VMEM; here
-//   the block loops over D in 32-wide k tiles.  The bias is added in f32
-//   before rounding.  w is read either as (E, D, H) or, for the dx pass, as
-//   the transpose of a contiguous (E, H, D) tensor (ldmatrix transposes on the
-//   way; no copy of w^T).
+// 1. wgmma (bf16, block_rows a multiple of 128, D and H multiples of 64,
+//    16-byte aligned bases): the path's kernels, gmm_wgmma_kernel and
+//    tgmm_wgmma_kernel.  A persistent grid of one 384-thread block per SM
+//    walks output tiles of 128 x 192.  One producer warp (warpgroup 2, its
+//    registers given up with setmaxnreg) issues TMA loads of 64-deep k tiles
+//    into a four-stage ring of 128-byte-swizzled shared memory, each stage
+//    guarded by an mbarrier pair (full: the bytes landed; empty: every
+//    reader is done with it).  Two consumer warpgroups each run wgmma
+//    m64n192k16 on 64 rows of the tile, reading both operands from shared
+//    memory through descriptors (no ldmatrix, no address arithmetic, no
+//    __syncthreads in the main loop), one group of products in flight
+//    while the next stage is waited for.  The producer runs ahead into the
+//    next tile while the consumers write the last one out, so one tile's
+//    epilogue overlaps the next tile's loads.  No branch near the wgmma
+//    depends on the thread (ptxas would serialize them: advisory C7518).
+//    Every operand
+//    layout is read in place by the transpose bits of wgmma:
+//      gmm,  w (E, D, H)          A = x K-major,  B = w MN-major (3-D map,
+//                                 the group is a TMA coordinate)
+//      gmm,  w^T of (E, H, D)     A = x K-major,  B = w K-major (dx pass)
+//      tgmm, x^T dy               A = x MN-major, B = dy MN-major
+//    Tile width 192 divides the path's N = 768 and 3072 into 4 and 16
+//    column tiles: the live tiles of a launch come to whole rounds of 132
+//    SMs more nearly than with 128 or 256 (PERF.md counts them).
 //
-//   tgmm: one block per (group, 128-row d tile, 128-column h tile), looping
-//   over its own group's rows [offsets[e], offsets[e+1]) in 32-row k tiles.
-//   The TPU kernel carries each group's accumulator in VMEM across a
-//   sequential grid; GPU blocks run in no order, so the loop inside the block
-//   takes its place.  No split over rows, no atomics: deterministic.  A group
-//   with no rows writes zeros.  The row sum for db is taken from the dy tiles
-//   already in shared memory by the blocks of d tile 0.
+//    gmm: tiles are (128-row tile, column tile), columns fastest, so the
+//    blocks in flight share one group's weight panel in L2.  A row tile lies
+//    in one row block, so it has one group; each tile reads its group and
+//    the live-block count from device memory (the TPU kernel's scalar
+//    prefetch): no host sync.  A dead tail tile writes zeros and loads
+//    nothing.  The bias is added in f32 before rounding; bf16 output goes
+//    through swizzled shared memory and leaves by TMA store, float32 output
+//    as 32-byte quad stores straight from the accumulators.
 //
-// float32 inputs take plain shared-memory FMA kernels (64 x 64 tiles) that
-// keep full f32 precision; they serve the tests and ragged shapes.
+//    tgmm: tiles are (group, 128-row d tile, 192-column h tile); each loops
+//    over its group's rows [offsets[e], offsets[e+1]) in 64-row k tiles (the
+//    TPU kernel's sequential grid, carried in registers).  Offsets are
+//    multiples of block_rows, so a k tile never straddles two groups.  The
+//    groups are walked largest first (every block ranks them from the
+//    offsets), so an imbalanced routing does not leave its biggest group's
+//    tiles to the last round.  No split over rows and no atomics: each tile
+//    is summed by one block in a fixed order, so a launch is deterministic.
+//    A group with no rows writes zeros.  The row sum for db is taken from
+//    the swizzled dy tiles already in shared memory by the producer
+//    warpgroup's three spare warps (the d tiles of an h tile split its
+//    columns, so no block reads more than a sixth of each dy tile at the
+//    path shapes), which release each stage like a consumer and reduce
+//    across lanes in a fixed order.
 //
-// Not yet done (later work): wgmma and TMA, a warp-specialized pipeline, the
-// in-kernel activation of the TPU gmm.
+// 2. mma.sync (every other bf16 shape: block_rows any multiple of 8, D and H
+//    multiples of 8): gmm_mma_kernel and tgmm_mma_kernel, the first port's
+//    design, kept for ragged shapes that TMA tiles do not fit (a 128-row
+//    tile would straddle row blocks, a 64-wide box would cross D or H).
+//    mma.sync m16n8k16 with ldmatrix operands, a four-stage cp.async ring,
+//    4 warps of 64 x 64 on 128 x 128 tiles, one block per output tile; rows
+//    past a row block's end are masked.
+//
+// 3. FMA (float32): shared-memory FMA kernels on 64 x 64 tiles, which keep
+//    full f32 precision for the tests and ragged shapes.
+//
+// Not yet done (later work): the in-kernel activation of the TPU gmm.
 //
 // Layouts: x (M, D) and dy (M, H) contiguous; w (E, D, H) contiguous, or
 // (E, H, D) contiguous read as its transpose (w_nk); bias (E, H); groups
 // (M / block_rows,) int32; n_live (1,) int32; out (M, H); offsets (E + 1,)
 // int32; dw (E, D, H); db (E, H).  bf16 needs D and H multiples of 8.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is looked up
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -495,6 +523,592 @@ __global__ void __launch_bounds__(kF32Threads) tgmm_f32_kernel(TgmmParams p) {
 }
 
 // ===========================================================================
+// bf16 wgmma design: TMA ring, warp-specialized, persistent
+// ===========================================================================
+
+constexpr int WM = 128, WN = 192, WK = 64, kWStages = 4;
+constexpr int kWThreads = 384;      // consumer warpgroups 0 and 1, producer 2
+constexpr int kConsumers = 256;
+// setmaxnreg moves registers between the warpgroups from the 168 a thread
+// each has at launch (65536 / 384, rounded down to a multiple of 8): the
+// consumers can only take what the producer gives up
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 384 * 168,
+              "setmaxnreg.inc would wait forever for registers");
+constexpr int CHUNK = 64 * 128;     // one 64-row box of 64 bf16 (128 B) rows
+constexpr int A_BYTES = WM * WK * 2;                  // 16 KB
+constexpr int B_BYTES = WK * WN * 2;                  // 24 KB
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int STAGING_BYTES = 2 * (WN / 64) * CHUNK;  // 3 out boxes a warpgroup
+constexpr int BARS_OFF = kWStages * STAGE_BYTES + STAGING_BYTES;
+
+// dynamic shared memory of a wgmma kernel: 1 KB of slack to align the ring
+// to the 1024-byte period of the 128-byte swizzle, the ring, the staging
+// buffers, the barriers, and tgmm's row-sum warps' scratch
+constexpr int kScratch = 96;
+constexpr size_t wgmma_smem() {
+  return 1024 + (size_t)BARS_OFF + 2 * kWStages * 8 + kScratch * 4;
+}
+static_assert(wgmma_smem() <= 232448, "more shared memory than a block can have");
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase differs from `parity`.  The loop is PTX's,
+// so the compiler sees no thread-dependent branch around the wgmma that
+// follows (one would serialize them).  A wait that never ends is a fault of
+// the kernel: after 2^28 tries (tens of seconds) it traps, so the launch
+// fails with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n .reg .u32 n;\n mov.u32 n, 0;\n"
+      "WAIT:\n mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @p bra DONE;\n add.u32 n, n, 1;\n setp.eq.u32 p, n, 268435456;\n"
+      " @p trap;\n bra WAIT;\n"
+      "DONE:\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+
+// TMA stores of a 64 x 64 swizzled box, and the waits on them: _read for
+// the shared-memory source to be free again, plain for the writes to land.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets.  K-major: rows of 64 k values, 8-row
+// groups 1024 B apart (sbo), lbo unused.  MN-major: rows of 64 m (or n)
+// values along k, 8-k-row groups 1024 B apart (sbo), 64-wide boxes 8 KB
+// apart (lbo).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of products are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma boundary.
+__device__ __forceinline__ void fence_acc(float (&d)[96]) {
+#pragma unroll
+  for (int i = 0; i < 96; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define WG_F8(i)                                                                \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),   \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 192, f32) += A (64 x 16) B (16 x 192), both read from shared memory.
+// TA / TB: 0 = K-major, 1 = MN-major.  Accumulator layout (thread t of the
+// warpgroup, warp w = t / 32, lane l): d[4j + {0,1}] at row 16w + l/4,
+// columns 8j + 2(l%4) + {0,1}; d[4j + {2,3}] at row 16w + l/4 + 8.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_192(float (&d)[96], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %98, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, %99, %100;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24), WG_F8(32), WG_F8(40),
+        WG_F8(48), WG_F8(56), WG_F8(64), WG_F8(72), WG_F8(80), WG_F8(88)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+#undef WG_F8
+
+// One 64-deep k tile of a warpgroup's 64 x 192 product: four k16 steps.
+// a, b: shared addresses of its A rows and of the B tile; A_MN / B_MN say
+// which operand is MN-major (64-k-row boxes, a k16 step 2 KB further) rather
+// than K-major (a k16 step 32 B further).
+template <bool A_MN, bool B_MN>
+__device__ __forceinline__ void wgmma_k_tile(float (&acc)[96], uint32_t a, uint32_t b) {
+  wgmma_fence();
+  fence_acc(acc);
+#pragma unroll
+  for (int kk = 0; kk < WK / 16; ++kk) {
+    const uint64_t da = A_MN ? wgmma_desc(a + kk * 2048, CHUNK, 1024)
+                             : wgmma_desc(a + kk * 32, 16, 1024);
+    const uint64_t db = B_MN ? wgmma_desc(b + kk * 2048, CHUNK, 1024)
+                             : wgmma_desc(b + kk * 32, 16, 1024);
+    wgmma_192<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db);
+  }
+  wgmma_commit();
+}
+
+// The shared-memory carve-up of a wgmma kernel, and its ring position.
+struct Ring {
+  unsigned char* gen;  // generic pointer to the 1024-aligned ring
+  uint32_t base;       // its shared address
+  int stage = 0;
+  uint32_t phase = 0;
+
+  __device__ __forceinline__ uint32_t a(int s) const { return base + s * STAGE_BYTES; }
+  __device__ __forceinline__ uint32_t b(int s) const { return a(s) + A_BYTES; }
+  __device__ __forceinline__ uint32_t full(int s) const { return base + BARS_OFF + s * 8; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return base + BARS_OFF + (kWStages + s) * 8;
+  }
+  __device__ __forceinline__ void advance() {
+    if (++stage == kWStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+__device__ __forceinline__ Ring make_ring(unsigned char* smem) {
+  Ring r;
+  const uint32_t raw = smem_addr(smem);
+  const uint32_t aligned = (raw + 1023) & ~1023u;
+  r.gen = smem + (aligned - raw);
+  r.base = aligned;
+  return r;
+}
+
+// Barriers: full[s] completes on the producer's expect_tx arrival plus the
+// stage's bytes; empty[s] on one arrival from each of `readers` warps.
+__device__ __forceinline__ void init_ring(const Ring& r, int readers) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(r.full(s), 1);
+      mbar_init(r.empty(s), readers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The consumer warp's release of a stage it has finished reading.
+__device__ __forceinline__ void release(const Ring& r, int s) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty(s));
+}
+
+// A consumer warpgroup's walk over the n_k stages of one tile: wait for each
+// stage, issue its products (A rows at a_off in the stage), and release the
+// stage before once its products are done, so one group of products is
+// always in flight.
+template <bool A_MN, bool B_MN>
+__device__ __forceinline__ void consume(Ring& ring, float (&acc)[96], int n_k,
+                                        uint32_t a_off) {
+  int prev = -1;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = ring.stage;
+    mbar_wait(ring.full(s), ring.phase);
+    wgmma_k_tile<A_MN, B_MN>(acc, ring.a(s) + a_off, ring.b(s));
+    wgmma_wait<1>();
+    fence_acc(acc);
+    if (prev >= 0) release(ring, prev);
+    prev = s;
+    ring.advance();
+  }
+  if (prev >= 0) {
+    wgmma_wait<0>();
+    fence_acc(acc);
+    release(ring, prev);
+  }
+}
+
+// A thread's bias pairs for its accumulator columns of the tile at col0
+// (zero past col_end, or with no bias), loaded before the products so that
+// their latency hides behind them.
+__device__ __forceinline__ void load_bias(__nv_bfloat162 (&bv)[WN / 8], const bf16* bias,
+                                          int col0, int col_end) {
+  const int c_lo = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int j = 0; j < WN / 8; ++j) {
+    const int col = col0 + 8 * j + c_lo;
+    bv[j] = bias != nullptr && col < col_end
+                ? *reinterpret_cast<const __nv_bfloat162*>(bias + col)
+                : __floats2bfloat162_rn(0.0f, 0.0f);
+  }
+}
+
+// Writes a warpgroup's 64 x 192 accumulator tile at (row0, col0) of the
+// output, if row0 < row_end (then all 64 rows are in range: row_end is a
+// multiple of 64), at columns below col_end (a multiple of 8), plus the
+// thread's bias pairs (load_bias) in f32.  No branch here depends on the
+// thread or its warpgroup: one around a use of the accumulators would make
+// the compiler serialize the wgmma.  So a warpgroup past row_end stores its
+// float32 into its staging instead, and the bf16 TMA store clips it.  float32 leaves as 8-byte pairs, four lanes
+// filling one 32-byte sector, into `out` (row stride ld); bf16 through
+// `out_map` (2-D, or 3-D at `group` when group >= 0).
+__device__ __forceinline__ void store_tile(const float (&acc)[96], const CUtensorMap* out_map,
+                                           int group, void* out, long long ld, int row0,
+                                           int row_end, int col0, int col_end,
+                                           const __nv_bfloat162 (&bias)[WN / 8],
+                                           int out_f32, unsigned char* staging,
+                                           int bar_id) {
+  const int t = threadIdx.x & 127, w = t >> 5, l = t & 31;
+  const int r_lo = 16 * w + (l >> 2), c_lo = 2 * (l & 3);
+  if (out_f32) {
+    const bool rows_in = row0 < row_end;
+#pragma unroll
+    for (int j = 0; j < WN / 8; ++j) {
+      if (col0 + 8 * j >= col_end) break;
+      const int col = col0 + 8 * j + c_lo;
+      const float b0 = __low2float(bias[j]), b1 = __high2float(bias[j]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store2(rows_in ? out : staging,
+               rows_in ? (long long)(row0 + r_lo + 8 * h) * ld + col : 2 * t,
+               acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1, 1);
+    }
+    return;
+  }
+  // bf16: into the warpgroup's three 64 x 64 swizzled staging boxes (each
+  // lane's 4 bytes land in its own bank), then out by TMA stores that one
+  // thread issues and nobody waits for until the staging is needed again
+  if (t == 0) tma_store_wait_read();
+  named_bar(bar_id, 128);  // the last tile's stores have read the staging
+#pragma unroll
+  for (int j = 0; j < WN / 8; ++j) {
+    const float b0 = __low2float(bias[j]), b1 = __high2float(bias[j]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_lo + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(staging + (j / 8) * CHUNK + r * 128 +
+                                         (((j % 8) ^ (r & 7)) * 16) + c_lo * 2) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_bar(bar_id, 128);
+  if (t == 0) {
+    const uint32_t src = smem_addr(staging);
+    for (int c = 0; c < WN / 64 && col0 + 64 * c < col_end; ++c) {
+      if (group < 0)
+        tma_store_2d(out_map, src + c * CHUNK, col0 + 64 * c, row0);
+      else
+        tma_store_3d(out_map, src + c * CHUNK, col0 + 64 * c, row0, group);
+    }
+    tma_store_commit();
+  }
+}
+
+// Zeros over a warpgroup's rows [row0, row0 + 64) and columns [col0,
+// col_end) of `out` (element size es), as 16-byte vectors.
+__device__ __forceinline__ void zero_tile(void* out, long long ld, int row0, int col0,
+                                          int col_end, int es) {
+  const int vecs = (col_end - col0) * es / 16;
+  unsigned char* o = static_cast<unsigned char*>(out);
+  for (int i = threadIdx.x & 127; i < 64 * vecs; i += 128)
+    *reinterpret_cast<uint4*>(o + ((long long)(row0 + i / vecs) * ld + col0) * es +
+                              (i % vecs) * 16) = make_uint4(0, 0, 0, 0);
+}
+
+// gmm: persistent over (128-row tile, 192-column tile), columns fastest.
+// map_x: x as (M, K), boxes of 128 rows x 64 k.  map_w: w as (E, K, N) with
+// boxes of 64 k x 64 n (MN-major), or, W_NK, as (E, N, K) with boxes of 192
+// n x 64 k (K-major).  map_out: out as (M, N) in 64 x 64 boxes (bf16 only).
+// block_rows is a multiple of 128, K of 64.
+template <bool W_NK>
+__global__ void __launch_bounds__(kWThreads, 1)
+    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_w,
+                     const __grid_constant__ CUtensorMap map_out, GmmParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  Ring ring = make_ring(smem_raw);
+  init_ring(ring, kConsumers / 32);
+  const int n_col = cdiv(p.N, WN);
+  const int n_tiles = (p.M / WM) * n_col;
+  const int tiles_per_block = p.block_rows / WM;
+  const int n_k = p.K / WK;
+  const int n_live = *p.n_live;
+
+  // the role, from a warp-uniform value: a branch on threadIdx itself would
+  // put the wgmma on a divergent path, which serializes them
+  if (__shfl_sync(0xffffffff, threadIdx.x / 32, 0) >= kConsumers / 32) {
+    // producer warpgroup: one thread loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (threadIdx.x != kConsumers) return;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int rt = tile / n_col, n0 = (tile % n_col) * WN;
+      const int blk = rt / tiles_per_block;
+      if (blk >= n_live) continue;
+      const int g = p.groups[blk];
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = ring.stage;
+        mbar_wait(ring.empty(s), ring.phase ^ 1);
+        mbar_expect_tx(ring.full(s), STAGE_BYTES);
+        tma_load_2d(ring.a(s), &map_x, ring.full(s), kt * WK, rt * WM);
+        if (W_NK) {
+          tma_load_3d(ring.b(s), &map_w, ring.full(s), kt * WK, n0, g);
+        } else {
+#pragma unroll
+          for (int c = 0; c < WN / 64; ++c)
+            tma_load_3d(ring.b(s) + c * CHUNK, &map_w, ring.full(s), n0 + 64 * c,
+                        kt * WK, g);
+        }
+        ring.advance();
+      }
+    }
+  } else {  // consumer warpgroups: 64 rows of the tile each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);  // uniform
+    unsigned char* staging = ring.gen + kWStages * STAGE_BYTES + wg * (STAGING_BYTES / 2);
+    const bf16* bias = static_cast<const bf16*>(p.bias);
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int rt = tile / n_col, n0 = (tile % n_col) * WN;
+      const int blk = rt / tiles_per_block;
+      const int row0 = rt * WM + 64 * wg, col_end = min(n0 + WN, p.N);
+      if (blk >= n_live) {  // dead tail: zeros, no product
+        zero_tile(p.out, p.N, row0, n0, col_end, p.out_f32 ? 4 : 2);
+        continue;
+      }
+      const int g = p.groups[blk];
+      __nv_bfloat162 bv[WN / 8];
+      load_bias(bv, bias ? bias + (long long)g * p.N : nullptr, n0, col_end);
+      float acc[96];
+#pragma unroll
+      for (int i = 0; i < 96; ++i) acc[i] = 0.0f;
+      consume<false, !W_NK>(ring, acc, n_k, wg * CHUNK);
+      store_tile(acc, &map_out, -1, p.out, p.N, row0, row0 + 64, n0, col_end, bv,
+                 p.out_f32, staging, 2 + wg);
+    }
+    if ((threadIdx.x & 127) == 0) tma_store_wait();
+  }
+}
+
+// tgmm: persistent over (group, 128-row d tile, 192-column h tile), groups
+// largest first.  map_x: x as (M, D), map_dy: dy as (M, H), both in boxes of
+// 64 rows x 64 columns (MN-major operands: x^T and dy).  map_out: dw as
+// (E, D, H) in 64 x 64 boxes (bf16 only).  Offsets are multiples of 64.
+template <bool WITH_DB>
+__global__ void __launch_bounds__(kWThreads, 1)
+    tgmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_dy,
+                      const __grid_constant__ CUtensorMap map_out, TgmmParams p,
+                      int n_groups) {
+  extern __shared__ unsigned char smem_raw[];
+  Ring ring = make_ring(smem_raw);
+  const int n_d = cdiv(p.D, WM), n_h = cdiv(p.H, WN), per_group = n_d * n_h;
+  const int n_tiles = n_groups * per_group;
+  // db: the n_d tiles of one (group, h tile) split its 24 column groups of
+  // 8 columns, per_dt each, among up to 3 summer warps of gw groups each
+  // (gw a power of two, >= 2: lanes split evenly into row slices)
+  const int per_dt = cdiv(WN / 8, n_d);
+  int gw = 2;  // at least 4 rows a lane (a batch of loads)
+  while (gw * 3 < per_dt) gw *= 2;
+  const int sum_warps = WITH_DB ? cdiv(per_dt, gw) : 0;
+  init_ring(ring, kConsumers / 32 + sum_warps);
+
+  struct Tile {
+    int e, dt, h0, rs, n_k;
+  };
+  // the group of rank r by row count, largest first (ties: lower index
+  // first), from the offsets in device memory: every role computes it the
+  // same way, and it stays uniform across the block in the compiler's eyes
+  // (a group read back from shared memory is not, and a k loop bounded by it
+  // would serialize the wgmma)
+  auto group_at_rank = [&](int r) {
+    for (int e = 0; e < n_groups; ++e) {
+      const int ce = p.offsets[e + 1] - p.offsets[e];
+      int rank = 0;
+      for (int f = 0; f < n_groups; ++f) {
+        const int cf = p.offsets[f + 1] - p.offsets[f];
+        rank += cf > ce || (cf == ce && f < e);
+      }
+      if (rank == r) return e;
+    }
+    return 0;
+  };
+  auto tile_at = [&](int tile) {
+    Tile t;
+    t.e = group_at_rank(tile / per_group);
+    const int rem = tile % per_group;
+    t.dt = rem / n_h;
+    t.h0 = (rem % n_h) * WN;
+    t.rs = p.offsets[t.e];
+    t.n_k = (p.offsets[t.e + 1] - t.rs) / WK;
+    return t;
+  };
+
+  if (__shfl_sync(0xffffffff, threadIdx.x / 32, 0) >= kConsumers / 32) {  // see gmm
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    const int st = threadIdx.x - kConsumers - 32;  // row-sum thread, warps 9-11
+    if (st < 0) {  // warp 8: one thread loads
+      if (threadIdx.x != kConsumers) return;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const Tile t = tile_at(tile);
+        for (int kt = 0; kt < t.n_k; ++kt) {
+          const int s = ring.stage, row = t.rs + kt * WK;
+          mbar_wait(ring.empty(s), ring.phase ^ 1);
+          mbar_expect_tx(ring.full(s), STAGE_BYTES);
+          tma_load_2d(ring.a(s), &map_x, ring.full(s), t.dt * WM, row);
+          tma_load_2d(ring.a(s) + CHUNK, &map_x, ring.full(s), t.dt * WM + 64, row);
+#pragma unroll
+          for (int c = 0; c < WN / 64; ++c)
+            tma_load_2d(ring.b(s) + c * CHUNK, &map_dy, ring.full(s), t.h0 + 64 * c, row);
+          ring.advance();
+        }
+      }
+      return;
+    }
+    // warps 9-11: the row sums for db, from the dy tiles in the ring, off the
+    // consumers' path; each stage waits for their release too.  Summer warp
+    // sw takes gw column groups of its tile's share; its lane (slice, gi)
+    // adds rows slice, slice + slices, ... of group sw * gw + gi (a load
+    // instruction reads `slices` rows in distinct swizzle slots: no bank
+    // conflict), and the slices are then summed across lanes in a fixed
+    // butterfly order.  Spread so, each warp issues few instructions beside
+    // the consumer warps that share its scheduler.
+    const int sw = st >> 5, lane = st & 31;
+    if (!WITH_DB || sw >= sum_warps) return;
+    const int slices = 32 / gw, slice = lane / gw, rows = WK / slices;
+    float* scratch = reinterpret_cast<float*>(ring.gen + BARS_OFF + 2 * kWStages * 8) + 32 * sw;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const Tile t = tile_at(tile);
+      const int q = sw * gw + lane % gw, grp = t.dt * per_dt + q;
+      // every lane loads (an idle lane a valid group, weighted 0): no lane-
+      // dependent branch, which would make the compiler serialize the
+      // consumers' wgmma
+      const bool active = q < per_dt && grp < WN / 8;
+      const int g_rd = min(grp, WN / 8 - 1);
+      const float weight = active ? 1.0f : 0.0f;
+      float rsum[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) rsum[j] = 0.0f;
+      for (int kt = 0; kt < t.n_k; ++kt) {
+        const int s = ring.stage;
+        mbar_wait(ring.full(s), ring.phase);
+        const unsigned char* box = ring.gen + (ring.b(s) - ring.base) + (g_rd / 8) * CHUNK;
+        for (int i0 = 0; i0 < rows; i0 += 4) {
+          uint4 v[4];  // four loads in flight, then their sums
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = slice + slices * (i0 + i);
+            v[i] = *reinterpret_cast<const uint4*>(box + r * 128 + (((g_rd % 8) ^ (r & 7)) * 16));
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&v[i]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float2 f = __bfloat1622float2(q2[j]);
+              rsum[2 * j] = fmaf(weight, f.x, rsum[2 * j]);
+              rsum[2 * j + 1] = fmaf(weight, f.y, rsum[2 * j + 1]);
+            }
+          }
+        }
+        release(ring, s);
+        ring.advance();
+      }
+      for (int m = gw; m < 32; m *= 2) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) rsum[j] += __shfl_xor_sync(0xffffffff, rsum[j], m);
+      }
+      // all slice lanes of a group now hold its sums and all store them; an
+      // idle lane, or a column past H, stores into a scratch word instead
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool ok = active && t.h0 + grp * 8 + j < p.H;
+        const long long at = (long long)t.e * p.H + t.h0 + g_rd * 8 + j;
+        void* dst = ok ? (p.out_f32 ? static_cast<void*>(static_cast<float*>(p.db) + at)
+                                    : static_cast<void*>(static_cast<bf16*>(p.db) + at))
+                       : static_cast<void*>(scratch + lane);
+        store1(dst, 0, rsum[j], p.out_f32);
+      }
+    }
+  } else {  // consumer warpgroups: 64 d rows of the tile each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);  // uniform
+    unsigned char* staging = ring.gen + kWStages * STAGE_BYTES + wg * (STAGING_BYTES / 2);
+    const int es = p.out_f32 ? 4 : 2;
+    __nv_bfloat162 no_bias[WN / 8];
+    load_bias(no_bias, nullptr, 0, 0);
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const Tile t = tile_at(tile);
+      float acc[96];
+#pragma unroll
+      for (int i = 0; i < 96; ++i) acc[i] = 0.0f;
+      consume<true, true>(ring, acc, t.n_k, wg * CHUNK);
+      store_tile(acc, &map_out, t.e,
+                 static_cast<unsigned char*>(p.dw) + (long long)t.e * p.D * p.H * es, p.H,
+                 t.dt * WM + 64 * wg, p.D, t.h0, min(t.h0 + WN, p.H), no_bias, p.out_f32,
+                 staging, 2 + wg);
+    }
+    if ((threadIdx.x & 127) == 0) tma_store_wait();
+  }
+}
+
+// ===========================================================================
 // host side
 // ===========================================================================
 
@@ -511,16 +1125,78 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+// Errors of the tensor-map encoder, beyond the cudaError_t range.
+constexpr int kErrNoEncoder = 10001, kErrEncode = 10002;
+
+// Which kernel a call takes; ops/gmm.py's gmm_design() decides from the shapes.
+enum Design { kFma = 0, kMmaSync = 1, kWgmma = 2 };
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
+// library needs no -lcuda.
+int get_encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || f == nullptr) return kErrNoEncoder;
+    cached = reinterpret_cast<EncodeTiled>(f);
+  }
+  *fn = cached;
+  return 0;
+}
+
+// A 128-byte-swizzled bf16 tensor map of a row-major tensor: dims innermost
+// first, byte strides of dims 1.., the box in elements.
+int make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+             const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiled encode;
+  const int err = get_encoder(&encode);
+  if (err != 0) return err;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                            const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+// A persistent launch: one block per SM, or fewer if there are fewer tiles.
+template <typename Kernel, typename... Args>
+int launch_wgmma(Kernel kernel, int n_tiles, size_t smem, cudaStream_t stream,
+                 const Args&... args) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<min(n_tiles, sms), kWThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; out_f32: write float32 (else the input
 // dtype).  w_nk: w is the transpose view of a contiguous (E, N, K) tensor.
-// Returns a cudaError_t.
+// design: 0 = FMA (float32), 1 = mma.sync, 2 = wgmma (bf16).  Returns a
+// cudaError_t, or kErrNoEncoder / kErrEncode for a tensor map.
 int gmm_launch(const void* x, const void* w, const void* bias, const int* groups,
-               const int* n_live, void* out, int M, int K, int N, int block_rows,
-               int w_nk, int dtype, int out_f32, void* stream) {
+               const int* n_live, void* out, int M, int K, int N, int E, int block_rows,
+               int w_nk, int dtype, int out_f32, int design, void* stream) {
   GmmParams p;
   p.x = x;
   p.w = w;
@@ -535,7 +1211,38 @@ int gmm_launch(const void* x, const void* w, const void* bias, const int* groups
   p.out_f32 = out_f32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_blocks = M / block_rows;
-  if (dtype == 1) {
+  if ((design == kFma) != (dtype == 0)) return cudaErrorInvalidValue;
+  if (design == kWgmma) {
+    if (block_rows % WM || K % WK || N % 64) return cudaErrorInvalidValue;
+    CUtensorMap map_x, map_w;
+    const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+    const cuuint64_t x_strides[1] = {(cuuint64_t)K * 2};
+    const cuuint32_t x_box[2] = {WK, WM};
+    int err = make_map(&map_x, x, 2, x_dims, x_strides, x_box);
+    if (err != 0) return err;
+    // w_nk: (E, N, K) read K-major in 192 x 64 boxes; else (E, K, N) read
+    // MN-major in 64 x 64 boxes
+    const cuuint64_t w_dims[3] = {(cuuint64_t)(w_nk ? K : N), (cuuint64_t)(w_nk ? N : K),
+                                  (cuuint64_t)E};
+    const cuuint64_t w_strides[2] = {w_dims[0] * 2, (cuuint64_t)K * N * 2};
+    const cuuint32_t w_box[3] = {64, (cuuint32_t)(w_nk ? WN : WK), 1};
+    err = make_map(&map_w, w, 3, w_dims, w_strides, w_box);
+    if (err != 0) return err;
+    CUtensorMap map_out = map_x;  // float32 output is stored without a map
+    if (!out_f32) {
+      const cuuint64_t o_dims[2] = {(cuuint64_t)N, (cuuint64_t)M};
+      const cuuint64_t o_strides[1] = {(cuuint64_t)N * 2};
+      const cuuint32_t o_box[2] = {64, 64};
+      err = make_map(&map_out, out, 2, o_dims, o_strides, o_box);
+      if (err != 0) return err;
+    }
+    const int n_tiles = (M / WM) * cdiv(N, WN);
+    return w_nk ? launch_wgmma(gmm_wgmma_kernel<true>, n_tiles, wgmma_smem(), s, map_x,
+                               map_w, map_out, p)
+                : launch_wgmma(gmm_wgmma_kernel<false>, n_tiles, wgmma_smem(), s, map_x,
+                               map_w, map_out, p);
+  }
+  if (design == kMmaSync) {
     p.tiles_per_block = cdiv(block_rows, BM);
     const dim3 grid(cdiv(N, BN), n_blocks * p.tiles_per_block);
     return w_nk ? launch(gmm_mma_kernel<true>, grid, kThreads, gmm_smem<true>(), s, p)
@@ -549,7 +1256,8 @@ int gmm_launch(const void* x, const void* w, const void* bias, const int* groups
 
 // offsets: (E + 1,) int32 row offsets of each group's rows; db may be null.
 int tgmm_launch(const void* x, const void* dy, const int* offsets, void* dw, void* db,
-                int E, int D, int H, int dtype, int out_f32, void* stream) {
+                int M, int E, int D, int H, int dtype, int out_f32, int design,
+                void* stream) {
   TgmmParams p;
   p.x = x;
   p.dy = dy;
@@ -560,7 +1268,37 @@ int tgmm_launch(const void* x, const void* dy, const int* offsets, void* dw, voi
   p.H = H;
   p.out_f32 = out_f32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
+  if ((design == kFma) != (dtype == 0)) return cudaErrorInvalidValue;
+  if (design == kWgmma) {
+    // offsets are multiples of block_rows, which the caller keeps a
+    // multiple of 128
+    const size_t smem = wgmma_smem();
+    if (D % 64 || H % 64) return cudaErrorInvalidValue;
+    CUtensorMap map_x, map_dy;
+    const cuuint32_t box[2] = {64, WK};
+    const cuuint64_t x_dims[2] = {(cuuint64_t)D, (cuuint64_t)M};
+    const cuuint64_t x_strides[1] = {(cuuint64_t)D * 2};
+    int err = make_map(&map_x, x, 2, x_dims, x_strides, box);
+    if (err != 0) return err;
+    const cuuint64_t dy_dims[2] = {(cuuint64_t)H, (cuuint64_t)M};
+    const cuuint64_t dy_strides[1] = {(cuuint64_t)H * 2};
+    err = make_map(&map_dy, dy, 2, dy_dims, dy_strides, box);
+    if (err != 0) return err;
+    CUtensorMap map_out = map_x;  // float32 output is stored without a map
+    if (!out_f32) {
+      const cuuint64_t o_dims[3] = {(cuuint64_t)H, (cuuint64_t)D, (cuuint64_t)E};
+      const cuuint64_t o_strides[2] = {(cuuint64_t)H * 2, (cuuint64_t)D * H * 2};
+      const cuuint32_t o_box[3] = {64, 64, 1};
+      err = make_map(&map_out, dw, 3, o_dims, o_strides, o_box);
+      if (err != 0) return err;
+    }
+    const int n_tiles = E * cdiv(D, WM) * cdiv(H, WN);
+    return db ? launch_wgmma(tgmm_wgmma_kernel<true>, n_tiles, smem, s, map_x, map_dy,
+                             map_out, p, E)
+              : launch_wgmma(tgmm_wgmma_kernel<false>, n_tiles, smem, s, map_x, map_dy,
+                             map_out, p, E);
+  }
+  if (design == kMmaSync)
     return launch(tgmm_mma_kernel, dim3(cdiv(H, BN), cdiv(D, BM), E), kThreads,
                   tgmm_smem(), s, p);
   return launch(tgmm_f32_kernel, dim3(cdiv(H, FT), cdiv(D, FT), E), kF32Threads, 0, s,
@@ -568,6 +1306,8 @@ int tgmm_launch(const void* x, const void* dy, const int* offsets, void* dw, voi
 }
 
 const char* gmm_error_string(int err) {
+  if (err == kErrNoEncoder) return "cuTensorMapEncodeTiled not found in the driver";
+  if (err == kErrEncode) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -10,9 +10,13 @@ into block-aligned segments; every row block belongs to one group:
     dw[e] = sum over e's blocks of x_blkᵀ @ dy_blk   (K4, :func:`tgmm`)
 
 The kernels live in ``tpu_dist_torch/csrc/gmm.cu`` and are built for
-``sm_90a`` at first use.  Each block of a launch reads its group id and the
-live-block count from device memory (the TPU kernels' scalar prefetch), so no
-step waits on the host.  Beside each wrapper sits its plain PyTorch version,
+``sm_90a`` at first use.  :func:`gmm_design` picks one of their three
+designs from the shapes alone (the MoE path's bf16 shapes take the Hopper
+``wgmma`` kernels; other bf16 shapes ``mma.sync``, float32 FMA), and each
+wrapper counts its launches per design.  Each block of a launch reads its
+group id and the live-block count from device memory (the TPU kernels'
+scalar prefetch), so no step waits on the host.  Beside each wrapper sits
+its plain PyTorch version,
 built from per-block float32 products: the CPU takes it, the kernels are held
 against it on the card, and :func:`gmm_impl` selects it explicitly for a
 comparison run.
@@ -33,24 +37,62 @@ import torch
 from . import _build
 
 __all__ = ["gmm", "tgmm", "grouped_linear", "gmm_plain", "tgmm_plain",
-           "gmm_impl", "group_offsets", "ceil_to"]
+           "gmm_impl", "gmm_design", "group_offsets", "ceil_to", "DESIGNS"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _LIB = "gmm"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, w, bias, block_groups, n_live, out | M, K, N, block_rows, w_nk,
-    # dtype, out_f32, stream
-    "gmm_launch": [_P] * 6 + [_I] * 7 + [_P],
-    # x, dy, offsets, dw, db | E, D, H, dtype, out_f32, stream
-    "tgmm_launch": [_P] * 5 + [_I] * 5 + [_P],
+    # x, w, bias, block_groups, n_live, out | M, K, N, E, block_rows, w_nk,
+    # dtype, out_f32, design, stream
+    "gmm_launch": [_P] * 6 + [_I] * 9 + [_P],
+    # x, dy, offsets, dw, db | M, E, D, H, dtype, out_f32, design, stream
+    "tgmm_launch": [_P] * 5 + [_I] * 7 + [_P],
 }
+# the kernel designs of csrc/gmm.cu, by the index its entry points take
+DESIGNS = ("fma", "mma_sync", "wgmma")
+_WGMMA_ROWS = 128   # the wgmma kernels' row tile
+_WGMMA_COLS = 64    # their TMA boxes' width along D and H
 _IMPL: list = []
 
 
 def ceil_to(x: int, m: int) -> int:
     """Round ``x`` up to a multiple of ``m``."""
     return (x + m - 1) // m * m
+
+
+def gmm_design(dtype, block_rows: int, d: int, h: int,
+               aligned: bool = True) -> str:
+    """The kernel design a CUDA call of :func:`gmm` or :func:`tgmm` takes,
+    from its shapes alone (never on failure): ``"wgmma"`` for bf16 whose
+    128-row tiles lie inside one row block (``block_rows % 128 == 0``),
+    whose 64-wide TMA boxes tile both feature widths (``d`` and ``h``, the
+    contraction and output widths of ``gmm`` or the two of ``tgmm``,
+    multiples of 64) and whose bases are 16-byte aligned; ``"mma_sync"``
+    for every other bf16 call; ``"fma"`` for float32."""
+    if dtype == torch.float32:
+        return "fma"
+    if (block_rows % _WGMMA_ROWS == 0 and d % _WGMMA_COLS == 0
+            and h % _WGMMA_COLS == 0 and aligned):
+        return "wgmma"
+    return "mma_sync"
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _pick_design(forced, dtype, block_rows, d, h, *tensors) -> str:
+    """:func:`gmm_design`, or the design a same-call comparison forces
+    (``_design=``; nothing on the training path passes it)."""
+    design = gmm_design(dtype, block_rows, d, h, _aligned(*tensors))
+    if forced is None:
+        return design
+    if forced not in DESIGNS or (forced == "fma") != (design == "fma") or (
+            forced == "wgmma" and design != "wgmma"):
+        raise ValueError(f"_design={forced!r} does not fit this call (its "
+                         f"shapes take {design!r})")
+    return forced
 
 
 @contextlib.contextmanager
@@ -222,7 +264,8 @@ def _check_operands(x, w, block_groups, bias, out_dtype):
 
 
 def gmm(x, w, block_groups, n_live_blocks, *, bias=None,
-        block_rows: int = 512, out_dtype=None, activation=None):
+        block_rows: int = 512, out_dtype=None, activation=None,
+        _design=None):
     """K3: block-diagonal grouped matmul ``out[i*B:(i+1)*B] = x[i*B:(i+1)*B]
     @ w[block_groups[i]] (+ bias[block_groups[i]])``, B = ``block_rows``.
 
@@ -240,7 +283,8 @@ def gmm(x, w, block_groups, n_live_blocks, *, bias=None,
         activation: not ported yet (ROADMAP); raises if given.
     Returns:
         (M, H) in ``out_dtype`` (default ``x.dtype``; float32 also taken).
-    A CPU tensor takes :func:`gmm_plain`; a CUDA tensor launches the kernel.
+    A CPU tensor takes :func:`gmm_plain`; a CUDA tensor launches the kernel
+    that :func:`gmm_design` picks.
     """
     if activation is not None:
         raise NotImplementedError("gmm(activation=...) is not ported yet "
@@ -261,23 +305,28 @@ def gmm(x, w, block_groups, n_live_blocks, *, bias=None,
     out = torch.empty((m, h), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
+    design = _pick_design(_design, x.dtype, block_rows, d, h, x, w)
     lib = _lib()
     err = lib.gmm_launch(x.data_ptr(), w.data_ptr(),
                          bias.data_ptr() if bias is not None else None,
                          block_groups.data_ptr(), n_live.data_ptr(),
-                         out.data_ptr(), m, d, h, block_rows, int(w_nk),
+                         out.data_ptr(), m, d, h, e, block_rows, int(w_nk),
                          int(x.dtype == torch.bfloat16),
-                         int(out_dtype == torch.float32), _stream(x))
+                         int(out_dtype == torch.float32),
+                         DESIGNS.index(design), _stream(x))
     _build.check(lib, _LIB, err, "gmm")
     gmm.launches += 1
+    gmm.launches_by_design[design] += 1
     return out
 
 
 gmm.launches = 0
+gmm.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def tgmm(x, dy, block_groups, n_groups: int, *, block_rows: int = 512,
-         with_rowsum: bool = False, out_dtype=None, n_live_blocks=None):
+         with_rowsum: bool = False, out_dtype=None, n_live_blocks=None,
+         _design=None):
     """K4: transposed grouped matmul ``dw[e] = sum over e's row blocks of
     x_blkᵀ @ dy_blk`` (+ ``db[e]``, the row sums of e's ``dy``, with
     ``with_rowsum``).
@@ -286,8 +335,9 @@ def tgmm(x, dy, block_groups, n_groups: int, *, block_rows: int = 512,
     ``n_live_blocks``, blocks from that index on (the all-zero tail the MoE
     layer allocates) are left out.  A group with no rows gets zeros —
     unlike the TPU kernel, which leaves it unwritten.  Each output tile is
-    one CUDA block looping over its group's own rows: no split over rows,
-    no atomics, deterministic.
+    summed by one CUDA block looping over its group's own rows: no split
+    over rows, no atomics, deterministic.  The kernel is the one
+    :func:`gmm_design` picks for (block_rows, D, H).
 
     Returns ``dw`` (E, D, H) [, ``db`` (E, H)] in ``out_dtype`` (default
     ``x.dtype``).  A CPU tensor takes :func:`tgmm_plain`."""
@@ -309,18 +359,22 @@ def tgmm(x, dy, block_groups, n_groups: int, *, block_rows: int = 512,
           if with_rowsum else None)
     if dw.numel() == 0:
         return (dw, db) if with_rowsum else dw
+    design = _pick_design(_design, x.dtype, block_rows, d, h, x, dy)
     lib = _lib()
     err = lib.tgmm_launch(x.data_ptr(), dy.data_ptr(), offsets.data_ptr(),
                           dw.data_ptr(),
                           db.data_ptr() if db is not None else None,
-                          n_groups, d, h, int(x.dtype == torch.bfloat16),
-                          int(out_dtype == torch.float32), _stream(x))
+                          m, n_groups, d, h, int(x.dtype == torch.bfloat16),
+                          int(out_dtype == torch.float32),
+                          DESIGNS.index(design), _stream(x))
     _build.check(lib, _LIB, err, "tgmm")
     tgmm.launches += 1
+    tgmm.launches_by_design[design] += 1
     return (dw, db) if with_rowsum else dw
 
 
 tgmm.launches = 0
+tgmm.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def _pair():
