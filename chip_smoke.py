@@ -14,7 +14,10 @@ Phases, each printed as one JSON line:
    events, median) and the least time the card could take (``bound_ms``).
    The grouped products (K3 in its four forms, K4) are also timed against
    their older ``mma.sync`` design in the same run, and every case checks
-   which design each launch took (``gmm_design``).
+   which design each launch took (``gmm_design``).  Their lines also split
+   ``ms`` (one call a sample, the wrapper's host work included) into the
+   card's own time (``device_ms``, the host kept ahead) and the wrapper's
+   host time (``host_ms``).
 3. ``slice``: the dense GPT-2-small-shaped TransformerLM trained at full
    width through the port's DDP (bf16, fused cross-entropy, flash attention
    at T = 2048), with every kernel's launch count over that run; then
@@ -89,11 +92,13 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def time_ms(fn, reps: int = 10, warm: int = 2, batch: int = 5) -> float:
-    """Median CUDA-event time of ``fn()`` in milliseconds, each sample over
-    ``batch`` calls in a row: the host enqueues the next call while the card
-    runs the last, as in a training step, so a wrapper's host work (checks,
-    tensor maps, small setup ops) is not counted as card time."""
+def time_ms(fn, reps: int = 10, warm: int = 2,
+            hide_host: bool = False) -> float:
+    """Median CUDA-event time of ``fn()`` in milliseconds.  With
+    ``hide_host`` the start event waits on the card behind a sleep of about
+    a millisecond, so the host has enqueued the call before the clock
+    starts: the card's own time for it, as in a training step where the
+    host runs ahead (a separate reading; ``ms`` everywhere is without)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -101,13 +106,38 @@ def time_ms(fn, reps: int = 10, warm: int = 2, batch: int = 5) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if hide_host:
+            torch.cuda._sleep(2_000_000)
         a.record()
-        for _ in range(batch):
-            fn()
+        fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / batch)
+        times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """Median host time of one ``fn()`` call started with the card idle:
+    the wrapper's own work up to its launch, not the card's."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def split_ms(fn, lib_fn) -> dict:
+    """The card's own time of a kernel call and of its library call, and
+    the kernel wrapper's host time: what ``ms`` (one call a sample, host
+    work included) is made of."""
+    return {"device_ms": time_ms(fn, hide_host=True),
+            "host_ms": host_ms(fn),
+            "library_device_ms": time_ms(lib_fn, hide_host=True)}
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
@@ -677,14 +707,16 @@ def check_gmm(results):
                 dense = a[:c["routed"]]
                 label = "torch.matmul dense (same live-row product)"
                 lib_fn = (lambda dense=dense, w0=bm[0]: dense @ w0)
+            new = (lambda a=a, bm=bm, bb=bb: gm.gmm(a, bm, bg, n_live,
+                                                    bias=bb, block_rows=b))
             t_new, t_old = ab(
-                lambda a=a, bm=bm, bb=bb: gm.gmm(a, bm, bg, n_live, bias=bb,
-                                                 block_rows=b),
+                new,
                 lambda a=a, bm=bm, bb=bb: gm.gmm(a, bm, bg, n_live, bias=bb,
                                                  block_rows=b,
-                                                 _design="mma_sync"))
+                                                 _older=True))
             flop = 2 * c["routed"] * k_dim * n_dim
             forms[form] = {
+                **split_ms(new, lib_fn),
                 "ms": t_new, "mma_sync_ms": t_old,
                 "plain_ms": time_ms(lambda a=a, bm=bm, bb=bb: gm.gmm_plain(
                     a, bm, bg, n_live, bias=bb, block_rows=b), reps=3),
@@ -706,11 +738,15 @@ def check_gmm(results):
             label = "torch.matmul dense (same live-row product)"
             xr, dyr = x[:c["routed"]], dy[:c["routed"]]
             lib_fn = lambda: xr.t() @ dyr  # noqa: E731
+        def new():
+            return gm.tgmm(x, dy, bg, e, block_rows=b, with_rowsum=True,
+                           n_live_blocks=n_live)
+
         t_new, t_old = ab(
+            new,
             lambda: gm.tgmm(x, dy, bg, e, block_rows=b, with_rowsum=True,
-                            n_live_blocks=n_live),
-            lambda: gm.tgmm(x, dy, bg, e, block_rows=b, with_rowsum=True,
-                            n_live_blocks=n_live, _design="mma_sync"))
+                            n_live_blocks=n_live, _older=True))
+        split_t = split_ms(new, lib_fn)
         t_t = (t_new,
                time_ms(lambda: gm.tgmm_plain(x, dy, bg, e, block_rows=b,
                                              with_rowsum=True,
@@ -724,11 +760,13 @@ def check_gmm(results):
                  mma_sync_ms=f["mma_sync_ms"], plain_ms=f["plain_ms"],
                  library_ms=f["library_ms"], library=f["library"],
                  bound_ms=f["bound"][0], bound_by=f["bound"][1],
-                 tflops=f["tflops"], mma_sync_tflops=f["mma_sync_tflops"])
+                 tflops=f["tflops"], mma_sync_tflops=f["mma_sync_tflops"],
+                 device_ms=f["device_ms"], host_ms=f["host_ms"],
+                 library_device_ms=f["library_device_ms"])
         emit("kernel", name="tgmm_w1", ms=t_t[0], mma_sync_ms=t_old,
              plain_ms=t_t[1], library_ms=t_t[2], library=label,
              bound_ms=bt[0], bound_by=bt[1], tflops=flop_t / t_t[0] / 1e9,
-             mma_sync_tflops=flop_t / t_old / 1e9)
+             mma_sync_tflops=flop_t / t_old / 1e9, **split_t)
         f = forms["w1"]
         results["gmm"] = dict(
             max_abs_err=max(errs[k] for k in ("out", "dx", "out_w2",

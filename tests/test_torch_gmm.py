@@ -195,9 +195,10 @@ def test_gmm_refuses_what_it_does_not_take():
 
 
 # (dtype, block_rows, D, H, 16-byte aligned bases) -> the kernel design a CUDA
-# call takes: the path's shapes and a small wgmma case, the ragged shapes, a
-# row block shorter than the 128-row tile, widths off the 64-wide TMA box, a
-# misaligned base, and float32
+# call takes (None: refused): the path's shapes and a small wgmma case, the
+# ragged shapes, a row block shorter than the 128-row tile, widths off the
+# 64-wide TMA box, a misaligned bf16 base (no bf16 design takes it), and
+# float32 (its FMA kernels take any base)
 DESIGN_CASES = {
     "w1_fwd_and_tgmm": (torch.bfloat16, 512, 768, 3072, True, "wgmma"),
     "w2_fwd_and_dx_of_w1": (torch.bfloat16, 512, 3072, 768, True, "wgmma"),
@@ -208,7 +209,8 @@ DESIGN_CASES = {
     "rows_192": (torch.bfloat16, 192, 768, 3072, True, "mma_sync"),
     "d_off_box": (torch.bfloat16, 512, 200, 3072, True, "mma_sync"),
     "h_off_box": (torch.bfloat16, 512, 768, 360, True, "mma_sync"),
-    "misaligned_base": (torch.bfloat16, 512, 768, 3072, False, "mma_sync"),
+    "misaligned_base": (torch.bfloat16, 512, 768, 3072, False, None),
+    "float32_misaligned": (torch.float32, 512, 768, 3072, False, "fma"),
     "float32_path_shapes": (torch.float32, 512, 768, 3072, True, "fma"),
     "float32_ragged": (torch.float32, 8, 200, 360, True, "fma"),
 }
@@ -217,24 +219,30 @@ DESIGN_CASES = {
 @pytest.mark.parametrize("case", sorted(DESIGN_CASES))
 def test_gmm_design_rule(case):
     dtype, block_rows, d, h, aligned, want = DESIGN_CASES[case]
+    if want is None:
+        with pytest.raises(ValueError, match="aligned"):
+            tgmm_mod.gmm_design(dtype, block_rows, d, h, aligned)
+        return
     assert tgmm_mod.gmm_design(dtype, block_rows, d, h, aligned) == want
     assert want in tgmm_mod.DESIGNS
 
 
 def test_forced_design_fits_the_shapes():
-    """The same-call comparison may force the older design onto a wgmma
-    shape, never the wgmma design onto a shape it does not take; a
-    misaligned base is seen from the tensors themselves."""
+    """The same-call comparison (``_older=True``) runs the older design on a
+    shape that takes wgmma and is refused on any other; a misaligned base
+    is seen from the tensors themselves."""
     x = torch.zeros(1024, 768, dtype=torch.bfloat16)
     pick = tgmm_mod._pick_design
-    assert pick(None, x.dtype, 512, 768, 3072, x) == "wgmma"
-    assert pick("mma_sync", x.dtype, 512, 768, 3072, x) == "mma_sync"
-    with pytest.raises(ValueError, match="does not fit"):
-        pick("wgmma", x.dtype, 8, 200, 360, x)
-    with pytest.raises(ValueError, match="does not fit"):
-        pick("fma", x.dtype, 512, 768, 3072, x)
+    assert pick(False, x.dtype, 512, 768, 3072, x) == "wgmma"
+    assert pick(True, x.dtype, 512, 768, 3072, x) == "mma_sync"
+    assert pick(False, x.dtype, 8, 200, 360, x) == "mma_sync"
+    with pytest.raises(ValueError, match="_older"):
+        pick(True, x.dtype, 8, 200, 360, x)
+    with pytest.raises(ValueError, match="_older"):
+        pick(True, torch.float32, 512, 768, 3072, x.float())
     shifted = x.view(-1)[1:1 + 512 * 768].view(512, 768)
-    assert pick(None, x.dtype, 512, 768, 3072, shifted) == "mma_sync"
+    with pytest.raises(ValueError, match="aligned"):
+        pick(False, x.dtype, 512, 768, 3072, shifted)
 
 
 def _c_exports(source):

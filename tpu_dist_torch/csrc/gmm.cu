@@ -51,7 +51,10 @@
 //
 //    tgmm: tiles are (group, 128-row d tile, 192-column h tile); each loops
 //    over its group's rows [offsets[e], offsets[e+1]) in 64-row k tiles (the
-//    TPU kernel's sequential grid, carried in registers).  Offsets are
+//    TPU kernel's sequential grid, carried in registers).  The offsets come
+//    from the block map and the live count through group_offsets_kernel,
+//    which tgmm_launch enqueues just before every tgmm kernel, so the
+//    wrapper's host work before a launch stays small.  Offsets are
 //    multiples of block_rows, so a k tile never straddles two groups.  The
 //    groups are walked largest first (every block ranks them from the
 //    offsets), so an imbalanced routing does not leave its biggest group's
@@ -80,7 +83,8 @@
 // Layouts: x (M, D) and dy (M, H) contiguous; w (E, D, H) contiguous, or
 // (E, H, D) contiguous read as its transpose (w_nk); bias (E, H); groups
 // (M / block_rows,) int32; n_live (1,) int32; out (M, H); offsets (E + 1,)
-// int32; dw (E, D, H); db (E, H).  bf16 needs D and H multiples of 8.
+// int32, written by group_offsets_kernel ahead of every tgmm kernel; dw
+// (E, D, H); db (E, H).  bf16 needs D and H multiples of 8.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is looked up
 #include <cuda_bf16.h>
@@ -1108,6 +1112,22 @@ __global__ void __launch_bounds__(kWThreads, 1)
   }
 }
 
+// tgmm's row offsets from the sorted block map, on the device (no host sync):
+// offsets[e] = block_rows x the live blocks of groups below e, so group e's
+// rows are [offsets[e], offsets[e + 1]); blocks from n_live on belong to no
+// group.  Block i (and i = live, the end) writes the offsets of the groups
+// that start there: each entry is written once, and empty groups get an
+// empty range.  ops/gmm.py's group_offsets() is its plain version.
+__global__ void group_offsets_kernel(const int* groups, const int* n_live, int n_blocks,
+                                     int E, int block_rows, int* offsets) {
+  const int live = n_live ? max(0, min(*n_live, n_blocks)) : n_blocks;
+  for (int i = threadIdx.x; i <= live; i += blockDim.x) {
+    const int lo = i == 0 ? 0 : groups[i - 1] + 1;
+    const int hi = i == live ? E : min(groups[i], E);
+    for (int e = lo; e <= hi; ++e) offsets[e] = i * block_rows;
+  }
+}
+
 // ===========================================================================
 // host side
 // ===========================================================================
@@ -1254,10 +1274,12 @@ int gmm_launch(const void* x, const void* w, const void* bias, const int* groups
               : launch(gmm_f32_kernel<false>, grid, kF32Threads, 0, s, p);
 }
 
-// offsets: (E + 1,) int32 row offsets of each group's rows; db may be null.
-int tgmm_launch(const void* x, const void* dy, const int* offsets, void* dw, void* db,
-                int M, int E, int D, int H, int dtype, int out_f32, int design,
-                void* stream) {
+// groups: the (M / block_rows,) non-decreasing block map; n_live may be null
+// (every block live); offsets: (E + 1,) int32 scratch that the launch fills
+// (group_offsets_kernel) before the kernel reads it; db may be null.
+int tgmm_launch(const void* x, const void* dy, const int* groups, const int* n_live,
+                int* offsets, void* dw, void* db, int M, int E, int D, int H,
+                int block_rows, int dtype, int out_f32, int design, void* stream) {
   TgmmParams p;
   p.x = x;
   p.dy = dy;
@@ -1269,11 +1291,14 @@ int tgmm_launch(const void* x, const void* dy, const int* offsets, void* dw, voi
   p.out_f32 = out_f32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((design == kFma) != (dtype == 0)) return cudaErrorInvalidValue;
+  if (design == kWgmma && (block_rows % WM || D % 64 || H % 64)) return cudaErrorInvalidValue;
+  group_offsets_kernel<<<1, 128, 0, s>>>(groups, n_live, M / block_rows, E, block_rows,
+                                          offsets);
+  const cudaError_t off_err = cudaGetLastError();
+  if (off_err != cudaSuccess) return off_err;
   if (design == kWgmma) {
-    // offsets are multiples of block_rows, which the caller keeps a
-    // multiple of 128
+    // offsets are multiples of block_rows, a multiple of the 128-row tile
     const size_t smem = wgmma_smem();
-    if (D % 64 || H % 64) return cudaErrorInvalidValue;
     CUtensorMap map_x, map_dy;
     const cuuint32_t box[2] = {64, WK};
     const cuuint64_t x_dims[2] = {(cuuint64_t)D, (cuuint64_t)M};

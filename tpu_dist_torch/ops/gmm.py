@@ -46,8 +46,9 @@ _SIGNATURES = {
     # x, w, bias, block_groups, n_live, out | M, K, N, E, block_rows, w_nk,
     # dtype, out_f32, design, stream
     "gmm_launch": [_P] * 6 + [_I] * 9 + [_P],
-    # x, dy, offsets, dw, db | M, E, D, H, dtype, out_f32, design, stream
-    "tgmm_launch": [_P] * 5 + [_I] * 7 + [_P],
+    # x, dy, block_groups, n_live, offsets, dw, db | M, E, D, H, block_rows,
+    # dtype, out_f32, design, stream
+    "tgmm_launch": [_P] * 7 + [_I] * 8 + [_P],
 }
 # the kernel designs of csrc/gmm.cu, by the index its entry points take
 DESIGNS = ("fma", "mma_sync", "wgmma")
@@ -65,34 +66,36 @@ def gmm_design(dtype, block_rows: int, d: int, h: int,
                aligned: bool = True) -> str:
     """The kernel design a CUDA call of :func:`gmm` or :func:`tgmm` takes,
     from its shapes alone (never on failure): ``"wgmma"`` for bf16 whose
-    128-row tiles lie inside one row block (``block_rows % 128 == 0``),
+    128-row tiles lie inside one row block (``block_rows % 128 == 0``) and
     whose 64-wide TMA boxes tile both feature widths (``d`` and ``h``, the
     contraction and output widths of ``gmm`` or the two of ``tgmm``,
-    multiples of 64) and whose bases are 16-byte aligned; ``"mma_sync"``
-    for every other bf16 call; ``"fma"`` for float32."""
+    multiples of 64); ``"mma_sync"`` for every other bf16 call; ``"fma"``
+    for float32.  Both bf16 designs move 16-byte vectors, so a bf16 call
+    whose bases are not all 16-byte ``aligned`` is refused here
+    (ValueError): no design takes it."""
     if dtype == torch.float32:
         return "fma"
+    if not aligned:
+        raise ValueError("the bf16 kernels need 16-byte aligned bases")
     if (block_rows % _WGMMA_ROWS == 0 and d % _WGMMA_COLS == 0
-            and h % _WGMMA_COLS == 0 and aligned):
+            and h % _WGMMA_COLS == 0):
         return "wgmma"
     return "mma_sync"
 
 
-def _aligned(*tensors) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in tensors)
-
-
-def _pick_design(forced, dtype, block_rows, d, h, *tensors) -> str:
-    """:func:`gmm_design`, or the design a same-call comparison forces
-    (``_design=``; nothing on the training path passes it)."""
-    design = gmm_design(dtype, block_rows, d, h, _aligned(*tensors))
-    if forced is None:
+def _pick_design(older: bool, dtype, block_rows, d, h, *tensors) -> str:
+    """:func:`gmm_design` for the call's tensors; ``older`` (the private
+    ``_older=True`` of a same-call comparison, which nothing on the training
+    path passes) runs the ``mma_sync`` design on a shape that takes
+    ``wgmma``."""
+    design = gmm_design(dtype, block_rows, d, h,
+                        all(t.data_ptr() % 16 == 0 for t in tensors))
+    if not older:
         return design
-    if forced not in DESIGNS or (forced == "fma") != (design == "fma") or (
-            forced == "wgmma" and design != "wgmma"):
-        raise ValueError(f"_design={forced!r} does not fit this call (its "
-                         f"shapes take {design!r})")
-    return forced
+    if design != "wgmma":
+        raise ValueError(f"_older=True compares the older design on a shape "
+                         f"that takes 'wgmma'; this call takes {design!r}")
+    return "mma_sync"
 
 
 @contextlib.contextmanager
@@ -120,7 +123,8 @@ def _lib():
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    # the raw handle, without building a torch.cuda.Stream on every launch
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _check_layout(m: int, block_rows: int, n_blocks: int) -> None:
@@ -145,7 +149,9 @@ def group_offsets(block_groups, n_groups: int, block_rows: int,
     """(E+1,) int32 row offsets of each group's rows — what :func:`tgmm`'s
     kernel loops over — from the non-decreasing block map, on its device
     (no host sync).  Blocks from ``n_live_blocks`` on are moved past every
-    group, so they belong to none."""
+    group, so they belong to none.  The plain version of the offsets a CUDA
+    :func:`tgmm` call has its library write before the kernel
+    (``group_offsets_kernel`` in ``csrc/gmm.cu``)."""
     bg = block_groups.to(torch.int32)
     if n_live_blocks is not None:
         live = _live_blocks(n_live_blocks, bg.shape[0], bg.device)
@@ -221,14 +227,12 @@ def _check_common(x, other, name, block_groups, out_dtype):
                         f"{x.dtype} or float32")
 
 
-def _check_bf16_vectors(d, h, *tensors):
-    """The bf16 kernels move 16-byte vectors along D and H."""
+def _check_bf16_vectors(d, h):
+    """The bf16 kernels move 16-byte vectors along D and H (their bases'
+    alignment is :func:`gmm_design`'s to check)."""
     if d % 8 or h % 8:
         raise ValueError(f"bf16 kernel reads 16-byte vectors: D={d} and "
                          f"H={h} must be multiples of 8")
-    for t in tensors:
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError("the bf16 kernel needs 16-byte aligned bases")
 
 
 def _check_tgmm_operands(x, dy, block_groups, out_dtype):
@@ -237,7 +241,7 @@ def _check_tgmm_operands(x, dy, block_groups, out_dtype):
         raise ValueError(f"dy must be a contiguous (M, H) tensor, got "
                          f"{tuple(dy.shape)}")
     if x.dtype == torch.bfloat16:
-        _check_bf16_vectors(x.shape[1], dy.shape[1], x, dy)
+        _check_bf16_vectors(x.shape[1], dy.shape[1])
 
 
 def _check_operands(x, w, block_groups, bias, out_dtype):
@@ -259,13 +263,13 @@ def _check_operands(x, w, block_groups, bias, out_dtype):
             raise ValueError(f"bias: need contiguous {(e, h)}, got "
                              f"{tuple(bias.shape)}")
     if x.dtype == torch.bfloat16:
-        _check_bf16_vectors(d, h, x, w)
+        _check_bf16_vectors(d, h)
     return w_nk
 
 
 def gmm(x, w, block_groups, n_live_blocks, *, bias=None,
         block_rows: int = 512, out_dtype=None, activation=None,
-        _design=None):
+        _older=False):
     """K3: block-diagonal grouped matmul ``out[i*B:(i+1)*B] = x[i*B:(i+1)*B]
     @ w[block_groups[i]] (+ bias[block_groups[i]])``, B = ``block_rows``.
 
@@ -302,10 +306,10 @@ def gmm(x, w, block_groups, n_live_blocks, *, bias=None,
     e, _, h = w.shape
     n_live = torch.as_tensor(n_live_blocks, dtype=torch.int32,
                              device=x.device).reshape(1)
+    design = _pick_design(_older, x.dtype, block_rows, d, h, x, w)
     out = torch.empty((m, h), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    design = _pick_design(_design, x.dtype, block_rows, d, h, x, w)
     lib = _lib()
     err = lib.gmm_launch(x.data_ptr(), w.data_ptr(),
                          bias.data_ptr() if bias is not None else None,
@@ -326,7 +330,7 @@ gmm.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 def tgmm(x, dy, block_groups, n_groups: int, *, block_rows: int = 512,
          with_rowsum: bool = False, out_dtype=None, n_live_blocks=None,
-         _design=None):
+         _older=False):
     """K4: transposed grouped matmul ``dw[e] = sum over e's row blocks of
     x_blkᵀ @ dy_blk`` (+ ``db[e]``, the row sums of e's ``dy``, with
     ``with_rowsum``).
@@ -352,19 +356,24 @@ def tgmm(x, dy, block_groups, n_groups: int, *, block_rows: int = 512,
                           out_dtype=out_dtype, n_live_blocks=n_live_blocks)
     _check_tgmm_operands(x, dy, block_groups, out_dtype)
     h = dy.shape[1]
-    offsets = group_offsets(block_groups, n_groups, block_rows,
-                            n_live_blocks)
+    design = _pick_design(_older, x.dtype, block_rows, d, h, x, dy)
+    n_live = (None if n_live_blocks is None else torch.as_tensor(
+        n_live_blocks, dtype=torch.int32, device=x.device).reshape(1))
+    # the kernel's row offsets (group_offsets), written by the library on
+    # the launch's stream just before the kernel
+    offsets = torch.empty(n_groups + 1, dtype=torch.int32, device=x.device)
     dw = torch.empty((n_groups, d, h), dtype=out_dtype, device=x.device)
     db = (torch.empty((n_groups, h), dtype=out_dtype, device=x.device)
           if with_rowsum else None)
     if dw.numel() == 0:
         return (dw, db) if with_rowsum else dw
-    design = _pick_design(_design, x.dtype, block_rows, d, h, x, dy)
     lib = _lib()
-    err = lib.tgmm_launch(x.data_ptr(), dy.data_ptr(), offsets.data_ptr(),
-                          dw.data_ptr(),
+    err = lib.tgmm_launch(x.data_ptr(), dy.data_ptr(), block_groups.data_ptr(),
+                          n_live.data_ptr() if n_live is not None else None,
+                          offsets.data_ptr(), dw.data_ptr(),
                           db.data_ptr() if db is not None else None,
-                          m, n_groups, d, h, int(x.dtype == torch.bfloat16),
+                          m, n_groups, d, h, block_rows,
+                          int(x.dtype == torch.bfloat16),
                           int(out_dtype == torch.float32),
                           DESIGNS.index(design), _stream(x))
     _build.check(lib, _LIB, err, "tgmm")
