@@ -12,21 +12,26 @@ Phases, each printed as one JSON line:
    version on the card, at the paths' shapes and at ragged shapes, with the
    tolerance it is held to; kernel, plain and library-yardstick times (CUDA
    events, median) and the least time the card could take (``bound_ms``).
-   The grouped products (K3 in its four forms, K4) are also timed against
-   their older ``mma.sync`` design in the same run, and every case checks
-   which design each launch took (``gmm_design``).  Their lines also split
-   ``ms`` (one call a sample, the wrapper's host work included) into the
-   card's own time (``device_ms``, the host kept ahead) and the wrapper's
-   host time (``host_ms``).
+   Flash attention (K2f, K2b) and the grouped products (K3 in its four
+   forms, K4) are also timed against their older ``mma.sync`` design in the
+   same run (``older_ms`` / ``mma_sync_ms``, in turns), every case checks
+   which design each launch took (``flash_design``, ``gmm_design``), and
+   two launches of K2f, K2b and K4 on the same inputs must agree bit for
+   bit.  Their timed lines also split ``ms`` (one call a sample, the
+   wrapper's host work included) into the card's own time (``device_ms``,
+   the host kept ahead) and the wrapper's host time (``host_ms``); K2b's
+   line also gives its dQ and dK/dV kernels' card time (``dq_ms``,
+   ``dkv_ms``, from ``torch.profiler`` over ten calls).
 3. ``slice``: the dense GPT-2-small-shaped TransformerLM trained at full
    width through the port's DDP (bf16, fused cross-entropy, flash attention
-   at T = 2048), with every kernel's launch count over that run; then
+   at T = 2048), with every kernel's launch count over that run (every
+   flash launch must be the wgmma design); then
    ``composition``: one step against the plain composition (dense attention,
    unfused loss) on the same weights and batch.
 4. ``moe_slice``: the same trunk with a top-2-of-8 dropless MoE in every
    block, trained at full width (grouped matmuls K3/K4 too), with the launch
-   counts over that run, by design for K3/K4 (every one must be the wgmma
-   design); ``moe_layer``: one full-width MoE layer forward and
+   counts over that run, by design for K2f/K2b/K3/K4 (every one must be the
+   wgmma design); ``moe_layer``: one full-width MoE layer forward and
    backward with the kernels against the plain grouped products on the same
    inputs; ``moe_composition``: one step against the plain composition
    (plain grouped products, dense attention, unfused loss).
@@ -138,6 +143,29 @@ def split_ms(fn, lib_fn) -> dict:
     return {"device_ms": time_ms(fn, hide_host=True),
             "host_ms": host_ms(fn),
             "library_device_ms": time_ms(lib_fn, hide_host=True)}
+
+
+def kernel_ms(fn, names: dict, calls: int = 10) -> dict:
+    """Card time per call of each kernel whose name contains the given
+    fragment, from ``torch.profiler`` over ``calls`` calls of ``fn``
+    (``{label: fragment}`` → ``{label: ms}``; None where the profiler saw
+    no such kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names)
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0.0))
+        for label, frag in names.items():
+            if frag in ev.key:
+                out[label] = (out[label] or 0.0) + total / 1e3 / calls
+    return out
 
 
 def bound(bytes_moved: float, ops: float, kind: str):
@@ -296,6 +324,10 @@ def check_flash(results):
     g = torch.Generator(device=dev).manual_seed(1)
     ok_all = True
 
+    def by_design():
+        return {k.__name__: dict(k.launches_by_design)
+                for k in (fa.flash_fwd, fa.flash_bwd)}
+
     def run_case(b, t, h, d, dtype, causal, tol, timed):
         nonlocal ok_all
         # q, k, v as the strided views of a fused projection, as on the path
@@ -303,6 +335,10 @@ def check_flash(results):
         q, k, v = qkv.unbind(2)
         do = torch.randn(b, t, h, d, device=dev, generator=g).to(dtype)
         scale = 1.0 / math.sqrt(d)
+        # the design every launch of the case must take, from the shapes
+        design = fa.flash_design(dtype, t, t, d,
+                                 [x.stride() for x in (q, k, v)])
+        before = by_design()
         t0 = time.perf_counter()
         o_k, lse_k = fa.flash_fwd(q, k, v, causal, scale)
         torch.cuda.synchronize()
@@ -312,6 +348,20 @@ def check_flash(results):
         grads_k = fa.flash_bwd(q, k, v, do, lse_p, delta, causal, scale)
         torch.cuda.synchronize()
         grads_p = fa.flash_bwd_plain(q, k, v, do, lse_p, delta, causal, scale)
+        # a second launch of each kernel on the same inputs must agree bit
+        # for bit: no atomics, a fixed order of sums
+        o_k2, lse_k2 = fa.flash_fwd(q, k, v, causal, scale)
+        grads_k2 = fa.flash_bwd(q, k, v, do, lse_p, delta, causal, scale)
+        torch.cuda.synchronize()
+        bitwise = {"fwd": (torch.equal(o_k, o_k2)
+                           and torch.equal(lse_k, lse_k2)),
+                   "bwd": all(torch.equal(a, b2)
+                              for a, b2 in zip(grads_k, grads_k2))}
+        after = by_design()
+        ran = {k: {dn: after[k][dn] - before[k][dn] for dn in fa.DESIGNS}
+               for k in after}
+        ok_design = all(ran[k][design] == 2 and sum(ran[k].values()) == 2
+                        for k in ran)
         lims = (tol["rtol"], tol["atol"], tol["atol_row"], tol["atol_all"])
         pairs_kp = {"o": (o_k, o_p), "dq": (grads_k[0], grads_p[0]),
                     "dk": (grads_k[1], grads_p[1]),
@@ -324,7 +374,7 @@ def check_flash(results):
             ok = ok and ok_t
         errs["lse"], rels["lse"], margins["lse"], ok_l = compare(
             lse_k, lse_p, 1e-5, 1e-4)
-        ok = ok and ok_l
+        ok = ok and ok_l and ok_design and all(bitwise.values())
         shape = {"q": [b, t, h, d], "dtype": str(dtype).split(".")[-1],
                  "causal": causal}
         fields = {}
@@ -341,7 +391,9 @@ def check_flash(results):
                                      "margin": caught}
             ok = ok and all(m > 1.0 for m in caught.values())
         ok_all = ok_all and ok
-        emit("kernel", name="flash", shape=shape, max_abs_err=errs,
+        emit("kernel", name="flash", shape=shape, design=design,
+             launches_by_design=ran, ok_design=ok_design,
+             repeat_bitwise=bitwise, max_abs_err=errs,
              max_rel_err=rels, margin=margins, tolerance=tol, ok=ok,
              first_call_s=first_s, **fields)
         if not timed:
@@ -349,33 +401,63 @@ def check_flash(results):
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
         lib_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-        t_f = (time_ms(lambda: fa.flash_fwd(q, k, v, causal, scale)),
+
+        def fwd(older=False):
+            return fa.flash_fwd(q, k, v, causal, scale, _older=older)
+
+        def bwd(older=False):
+            return fa.flash_bwd(q, k, v, do, lse_p, delta, causal, scale,
+                                _older=older)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_o, (qt, kt, vt),
+                                       do.transpose(1, 2), retain_graph=True)
+
+        def ab(fn):
+            """Same-call times of the design the shape takes and of the
+            older mma.sync design, in turns (new, old, old, new): the mean
+            of each pair."""
+            t_new, t_old = time_ms(fn), time_ms(lambda: fn(True))
+            t_old = (t_old + time_ms(lambda: fn(True))) / 2
+            return (t_new + time_ms(fn)) / 2, t_old
+
+        t_f = (*ab(fwd),
                time_ms(lambda: fa.flash_fwd_plain(q, k, v, causal, scale),
                        reps=5),
-               time_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=causal)))
-        t_b = (time_ms(lambda: fa.flash_bwd(q, k, v, do, lse_p, delta,
-                                            causal, scale)),
+               time_ms(lib_fwd))
+        t_b = (*ab(bwd),
                time_ms(lambda: fa.flash_bwd_plain(q, k, v, do, lse_p, delta,
                                                   causal, scale), reps=5),
-               time_ms(lambda: torch.autograd.grad(
-                   lib_o, (qt, kt, vt), do.transpose(1, 2),
-                   retain_graph=True)))
+               time_ms(lib_bwd))
         el = q.element_size()
         pairs = b * h * causal_pairs(t, t, causal)
         tile = b * t * h * d * el
         bf = bound(4 * tile + b * h * t * 4, 4 * d * pairs, "bf16_tensor")
         bb = bound(7 * tile + 2 * b * h * t * 4, 10 * d * pairs,
                    "bf16_tensor")
-        emit("kernel", name="flash_fwd", shape=shape, ms=t_f[0],
-             plain_ms=t_f[1], library_ms=t_f[2],
-             library="F.scaled_dot_product_attention", bound_ms=bf[0],
-             bound_by=bf[1], tflops=4 * d * pairs / t_f[0] / 1e9)
-        emit("kernel", name="flash_bwd", shape=shape, ms=t_b[0],
-             plain_ms=t_b[1], library_ms=t_b[2],
-             library="F.scaled_dot_product_attention backward",
-             bound_ms=bb[0], bound_by=bb[1],
-             tflops=10 * d * pairs / t_b[0] / 1e9)
+        # the backward's two kernels apart: card time by kernel name
+        split_b = kernel_ms(bwd, {"dq_ms": "flash_dq_wgmma_kernel",
+                                  "dkv_ms": "flash_dkv_wgmma_kernel"})
+        for name, tt, bd, flop, lib, split in (
+                ("flash_fwd", t_f, bf, 4 * d * pairs,
+                 "F.scaled_dot_product_attention", split_ms(fwd, lib_fwd)),
+                ("flash_bwd", t_b, bb, 10 * d * pairs,
+                 "F.scaled_dot_product_attention backward",
+                 {**split_ms(bwd, lib_bwd), **split_b})):
+            emit("kernel", name=name, shape=shape, design=design, ms=tt[0],
+                 older_ms=tt[1], plain_ms=tt[2], library_ms=tt[3],
+                 library=lib, bound_ms=bd[0], bound_by=bd[1],
+                 tflops=flop / tt[0] / 1e9,
+                 older_tflops=flop / tt[1] / 1e9,
+                 bound_share=bd[0] / tt[0],
+                 older_speedup=tt[1] / tt[0], library_ratio=tt[0] / tt[3],
+                 **split)
+        t_f = (t_f[0], t_f[2], t_f[3])
+        t_b = (t_b[0], t_b[2], t_b[3])
         results["flash_fwd"] = dict(max_abs_err=max(errs["o"], errs["lse"]),
                                     ms=t_f[0], plain_ms=t_f[1],
                                     library_ms=t_f[2], bound_ms=bf[0],
@@ -403,8 +485,14 @@ def check_flash(results):
                       "tolerance (tests/test_flash_attention.py:42), here "
                       "for o and the gradients alike"}
     run_case(8, 2048, 12, 64, torch.bfloat16, True, bf16_tol, timed=True)
-    # ragged T and D, both head-dim instantiations (D <= 64, D <= 128), both
-    # dtypes' kernels
+    # ragged T through the wgmma design (D = 64): a partial last tile of
+    # queries and of keys, causal and not
+    for causal in (True, False):
+        run_case(2, 1000, 3, 64, torch.bfloat16, causal, bf16_tol,
+                 timed=False)
+    run_case(1, 515, 2, 64, torch.bfloat16, True, bf16_tol, timed=False)
+    # ragged T and D, both head-dim instantiations of the older kernels
+    # (D <= 64, D <= 128), both dtypes: the designs flash_design picks
     for dtype, tol in ((torch.bfloat16, bf16_tol), (torch.float32, f32_tol)):
         for causal in (True, False):
             run_case(2, 1000, 3, 40, dtype, causal, tol, timed=False)
@@ -427,6 +515,10 @@ def check_slice(results):
     per_step = {"cross_entropy_fwd": 1, "cross_entropy_bwd": 1,
                 "flash_fwd": depth, "flash_bwd": depth}
     ok_counts = all(counts[n] == steps * c for n, c in per_step.items())
+    # every flash launch of the path ran the wgmma design
+    by_design = {k.__name__: dict(k.launches_by_design)
+                 for k in KERNELS if hasattr(k, "launches_by_design")}
+    ok_design = all(d["wgmma"] == counts[n] for n, d in by_design.items())
     ok_loss = all(math.isfinite(x) for x in res["losses"])
     for name in per_step:
         results.setdefault(name, {})["launches"] = counts[name]
@@ -435,8 +527,9 @@ def check_slice(results):
          achieved_model_tflops=res["achieved_model_tflops"],
          model=res["model"], steps_run=steps, launches=counts,
          launches_per_step_expected=per_step, ok_launches=ok_counts,
+         launches_by_design=by_design, ok_design=ok_design,
          losses=res["losses"], ok_losses_finite=ok_loss)
-    return ok_counts and ok_loss
+    return ok_counts and ok_design and ok_loss
 
 
 def check_composition(results):
@@ -825,7 +918,7 @@ def check_moe_slice(results):
                 "cross_entropy_bwd": 1, "flash_fwd": depth,
                 "flash_bwd": depth}
     ok_counts = all(counts[n] == steps * c for n, c in per_step.items())
-    # every grouped launch of the path ran the wgmma design
+    # every grouped and every flash launch of the path ran the wgmma design
     by_design = {k.__name__: dict(k.launches_by_design)
                  for k in KERNELS if hasattr(k, "launches_by_design")}
     ok_design = all(d["wgmma"] == counts[n] for n, d in by_design.items())

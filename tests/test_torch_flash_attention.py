@@ -6,6 +6,8 @@ them.  Inputs are the same numpy arrays, float32; the tolerances are those
 of tests/test_flash_attention.py: 2e-5 for the forward (line 42) and 5e-4
 for the gradients (line 78)."""
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,9 @@ from tpu_dist_torch.nn import attention_impl
 from tpu_dist_torch.nn.attention import (
     scaled_dot_product_attention as torch_sdpa)
 from tpu_dist_torch.ops import flash_attention_with_lse as torch_flash_lse
+
+# the module (the package re-exports the function over its name)
+fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -38,6 +43,7 @@ def _qkv(rng, b, tq, tk, h, d):
     ((1, 100, 100, 2, 16), None),   # ragged T, D = 16
     ((2, 72, 72, 3, 32), None),     # ragged T, D = 32
     ((1, 40, 56, 2, 16), 0.3),      # Tq != Tk, explicit scale
+    ((1, 130, 130, 2, 64), None),   # D = 64 (the wgmma design's on the card)
 ])
 def test_forward_lse_and_grads_match_jax(shape, sm_scale, causal):
     """Output, lse and the gradients of (out, lse) with a cotangent on
@@ -96,3 +102,75 @@ def test_dispatch_rules():
     np.testing.assert_allclose(flash.numpy(), dense.numpy(), FWD_TOL, FWD_TOL)
     with pytest.raises(ValueError, match="causal"):
         torch_flash_lse(q, k, v, causal="offdiag")
+
+
+def _strides(b, t, h, d, layout, dtype=torch.bfloat16):
+    """(B, T, H, D) element strides of q, k and v: split from a fused qkv
+    projection (the training path), contiguous, or with a T stride of
+    ``layout`` elements."""
+    if layout == "fused":
+        return [x.stride() for x in
+                torch.empty(b, t, 3, h, d, dtype=dtype).unbind(2)]
+    if layout == "contiguous":
+        return [torch.empty(b, t, h, d, dtype=dtype).stride()] * 3
+    st = layout
+    return [(t * st, st, d, 1)] * 3
+
+
+@pytest.mark.parametrize("dtype,t,d,layout,aligned,want", [
+    # the path: (8, 2048, 12, 64) bf16, strided views of the fused qkv
+    (torch.bfloat16, 2048, 64, "fused", True, "wgmma"),
+    (torch.bfloat16, 1000, 64, "contiguous", True, "wgmma"),
+    (torch.bfloat16, 1000, 40, "contiguous", True, "mma_sync"),
+    (torch.bfloat16, 515, 128, "fused", True, "mma_sync"),
+    (torch.float32, 2048, 64, "fused", True, "fma"),
+    (torch.float32, 1000, 40, "contiguous", True, "fma"),
+    # a T stride of 12 * 64 + 4 bf16 (1544 bytes): no design reads it
+    (torch.bfloat16, 2048, 64, 12 * 64 + 4, True, ValueError),
+    (torch.bfloat16, 2048, 64, "fused", False, ValueError),
+    (torch.float32, 1000, 40, 12 * 40 + 2, True, ValueError),
+])
+def test_flash_design(dtype, t, d, layout, aligned, want):
+    """The design a CUDA call takes, from dtype, shapes and strides alone."""
+    strides = _strides(8, t, 12, d, layout, dtype)
+    if want is ValueError:
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_design(dtype, t, t, d, strides, aligned)
+    else:
+        assert fa.flash_design(dtype, t, t, d, strides, aligned) == want
+
+
+def test_older_design_only_on_a_wgmma_shape():
+    """The private ``_older`` switch runs mma_sync where wgmma would run,
+    and refuses a shape that does not take wgmma."""
+    q, k, v = torch.empty(2, 64, 3, 2, 64, dtype=torch.bfloat16).unbind(2)
+    assert fa._pick_design(False, q, k, v) == "wgmma"
+    assert fa._pick_design(True, q, k, v) == "mma_sync"
+    q, k, v = torch.empty(2, 64, 3, 2, 40, dtype=torch.bfloat16).unbind(2)
+    assert fa._pick_design(False, q, k, v) == "mma_sync"
+    with pytest.raises(ValueError, match="_older"):
+        fa._pick_design(True, q, k, v)
+
+
+def test_cpu_call_takes_plain_version_and_counts_nothing():
+    """A CPU tensor goes to the plain versions, bit for bit, and moves
+    neither the launch counts nor the counts by design."""
+    rng = np.random.default_rng(5)
+    qkv = torch.from_numpy(
+        rng.standard_normal((2, 40, 3, 2, 64)).astype(np.float32))
+    q, k, v = qkv.to(torch.bfloat16).unbind(2)
+    do = torch.from_numpy(rng.standard_normal((2, 40, 2, 64)).astype(
+        np.float32)).to(torch.bfloat16)
+    before = [(w.launches, dict(w.launches_by_design))
+              for w in (fa.flash_fwd, fa.flash_bwd)]
+    o, lse = fa.flash_fwd(q, k, v, True, 0.125)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, True, 0.125)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    grads = fa.flash_bwd(q, k, v, do, lse, delta, True, 0.125)
+    grads_p = fa.flash_bwd_plain(q, k, v, do, lse, delta, True, 0.125)
+    assert torch.equal(o, o_p) and torch.equal(lse, lse_p)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_p))
+    after = [(w.launches, dict(w.launches_by_design))
+             for w in (fa.flash_fwd, fa.flash_bwd)]
+    assert after == before
+    assert set(fa.flash_fwd.launches_by_design) == set(fa.DESIGNS)

@@ -5,40 +5,79 @@
 //   *dq*   <- _make_dq_kernel  / _bwd_call  (dQ over the k sweep)
 //   *dkv*  <- _make_dkv_kernel / _bwd_call  (dK, dV over the q sweep)
 //
-// What bounds it on an H100: at the training shapes (T = 2048, D = 64,
-// causal) the work is the QK^T / PV products, ~51.5 GFLOP forward and
-// ~129 GFLOP backward per layer against ~100 MB of q/k/v/o, so the bound is
-// tensor-core throughput, not memory.
+// What bounds it on an H100: at the training shapes (B = 8, T = 2048, H = 12,
+// D = 64, causal) the products are ~51.5 GFLOP forward and ~129 GFLOP
+// backward (5 products; the split below computes 7) against ~100 MB of
+// q/k/v/o, so the bound is tensor-core throughput (~0.05 / 0.13 ms at 989
+// TFLOP/s), not memory.  At D = 64 the softmax's exponentials cost as much as
+// the products: one exp per score on the SM's 16 special-function lanes takes
+// as long as that score's 4 x 64 multiply-adds on its tensor cores, so the
+// two have to overlap.  No (T, T) tensor ever reaches device memory.
 //
-// What the design does about it: no (T, T) tensor ever reaches device memory.
-// Each block stages one tile of its own rows and sweeps the other side's
-// tiles through shared memory.  For bf16 each of the block's four warps owns
-// 16 rows and keeps its scores, probabilities, running max/sum and the f32
-// O / dQ / dK / dV accumulators in registers; products run on the tensor
-// cores as mma.sync m16n8k16 with f32 accumulation, operands loaded from
-// shared memory with ldmatrix (the FlashAttention-2 layout).  float32 inputs
-// take a plain shared-memory FMA path that keeps full f32 precision.  Causal
-// tiles entirely above the diagonal are never visited.  The TPU kernels
-// carry their accumulators across a sequential grid axis; blocks on a GPU run
-// in no order, so the sweep is a loop inside the block, and dQ and dK/dV are
-// separate kernels so that no block adds into another's output: no atomics,
-// and the result is deterministic.  Ragged T and head dims (D % 8 == 0,
-// D <= 128) are masked in the kernel: out-of-range rows and columns are
-// zero-filled in shared memory instead of padding the tensors.
+// Three designs; ops/flash_attention.py's flash_design() picks one from the
+// dtype, the head dim and the strides alone (never on failure):
 //
-// The swept tiles are double-buffered: tile i + 1 is copied with cp.async
-// while tile i is computed.  Not yet done (later work): wgmma and TMA, a
-// warp-specialized producer/consumer pipeline.
+// 1. wgmma (bf16, D = 64, strides and bases multiples of 16 bytes): the
+//    path's kernels.  Persistent grids of one block per SM walk tiles
+//    heaviest first (under a causal mask the last query tiles see the most
+//    keys, the first key tiles the most queries).  In each block one
+//    producer warp (its warpgroup's registers given up with setmaxnreg)
+//    issues TMA loads through 4-D tensor maps over (D, H, T, B) with the
+//    operands' own strides, so the strided q/k/v views of the fused qkv
+//    projection are read in place: 64-row boxes of one head, 128 bytes a
+//    row, 128-byte swizzled, into a ring of stages guarded by full/empty
+//    mbarrier pairs.  The block's own rows (Q; Q and dO; K and V) are
+//    double-buffered, so the next tile's load overlaps this one's end.
+//    Consumer warpgroups of 64 rows run wgmma with both operands read from
+//    shared memory through descriptors (K-major, or MN-major through the
+//    transpose bit for V, K, Q and dO on the right of P V, dS K, P^T dO and
+//    dS^T Q), and P or dS go from the f32 accumulator straight into the
+//    bf16 register A operand of the next product.  Each consumer issues
+//    one tile's second product and the next tile's first together and
+//    waits once, so the tensor cores run them back to back while the other
+//    warpgroups compute their softmax.
+//      forward: 3 consumers x 64 query rows (a 192-row tile), 128-key K/V
+//        tiles in a 3-stage ring; S on m64n128k16, softmax in registers
+//        (exp2 with scale * log2 e folded into one multiply, the row max and
+//        sum over the quad, the sum reduced once at the end), O += P V on
+//        m64n64k16; O / l leaves through swizzled shared memory by TMA
+//        store, lse by a store per row.
+//      dQ: 2 consumers x 64 query rows, Q and dO resident, 64-key K/V tiles;
+//        S = Q K^T and dP = dO V^T, dS = P (dP - delta), dQ += dS K.
+//      dK/dV: 2 consumers x 64 keys, K and V resident, 64-query Q/dO tiles
+//        whose lse and delta a second producer warp copies beside them;
+//        S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q.
+//    dQ and dK/dV stay separate kernels, as in the TPU kernels' split: no
+//    block adds into another's output, no atomics, and a launch repeats
+//    bit for bit.  The causal mask and the ragged ends are applied only on
+//    tiles that cross the diagonal or the end of T, under a branch on the
+//    tile (uniform), with a select per element: a thread-dependent branch
+//    around an accumulator would make ptxas serialize the wgmma (advisory
+//    C7518).  TMA reads zeros past the end of T, so keys and queries past
+//    it are masked explicitly; stores past it are dropped by the maps.
 //
+// 2. mma.sync (every other bf16 head dim, D % 8 == 0, D <= 128): the first
+//    port's kernels, kept for ragged head dims that the 64-wide TMA boxes do
+//    not fit.  Blocks of 64 rows, 4 warps of 16, mma.sync m16n8k16 fed by
+//    ldmatrix, the swept tiles double-buffered with cp.async (the
+//    FlashAttention-2 layout).  Also the older design that chip_smoke.py
+//    times beside the wgmma one (the wrappers' private _older=True).
+//
+// 3. FMA (float32): shared-memory tiles and plain FMA, full f32 precision,
+//    for the tests and ragged shapes.
+//
+// Rows with no visible key get lse = -1e30 and o = 0, as in the TPU kernel.
 // Layout: q, k, v are (B, T, H, D) with unit stride in D and any other
 // strides (so the split of a fused qkv projection needs no copy); o, dO, dQ,
 // dK, dV are contiguous (B, T, H, D); lse and delta are contiguous (B, H, Tq)
-// float32.  Rows with no visible key get lse = -1e30 and o = 0, as in the
-// TPU kernel.
+// float32.  Not ported yet: the TPU kernels' causal="offdiag" mode and
+// split_diag variant, which serve ring attention.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"  // mbarriers, TMA, wgmma descriptors, make_map
 
 using bf16 = __nv_bfloat16;
 
@@ -115,10 +154,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* base,
 // fragment over 16 k once packed to bf16, which is how P and dS feed the
 // next product without leaving registers.
 // ===========================================================================
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -803,6 +838,730 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(BwdParams p) {
 }
 
 // ===========================================================================
+// bf16, D = 64: wgmma design.  TMA rings, one producer warp, two consumer
+// warpgroups, persistent over tiles, heaviest tiles first.
+// ===========================================================================
+
+constexpr int kWgThreads = 384;     // consumer warpgroups 0 and 1, producer 2
+constexpr int kWgConsumers = 256;
+// setmaxnreg moves registers between the warpgroups from the 168 a thread
+// each has at launch (65536 / 384, rounded down to a multiple of 8): the
+// consumers can only take what the producer gives up
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 384 * 168,
+              "setmaxnreg.inc would wait forever for registers");
+constexpr int BOX = 64 * 128;       // one TMA box: 64 rows of 64 bf16 (128 B)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kInf = __builtin_huge_valf();
+
+// The tensor maps of a launch, all (D, H, T, B) over bf16 in boxes of 64 x
+// 1 x 64 x 1, 128-byte swizzled: q, k, v with their own strides (the fused
+// qkv views), dout and the outputs contiguous.  The T extent of each is its
+// own length, so loads past it read zeros and stores past it are dropped.
+struct FlashMaps {
+  CUtensorMap q, k, v, dout, o, dq, dk, dv;
+};
+
+struct WgParams {
+  float* lse;           // forward: written; backward: read
+  const float* delta;   // backward
+  int BH, H, Tq, Tk;
+  float scale;
+  int causal;
+};
+
+// Shared memory of a wgmma kernel, from a 1024-aligned base (the period of
+// the 128-byte swizzle): two resident buffers of RES bytes (the tile's own
+// rows, double-buffered so the next tile's load overlaps this tile's end),
+// a ring of NS stages of STAGE bytes (the swept side), a staging area of STG
+// bytes per consumer warpgroup (the TMA-stored outputs), SIDE bytes a stage
+// of side data, then the barriers and a scratch row for stores of no use.
+template <int RES, int STAGE, int NS, int STG, int SIDE, int NWG = 2>
+struct WgLayout {
+  static constexpr int kStages = NS;
+  static constexpr int kConsumerWarps = 4 * NWG;
+  static constexpr int stg = STG;
+  static constexpr int ring = 2 * RES;
+  static constexpr int staging = ring + NS * STAGE;
+  static constexpr int side = staging + NWG * STG;
+  static constexpr int bars = side + NS * SIDE;
+  static constexpr int scratch = bars + (2 * NS + 4) * 8;
+  static constexpr size_t bytes = 1024 + scratch + 128 * 4;
+  static_assert(RES % 1024 == 0 && STAGE % 1024 == 0 && STG % 1024 == 0,
+                "swizzled tiles need 1024-byte alignment");
+  static_assert(bytes <= 232448, "more shared memory than a block can have");
+};
+
+// A block's view of its shared memory and its place in the ring and in the
+// resident buffers.  full[s]: the stage's bytes (and side data) arrived;
+// empty[s]: all 8 consumer warps are done with it; rfull/rempty the same for
+// the two resident buffers.
+template <typename L>
+struct Pipe {
+  unsigned char* gen;  // generic pointer to the aligned base
+  uint32_t base;       // its shared address
+  int stage = 0;
+  uint32_t phase = 0;
+
+  __device__ __forceinline__ uint32_t res(int rb) const { return base + rb * (L::ring / 2); }
+  __device__ __forceinline__ uint32_t st(int s) const {
+    return base + L::ring + s * ((L::staging - L::ring) / L::kStages);
+  }
+  __device__ __forceinline__ float* side(int s) const {
+    return reinterpret_cast<float*>(gen + L::side + s * ((L::bars - L::side) / L::kStages));
+  }
+  __device__ __forceinline__ unsigned char* staging(int wg) const {
+    return gen + L::staging + wg * L::stg;
+  }
+  __device__ __forceinline__ uint32_t full(int s) const { return base + L::bars + s * 8; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return base + L::bars + (L::kStages + s) * 8;
+  }
+  __device__ __forceinline__ uint32_t rfull(int rb) const {
+    return base + L::bars + (2 * L::kStages + rb) * 8;
+  }
+  __device__ __forceinline__ uint32_t rempty(int rb) const {
+    return base + L::bars + (2 * L::kStages + 2 + rb) * 8;
+  }
+  __device__ __forceinline__ float* scratch() const {
+    return reinterpret_cast<float*>(gen + L::scratch);
+  }
+  __device__ __forceinline__ void advance() {
+    if (++stage == L::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Aligns the base and initialises the barriers (full[s] waits for `fill`
+// arrivals plus the bytes; empty and rempty for the 8 consumer warps).
+template <typename L>
+__device__ __forceinline__ Pipe<L> make_pipe(unsigned char* smem, int fill) {
+  Pipe<L> p;
+  const uint32_t raw = smem_addr(smem);
+  const uint32_t aligned = (raw + 1023) & ~1023u;
+  p.gen = smem + (aligned - raw);
+  p.base = aligned;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(p.full(s), fill);
+      mbar_init(p.empty(s), L::kConsumerWarps);
+    }
+    for (int rb = 0; rb < 2; ++rb) {
+      mbar_init(p.rfull(rb), 1);
+      mbar_init(p.rempty(rb), L::kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return p;
+}
+
+// A consumer warp's release of a stage or resident buffer it has finished.
+__device__ __forceinline__ void release_bar(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+#define WG_F8(i)                                                                \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),   \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// Accumulator layout of m64nN (thread t of the warpgroup, warp w = t / 32,
+// lane l): d[4j + {0,1}] at row 16w + l/4, columns 8j + 2(l%4) + {0,1};
+// d[4j + {2,3}] at row 16w + l/4 + 8.  The register A operand of m64k16
+// has the same rows, so the accumulator over 16 columns 16c.. packed to bf16
+// pairs {d[8c], d[8c+1]}, {d[8c+2], d[8c+3]}, {d[8c+4], d[8c+5]}, {d[8c+6],
+// d[8c+7]} is the A fragment over k 16c..16c+15: P and dS feed their next
+// product without leaving registers.
+
+// d (64 x 64) (+)= A (64 x 16) B (16 x 64), both K-major in shared memory;
+// scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128) (+)= A (64 x 16) B (16 x 128), both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24), WG_F8(32), WG_F8(40), WG_F8(48),
+        WG_F8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64) += A (64 x 16, bf16 pairs in registers) B (16 x 64), B
+// MN-major in shared memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t* a,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_F8
+
+// K-major operand at `a` (rows of 64 d values), the k16 step kk.
+__device__ __forceinline__ uint64_t kmaj(uint32_t a, int kk) {
+  return wgmma_desc(a + kk * 32, 16, 1024);
+}
+
+// MN-major operand at `b` (k rows of 64 n values), the k16 step kc.
+__device__ __forceinline__ uint64_t mnmaj(uint32_t b, int kc) {
+  return wgmma_desc(b + kc * 2048, BOX, 1024);
+}
+
+// A 64 x 64 product over D = 64 into d: 4 k16 steps, A and B K-major.
+__device__ __forceinline__ void product64(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss64(d, kmaj(a, kk), kmaj(b, kk), kk > 0);
+}
+
+// d += (A packed in registers, 64 x 16*KC) x B (16*KC x 64, MN-major at b).
+template <int KC>
+__device__ __forceinline__ void product_rs(float (&d)[32], const uint32_t (&a)[4 * KC],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) wgmma_rs64(d, &a[4 * kc], mnmaj(b, kc));
+}
+
+// f32 accumulator over 16*KC columns → bf16 A fragments (see above).
+template <int KC>
+__device__ __forceinline__ void pack_frag(uint32_t (&a)[4 * KC], const float (&d)[8 * KC]) {
+#pragma unroll
+  for (int i = 0; i < 4 * KC; ++i) a[i] = pack_bf16(d[2 * i], d[2 * i + 1]);
+}
+
+// A warpgroup's 64 x 64 accumulator times mul[row half] into a swizzled box
+// of its staging (the layout TMA stores from): each lane's 4 bytes land in
+// their own bank.
+__device__ __forceinline__ void stage_box(unsigned char* box, const float (&d)[32],
+                                          const float (&mul)[2]) {
+  const int t = threadIdx.x & 127, r_lo = 16 * (t >> 5) + ((t & 31) >> 2);
+  const int c_lo = 2 * (t & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_lo + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(box + r * 128 + ((j ^ (r & 7)) * 16) + c_lo * 2) =
+          __floats2bfloat162_rn(d[4 * j + 2 * h] * mul[h], d[4 * j + 2 * h + 1] * mul[h]);
+    }
+}
+
+// The warpgroup's staged boxes out by TMA: wait until the last tile's
+// stores have read the staging, fill it (fill()), then one thread stores
+// n_boxes boxes, box i through maps[i] at rows row0.. of (b, h).
+template <typename Fill>
+__device__ __forceinline__ void store_boxes(unsigned char* staging, int wg, Fill fill,
+                                            const CUtensorMap* m0, const CUtensorMap* m1,
+                                            int h, int row0, int b) {
+  const int t = threadIdx.x & 127;
+  if (t == 0) tma_store_wait_read();
+  named_bar(2 + wg, 128);
+  fill();
+  fence_async_shared();
+  named_bar(2 + wg, 128);
+  if (t == 0) {
+    tma_store_4d(m0, smem_addr(staging), 0, h, row0, b);
+    if (m1 != nullptr) tma_store_4d(m1, smem_addr(staging) + BOX, 0, h, row0, b);
+    tma_store_commit();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: a tile is 192 query rows of one (b, h), 64 per consumer; the ring
+// carries 128-key tiles of K and V.
+// ---------------------------------------------------------------------------
+
+// Three consumer warpgroups of 64 query rows each (a 192-row tile) and the
+// producer warpgroup: 512 threads, 128 registers each at launch, so the
+// consumers get 160 and the producer 24.  Two consumer warpgroups (128 rows,
+// 224 registers) took 2% longer (PERF.md).
+constexpr int kFwdWgs = 3, kFwdRows = 64 * kFwdWgs, kFwdThreads = 128 * (kFwdWgs + 1);
+constexpr int kFwdProducerRegs = 24, kFwdConsumerRegs = 160;
+static_assert(128 * kFwdProducerRegs + 128 * kFwdWgs * kFwdConsumerRegs <= 65536,
+              "setmaxnreg.inc would wait forever for registers");
+using FwdLayout = WgLayout<kFwdWgs * BOX, 4 * BOX, 3, BOX, 0, kFwdWgs>;
+
+struct FwdTile {
+  int b, h, bh, q0, n_kt;
+};
+
+// Tile i of the forward, heaviest first: the last query tiles see the most
+// keys under a causal mask.
+__device__ __forceinline__ FwdTile fwd_tile(const WgParams& p, int i, int rows) {
+  const int n_qt = cdiv(p.Tq, rows);
+  FwdTile t;
+  t.bh = i % p.BH;
+  t.b = t.bh / p.H;
+  t.h = t.bh % p.H;
+  t.q0 = (n_qt - 1 - i / p.BH) * rows;
+  t.n_kt = cdiv(p.Tk, 128);
+  if (p.causal) t.n_kt = min(t.n_kt, cdiv(min(t.q0 + rows, p.Tq), 128));
+  return t;
+}
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ FlashMaps maps, WgParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  Pipe<FwdLayout> pipe = make_pipe<FwdLayout>(smem_raw, 1);
+  const int n_tiles = cdiv(p.Tq, kFwdRows) * p.BH;
+
+  // the role, from a warp-uniform value: a branch on threadIdx itself would
+  // put the wgmma on a divergent path, which serializes them
+  if (__shfl_sync(0xffffffff, threadIdx.x / 32, 0) >= 4 * kFwdWgs) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kFwdProducerRegs));
+    if (threadIdx.x != 128 * kFwdWgs) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+      const FwdTile t = fwd_tile(p, tile, kFwdRows);
+      const int rb = it & 1;
+      mbar_wait(pipe.rempty(rb), ((it >> 1) & 1) ^ 1);
+      mbar_expect_tx(pipe.rfull(rb), kFwdWgs * BOX);
+      for (int w = 0; w < kFwdWgs; ++w)
+        tma_load_4d(pipe.res(rb) + w * BOX, &maps.q, pipe.rfull(rb), 0, t.h, t.q0 + 64 * w,
+                    t.b);
+      for (int kt = 0; kt < t.n_kt; ++kt) {
+        const int s = pipe.stage, k0 = kt * 128;
+        mbar_wait(pipe.empty(s), pipe.phase ^ 1);
+        mbar_expect_tx(pipe.full(s), 4 * BOX);
+        tma_load_4d(pipe.st(s), &maps.k, pipe.full(s), 0, t.h, k0, t.b);
+        tma_load_4d(pipe.st(s) + BOX, &maps.k, pipe.full(s), 0, t.h, k0 + 64, t.b);
+        tma_load_4d(pipe.st(s) + 2 * BOX, &maps.v, pipe.full(s), 0, t.h, k0, t.b);
+        tma_load_4d(pipe.st(s) + 3 * BOX, &maps.v, pipe.full(s), 0, t.h, k0 + 64, t.b);
+        pipe.advance();
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kFwdConsumerRegs));
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);  // uniform
+  const int tid = threadIdx.x & 127;
+  const int r_lo = 16 * (tid >> 5) + ((tid & 31) >> 2), c_lo = 2 * (tid & 3);
+  const float c = p.scale * kLog2e;  // exp(scale s) = 2^(c s)
+  unsigned char* staging = pipe.staging(wg);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    const FwdTile t = fwd_tile(p, tile, kFwdRows);
+    const int rb = it & 1, row0 = t.q0 + 64 * wg;
+    float o[32], s[64];
+    uint32_t pa[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+    float m[2] = {-kInf, -kInf}, l[2] = {0.0f, 0.0f};
+    mbar_wait(pipe.rfull(rb), (it >> 1) & 1);
+    const uint32_t qa = pipe.res(rb) + wg * BOX;
+    // S of the first key tile; every later S is issued behind the last PV
+    mbar_wait(pipe.full(pipe.stage), pipe.phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss128(s, kmaj(qa, kk), kmaj(pipe.st(pipe.stage), kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    for (int kt = 0; kt < t.n_kt; ++kt) {
+      const int cur = pipe.stage, k0 = kt * 128;
+      // the mask only on tiles that cross the diagonal or the end of the
+      // keys (a branch on the tile, uniform; the element test a select)
+      if ((p.causal && k0 + 127 > row0) || k0 + 128 > p.Tk) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int kpos = k0 + 8 * (i >> 2) + c_lo + (i & 1);
+          const int row = row0 + r_lo + 8 * ((i >> 1) & 1);
+          s[i] = kpos < p.Tk && (!p.causal || kpos <= row) ? s[i] : -kInf;
+        }
+      }
+      float mx[2] = {-kInf, -kInf};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      float alpha[2], mu[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        mu[r] = m_new == -kInf ? 0.0f : m_new * c;  // a row with no key yet
+        alpha[r] = ex2(m[r] * c - mu[r]);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int r = (i >> 1) & 1;
+        s[i] = ex2(fmaf(s[i], c, -mu[r]));
+        rs[r] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];  // per thread; summed at the end
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+      pack_frag<8>(pa, s);
+      wgmma_fence();
+      product_rs<8>(o, pa, pipe.st(cur) + 2 * BOX);  // O += P V
+      wgmma_commit();
+      if (kt + 1 < t.n_kt) {  // the next S behind this PV, then wait for PV
+        pipe.advance();
+        mbar_wait(pipe.full(pipe.stage), pipe.phase);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss128(s, kmaj(qa, kk), kmaj(pipe.st(pipe.stage), kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_acc(o);
+        release_bar(pipe.empty(cur));
+        wgmma_wait<0>();
+        fence_acc(s);
+      } else {
+        wgmma_wait<0>();
+        fence_acc(o);
+        release_bar(pipe.empty(cur));
+        pipe.advance();
+      }
+    }
+    release_bar(pipe.rempty(rb));
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lr = quad_sum(l[r]);
+      inv[r] = 1.0f / (lr == 0.0f ? 1.0f : lr);
+      const int row = row0 + r_lo + 8 * r;
+      // rows past Tq, and three lanes of each quad, store to scratch: a
+      // select, not a branch
+      float* dst = c_lo == 0 && row < p.Tq ? p.lse + (long long)t.bh * p.Tq + row
+                                            : pipe.scratch() + tid;
+      *dst = lr == 0.0f ? kNegInf : m[r] * p.scale + logf(lr);
+    }
+    store_boxes(staging, wg, [&] { stage_box(staging, o, inv); }, &maps.o, nullptr, t.h,
+                row0, t.b);
+  }
+  if (tid == 0) tma_store_wait();
+}
+
+// ---------------------------------------------------------------------------
+// dQ: a tile is 128 query rows (Q and dO resident), 64 per consumer; the
+// ring carries 64-key tiles of K and V.
+// ---------------------------------------------------------------------------
+
+using DqLayout = WgLayout<4 * BOX, 2 * BOX, 4, BOX, 0>;
+
+__device__ __forceinline__ FwdTile dq_tile(const WgParams& p, int i) {
+  FwdTile t = fwd_tile(p, i, 128);
+  t.n_kt = cdiv(p.Tk, 64);
+  if (p.causal) t.n_kt = min(t.n_kt, cdiv(min(t.q0 + 128, p.Tq), 64));
+  return t;
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ FlashMaps maps, WgParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  Pipe<DqLayout> pipe = make_pipe<DqLayout>(smem_raw, 1);
+  const int n_tiles = cdiv(p.Tq, 128) * p.BH;
+
+  if (__shfl_sync(0xffffffff, threadIdx.x / 32, 0) >= kWgConsumers / 32) {  // see fwd
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (threadIdx.x != kWgConsumers) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+      const FwdTile t = dq_tile(p, tile);
+      const int rb = it & 1;
+      const uint32_t r = pipe.res(rb);
+      mbar_wait(pipe.rempty(rb), ((it >> 1) & 1) ^ 1);
+      mbar_expect_tx(pipe.rfull(rb), 4 * BOX);
+      tma_load_4d(r, &maps.q, pipe.rfull(rb), 0, t.h, t.q0, t.b);
+      tma_load_4d(r + BOX, &maps.q, pipe.rfull(rb), 0, t.h, t.q0 + 64, t.b);
+      tma_load_4d(r + 2 * BOX, &maps.dout, pipe.rfull(rb), 0, t.h, t.q0, t.b);
+      tma_load_4d(r + 3 * BOX, &maps.dout, pipe.rfull(rb), 0, t.h, t.q0 + 64, t.b);
+      for (int kt = 0; kt < t.n_kt; ++kt) {
+        const int s = pipe.stage;
+        mbar_wait(pipe.empty(s), pipe.phase ^ 1);
+        mbar_expect_tx(pipe.full(s), 2 * BOX);
+        tma_load_4d(pipe.st(s), &maps.k, pipe.full(s), 0, t.h, kt * 64, t.b);
+        tma_load_4d(pipe.st(s) + BOX, &maps.v, pipe.full(s), 0, t.h, kt * 64, t.b);
+        pipe.advance();
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);  // uniform
+  const int tid = threadIdx.x & 127;
+  const int r_lo = 16 * (tid >> 5) + ((tid & 31) >> 2), c_lo = 2 * (tid & 3);
+  const float c = p.scale * kLog2e;
+  unsigned char* staging = pipe.staging(wg);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    const FwdTile t = dq_tile(p, tile);
+    const int rb = it & 1, row0 = t.q0 + 64 * wg;
+    // this thread's two rows: lse (in log2 units) and delta; rows past Tq
+    // read row Tq - 1 (their dQ is never stored)
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long at = (long long)t.bh * p.Tq + min(row0 + r_lo + 8 * r, p.Tq - 1);
+      lse2[r] = p.lse[at] * kLog2e;
+      dl[r] = p.delta[at];
+    }
+    float dq[32], s[32], dp[32];
+    uint32_t dsa[16];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[i] = 0.0f;
+    mbar_wait(pipe.rfull(rb), (it >> 1) & 1);
+    const uint32_t qa = pipe.res(rb) + wg * BOX, da = qa + 2 * BOX;
+    mbar_wait(pipe.full(pipe.stage), pipe.phase);
+    wgmma_fence();
+    product64(s, qa, pipe.st(pipe.stage));        // S = Q K^T
+    product64(dp, da, pipe.st(pipe.stage) + BOX);  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    for (int kt = 0; kt < t.n_kt; ++kt) {
+      const int cur = pipe.stage, k0 = kt * 64;
+      if ((p.causal && k0 + 63 > row0) || k0 + 64 > p.Tk) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int kpos = k0 + 8 * (i >> 2) + c_lo + (i & 1);
+          const int row = row0 + r_lo + 8 * ((i >> 1) & 1);
+          s[i] = kpos < p.Tk && (!p.causal || kpos <= row) ? s[i] : -kInf;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        s[i] = ex2(fmaf(s[i], c, -lse2[r])) * (dp[i] - dl[r]);  // dS = P (dP - delta)
+      }
+      pack_frag<4>(dsa, s);
+      wgmma_fence();
+      product_rs<4>(dq, dsa, pipe.st(cur));  // dQ += dS K
+      wgmma_commit();
+      if (kt + 1 < t.n_kt) {
+        pipe.advance();
+        mbar_wait(pipe.full(pipe.stage), pipe.phase);
+        product64(s, qa, pipe.st(pipe.stage));
+        product64(dp, da, pipe.st(pipe.stage) + BOX);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_acc(dq);
+        release_bar(pipe.empty(cur));
+        wgmma_wait<0>();
+        fence_acc(s);
+        fence_acc(dp);
+      } else {
+        wgmma_wait<0>();
+        fence_acc(dq);
+        release_bar(pipe.empty(cur));
+        pipe.advance();
+      }
+    }
+    release_bar(pipe.rempty(rb));
+    const float mul[2] = {p.scale, p.scale};
+    store_boxes(staging, wg, [&] { stage_box(staging, dq, mul); }, &maps.dq, nullptr, t.h,
+                row0, t.b);
+  }
+  if (tid == 0) tma_store_wait();
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV: a tile is 128 keys (K and V resident), 64 per consumer; the ring
+// carries 64-query tiles of Q and dO, with their lse (log2 units) and delta
+// as side data, copied by the producer warpgroup's second warp.
+// ---------------------------------------------------------------------------
+
+using DkvLayout = WgLayout<4 * BOX, 2 * BOX, 4, 2 * BOX, 128 * 4>;
+
+struct DkvTile {
+  int b, h, bh, k0, qt0, n_qt;
+};
+
+// Tile i of dK/dV, heaviest first: under a causal mask the first key tiles
+// see the most queries.
+__device__ __forceinline__ DkvTile dkv_tile(const WgParams& p, int i) {
+  DkvTile t;
+  t.bh = i % p.BH;
+  t.b = t.bh / p.H;
+  t.h = t.bh % p.H;
+  t.k0 = (i / p.BH) * 128;
+  t.n_qt = cdiv(p.Tq, 64);
+  t.qt0 = p.causal ? min(t.k0 / 64, t.n_qt) : 0;
+  return t;
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ FlashMaps maps, WgParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  // full[s]: the producer's bytes and the 32 side-data lanes
+  Pipe<DkvLayout> pipe = make_pipe<DkvLayout>(smem_raw, 1 + 32);
+  const int n_tiles = cdiv(p.Tk, 128) * p.BH;
+
+  if (__shfl_sync(0xffffffff, threadIdx.x / 32, 0) >= kWgConsumers / 32) {  // see fwd
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    const int pw = threadIdx.x / 32 - kWgConsumers / 32, lane = threadIdx.x & 31;
+    if (pw == 0) {
+      if (lane != 0) return;
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+        const DkvTile t = dkv_tile(p, tile);
+        const int rb = it & 1;
+        const uint32_t r = pipe.res(rb);
+        mbar_wait(pipe.rempty(rb), ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(pipe.rfull(rb), 4 * BOX);
+        tma_load_4d(r, &maps.k, pipe.rfull(rb), 0, t.h, t.k0, t.b);
+        tma_load_4d(r + BOX, &maps.k, pipe.rfull(rb), 0, t.h, t.k0 + 64, t.b);
+        tma_load_4d(r + 2 * BOX, &maps.v, pipe.rfull(rb), 0, t.h, t.k0, t.b);
+        tma_load_4d(r + 3 * BOX, &maps.v, pipe.rfull(rb), 0, t.h, t.k0 + 64, t.b);
+        for (int qt = t.qt0; qt < t.n_qt; ++qt) {
+          const int s = pipe.stage;
+          mbar_wait(pipe.empty(s), pipe.phase ^ 1);
+          mbar_expect_tx(pipe.full(s), 2 * BOX);
+          tma_load_4d(pipe.st(s), &maps.q, pipe.full(s), 0, t.h, qt * 64, t.b);
+          tma_load_4d(pipe.st(s) + BOX, &maps.dout, pipe.full(s), 0, t.h, qt * 64, t.b);
+          pipe.advance();
+        }
+      }
+    } else if (pw == 1) {
+      // side data: each lane copies two queries' lse (times log2 e) and
+      // delta into the stage (zeros past Tq), then arrives on its full[s]
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const DkvTile t = dkv_tile(p, tile);
+        for (int qt = t.qt0; qt < t.n_qt; ++qt) {
+          const int s = pipe.stage;
+          mbar_wait(pipe.empty(s), pipe.phase ^ 1);
+          float* side = pipe.side(s);
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int q = qt * 64 + lane + 32 * k;
+            const bool in = q < p.Tq;
+            const long long at = (long long)t.bh * p.Tq + (in ? q : 0);
+            side[lane + 32 * k] = in ? p.lse[at] * kLog2e : 0.0f;
+            side[64 + lane + 32 * k] = in ? p.delta[at] : 0.0f;
+          }
+          mbar_arrive(pipe.full(s));
+          pipe.advance();
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);  // uniform
+  const int tid = threadIdx.x & 127;
+  const int r_lo = 16 * (tid >> 5) + ((tid & 31) >> 2), c_lo = 2 * (tid & 3);
+  const float c = p.scale * kLog2e;
+  unsigned char* staging = pipe.staging(wg);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    const DkvTile t = dkv_tile(p, tile);
+    const int rb = it & 1, key0 = t.k0 + 64 * wg;
+    float dk[32], dv[32], st[32], dpt[32];
+    uint32_t pa[16], dsa[16];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      dk[i] = 0.0f;
+      dv[i] = 0.0f;
+    }
+    mbar_wait(pipe.rfull(rb), (it >> 1) & 1);
+    const uint32_t ka = pipe.res(rb) + wg * BOX, va = ka + 2 * BOX;
+    const int n = t.n_qt - t.qt0;
+    if (n > 0) {
+      mbar_wait(pipe.full(pipe.stage), pipe.phase);
+      wgmma_fence();
+      product64(st, ka, pipe.st(pipe.stage));         // S^T = K Q^T
+      product64(dpt, va, pipe.st(pipe.stage) + BOX);  // dP^T = V dO^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(st);
+      fence_acc(dpt);
+    }
+    for (int qi = 0; qi < n; ++qi) {
+      const int cur = pipe.stage, q0 = (t.qt0 + qi) * 64;
+      if ((p.causal && q0 < key0 + 63) || q0 + 64 > p.Tq) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int q = q0 + 8 * (i >> 2) + c_lo + (i & 1);
+          const int key = key0 + r_lo + 8 * ((i >> 1) & 1);
+          st[i] = q < p.Tq && (!p.causal || key <= q) ? st[i] : -kInf;
+        }
+      }
+      const float* side = pipe.side(cur);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int qc = 8 * (i >> 2) + c_lo + (i & 1);
+        st[i] = ex2(fmaf(st[i], c, -side[qc]));           // P^T
+        dpt[i] = st[i] * (dpt[i] - side[64 + qc]);        // dS^T
+      }
+      pack_frag<4>(pa, st);
+      pack_frag<4>(dsa, dpt);
+      wgmma_fence();
+      product_rs<4>(dv, pa, pipe.st(cur) + BOX);  // dV += P^T dO
+      product_rs<4>(dk, dsa, pipe.st(cur));       // dK += dS^T Q
+      wgmma_commit();
+      if (qi + 1 < n) {
+        pipe.advance();
+        mbar_wait(pipe.full(pipe.stage), pipe.phase);
+        product64(st, ka, pipe.st(pipe.stage));
+        product64(dpt, va, pipe.st(pipe.stage) + BOX);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_acc(dk);
+        fence_acc(dv);
+        release_bar(pipe.empty(cur));
+        wgmma_wait<0>();
+        fence_acc(st);
+        fence_acc(dpt);
+      } else {
+        wgmma_wait<0>();
+        fence_acc(dk);
+        fence_acc(dv);
+        release_bar(pipe.empty(cur));
+        pipe.advance();
+      }
+    }
+    release_bar(pipe.rempty(rb));
+    const float mul_k[2] = {p.scale, p.scale}, one[2] = {1.0f, 1.0f};
+    store_boxes(
+        staging, wg,
+        [&] {
+          stage_box(staging, dk, mul_k);
+          stage_box(staging + BOX, dv, one);
+        },
+        &maps.dk, &maps.dv, t.h, key0, t.b);
+  }
+  if (tid == 0) tma_store_wait();
+}
+
+// ===========================================================================
 // host side
 // ===========================================================================
 
@@ -851,17 +1610,78 @@ Strided strided(const void* ptr, long long sb, long long st, long long sh) {
   return s;
 }
 
+// Which kernels a call takes; ops/flash_attention.py's flash_design()
+// decides from the shapes and strides.
+enum Design { kFma = 0, kMmaSync = 1, kWgmma = 2 };
+
+// The (D, H, T, B) map of a (B, T, H, 64) bf16 tensor with element strides
+// sb, st, sh (unit stride in D), in boxes of 64 rows of one head.
+int head_map(CUtensorMap* map, const void* base, int B, int T, int H, long long sb,
+             long long st, long long sh) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  return make_map(map, base, 4, dims, strides, box);
+}
+
+// The map of a contiguous (B, T, H, 64) bf16 tensor.
+int dense_map(CUtensorMap* map, const void* base, int B, int T, int H) {
+  return head_map(map, base, B, T, H, (long long)T * H * 64, (long long)H * 64, 64);
+}
+
+// A persistent launch: one block per SM, or fewer if there are fewer tiles.
+// The SM count and the kernel's shared-memory opt-in are set up once per
+// device and kernel (one instantiation, and one cache, per kernel).
+template <void (*kernel)(FlashMaps, WgParams)>
+int launch_wgmma(int n_tiles, size_t smem, cudaStream_t stream, const FlashMaps& maps,
+                 const WgParams& p, int threads) {
+  constexpr int kMaxDevices = 64;
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    int n = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (err != cudaSuccess) return err;
+    sms[dev] = n;
+  }
+  kernel<<<min(n_tiles, sms[dev]), threads, smem, stream>>>(maps, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; design: 0 = FMA (float32), 1 = mma.sync,
+// 2 = wgmma (bf16, D = 64, 16-byte strides and bases).  Returns a
+// cudaError_t, or kErrNoEncoder / kErrEncode for a tensor map.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
               int B, int H, int Tq, int Tk, int D,
               long long q_sb, long long q_st, long long q_sh,
               long long k_sb, long long k_st, long long k_sh,
               long long v_sb, long long v_st, long long v_sh,
-              float scale, int causal, int dtype, void* stream) {
+              float scale, int causal, int dtype, int design, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design == kWgmma) {
+    if (dtype != 1 || D != 64 || Tq < 1 || Tk < 1) return cudaErrorInvalidValue;
+    FlashMaps maps{};
+    int err = head_map(&maps.q, q, B, Tq, H, q_sb, q_st, q_sh);
+    if (err == 0) err = head_map(&maps.k, k, B, Tk, H, k_sb, k_st, k_sh);
+    if (err == 0) err = head_map(&maps.v, v, B, Tk, H, v_sb, v_st, v_sh);
+    if (err == 0) err = dense_map(&maps.o, o, B, Tq, H);
+    if (err != 0) return err;
+    const WgParams wp{lse, nullptr, B * H, H, Tq, Tk, scale, causal};
+    return launch_wgmma<flash_fwd_wgmma_kernel>(cdiv(Tq, kFwdRows) * B * H, FwdLayout::bytes,
+                                                s, maps, wp, kFwdThreads);
+  }
+  if ((design == kFma) != (dtype == 0)) return cudaErrorInvalidValue;
   FwdParams p;
   p.q = strided(q, q_sb, q_st, q_sh);
   p.k = strided(k, k_sb, k_st, k_sh);
@@ -874,11 +1694,11 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   p.D = D;
   p.scale = scale;
   p.causal = causal;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return D <= 64 ? fwd<64>(p, B, dtype == 1, s) : fwd<128>(p, B, dtype == 1, s);
 }
 
 // dout, dq, dk, dv contiguous (B, T, H, D); lse, delta contiguous (B, H, Tq).
+// Two kernels, dQ then dK/dV, in every design.
 int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta,
               void* dq, void* dk, void* dv,
@@ -886,7 +1706,27 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
               long long q_sb, long long q_st, long long q_sh,
               long long k_sb, long long k_st, long long k_sh,
               long long v_sb, long long v_st, long long v_sh,
-              float scale, int causal, int dtype, void* stream) {
+              float scale, int causal, int dtype, int design, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design == kWgmma) {
+    if (dtype != 1 || D != 64 || Tq < 1 || Tk < 1) return cudaErrorInvalidValue;
+    FlashMaps maps{};
+    int err = head_map(&maps.q, q, B, Tq, H, q_sb, q_st, q_sh);
+    if (err == 0) err = head_map(&maps.k, k, B, Tk, H, k_sb, k_st, k_sh);
+    if (err == 0) err = head_map(&maps.v, v, B, Tk, H, v_sb, v_st, v_sh);
+    if (err == 0) err = dense_map(&maps.dout, dout, B, Tq, H);
+    if (err == 0) err = dense_map(&maps.dq, dq, B, Tq, H);
+    if (err == 0) err = dense_map(&maps.dk, dk, B, Tk, H);
+    if (err == 0) err = dense_map(&maps.dv, dv, B, Tk, H);
+    if (err != 0) return err;
+    const WgParams wp{const_cast<float*>(lse), delta, B * H, H, Tq, Tk, scale, causal};
+    err = launch_wgmma<flash_dq_wgmma_kernel>(cdiv(Tq, 128) * B * H, DqLayout::bytes, s, maps,
+                                              wp, kWgThreads);
+    if (err != 0) return err;
+    return launch_wgmma<flash_dkv_wgmma_kernel>(cdiv(Tk, 128) * B * H, DkvLayout::bytes, s,
+                                                maps, wp, kWgThreads);
+  }
+  if ((design == kFma) != (dtype == 0)) return cudaErrorInvalidValue;
   BwdParams p;
   p.q = strided(q, q_sb, q_st, q_sh);
   p.k = strided(k, k_sb, k_st, k_sh);
@@ -903,12 +1743,9 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
   p.D = D;
   p.scale = scale;
   p.causal = causal;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return D <= 64 ? bwd<64>(p, B, dtype == 1, s) : bwd<128>(p, B, dtype == 1, s);
 }
 
-const char* flash_attention_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+const char* flash_attention_error_string(int err) { return map_error_string(err); }
 
 }  // extern "C"

@@ -86,10 +86,11 @@
 // int32, written by group_offsets_kernel ahead of every tgmm kernel; dw
 // (E, D, H); db (E, H).  bf16 needs D and H multiples of 8.
 
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder is looked up
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"  // mbarriers, TMA, wgmma descriptors, make_map
 
 using bf16 = __nv_bfloat16;
 
@@ -130,10 +131,6 @@ __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 // 2t+8..), a3: (g+8, 2t+8..)}; B 16x8 {b0: (k 2t..2t+1, n g), b1: (k 2t+8..,
 // n g)}; C 16x8 {c0,c1: (g, 2t..2t+1), c2,c3: (g+8, 2t..2t+1)}.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -555,119 +552,6 @@ constexpr size_t wgmma_smem() {
 }
 static_assert(wgmma_smem() <= 232448, "more shared memory than a block can have");
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase differs from `parity`.  The loop is PTX's,
-// so the compiler sees no thread-dependent branch around the wgmma that
-// follows (one would serialize them).  A wait that never ends is a fault of
-// the kernel: after 2^28 tries (tens of seconds) it traps, so the launch
-// fails with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n .reg .u32 n;\n mov.u32 n, 0;\n"
-      "WAIT:\n mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @p bra DONE;\n add.u32 n, n, 1;\n setp.eq.u32 p, n, 268435456;\n"
-      " @p trap;\n bra WAIT;\n"
-      "DONE:\n}\n"
-      :: "r"(bar), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-         "r"(c2)
-      : "memory");
-}
-
-// TMA stores of a 64 x 64 swizzled box, and the waits on them: _read for
-// the shared-memory source to be free again, plain for the writes to land.
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
-                                             int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
-               :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
-                                             int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_bar(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
-// leading and stride byte offsets.  K-major: rows of 64 k values, 8-row
-// groups 1024 B apart (sbo), lbo unused.  MN-major: rows of 64 m (or n)
-// values along k, 8-k-row groups 1024 B apart (sbo), 64-wide boxes 8 KB
-// apart (lbo).
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups of products are still running.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma boundary.
-__device__ __forceinline__ void fence_acc(float (&d)[96]) {
-#pragma unroll
-  for (int i = 0; i < 96; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
 #define WG_F8(i)                                                                \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),   \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -852,7 +736,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[96], const CUtenso
           __floats2bfloat162_rn(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
     }
   }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_async_shared();
   named_bar(bar_id, 128);
   if (t == 0) {
     const uint32_t src = smem_addr(staging);
@@ -1145,50 +1029,8 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// Errors of the tensor-map encoder, beyond the cudaError_t range.
-constexpr int kErrNoEncoder = 10001, kErrEncode = 10002;
-
 // Which kernel a call takes; ops/gmm.py's gmm_design() decides from the shapes.
 enum Design { kFma = 0, kMmaSync = 1, kWgmma = 2 };
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library needs no -lcuda.
-int get_encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || f == nullptr) return kErrNoEncoder;
-    cached = reinterpret_cast<EncodeTiled>(f);
-  }
-  *fn = cached;
-  return 0;
-}
-
-// A 128-byte-swizzled bf16 tensor map of a row-major tensor: dims innermost
-// first, byte strides of dims 1.., the box in elements.
-int make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-             const cuuint64_t* strides, const cuuint32_t* box) {
-  EncodeTiled encode;
-  const int err = get_encoder(&encode);
-  if (err != 0) return err;
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                            const_cast<void*>(base), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncode;
-}
 
 // A persistent launch: one block per SM, or fewer if there are fewer tiles.
 template <typename Kernel, typename... Args>
@@ -1330,10 +1172,6 @@ int tgmm_launch(const void* x, const void* dy, const int* groups, const int* n_l
                 p);
 }
 
-const char* gmm_error_string(int err) {
-  if (err == kErrNoEncoder) return "cuTensorMapEncodeTiled not found in the driver";
-  if (err == kErrEncode) return "cuTensorMapEncodeTiled refused a tensor map";
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+const char* gmm_error_string(int err) { return map_error_string(err); }
 
 }  // extern "C"

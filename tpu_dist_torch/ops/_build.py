@@ -8,8 +8,9 @@ kernel or raises, never falls back.
 CUDA sources (``tpu_dist_torch/csrc/*.cu``) are compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface at first use, and
 loaded with ``ctypes``.  The build lands in ``tpu_dist_torch/_build/`` (git
-ignored), named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused.  Every C entry point returns the
+ignored), named by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt and an unchanged one
+is reused.  Every C entry point returns the
 ``cudaError_t`` of its launch; :func:`check` raises on anything but 0.
 """
 
@@ -28,7 +29,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["resolve_device", "check_cuda_tensor", "load_library", "check",
-           "compile_log", "build_all", "SOURCES"]
+           "compile_log", "build_all", "source_digest", "SOURCES"]
 
 # every CUDA source of the port, in csrc/
 SOURCES = ("flash_attention", "gmm")
@@ -80,11 +81,20 @@ def _nvcc() -> str:
                        "CUDA kernels are built from source at first use")
 
 
+def source_digest(name: str, src_dir: Path = _SRC_DIR) -> str:
+    """The build key of ``csrc/<name>.cu``: a hash of its bytes, of every
+    ``csrc/*.cuh`` header (any source may include any of them) and of the
+    flags, so that an edited header rebuilds the libraries too."""
+    h = hashlib.sha256((src_dir / f"{name}.cu").read_bytes())
+    for header in sorted(src_dir.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def _build(name: str) -> Path:
     src = _SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"lib{name}-{digest}.so"
+    so = _BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
     log = so.with_suffix(".log")
     if so.exists():
         _LOGS[name] = log.read_text() if log.exists() else ""

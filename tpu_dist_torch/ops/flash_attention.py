@@ -11,6 +11,12 @@ Public layout as in the JAX package: ``q`` (..., Tq, H, D), ``k``/``v``
 get lse ≈ -1e30 and output 0.  ``causal`` is ``True`` or ``False``; the
 JAX package's ``"offdiag"`` mode and its ``split_diag`` variant serve ring
 attention and are not ported yet.
+
+:func:`flash_design` picks one of the source's three designs from the dtype,
+the head dim and the strides alone: ``"wgmma"`` (the Hopper kernels: TMA
+rings, warp-specialized, wgmma) for bf16 with D = 64, the training path's
+shapes; ``"mma_sync"`` (the first port's kernels) for any other bf16 head
+dim; ``"fma"`` for float32.  Each wrapper counts its launches per design.
 """
 
 from __future__ import annotations
@@ -23,35 +29,87 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_with_lse", "flash_fwd",
-           "flash_bwd", "flash_fwd_plain", "flash_bwd_plain"]
+           "flash_bwd", "flash_fwd_plain", "flash_bwd_plain", "flash_design",
+           "DESIGNS"]
 
 _NEG_INF = -1e30  # finite, as in the TPU kernel: masked rows stay NaN-free
 _DTYPES = (torch.float32, torch.bfloat16)
+_ELEMENT_SIZE = {torch.float32: 4, torch.bfloat16: 2}
 _LIB = "flash_attention"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse | B, H, Tq, Tk, D | q/k/v strides | scale, causal,
-    # dtype, stream
-    "flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_F, _I, _I, _P],
+    # dtype, design, stream
+    "flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_F, _I, _I, _I, _P],
     # q, k, v, dO, lse, delta, dQ, dK, dV | ... as above
-    "flash_bwd": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _I, _I, _P],
+    "flash_bwd": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _I, _I, _I, _P],
 }
+# the kernel designs of csrc/flash_attention.cu, by the index its entry
+# points take
+DESIGNS = ("fma", "mma_sync", "wgmma")
+_WGMMA_D = 64  # the wgmma kernels' head dim: one 128-byte swizzled row
+
+
+def flash_design(dtype, tq: int, tk: int, d: int, strides,
+                 aligned: bool = True) -> str:
+    """The kernel design a CUDA call of :func:`flash_fwd` or
+    :func:`flash_bwd` takes, from its shapes and strides alone (never on
+    failure).  ``strides``: the (B, T, H, D) element strides of q, k and v.
+    Every design reads 16-byte row vectors, so a call whose D stride is not
+    1, whose other strides are not multiples of 16 bytes, or whose bases are
+    not all 16-byte ``aligned`` is refused here (ValueError): no design
+    takes it.  Otherwise ``"fma"`` for float32; ``"wgmma"`` for bf16 with
+    D = 64 and Tq, Tk >= 1 (its TMA boxes hold 64 rows of one head, 128 bytes
+    each; the training path's shapes); ``"mma_sync"`` for every other bf16
+    call."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype}: the kernels take "
+                        f"{', '.join(str(t) for t in _DTYPES)}")
+    vec = 16 // _ELEMENT_SIZE[dtype]
+    for st in strides:
+        if st[-1] != 1 or any(x % vec for x in st[:-1]) or not aligned:
+            raise ValueError(
+                f"the kernels read 16-byte row vectors; they need unit "
+                f"stride in D, strides that are multiples of {vec} and "
+                f"16-byte aligned bases (strides {tuple(st)}, aligned "
+                f"{aligned})")
+    if dtype == torch.float32:
+        return "fma"
+    if d == _WGMMA_D and tq >= 1 and tk >= 1:
+        return "wgmma"
+    return "mma_sync"
+
+
+def _pick_design(older: bool, q, k, v, *more) -> str:
+    """:func:`flash_design` for the call's tensors (``more``: other inputs
+    the kernels read in 16-byte vectors, such as a contiguous dO, whose bases
+    must be aligned too); ``older`` (the private ``_older=True`` of a
+    same-call comparison, which nothing on the training path passes) runs
+    the ``mma_sync`` design on a shape that takes ``wgmma``."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, *more))
+    design = flash_design(q.dtype, q.shape[1], k.shape[1], q.shape[3],
+                          [t.stride() for t in (q, k, v)], aligned)
+    if not older:
+        return design
+    if design != "wgmma":
+        raise ValueError(f"_older=True compares the older design on a shape "
+                         f"that takes 'wgmma'; this call takes {design!r}")
+    return "mma_sync"
 
 
 def _check_operands(q, k, v):
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check_cuda_tensor(name, t, _DTYPES, 4)
-        if t.dtype != q.dtype or t.device != q.device:
-            raise TypeError(f"{name}: {t.dtype} on {t.device} does not match "
-                            f"q ({q.dtype} on {q.device})")
-        vec = 16 // t.element_size()
-        if (t.stride(3) != 1 or any(s % vec for s in t.stride()[:3])
-                or t.data_ptr() % 16):
-            raise ValueError(
-                f"{name}: the kernel reads 16-byte row vectors; it needs unit "
-                f"stride in D, strides that are multiples of {vec} and a "
-                f"16-byte aligned base (strides {t.stride()})")
+    # the common case in a few attribute reads (this runs on every launch);
+    # anything else gets the checks that name the fault
+    if not (q.is_cuda and q.dtype in _DTYPES and q.dim() == 4
+            and k.dtype is q.dtype and v.dtype is q.dtype
+            and k.dim() == 4 and v.dim() == 4
+            and k.device == q.device and v.device == q.device):
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _build.check_cuda_tensor(name, t, _DTYPES, 4)
+            if t.dtype != q.dtype or t.device != q.device:
+                raise TypeError(f"{name}: {t.dtype} on {t.device} does not "
+                                f"match q ({q.dtype} on {q.device})")
     b, tq, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or tuple(k.shape[2:]) != (h, d):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -69,7 +127,8 @@ def _lib():
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    # the raw handle, without building a torch.cuda.Stream on every launch
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _keep_mask(tq, tk, causal, device):
@@ -121,13 +180,15 @@ def flash_bwd_plain(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_fwd(q, k, v, causal: bool, sm_scale: float):
+def flash_fwd(q, k, v, causal: bool, sm_scale: float, _older=False):
     """K2f: flash-attention forward on (B, T, H, D) tensors → ``(o, lse)``
     with o (B, Tq, H, D) contiguous and lse (B, H, Tq) float32.  A CPU tensor
-    takes :func:`flash_fwd_plain`; a CUDA tensor launches the kernel."""
+    takes :func:`flash_fwd_plain`; a CUDA tensor launches the kernel that
+    :func:`flash_design` picks."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, sm_scale)
     _check_operands(q, k, v)
+    design = _pick_design(_older, q, k, v)
     b, tq, h, d = q.shape
     tk = k.shape[1]
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
@@ -139,19 +200,24 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float):
                         lse.data_ptr(), b, h, tq, tk, d,
                         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                         float(sm_scale), int(causal),
-                        int(q.dtype == torch.bfloat16), _stream(q))
+                        int(q.dtype == torch.bfloat16),
+                        DESIGNS.index(design), _stream(q))
     _build.check(lib, _LIB, err, "flash_fwd")
     flash_fwd.launches += 1
+    flash_fwd.launches_by_design[design] += 1
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
-def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
+def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
+              _older=False):
     """K2b: flash-attention backward → ``(dq, dk, dv)``, contiguous
-    (B, T, H, D).  One call launches two kernels, dQ then dK/dV; it counts
-    once.  A CPU tensor takes :func:`flash_bwd_plain`."""
+    (B, T, H, D).  One call launches two kernels of the design
+    :func:`flash_design` picks, dQ then dK/dV; it counts once.  A CPU
+    tensor takes :func:`flash_bwd_plain`."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, lse, delta, causal, sm_scale)
     _check_operands(q, k, v)
@@ -166,6 +232,7 @@ def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
             raise ValueError(f"{name}: need contiguous (B, H, Tq) = "
                              f"{(b, h, tq)}, got {tuple(t.shape)}")
     do = do.contiguous()
+    design = _pick_design(_older, q, k, v, do)
     dq = torch.empty_like(do)
     dk = torch.empty((b, tk, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
@@ -177,13 +244,16 @@ def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
                         dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, d,
                         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                         float(sm_scale), int(causal),
-                        int(q.dtype == torch.bfloat16), _stream(q))
+                        int(q.dtype == torch.bfloat16),
+                        DESIGNS.index(design), _stream(q))
     _build.check(lib, _LIB, err, "flash_bwd")
     flash_bwd.launches += 1
+    flash_bwd.launches_by_design[design] += 1
     return dq, dk, dv
 
 
 flash_bwd.launches = 0
+flash_bwd.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 class _FlashLse(torch.autograd.Function):
