@@ -35,12 +35,34 @@ Phases, each printed as one JSON line:
    backward with the kernels against the plain grouped products on the same
    inputs; ``moe_composition``: one step against the plain composition
    (plain grouped products, dense attention, unfused loss).
-5. ``kernels``: one line over all kernels; the card's name and power limit
+5. ``serve``: the full-width dense model (float32, weights from a seeded
+   generator) served through ``ServeClient`` → socket → ``Frontend`` →
+   ``Scheduler`` → ``SlotEngine(8 slots, max_len 2048)``: the 16 requests
+   of :func:`smoke_requests` (prompts 16-1536 tokens, one above 1024; 32-128
+   new tokens; 12 greedy, 4 sampled at temperature 0.8 with seeds 1-4).
+   Every request must end ``done`` with all its tokens and equal
+   ``generate()`` alone on the card, and two greedy ones the plain path on
+   a CPU copy of the weights, token for token except at a step where the
+   two largest values the reference drew its token from (its own logits
+   there, replayed) lie within ``SERVE_TIE_GAP`` (each such divergence is
+   printed with its gap).  The path runs no kernel: every launch count over
+   the served run must be 0.  Printed: tokens/s, TTFT and decode-step
+   percentiles, prefill p50, occupancy, peak memory and the decode step's
+   bound.  Once the frontend, scheduler and engine are closed, the memory
+   the card holds must be back to what it held before the phase, within
+   ``SERVE_LEFTOVER_BYTES``, so the next phase's peak is its own.
+   ``serve_int8``: the same with the int8 KV cache, against
+   ``generate(cache_dtype=torch.int8)``.  ``quant``: the model with int8
+   weights (``quantize_linear_weights(attention=True)``), 32 greedy tokens
+   on the card against the same weights on the CPU, and its decode step
+   against the float32 model's, in turns.
+6. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
-``--only`` runs the named phases (``cross_entropy``, ``flash``, ``gmm``,
-``slice``, ``composition``, ``moe_slice``, ``moe_layer``,
-``moe_composition``) and never prints the result line.
+Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
+named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
+``composition``, ``moe_slice``, ``moe_layer``, ``moe_composition``,
+``serve``, ``serve_int8``, ``quant``) and never prints the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -1126,11 +1148,311 @@ def check_moe_composition(results):
     return ok_all
 
 
+# ---------------------------------------------------------------------------
+# the serving slice: no kernel on its path
+# ---------------------------------------------------------------------------
+
+# Token-for-token equality is required, except at a step where the
+# reference's two largest argmax operands lie within this gap: batch size
+# and cache length change cuBLAS's and the softmax's reduction order, so
+# float32 results across pool sizes are equal only to rounding.
+SERVE_TIE_GAP = 1e-4
+# What the card may hold after a serve phase beyond what it held before:
+# room for the cuBLAS workspaces of the scheduler thread's handle (32 MiB
+# each on sm_90), far below the smallest pool (int8, 0.32 GB)
+SERVE_LEFTOVER_BYTES = 128 << 20
+_SERVE: dict = {}   # the full-width model, built once for the serve phases
+
+
+def smoke_requests() -> list:
+    """The serve phases' 16 requests for the 2048-position pool, from
+    ``np.random.default_rng(0)``: prompt lengths uniform in 16-1536 (the
+    longest raised to 1536 when none exceeds 1024, so the longest bucket
+    runs), new-token counts uniform in 32-128, no eos; the last 4 requests
+    at temperature 0.8 with seeds 1-4.  A check of every bucket and of
+    sampling, not a traffic mix: the benchmark's traffic is
+    ``serve_lm.workload``."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    plens = rng.integers(16, 1536 + 1, 16)
+    if plens.max() <= 1024:
+        plens[int(plens.argmax())] = 1536
+    gens = rng.integers(32, 128 + 1, 16)
+    reqs = []
+    for i, (p, g) in enumerate(zip(plens, gens)):
+        s = i - 12 + 1
+        reqs.append({"prompt": rng.integers(0, 32768, int(p)).astype(np.int32),
+                     "max_new_tokens": int(g),
+                     "temperature": 0.8 if s > 0 else 0.0,
+                     "seed": max(s, 0)})
+    return reqs
+
+
+def _serve_model():
+    from tpu_dist_torch.benchmarks.serve_lm import build
+    if "model" not in _SERVE:
+        _SERVE["model"] = build(device="cuda")
+    return _SERVE["model"]
+
+
+def _reference_logits(model, req, want, d, cache_dtype):
+    """The (1, vocab) logits the reference, ``generate()`` of ``req`` with
+    ``cache_dtype``, drew its token ``d`` from: its own path replayed — the
+    prompt prefilled into a cache of the same length, then
+    ``decode_step`` fed its tokens before ``d``."""
+    prompt = torch.from_numpy(req["prompt"]).to(model.device).long()
+    tp = prompt.shape[0]
+    with torch.inference_mode():
+        cache = model.init_cache(1, tp + req["max_new_tokens"], cache_dtype)
+        logits = model(prompt[None], cache=cache)[:, -1]
+        slots = {path: {k: v for k, v in entry.items() if k != "index"}
+                 for path, entry in cache.items()}
+        for i in range(d):
+            logits, slots = model.decode_step(
+                torch.tensor([want[i]], device=model.device), [tp + i],
+                slots)
+    return logits.float()
+
+
+def _first_divergence(model, req, got, want, cache_dtype):
+    """None when ``got`` equals the reference ``want``; else ``{"step",
+    "gap", "replayed"}`` at the first differing step, ``gap`` being the
+    distance of the two largest values whose argmax chose the reference's
+    token there: the reference's own logits at that step, divided by the
+    temperature and plus the step's Gumbel noise when the request samples.
+    ``replayed``: their argmax is the reference's token, so the replay
+    reproduced the reference."""
+    from tpu_dist_torch import random
+
+    if got == want:
+        return None
+    d = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    v = _reference_logits(model, req, want, d, cache_dtype)
+    if req["temperature"] > 0:
+        key = random.fold_in(random.key(req["seed"], model.device), d)
+        v = random.gumbel(key, v.shape) + v / v.new_tensor(req["temperature"])
+    top = v[0].topk(2)
+    return {"step": d, "gap": float(top.values[0] - top.values[1]),
+            "replayed": d < len(want) and int(top.indices[0]) == want[d]}
+
+
+def _generate(model, req, cache_dtype):
+    from tpu_dist_torch.serve import random_key
+    prompt = torch.from_numpy(req["prompt"]).to(model.device)
+    out = model.generate(
+        prompt[None], req["max_new_tokens"],
+        temperature=req["temperature"], cache_dtype=cache_dtype,
+        rng=random_key(req["seed"]) if req["temperature"] else None)
+    return out[0, len(req["prompt"]):].tolist()
+
+
+def _tie_rule(model, reqs, got, want, cache_dtype, against: str) -> list:
+    """Every request's tokens against the reference's under the tie rule:
+    a list of ``(request, ok, divergence)``; each divergence is printed."""
+    out = []
+    for i, (r, a, b) in enumerate(zip(reqs, got, want)):
+        div = _first_divergence(model, r, a, b, cache_dtype)
+        ok = len(a) == r["max_new_tokens"] and (
+            div is None or (div["replayed"] and div["gap"] <= SERVE_TIE_GAP))
+        if div is not None:
+            emit("serve_divergence", against=against, request=i, **div,
+                 tie_gap_limit=SERVE_TIE_GAP, ok=ok)
+        out.append((i, ok, div))
+    return out
+
+
+def decode_bound(model, engine) -> dict:
+    """The least time of one decode step over the whole pool: the bytes it
+    must move (every weight matrix once, one row of each embedding table
+    per slot, the whole pool that dense cached attention reads) over the
+    card's memory rate; its operations (≈ 2 per weight element and slot
+    and 4 per cached element and slot) take far less at the float32
+    rate."""
+    slots = engine.num_slots
+    w_bytes = sum(p.numel() * p.element_size()
+                  for name, p in model.named_parameters()
+                  if not name.startswith(("tok.", "pos.")))
+    w_bytes += 2 * slots * model.tok.weight[0].numel() * 4
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for entry in engine.cache.values()
+                     for t in entry.values())
+    ops = 2 * slots * sum(p.numel() for name, p in model.named_parameters()
+                          if not name.startswith(("tok.", "pos.")))
+    ops += 2 * sum(t.numel() for entry in engine.cache.values()
+                   for name, t in entry.items() if not name.endswith("scale"))
+    ms, by = bound(w_bytes + pool_bytes, ops, "f32")
+    return {"bound_ms": ms, "bound_by": by, "weight_bytes": w_bytes,
+            "pool_bytes": pool_bytes}
+
+
+def _serve_over_socket(model, reqs, dtype) -> dict:
+    """``reqs`` through ServeClient → socket → Frontend → Scheduler →
+    SlotEngine(8 slots, max_len 2048), every serving object closed on
+    return: the tokens, end reasons, the engine's stats over the wire,
+    wall time, kernel launches, peak memory and the decode step's bound."""
+    from tpu_dist_torch import serve
+    from tpu_dist_torch.benchmarks.serve_lm import warmup
+    from tpu_dist_torch.ops import KERNELS
+
+    engine = serve.SlotEngine(model, num_slots=8, max_len=2048,
+                              cache_dtype=dtype, device=model.device)
+    warmup(engine, reqs)
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sched = serve.Scheduler(engine, batch_window=0.002)
+    fe = serve.Frontend(sched, port=0)
+    try:
+        with serve.ServeClient("127.0.0.1", fe.port, connect_retry=10,
+                               timeout=60) as cli:
+            t0 = time.perf_counter()
+            handles = [cli.submit(r["prompt"].tolist(),
+                                  max_new_tokens=r["max_new_tokens"],
+                                  temperature=r["temperature"],
+                                  seed=r["seed"]) for r in reqs]
+            got = [h.wait_done(600.0) for h in handles]
+            wall = time.perf_counter() - t0
+            reasons = [h.reason for h in handles]
+            stats = cli.stats(timeout=60.0)
+    finally:
+        fe.close()
+        sched.close()
+    return {"got": got, "reasons": reasons, "stats": stats, "wall": wall,
+            "launches": {k.__name__: k.launches for k in KERNELS},
+            "peak": torch.cuda.max_memory_allocated(),
+            "bound": decode_bound(model, engine)}
+
+
+def check_serve(results, cache: str = "float32"):
+    """The full-width model served through ServeClient → socket → Frontend
+    → Scheduler → SlotEngine(8 slots, max_len 2048); every request against
+    ``generate()`` alone on the card, and (float32) two greedy ones against
+    the plain path on a CPU copy of the weights.  The memory the card holds
+    after the phase must be back to what it held before it."""
+    import gc
+
+    from tpu_dist_torch.benchmarks.serve_lm import CACHE_DTYPES, CONFIG
+    from tpu_dist_torch.models import TransformerLM
+
+    model = _serve_model()
+    dtype = CACHE_DTYPES[cache]
+    reqs = smoke_requests()
+    held_before = torch.cuda.memory_allocated()
+    run = _serve_over_socket(model, reqs, dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    leftover = torch.cuda.memory_allocated() - held_before
+    ok_memory = leftover <= SERVE_LEFTOVER_BYTES
+    got, st = run["got"], run["stats"]
+    ok_served = (run["reasons"] == ["length"] * len(reqs)
+                 and all(len(a) == r["max_new_tokens"]
+                         for a, r in zip(got, reqs)))
+    ok_launches = not any(run["launches"].values())
+    t1 = time.perf_counter()
+    want = [_generate(model, r, dtype) for r in reqs]
+    vs_gen = _tie_rule(model, reqs, got, want, dtype, f"generate_{cache}")
+    gen_s = time.perf_counter() - t1
+    vs_cpu = []
+    if cache == "float32":
+        cpu = TransformerLM(**CONFIG, device="cpu")
+        cpu.load_state_dict(model.state_dict())
+        greedy = sorted((i for i, r in enumerate(reqs)
+                         if not r["temperature"]),
+                        key=lambda i: len(reqs[i]["prompt"]))[:2]
+        sub = [reqs[i] for i in greedy]
+        cpu_want = [_generate(cpu, r, dtype) for r in sub]
+        vs_cpu = [(greedy[i], ok, div) for i, ok, div in _tie_rule(
+            cpu, sub, [got[i] for i in greedy], cpu_want, dtype, "cpu")]
+        del cpu
+    ok_ties = all(ok for _, ok, _ in vs_gen + vs_cpu)
+    emit(f"serve{'' if cache == 'float32' else '_int8'}", cache=cache,
+         requests=len(reqs), greedy=sum(not r["temperature"] for r in reqs),
+         prompt_lens=[len(r["prompt"]) for r in reqs],
+         max_new_tokens=[r["max_new_tokens"] for r in reqs],
+         generated_tokens=st["generated_tokens"], wall_s=run["wall"],
+         tokens_per_s=st["generated_tokens"] / run["wall"],
+         ttft_p50_ms=st["ttft"]["p50"] * 1e3,
+         ttft_p99_ms=st["ttft"]["p99"] * 1e3,
+         decode_step_p50_ms=st["decode_step"]["p50"] * 1e3,
+         decode_step_p99_ms=st["decode_step"]["p99"] * 1e3,
+         prefill_p50_ms=st["prefill"]["p50"] * 1e3,
+         occupancy=st["occupancy"], decode_steps=st["decode_steps"],
+         peak_mem_bytes=run["peak"], held_before_bytes=held_before,
+         leftover_bytes=leftover, ok_memory_released=ok_memory,
+         decode_step_bound=run["bound"],
+         kernel_launches=run["launches"], ok_launches_zero=ok_launches,
+         ok_served=ok_served,
+         divergent_vs_generate=[i for i, _, d in vs_gen if d],
+         divergent_vs_cpu=[i for i, _, d in vs_cpu if d],
+         cpu_checked_requests=[i for i, _, _ in vs_cpu],
+         reference_seconds=gen_s, ok_tie_rule=ok_ties)
+    return ok_served and ok_launches and ok_ties and ok_memory
+
+
+def check_serve_int8(results):
+    return check_serve(results, cache="int8")
+
+
+def check_quant(results):
+    """``quantize_linear_weights(attention=True)`` on the full-width model:
+    greedy ``generate`` of 32 tokens on the card against the same int8
+    weights on the CPU, and the decode step (8 slots, float32 pool) of the
+    quantized model against the unquantized one, in turns."""
+    import copy
+
+    from tpu_dist_torch.nn import quantize_linear_weights
+
+    model = _serve_model()
+    qmodel = quantize_linear_weights(copy.deepcopy(model), attention=True)
+    reqs = smoke_requests()
+    req = dict(min(reqs, key=lambda r: len(r["prompt"])), max_new_tokens=32,
+               temperature=0.0, seed=0)
+    got = _generate(qmodel, req, torch.float32)
+    cpu = copy.deepcopy(qmodel).to("cpu")
+    want = _generate(cpu, req, torch.float32)
+    [(_, ok_tie, div)] = _tie_rule(cpu, [req], [got], [want], torch.float32,
+                                   "quant_cpu")
+    del cpu
+
+    lengths = [len(r["prompt"]) for r in reqs[:8]]
+    tokens = torch.zeros(8, dtype=torch.long, device=model.device)
+
+    def step_ms(m, cache, n=20):
+        times = []
+        for _ in range(n + 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.decode_step(tokens, lengths, cache)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[3:])
+
+    caches = {name: m.init_slot_cache(8, 2048)
+              for name, m in (("float", model), ("int8", qmodel))}
+    timing = {"float": [], "int8": []}
+    for name in ("float", "int8", "int8", "float"):
+        timing[name].append(step_ms(model if name == "float" else qmodel,
+                                    caches[name]))
+    q_bytes = sum(p.numel() * p.element_size()
+                  for p in qmodel.parameters())
+    f_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    emit("quant", prompt_len=len(req["prompt"]), new_tokens=32,
+         tokens_card=got, divergence_vs_cpu=div,
+         decode_step_ms_float32_weights=timing["float"],
+         decode_step_ms_int8_weights=timing["int8"],
+         weight_bytes_float32=f_bytes, weight_bytes_int8=q_bytes,
+         ok_tie_rule=ok_tie)
+    return ok_tie and len(got) == 32
+
+
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("gmm", check_gmm), ("slice", check_slice),
           ("composition", check_composition), ("moe_slice", check_moe_slice),
           ("moe_layer", check_moe_layer),
-          ("moe_composition", check_moe_composition))
+          ("moe_composition", check_moe_composition),
+          ("serve", check_serve), ("serve_int8", check_serve_int8),
+          ("quant", check_quant))
 
 
 def main() -> int:
@@ -1179,11 +1501,14 @@ def main() -> int:
     for name, fn in PHASES:
         if only and name not in only:
             continue
+        t_phase = time.perf_counter()
         try:
             ok = fn(results)
         except Exception:  # report every phase, then fail
             traceback.print_exc()
             ok = False
+        emit("phase_seconds", name=name,
+             seconds=time.perf_counter() - t_phase, ok=bool(ok))
         if not ok:
             failed.append(name)
         torch.cuda.synchronize()

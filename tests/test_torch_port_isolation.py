@@ -25,6 +25,12 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch.benchmarks.transformer_lm
         import tpu_dist_torch.benchmarks.moe_lm
         import tpu_dist_torch.benchmarks.profile_step
+        import tpu_dist_torch.benchmarks.serve_lm
+        import tpu_dist_torch.nn.quant
+        import tpu_dist_torch.serve
+        import tpu_dist_torch.random
+        import tpu_dist_torch.serve._wire
+        import tpu_dist_torch.utils
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist")
                         and sys.modules[m] is not None)
@@ -57,6 +63,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     """With no device argument and no CUDA device, the entry points raise
     instead of running on the CPU."""
     from tpu_dist_torch import dist
+    from tpu_dist_torch.benchmarks import serve_lm
     from tpu_dist_torch.benchmarks.transformer_lm import run
     from tpu_dist_torch.models import TransformerLM
 
@@ -64,9 +71,39 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run()
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         TransformerLM(vocab_size=11, dim=8, depth=1, num_heads=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dist.init_process_group()
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="CUDA events"):
         run(device="cpu")
+
+
+LOWER_LAYERS = sorted((PORT / "models").rglob("*.py")) + sorted(
+    (PORT / "nn").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", LOWER_LAYERS,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_models_and_nn_do_not_import_serving(path):
+    """The model and layer modules sit below serving and the benchmarks:
+    none of them imports ``tpu_dist_torch.serve`` or
+    ``tpu_dist_torch.benchmarks``."""
+    package = list(path.relative_to(REPO).with_suffix("").parts[:-1])
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            targets = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level \
+                else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            targets = [mod] + [f"{mod}.{a.name}" for a in node.names]
+        else:
+            continue
+        for name in targets:
+            assert not name.startswith(("tpu_dist_torch.serve",
+                                        "tpu_dist_torch.benchmarks")), (
+                f"{path.relative_to(REPO)}:{node.lineno} imports {name}")

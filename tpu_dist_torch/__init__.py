@@ -7,11 +7,17 @@ counterpart is easy to find, and uses PyTorch idiom inside.  It imports
 ``tpu_dist``.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no CUDA device and no ``device`` they raise.
 
-Ported so far (slice 1): the GPT-2-small-shaped ``TransformerLM`` trained
-through ``DistributedDataParallel`` with bf16 compute, the fused
-cross-entropy and flash attention as hand-written kernels.
+Ported so far: the GPT-2-small-shaped ``TransformerLM`` trained through
+``DistributedDataParallel`` with bf16 compute (dense, and with a dropless
+MoE), its kernels hand-written (fused cross-entropy, flash attention,
+grouped matmuls); and serving it with continuous batching (``serve``: KV
+slot cache, engine, scheduler, socket frontend and client, int8 weights
+and caches), with ``random``, the JAX package's sampling stream (the
+counterpart of ``jax.random``) that generation and the engine draw from.
 """
 
-from . import dist, models, nn, ops, optim, parallel
+from . import (dist, models, nn, ops, optim, parallel, random, serve,
+               utils)
 
-__all__ = ["dist", "models", "nn", "ops", "optim", "parallel"]
+__all__ = ["dist", "models", "nn", "ops", "optim", "parallel", "random",
+           "serve", "utils"]

@@ -1,28 +1,67 @@
-"""Where the time of one training step goes, on the card.
+"""Where the time of one step goes, on the card.
 
-Runs the dense slice of :mod:`tpu_dist_torch.benchmarks.transformer_lm`
-or, with ``--model moe``, the dropless-MoE slice of
-:mod:`tpu_dist_torch.benchmarks.moe_lm` (same configurations) under
-``torch.profiler`` for a few steps after warm-up and prints one JSON line:
-device time per step by kernel group and for the slowest kernels, and the
-device's idle share over the profiled window (1 − union of kernel intervals
-/ the span from the first kernel's start to the last one's end).
+Runs the dense slice of :mod:`tpu_dist_torch.benchmarks.transformer_lm`,
+with ``--model moe`` the dropless-MoE slice of
+:mod:`tpu_dist_torch.benchmarks.moe_lm` (a training step each), or one
+decode iteration (``SlotEngine.step``: the pool's forward, the sampling and
+the read-back of the tokens) of the serving slice of
+:mod:`tpu_dist_torch.benchmarks.serve_lm` with its 8 slots filled by the
+benchmark's first 8 prompts — greedy (``serve``), all sampling at
+temperature 0.8 with seeds 1-8 (``serve_sampled``), or greedy over the
+int8 KV cache (``serve_int8``) — under ``torch.profiler`` for a few steps
+after warm-up, and prints one JSON line: device time per step by kernel
+group and for the slowest kernels, kernel launches per step, the device's
+idle share over the profiled window
+(1 − union of kernel intervals / the span from the first kernel's start to
+the last one's end, the profiler's own host overhead included), and the
+step's time without the profiler (host clock, synchronized).
 
-    python -m tpu_dist_torch.benchmarks.profile_step [--model dense|moe]
+    python -m tpu_dist_torch.benchmarks.profile_step [--model MODEL]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import time
 from collections import defaultdict
 
 import torch
 
 from ..ops._build import resolve_device
-from . import moe_lm, transformer_lm
+from ..serve import Request, SlotEngine
+from . import moe_lm, serve_lm, transformer_lm
 
-_BUILDERS = {"dense": transformer_lm.build, "moe": moe_lm.build}
+
+def _train_step(build):
+    def make(device):
+        ddp, x, y = build(device=device)
+        state = [ddp.init(seed=0)]
+
+        def step():
+            state[0], _ = ddp.train_step(state[0], x, y)
+        return step
+    return make
+
+
+def _decode_step(cache_dtype, sampled: bool):
+    def make(device):
+        engine = SlotEngine(serve_lm.build(device=device), num_slots=8,
+                            cache_dtype=cache_dtype, device=device)
+        for i, r in enumerate(serve_lm.workload(8)):
+            # enough new tokens for warm-up and both timed windows
+            engine.admit(Request(r["prompt"], 100,
+                                 temperature=0.8 if sampled else 0.0,
+                                 seed=i + 1))
+        return engine.step
+    return make
+
+
+_BUILDERS = {"dense": _train_step(transformer_lm.build),
+             "moe": _train_step(moe_lm.build),
+             "serve": _decode_step(torch.float32, sampled=False),
+             "serve_sampled": _decode_step(torch.float32, sampled=True),
+             "serve_int8": _decode_step(torch.int8, sampled=False)}
 
 # kernel-name fragments → group (first match wins)
 _GROUPS = (("flash", "flash attention (K2)"),
@@ -47,16 +86,20 @@ def profile(steps: int = 3, warmup: int = 3, model: str = "dense",
     device = resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError("profile() reads device kernels; it needs the card")
-    ddp, x, y = _BUILDERS[model](device=device)
-    state = ddp.init(seed=0)
+    step = _BUILDERS[model](device)
     for _ in range(warmup):
-        state, _ = ddp.train_step(state, x, y)
+        step()
     torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize(device)
+    unprofiled_ms = (time.perf_counter() - t0) * 1e3 / steps
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
-            state, _ = ddp.train_step(state, x, y)
+            step()
         torch.cuda.synchronize(device)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -86,11 +129,13 @@ def profile(steps: int = 3, warmup: int = 3, model: str = "dense",
         "kernel_ms_per_step": sum(by_name.values()) / steps / 1e3,
         "window_ms_per_step": window / steps / 1e3,
         "idle_share": 1.0 - busy / window,
-        "groups_ms_per_step": {g: us / steps / 1e3 for g, us in
-                               sorted(by_group.items(), key=lambda kv: -kv[1])},
+        "groups_ms_per_step": {
+            g: us / steps / 1e3
+            for g, us in sorted(by_group.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_step": [[n[:120], us / steps / 1e3]
                                     for n, us in top],
         "kernel_launches_per_step": len(kernels) / steps,
+        "unprofiled_ms_per_step": unprofiled_ms,
     }
 
 

@@ -16,7 +16,16 @@ MoELayer              router (d, E)           router (d, E)
                       w1 (E, d, h), b1 (E, h) identical
                       w2 (E, h, d), b2 (E, d) identical
 MoELayer state        aux_loss                not a parameter: skipped
+QuantLinear           q_weight (in, out) int8 q_weight (out, in) int8
+                      scale (out,)            identical
+QuantMultiheadSelf-   qkv_q (d, 3d) int8      qkv_q (3d, d) int8
+Attention             out_q (d, d) int8       out_q (d, d) int8, .T
+                      qkv_scale, out_scale    identical
+QuantEmbedding        q_weight, scale         identical
 ====================  ======================  ==========================
+
+int8 leaves load as int8; every other leaf goes through float32 into the
+parameter's dtype.
 """
 
 from __future__ import annotations
@@ -29,7 +38,9 @@ from . import nn
 __all__ = ["load_jax_params"]
 
 _TRANSPOSED = {nn.Linear: ("weight",),
-               nn.MultiheadSelfAttention: ("qkv_weight", "out_weight")}
+               nn.MultiheadSelfAttention: ("qkv_weight", "out_weight"),
+               nn.QuantLinear: ("q_weight",),
+               nn.QuantMultiheadSelfAttention: ("qkv_q", "out_q")}
 
 
 def _join(path: str, leaf: str) -> str:
@@ -40,7 +51,8 @@ def _join(path: str, leaf: str) -> str:
 def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
     """Copy ``params`` into ``model``'s parameters in place (keeping their
     dtype and device) and return ``model``.  Raises ``KeyError`` on any
-    missing or extra key and ``ValueError`` on a shape that does not map."""
+    missing or extra key and ``ValueError`` on a shape that does not map
+    or a non-int8 leaf for an int8 parameter."""
     ours = dict(model.named_parameters())
     # aux_loss is MoE module state, never a parameter (a tree that merges
     # the JAX state in may carry it)
@@ -61,6 +73,10 @@ def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"{key}: JAX shape {theirs[key].shape} does not "
                              f"map to {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
-                .to(p.dtype))
+        if p.dtype == torch.int8 and a.dtype != np.int8:
+            raise ValueError(f"{key}: an int8 parameter takes an int8 leaf, "
+                             f"got {a.dtype}")
+        a = np.ascontiguousarray(
+            a, dtype=np.int8 if a.dtype == np.int8 else np.float32)
+        p.copy_(torch.tensor(a).to(p.dtype))
     return model

@@ -1,0 +1,118 @@
+"""Latency percentiles — counterpart of ``tpu_dist/utils/metrics.py``
+(:class:`LatencyHistogram` only: the same buckets and the same
+``summary()`` keys, so the port's serving stats read like the JAX
+package's).  The JAX package's accuracy metrics and collective counters
+come with later slices."""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Dict, Optional
+
+__all__ = ["LatencyHistogram"]
+
+
+class LatencyHistogram:
+    """Streaming latency percentiles without storing samples.
+
+    Geometric buckets: bucket 0 is the underflow bucket (values below
+    ``min_value``); bucket ``i >= 1`` covers
+    ``[min_value*(1+resolution)^(i-1), min_value*(1+resolution)^i)`` and
+    reports its upper edge, so any reported percentile is within a
+    ``resolution`` relative error of the true sample — at a few KB of
+    counts however many million observations arrive.  The final bucket is
+    the unbounded overflow bucket and reports the observed max.  The serving
+    engine's per-request queue/prefill/TTFT/token latencies
+    (:mod:`tpu_dist_torch.serve`) and the serving benchmark read it.
+    Thread-safe; ``merge`` combines histograms from concurrent recorders.
+    """
+
+    def __init__(self, min_value: float = 1e-6, max_value: float = 3600.0,
+                 resolution: float = 0.02):
+        if not 0 < min_value < max_value:
+            raise ValueError(f"need 0 < min_value < max_value, got "
+                             f"{min_value}/{max_value}")
+        if not 0 < resolution < 1:
+            raise ValueError(f"resolution must be in (0, 1), got "
+                             f"{resolution}")
+        self.min_value = float(min_value)
+        self.max_value = float(max_value)
+        self.resolution = float(resolution)
+        self._log1p = math.log1p(resolution)
+        self._nbuckets = self._index(max_value) + 2  # + under/overflow slot
+        self._counts = [0] * self._nbuckets
+        self._mu = threading.Lock()
+        self._n = 0
+        self._sum = 0.0
+        self._max = 0.0
+
+    def _index(self, value: float) -> int:
+        if value < self.min_value:
+            return 0
+        return 1 + int(math.log(value / self.min_value) / self._log1p)
+
+    def observe(self, seconds: float) -> None:
+        """Record one latency sample (negative values clamp to 0)."""
+        v = max(0.0, float(seconds))
+        i = min(self._index(v), self._nbuckets - 1)
+        with self._mu:
+            self._counts[i] += 1
+            self._n += 1
+            self._sum += v
+            self._max = max(self._max, v)
+
+    def merge(self, other: "LatencyHistogram") -> None:
+        """Fold ``other``'s counts into this histogram (must share the
+        bucket geometry)."""
+        if (other.min_value, other.max_value, other.resolution) != \
+                (self.min_value, self.max_value, self.resolution):
+            raise ValueError("histograms have different bucket geometry")
+        with other._mu:
+            counts = list(other._counts)
+            n, s, mx = other._n, other._sum, other._max
+        with self._mu:
+            for i, c in enumerate(counts):
+                self._counts[i] += c
+            self._n += n
+            self._sum += s
+            self._max = max(self._max, mx)
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+    def percentile(self, p: float) -> Optional[float]:
+        """The ``p``-th percentile (0 < p <= 100), or None when empty.
+        Returns the upper edge of the bucket holding the rank-``ceil(p/100
+        * n)`` sample — within ``resolution`` relative error, clamped to
+        the observed max."""
+        if not 0 < p <= 100:
+            raise ValueError(f"percentile must be in (0, 100], got {p}")
+        with self._mu:
+            if self._n == 0:
+                return None
+            rank = max(1, math.ceil(p / 100.0 * self._n))
+            seen = 0
+            for i, c in enumerate(self._counts):
+                seen += c
+                if seen >= rank:
+                    if i >= self._nbuckets - 1:
+                        # overflow bucket is unbounded above: the observed
+                        # max is the only honest answer
+                        return self._max
+                    upper = (self.min_value * (1 + self.resolution) ** i
+                             if i else self.min_value)
+                    return min(upper, self._max)
+            return self._max
+
+    def summary(self) -> Dict[str, float]:
+        """``{count, mean, max, p50, p95, p99}`` (zeros when empty)."""
+        with self._mu:
+            n, s, mx = self._n, self._sum, self._max
+        if n == 0:
+            return {"count": 0, "mean": 0.0, "max": 0.0,
+                    "p50": 0.0, "p95": 0.0, "p99": 0.0}
+        return {"count": n, "mean": s / n, "max": mx,
+                "p50": self.percentile(50), "p95": self.percentile(95),
+                "p99": self.percentile(99)}
