@@ -56,13 +56,29 @@ Phases, each printed as one JSON line:
    weights (``quantize_linear_weights(attention=True)``), 32 greedy tokens
    on the card against the same weights on the CPU, and its decode step
    against the float32 model's, in turns.
-6. ``kernels``: one line over all kernels; the card's name and power limit
+6. ``convnet``: the ConvNet twin example's ``train`` at world 1 on the card
+   (batch 100, synthetic MNIST, float32) for 300 steps at lr 0.05: the loss
+   must fall at least 5x, and ``evaluate`` over the 10,000 test images must
+   count 10,000 and score above 0.9; one float32 step against the same
+   step on a CPU copy of the port, TF32 off (``VISION_STEP_TOL``); then
+   images/s/GPU, step ms and peak memory at bench.py's headline (batch
+   8192, bf16, ``train_chunk`` of 50) and its float32 row (2048), under
+   torch's default TF32 permissions.  ``resnet``: resnet18(num_classes=10)
+   through the ResNet twin example's path (RandomCrop + Flip on the host,
+   DataLoader, DeviceLoader), batch 256, 20 steps in float32 (then
+   ``evaluate``, an exact count) and 20 in bf16: losses finite and falling,
+   every BatchNorm statistic moved and finite; one float32 step (parameters
+   and BatchNorm statistics) against the CPU copy; images/s/GPU at batch
+   256 and 1024 (bf16).  Neither path runs a hand-written kernel: every
+   launch count over each phase must be 0.
+7. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
 named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``composition``, ``moe_slice``, ``moe_layer``, ``moe_composition``,
-``serve``, ``serve_int8``, ``quant``) and never prints the result line.
+``serve``, ``serve_int8``, ``quant``, ``convnet``, ``resnet``) and never
+prints the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -1446,13 +1462,203 @@ def check_quant(results):
     return ok_tie and len(got) == 32
 
 
+# ---------------------------------------------------------------------------
+# the vision slice: ConvNet/MNIST and ResNet-18/CIFAR-10 DDP training
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def tf32(cudnn: bool):
+    """Whether cuDNN may use TF32 for float32 convolutions in the block
+    (cuBLAS may not, torch's default), restored after it.  ``tf32(True)`` is
+    torch's default, under which the vision timing lines run; the strict
+    comparisons run under ``tf32(False)``."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def launch_counts() -> dict:
+    from tpu_dist_torch.ops import KERNELS
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def step_against_cpu(ddp, make_cpu_model, x, y, tol: dict):
+    """One float32 train step of ``ddp`` on the card against the same step
+    of a CPU copy of the port (same weights, state and batch), TF32 off:
+    the loss, every parameter's update and every BatchNorm statistic.
+    Returns the fields to print and whether each is within ``tol``."""
+    from tpu_dist_torch.parallel import DistributedDataParallel
+
+    with tf32(False):
+        state = ddp.init(seed=0)
+        cpu_model = make_cpu_model()
+        cpu = DistributedDataParallel(cpu_model, optimizer=ddp.optimizer,
+                                      loss_fn=ddp.loss_fn)
+        cpu_state = cpu.init(seed=0)
+        cpu_model.load_state_dict(ddp.module.state_dict())
+        p0 = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+        state, m = ddp.train_step(state, x, y)
+        cpu_state, m_cpu = cpu.train_step(cpu_state, x.cpu(), y.cpu())
+    leaf = {}
+    for k, p in state.params.items():
+        upd_c = cpu_state.params[k].detach() - p0[k]
+        err = float((p.detach().cpu() - p0[k] - upd_c).norm())
+        leaf[k] = err / max(float(upd_c.norm()), 1e-30)
+    bn = {}
+    for path, leaves in state.model_state.items():
+        for name, t in leaves.items():
+            want = cpu_state.model_state[path][name]
+            bn[f"{path}.{name}"] = float((t.cpu() - want).abs().max()
+                                         / want.abs().max().clamp_min(1e-30))
+    loss, loss_cpu = float(m["loss"]), float(m_cpu["loss"])
+    worst = max(leaf, key=leaf.get)
+    worst_bn = max(bn, key=bn.get) if bn else None
+    ok = (abs(loss - loss_cpu) <= tol["loss_rtol"] * abs(loss_cpu)
+          and leaf[worst] <= tol["update_rel"]
+          and (not bn or bn[worst_bn] <= tol["state_rel"])
+          and int(m["correct"]) == int(m_cpu["correct"]))
+    return {"loss_card": loss, "loss_cpu": loss_cpu,
+            "correct_card": int(m["correct"]),
+            "correct_cpu": int(m_cpu["correct"]),
+            "worst_update_leaf": [worst, leaf[worst]],
+            "worst_bn_stat": [worst_bn, bn.get(worst_bn)],
+            "tolerance": tol, "ok": ok}
+
+
+def example_args(module, argv):
+    return module.parse_args(["--synthetic", "--epochs", "1"] + argv)
+
+
+def timed_row(fn, **kw) -> dict:
+    """One benchmark run under torch's default TF32 permissions."""
+    with tf32(True):
+        r = fn(**kw)
+    return {k: r[k] for k in ("value", "step_ms", "peak_mem_bytes",
+                              "per_gpu_batch", "dtype", "cudnn_allow_tf32")}
+
+
+VISION_STEP_TOL = {
+    "loss_rtol": 1e-5, "update_rel": 1.2e-2, "state_rel": 1e-5,
+    "why": "float32 with TF32 off on both sides: cuDNN and the CPU's "
+           "convolutions sum the same products in other orders (the CPU "
+           "parity tests' 1e-5 relative on the loss and statistics). A "
+           "leaf's update is its gradient, a sum over the batch and the "
+           "image whose terms largely cancel (a first-layer weight, a "
+           "BatchNorm bias), so its error is held to its own norm: about "
+           "twice the worst leaves measured on an H100 (ConvNet "
+           "conv1.weight 5.2e-3, ResNet-18 layer3.0.bn2.bias 3.0e-3)"}
+
+
+def check_convnet(results):
+    """The ConvNet twin's ``train`` at world 1 (batch 100, synthetic MNIST,
+    float32) to convergence at lr 0.05 and evaluated; one step against the
+    CPU copy; images/s/GPU at bench.py's headline (batch 8192, bf16,
+    ``train_chunk``) and its float32 row (2048).  No hand-written kernel
+    may launch."""
+    from tpu_dist_torch.benchmarks import convnet
+    from tpu_dist_torch.data import MNIST, DataLoader, transforms
+    from tpu_dist_torch.examples import mpspawn_dist
+    from tpu_dist_torch.models import ConvNet
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    run = mpspawn_dist.train(example_args(mpspawn_dist, [
+        "--max-steps", "300", "--lr", "0.05", "--evaluate"]))
+    train_s = time.perf_counter() - t0
+    losses = [float(v) for v in run["losses"]]
+    ev = run["eval"]
+    fall = losses[0] / statistics.mean(losses[-10:])
+    ok_train = (len(losses) == 300 and all(map(math.isfinite, losses))
+                and fall >= 5.0 and ev["count"] == 10000
+                and ev["accuracy"] > 0.9)
+
+    ds = MNIST("./data", train=True, synthetic_fallback=True,
+               transform=transforms.Normalize(transforms.MNIST_MEAN,
+                                              transforms.MNIST_STD))
+    x, y = next(iter(DataLoader(ds, batch_size=100)))
+    ddp = convnet.build(batch=100, dtype="float32", device="cuda")[0]
+    cmp_ = step_against_cpu(ddp, lambda: ConvNet(device="cpu"),
+                            x.cuda(), y.cuda(), VISION_STEP_TOL)
+
+    rows = [timed_row(convnet.run, batch=8192, steps=50, dtype="bfloat16"),
+            timed_row(convnet.run, batch=2048, steps=50, dtype="float32")]
+    counts = launch_counts()
+    ok_launches = not any(counts.values())
+    emit("convnet", train_steps=len(losses), first_loss=losses[0],
+         last_losses=losses[-5:], loss_fall=fall, eval=ev,
+         train_and_eval_s=train_s, ok_converged=ok_train,
+         step_vs_cpu=cmp_, timing=rows,
+         timing_note="torch's default TF32 permissions (cuDNN yes, cuBLAS "
+                     "no); images/s/GPU at world 1",
+         kernel_launches=counts, ok_launches_zero=ok_launches)
+    return ok_train and cmp_["ok"] and ok_launches
+
+
+def check_resnet(results):
+    """resnet18(num_classes=10) through the ResNet twin's path (synthetic
+    CIFAR-10, RandomCrop + Flip on the host, DataLoader → DeviceLoader),
+    batch 256 and the example's recipe, 20 steps in float32 (then evaluated)
+    and 20 in bf16: losses finite and falling, every BatchNorm statistic
+    moved and finite, an exact evaluation count; one float32 step against
+    the CPU copy; images/s/GPU at batch 256 and 1024 (bf16).  No
+    hand-written kernel may launch."""
+    from tpu_dist_torch.benchmarks import resnet_cifar
+    from tpu_dist_torch.examples import example_mp
+    from tpu_dist_torch.models import resnet18
+
+    zero_launch_counts()
+    runs = {}
+    ok_train = True
+    for name, argv in (("float32", ["--evaluate"]), ("bf16", ["--bf16"])):
+        t0 = time.perf_counter()
+        r = example_mp.train(example_args(example_mp,
+                                          ["--max-steps", "20"] + argv))
+        losses = [float(v) for v in r["losses"]]
+        stats = r["state"].model_state
+        moved = all(bool(torch.isfinite(t).all()) and bool(
+            (t != (0.0 if leaf == "mean" else 1.0)).all())
+            for leaves in stats.values() for leaf, t in leaves.items())
+        falling = statistics.mean(losses[-5:]) < statistics.mean(losses[:5])
+        ev = r["eval"]
+        ok = (len(losses) == 20 and all(map(math.isfinite, losses))
+              and falling and moved and len(stats) == 20
+              and (ev is None or ev["count"] == 10000))
+        ok_train = ok_train and ok
+        runs[name] = {"losses": losses, "bn_layers": len(stats),
+                      "bn_stats_moved_and_finite": moved,
+                      "loss_falling": falling, "eval": ev,
+                      "seconds": time.perf_counter() - t0, "ok": ok}
+    ok_train = ok_train and runs["float32"]["eval"] is not None
+
+    ddp, x, y = resnet_cifar.build(batch=256, dtype="float32", device="cuda")
+    cmp_ = step_against_cpu(ddp, lambda: resnet18(num_classes=10,
+                                                  device="cpu"),
+                            x, y, VISION_STEP_TOL)
+    rows = [timed_row(resnet_cifar.run, batch=b) for b in (256, 1024)]
+    counts = launch_counts()
+    ok_launches = not any(counts.values())
+    emit("resnet", runs=runs, step_vs_cpu=cmp_, timing=rows,
+         timing_note="bf16 compute over float32 masters, torch's default "
+                     "TF32 permissions (cuDNN yes, cuBLAS no); "
+                     "images/s/GPU at world 1",
+         kernel_launches=counts, ok_launches_zero=ok_launches)
+    return ok_train and cmp_["ok"] and ok_launches
+
+
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("gmm", check_gmm), ("slice", check_slice),
           ("composition", check_composition), ("moe_slice", check_moe_slice),
           ("moe_layer", check_moe_layer),
           ("moe_composition", check_moe_composition),
           ("serve", check_serve), ("serve_int8", check_serve_int8),
-          ("quant", check_quant))
+          ("quant", check_quant), ("convnet", check_convnet),
+          ("resnet", check_resnet))
 
 
 def main() -> int:

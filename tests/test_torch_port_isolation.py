@@ -7,6 +7,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,6 +32,12 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch.random
         import tpu_dist_torch.serve._wire
         import tpu_dist_torch.utils
+        import tpu_dist_torch.data
+        import tpu_dist_torch.launch
+        import tpu_dist_torch.examples.mpspawn_dist
+        import tpu_dist_torch.examples.example_mp
+        import tpu_dist_torch.benchmarks.convnet
+        import tpu_dist_torch.benchmarks.resnet_cifar
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist")
                         and sys.modules[m] is not None)
@@ -62,10 +69,12 @@ def test_no_file_imports_jax_or_tpu_dist(path):
 def test_entry_points_raise_without_cuda(monkeypatch):
     """With no device argument and no CUDA device, the entry points raise
     instead of running on the CPU."""
-    from tpu_dist_torch import dist
-    from tpu_dist_torch.benchmarks import serve_lm
+    from tpu_dist_torch import data, dist, nn, optim
+    from tpu_dist_torch.benchmarks import convnet, resnet_cifar, serve_lm
     from tpu_dist_torch.benchmarks.transformer_lm import run
-    from tpu_dist_torch.models import TransformerLM
+    from tpu_dist_torch.examples import example_mp, mpspawn_dist
+    from tpu_dist_torch.models import ConvNet, TransformerLM, resnet18
+    from tpu_dist_torch.parallel import DistributedDataParallel
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -77,6 +86,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dist.init_process_group()
     assert not dist.is_initialized()
+    for example in (mpspawn_dist, example_mp):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example.train(example.parse_args(["--synthetic"]))
+        assert not dist.is_initialized()
+    for bench in (convnet, resnet_cifar):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench.run()
+    loader = data.DataLoader(data.TensorDataset(np.zeros(4), np.zeros(4)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        data.DeviceLoader(loader)
+    # a DDP's model built on the default device
+    for build in (ConvNet, lambda: resnet18(num_classes=10)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DistributedDataParallel(build(), optimizer=optim.SGD(lr=0.1),
+                                    loss_fn=nn.CrossEntropyLoss())
     with pytest.raises(RuntimeError, match="CUDA events"):
         run(device="cpu")
 

@@ -164,6 +164,15 @@ def test_ddp_refuses_options_of_later_slices():
     model = TorchLM(vocab_size=11, dim=8, depth=1, num_heads=2,
                     max_seq_len=4, device="cpu")
     for kw in (dict(accum_steps=2), dict(shard_optimizer=True),
-               dict(comm_dtype=torch.bfloat16), dict(sync_batchnorm=True)):
+               dict(comm_dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError, match="slice"):
             TorchDDP(model, optimizer=toptim.SGD(lr=0.1), **kw)
+    # sync_batchnorm came with the vision slice: a model without BatchNorm
+    # trains as before
+    ddp = TorchDDP(model, optimizer=toptim.SGD(lr=0.1),
+                   loss_fn=tnn.CrossEntropyLoss(), sync_batchnorm=True)
+    state = ddp.init(seed=0)
+    assert state.model_state == {}
+    x = torch.randint(0, 11, (2, 4))
+    state, m = ddp.train_step(state, x, x)
+    assert torch.isfinite(m["loss"]) and state.step == 1

@@ -13,11 +13,17 @@ MoE), its kernels hand-written (fused cross-entropy, flash attention,
 grouped matmuls); and serving it with continuous batching (``serve``: KV
 slot cache, engine, scheduler, socket frontend and client, int8 weights
 and caches), with ``random``, the JAX package's sampling stream (the
-counterpart of ``jax.random``) that generation and the engine draw from.
+counterpart of ``jax.random``) that generation and the engine draw from;
+and the reference tutorial's own workload: the MNIST ``ConvNet`` and the
+CIFAR-10 ``resnet18`` trained through DDP with per-replica (or synced)
+BatchNorm and evaluated (``nn`` vision layers on cuDNN, ``models``), the
+data path (``data``: samplers, synthetic datasets, transforms, a threaded
+loader, a device loader), ``launch.spawn``, and ``examples``, the twins of
+the two ``mp.spawn`` scripts.
 """
 
-from . import (dist, models, nn, ops, optim, parallel, random, serve,
-               utils)
+from . import (data, dist, examples, launch, models, nn, ops, optim,
+               parallel, random, serve, utils)
 
-__all__ = ["dist", "models", "nn", "ops", "optim", "parallel", "random",
-           "serve", "utils"]
+__all__ = ["data", "dist", "examples", "launch", "models", "nn", "ops",
+           "optim", "parallel", "random", "serve", "utils"]

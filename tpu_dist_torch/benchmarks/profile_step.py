@@ -2,7 +2,11 @@
 
 Runs the dense slice of :mod:`tpu_dist_torch.benchmarks.transformer_lm`,
 with ``--model moe`` the dropless-MoE slice of
-:mod:`tpu_dist_torch.benchmarks.moe_lm` (a training step each), or one
+:mod:`tpu_dist_torch.benchmarks.moe_lm`, with ``--model convnet`` the
+ConvNet of :mod:`tpu_dist_torch.benchmarks.convnet` (batch 8192, bf16),
+with ``--model resnet18`` the ResNet-18 of
+:mod:`tpu_dist_torch.benchmarks.resnet_cifar` (batch 1024, bf16; a
+training step each), or one
 decode iteration (``SlotEngine.step``: the pool's forward, the sampling and
 the read-back of the tokens) of the serving slice of
 :mod:`tpu_dist_torch.benchmarks.serve_lm` with its 8 slots filled by the
@@ -30,7 +34,7 @@ import torch
 
 from ..ops._build import resolve_device
 from ..serve import Request, SlotEngine
-from . import moe_lm, serve_lm, transformer_lm
+from . import convnet, moe_lm, resnet_cifar, serve_lm, transformer_lm
 
 
 def _train_step(build):
@@ -42,6 +46,11 @@ def _train_step(build):
             state[0], _ = ddp.train_step(state[0], x, y)
         return step
     return make
+
+
+def _convnet(device):
+    ddp, xs, ys = convnet.build(device=device)
+    return ddp, xs[0], ys[0]
 
 
 def _decode_step(cache_dtype, sampled: bool):
@@ -59,6 +68,8 @@ def _decode_step(cache_dtype, sampled: bool):
 
 _BUILDERS = {"dense": _train_step(transformer_lm.build),
              "moe": _train_step(moe_lm.build),
+             "convnet": _train_step(_convnet),
+             "resnet18": _train_step(resnet_cifar.build),
              "serve": _decode_step(torch.float32, sampled=False),
              "serve_sampled": _decode_step(torch.float32, sampled=True),
              "serve_int8": _decode_step(torch.int8, sampled=False)}
@@ -68,8 +79,12 @@ _GROUPS = (("flash", "flash attention (K2)"),
            ("cross_entropy", "cross-entropy (K1)"),
            ("tgmm", "grouped matmul tgmm (K4)"),
            ("gmm", "grouped matmul gmm (K3)"),
+           # cuDNN's convolutions are implicit GEMMs: name them first
+           ("fprop", "convolution"), ("dgrad", "convolution"),
+           ("wgrad", "convolution"), ("conv", "convolution"),
            ("gemm", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
-           ("cutlass", "matmul"), ("elementwise", "elementwise"),
+           ("cutlass", "matmul"), ("pool", "pooling"),
+           ("elementwise", "elementwise"),
            ("reduce", "reductions"))
 
 

@@ -1,5 +1,9 @@
 """tpu_dist_torch.models — counterpart of ``tpu_dist.models``."""
 
+from .convnet import ConvNet
+from .resnet import (BasicBlock, Bottleneck, ResNet, resnet18, resnet34,
+                     resnet50)
 from .transformer import TransformerBlock, TransformerLM
 
-__all__ = ["TransformerLM", "TransformerBlock"]
+__all__ = ["TransformerLM", "TransformerBlock", "ConvNet", "ResNet",
+           "BasicBlock", "Bottleneck", "resnet18", "resnet34", "resnet50"]

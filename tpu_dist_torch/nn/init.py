@@ -10,7 +10,8 @@ import math
 
 import torch
 
-__all__ = ["torch_default_uniform", "normal", "uniform", "kaiming_uniform"]
+__all__ = ["torch_default_uniform", "normal", "uniform", "kaiming_uniform",
+           "kaiming_normal"]
 
 
 @torch.no_grad()
@@ -49,3 +50,13 @@ def kaiming_uniform(tensor, fan: int, a: float = 0.0,
     reads it from an (in, out) or HWIO shape)."""
     bound = _gain(nonlinearity, a) * math.sqrt(3.0 / fan)
     return uniform(tensor, -bound, bound, generator)
+
+
+@torch.no_grad()
+def kaiming_normal(tensor, fan: int, a: float = 0.0,
+                   nonlinearity: str = "leaky_relu", generator=None):
+    """torch's ``kaiming_normal_``: N(0, gain/sqrt(fan)).  ``fan`` is passed
+    in: torchvision's ResNet convolutions take ``mode="fan_out"``, which is
+    ``out_channels * kh * kw`` of an OIHW weight (the JAX package reads it
+    from HWIO)."""
+    return normal(tensor, _gain(nonlinearity, a) / math.sqrt(fan), generator)

@@ -1,5 +1,5 @@
 """tpu_dist_torch.parallel — counterpart of ``tpu_dist.parallel``."""
 
-from .ddp import DistributedDataParallel, TrainState
+from .ddp import DistributedDataParallel, TrainState, convert_sync_batchnorm
 
-__all__ = ["DistributedDataParallel", "TrainState"]
+__all__ = ["DistributedDataParallel", "TrainState", "convert_sync_batchnorm"]
