@@ -71,14 +71,33 @@ Phases, each printed as one JSON line:
    and BatchNorm statistics) against the CPU copy; images/s/GPU at batch
    256 and 1024 (bf16).  Neither path runs a hand-written kernel: every
    launch count over each phase must be 0.
-7. ``kernels``: one line over all kernels; the card's name and power limit
+7. ``optim``: at the dense slice's 136,993,280 float32 parameters (150
+   tensors), every optimizer's multi-tensor update (SGD classic, nesterov
+   and with a schedule; AdamW; Adam; RMSprop centered with momentum;
+   Adagrad), EMA's and ``clip_grad_norm`` against its plain per-parameter
+   loop on the same state and gradients (``OPTIM_TOL``, with a planted
+   1e-3 error that must be rejected); ms and launches per update against
+   the bytes bound, the plain loop's, and torch.optim's fused AdamW and
+   SGD as a yardstick.  An update that launches a third or more of the
+   plain loop's kernels fails: the multi-tensor path must not fall back.
+8. ``resume``: the dense slice at full width and depth with
+   ``AdamW(lr=warmup_cosine)``, ``accum_steps=2`` and an EMA: six steps
+   straight against three, a save through ``AsyncCheckpointer``, a fresh
+   DDP restored with ``verify=True`` and three more; parameters, AdamW
+   moments, counts and the EMA shadow must be equal bit for bit, and the
+   K1/K2 launch counts those of two micro-batches a step.  Save and
+   restore seconds and the checkpoint's bytes.  Then the example_mp twin
+   with ``--checkpoint-dir``/``--resume`` and the train_lm twin at its
+   defaults with ``--generate 32`` (the loss falls tenfold, all 32
+   transitions follow the permutation).
+9. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
 named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``composition``, ``moe_slice``, ``moe_layer``, ``moe_composition``,
-``serve``, ``serve_int8``, ``quant``, ``convnet``, ``resnet``) and never
-prints the result line.
+``serve``, ``serve_int8``, ``quant``, ``convnet``, ``resnet``, ``optim``,
+``resume``) and never prints the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -1651,6 +1670,399 @@ def check_resnet(results):
     return ok_train and cmp_["ok"] and ok_launches
 
 
+# ---------------------------------------------------------------------------
+# the training recipe: optimizers (multi-tensor) and checkpoint/resume
+# ---------------------------------------------------------------------------
+
+OPTIM_TOL = {
+    "rtol": 4.8e-7, "atol_update": 1e-5, "sensitivity": 1e-3,
+    "why": "float32 on both sides, from the same state and gradients: the "
+           "multi-tensor kernels fuse multiply-adds the plain loop rounds "
+           "twice and divide by a host scalar differently, so an element "
+           "differs in its last bits. Each tensor (parameters and every "
+           "state leaf) is held element by element to 4 ulps of its value "
+           "(rtol 4.8e-7) plus 1e-5 of its largest change in the update; "
+           "the plain result moved by 1e-3 of its own change must be "
+           "rejected"}
+
+
+def dense_shapes() -> dict:
+    """The dense GPT-2-small slice's parameter shapes by name (136,993,280
+    float32 values)."""
+    from tpu_dist_torch.models import TransformerLM
+
+    model = TransformerLM(vocab_size=32768, dim=768, depth=12, num_heads=12,
+                          max_seq_len=2048, device="meta")
+    return {k: tuple(p.shape) for k, p in model.named_parameters()}
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _tensors(tree, prefix=""):
+    """``{path: tensor}`` of a dict tree (the optimizer states)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_tensors(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def count_launches(fn, names: bool = False):
+    """Kernels the card ran for one ``fn()`` (``torch.profiler``); with
+    ``names`` also the three commonest kernel names and their counts."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        return len(kernels)
+    common = collections.Counter(k[:60] for k in kernels).most_common(3)
+    return len(kernels), common
+
+
+def optim_cases():
+    """(name, optimizer, bytes a parameter moves, operations a parameter):
+    each input read once and each output written once, float32."""
+    from tpu_dist_torch import optim
+
+    sched = optim.warmup_cosine(3e-4, 10, 100)
+    return [
+        ("sgd_momentum", optim.SGD(lr=0.02, momentum=0.9,
+                                   weight_decay=1e-4), 20, 6),
+        ("sgd_nesterov", optim.SGD(lr=0.02, momentum=0.9, nesterov=True,
+                                   weight_decay=1e-4), 20, 8),
+        ("sgd_schedule", optim.SGD(lr=sched, momentum=0.9), 20, 4),
+        ("adamw", optim.AdamW(lr=sched, weight_decay=0.1), 28, 16),
+        ("adam", optim.Adam(lr=1e-3, weight_decay=1e-4), 28, 16),
+        ("rmsprop_centered_momentum", optim.RMSprop(
+            lr=1e-3, momentum=0.9, centered=True), 36, 16),
+        ("adagrad", optim.Adagrad(lr=1e-2, lr_decay=1e-3), 20, 7),
+    ]
+
+
+def _hold(after: dict, want: dict, before: dict, tol: dict) -> tuple:
+    """Worst margin of ``after`` against ``want`` over the tensors, each
+    element held to ``rtol*|want| + atol_update*max|want - before|``; and
+    the worst margin of the plain result moved by ``sensitivity`` of its
+    change (must exceed 1)."""
+    worst, worst_key, planted = 0.0, None, math.inf
+    for k, w in want.items():
+        step = float((w - before[k]).abs().max())
+        _, _, margin, ok = compare(after[k], w, tol["rtol"],
+                                   tol["atol_update"] * step)
+        if not ok and margin <= 1.0:
+            margin = math.inf  # not finite
+        if margin > worst:
+            worst, worst_key = margin, k
+        if step > 0:
+            moved = w + tol["sensitivity"] * (w - before[k])
+            planted = min(planted, compare(moved, w, tol["rtol"],
+                                           tol["atol_update"] * step)[2])
+    return worst, worst_key, planted
+
+
+def check_optim(results):
+    """Every optimizer's multi-tensor update (and EMA's, and
+    clip_grad_norm) at the dense slice's 136,993,280 float32 parameters
+    against its plain per-parameter loop on the same state and gradients;
+    ms per update (CUDA events), launches per update (torch.profiler),
+    the bytes bound, and torch.optim's fused AdamW/SGD as a yardstick."""
+    from tpu_dist_torch import optim
+
+    shapes = dense_shapes()
+    n = sum(math.prod(s) for s in shapes.values())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(scale):
+        return {k: torch.randn(s, device="cuda", generator=gen) * scale
+                for k, s in shapes.items()}
+
+    params, grads = randn(0.02), randn(1e-2)
+    lines, ok_all = [], True
+    for name, opt, bytes_per, ops_per in optim_cases():
+        p = _clone(params)
+        state = opt.init(p)
+        for _ in range(2):  # moments away from their zero start
+            opt.update(grads, state, p)
+        before = {**{f"p.{k}": v.clone() for k, v in p.items()},
+                  **{k: v.clone() for k, v in _tensors(state).items()
+                     if v.is_cuda}}
+        p2, state2 = _clone(p), _clone(state)
+        opt.update(grads, state, p)
+        opt.update_plain(grads, state2, p2)
+        got = {**{f"p.{k}": v for k, v in p.items()},
+               **{k: v for k, v in _tensors(state).items() if v.is_cuda}}
+        want = {**{f"p.{k}": v for k, v in p2.items()},
+                **{k: v for k, v in _tensors(state2).items() if v.is_cuda}}
+        worst, worst_key, planted = _hold(got, want, before, OPTIM_TOL)
+        same_steps = all(int(a) == int(b) for a, b in zip(
+            [v for v in _tensors(state).values() if not v.is_cuda],
+            [v for v in _tensors(state2).values() if not v.is_cuda]))
+        del p2, state2, before, got, want
+        launches, common = count_launches(
+            lambda: opt.update(grads, state, p), names=True)
+        plain_launches = count_launches(
+            lambda: opt.update_plain(grads, state, p))
+        ms = time_ms(lambda: opt.update(grads, state, p))
+        plain_ms = time_ms(lambda: opt.update_plain(grads, state, p),
+                           reps=3, warm=1)
+        b_ms, b_by = bound(bytes_per * n, ops_per * n, "f32")
+        line = {"name": name, "ms": ms, "plain_ms": plain_ms,
+                "launches": launches, "plain_launches": plain_launches,
+                "commonest_kernels": common,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bytes_per_param": bytes_per, "worst_margin": worst,
+                "worst_tensor": worst_key, "planted_margin": planted,
+                # the per-tensor fallback would launch as many as the loop
+                "multi_tensor": 3 * launches < plain_launches,
+                "ok": (worst <= 1.0 and planted > 1.0 and same_steps
+                       and 3 * launches < plain_launches)}
+        if name in ("adamw", "sgd_momentum"):
+            line["library_ms"] = _torch_optim_ms(name, params, grads)
+        lines.append(line)
+        ok_all = ok_all and line["ok"]
+        del p, state
+        torch.cuda.empty_cache()
+
+    # EMA and clip_grad_norm, the same way
+    ema = optim.EMA(0.999)
+    shadow = ema.init(params)
+    ema.update(shadow, grads)
+    s2 = _clone(shadow)
+    before = {k: v.clone() for k, v in shadow["shadow"].items()}
+    ema.update(shadow, params)
+    ema.update_plain(s2, params)
+    worst, worst_key, planted = _hold(shadow["shadow"], s2["shadow"], before,
+                                      OPTIM_TOL)
+    same_steps = int(shadow["step"]) == int(s2["step"])
+    line = {"name": "ema", "ms": time_ms(lambda: ema.update(shadow, params)),
+            "plain_ms": time_ms(lambda: ema.update_plain(shadow, params),
+                                reps=3, warm=1),
+            "launches": count_launches(lambda: ema.update(shadow, params)),
+            "plain_launches": count_launches(
+                lambda: ema.update_plain(shadow, params)),
+            "worst_margin": worst, "worst_tensor": worst_key,
+            "planted_margin": planted, "bytes_per_param": 12}
+    line["bound_ms"], line["bound_by"] = bound(12 * n, 3 * n, "f32")
+    line["ok"] = (worst <= 1.0 and planted > 1.0 and same_steps
+                  and 3 * line["launches"] < line["plain_launches"])
+    lines.append(line)
+    ok_all = ok_all and line["ok"]
+    del shadow, s2, before
+
+    # clip_grad_norm: the norm against float64 per-leaf sums, the clipped
+    # leaves against the plain scale
+    g = _clone(grads)
+    want_norm = math.sqrt(sum(float(v.double().square().sum())
+                              for v in grads.values()))
+    clipped, norm = optim.clip_grad_norm(g, 1.0)
+    scale = min(1.0, 1.0 / max(want_norm, 1e-12))
+    err_norm = abs(float(norm) - want_norm) / want_norm
+    # (a floor under the relative limit: an element may be exactly 0)
+    worst = max(compare(clipped[k], grads[k] * scale, 4.8e-7, 1e-30)[2]
+                for k in grads)
+    clip_tol = {"norm_rtol": 1e-5, "rtol": 4.8e-7,
+                "why": "the norm is float32 sums of float32 squares, "
+                       "against float64; the scale is one float32 multiply"}
+    line = {"name": "clip_grad_norm",
+            "ms": time_ms(lambda: optim.clip_grad_norm(grads, 1e9)),
+            "launches": count_launches(
+                lambda: optim.clip_grad_norm(grads, 1e9)),
+            "norm": float(norm), "norm_rel_err": err_norm,
+            "worst_margin": worst, "bytes_per_param": 8,
+            "tolerance": clip_tol}
+    line["bound_ms"], line["bound_by"] = bound(8 * n, 3 * n, "f32")
+    line["ok"] = (err_norm <= clip_tol["norm_rtol"] and worst <= 1.0
+                  and line["launches"] < len(shapes))
+    lines.append(line)
+    ok_all = ok_all and line["ok"]
+    emit("optim", n_params=n, n_tensors=len(shapes), tolerance=OPTIM_TOL,
+         updates=lines, ok=ok_all)
+    return ok_all
+
+
+def _torch_optim_ms(name: str, params: dict, grads: dict) -> float:
+    """torch.optim's fused update of the same tensors (a yardstick, used
+    nowhere in the port)."""
+    ps = [torch.nn.Parameter(v.clone()) for v in params.values()]
+    for p, g in zip(ps, grads.values()):
+        p.grad = g
+    opt = (torch.optim.AdamW(ps, lr=3e-4, weight_decay=0.1, fused=True)
+           if name == "adamw" else
+           torch.optim.SGD(ps, lr=0.02, momentum=0.9, weight_decay=1e-4,
+                           fused=True))
+    return time_ms(opt.step)
+
+
+RESUME_STEPS, RESUME_AT = 6, 3
+
+
+def check_resume(results):
+    """The dense slice at full width and depth (T 2048, batch 8, bf16 over
+    float32 masters, fused loss, flash attention) through DDP with
+    ``AdamW(lr=warmup_cosine)``, ``accum_steps=2`` and an EMA updated each
+    step: RESUME_STEPS steps straight, against RESUME_AT steps, a save
+    through AsyncCheckpointer, a fresh DDP restored (``verify=True``) and
+    the rest; the final parameters, AdamW moments and counts and EMA
+    shadow must be equal bit for bit.  Then the example_mp twin's
+    ``--checkpoint-dir``/``--resume`` round trip, and the train_lm twin at
+    its defaults with ``--generate 32``."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpu_dist_torch import checkpoint, nn, optim
+    from tpu_dist_torch.examples import example_mp, train_lm
+    from tpu_dist_torch.models import TransformerLM
+    from tpu_dist_torch.ops import KERNELS
+    from tpu_dist_torch.parallel import DistributedDataParallel
+
+    ema = optim.EMA(0.999)
+
+    def build():
+        model = TransformerLM(vocab_size=32768, dim=768, depth=12,
+                              num_heads=12, max_seq_len=2048, device="cuda")
+        return DistributedDataParallel(
+            model, optimizer=optim.AdamW(
+                lr=optim.warmup_cosine(3e-4, 2, RESUME_STEPS),
+                weight_decay=0.1),
+            loss_fn=nn.CrossEntropyLoss(fused=True),
+            compute_dtype=torch.bfloat16, accum_steps=2)
+
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, 32768, (8, 2048))).cuda()
+               for _ in range(RESUME_STEPS + 1)]
+
+    def run(ddp, state, ema_state, first, last, losses):
+        for s in range(first, last):
+            state, m = ddp.train_step(state, batches[s], batches[s + 1])
+            ema.update(ema_state, state.params)
+            losses.append(m["loss"])
+        return state, ema_state
+
+    zero_launch_counts()
+    ddp = build()
+    state = ddp.init(seed=0)
+    losses_full = []
+    full, full_ema = run(ddp, state, ema.init(state.params), 0,
+                         RESUME_STEPS, losses_full)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    by_design = {k.__name__: dict(k.launches_by_design)
+                 for k in KERNELS if hasattr(k, "launches_by_design")}
+    per_step = {"cross_entropy_fwd": 2, "cross_entropy_bwd": 2,
+                "flash_fwd": 24, "flash_bwd": 24}
+    ok_counts = all(counts[k] == RESUME_STEPS * c
+                    for k, c in per_step.items())
+    ok_design = all(d["wgmma"] == counts[k] for k, d in by_design.items())
+    del ddp, state
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ddp = build()
+        state = ddp.init(seed=0)
+        losses_resumed = []
+        state, ema_state = run(ddp, state, ema.init(state.params), 0,
+                               RESUME_AT, losses_resumed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with checkpoint.AsyncCheckpointer(root) as ckpt:
+            ckpt.save({"state": state, "ema": ema_state}, step=state.step)
+            save_call_s = time.perf_counter() - t0
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _, fs in os.walk(root) for f in fs)
+        del ddp, state, ema_state
+        torch.cuda.empty_cache()
+
+        fresh = build()
+        template = {"state": fresh.init(seed=1)}
+        template["ema"] = ema.init(template["state"].params)
+        t0 = time.perf_counter()
+        got = checkpoint.restore(root, template, verify=True,
+                                 device=checkpoint.devices(template))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del template
+        state, ema_state = run(fresh, got["state"], got["ema"], RESUME_AT,
+                               RESUME_STEPS, losses_resumed)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    differ = [f"params.{k}" for k, v in state.params.items()
+              if not torch.equal(v, full.params[k])]
+    differ += [f"opt_state.{t}.{k}" for t in ("m", "v")
+               for k, v in state.opt_state[t].items()
+               if not torch.equal(v, full.opt_state[t][k])]
+    differ += [f"ema.{k}" for k, v in ema_state["shadow"].items()
+               if not torch.equal(v, full_ema["shadow"][k])]
+    steps_equal = (state.step == full.step == RESUME_STEPS
+                   and int(state.opt_state["step"]) == RESUME_STEPS
+                   == int(full.opt_state["step"])
+                   and int(ema_state["step"]) == int(full_ema["step"]))
+    losses_equal = [float(a) == float(b)
+                    for a, b in zip(losses_full, losses_resumed)]
+    ok_resume = not differ and steps_equal and all(losses_equal)
+    del fresh, state, ema_state, full, full_ema, got
+    torch.cuda.empty_cache()
+
+    # the example twins
+    d = tempfile.mkdtemp(prefix="chip_smoke_example_mp_")
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            example_mp.train(example_args(example_mp, [
+                "--max-steps", "3", "--checkpoint-every", "2",
+                "--checkpoint-dir", d]))
+            first_dirs = sorted(os.listdir(d))
+            example_mp.train(example_args(example_mp, [
+                "--max-steps", "2", "--resume", "--checkpoint-dir", d]))
+        last_dirs = sorted(os.listdir(d))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    ok_example = (first_dirs == ["step_00000002", "step_00000003"]
+                  and "resumed from step 3" in out.getvalue()
+                  and "step_00000005" in last_dirs)
+
+    t0 = time.perf_counter()
+    lm = train_lm.train(train_lm.parse_args(["--generate", "32"]))
+    lm_s = time.perf_counter() - t0
+    lm_losses = lm["losses"]
+    consistent = f"{lm['consistent']}/{lm['transitions']}"
+    ok_lm = (all(map(math.isfinite, lm_losses))
+             and statistics.mean(lm_losses[-10:]) < lm_losses[0] / 10
+             and lm["consistent"] == lm["transitions"] == 32)
+    del lm
+    emit("resume", steps=RESUME_STEPS, saved_at=RESUME_AT,
+         bit_exact=ok_resume, differing=differ[:10], n_differing=len(differ),
+         losses=[float(v) for v in losses_full], losses_equal=losses_equal,
+         save_call_s=save_call_s, save_s=save_s, restore_s=restore_s,
+         checkpoint_bytes=ckpt_bytes, launches=counts,
+         launches_per_step_expected=per_step, ok_launches=ok_counts,
+         launches_by_design=by_design, ok_design=ok_design,
+         example_mp={"first_run": first_dirs, "after_resume": last_dirs,
+                     "ok": ok_example},
+         train_lm={"first_loss": lm_losses[0], "last_losses": lm_losses[-5:],
+                   "permutation_consistent": consistent,
+                   "seconds": lm_s, "ok": ok_lm})
+    return ok_resume and ok_counts and ok_design and ok_example and ok_lm
+
+
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("gmm", check_gmm), ("slice", check_slice),
           ("composition", check_composition), ("moe_slice", check_moe_slice),
@@ -1658,7 +2070,8 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("moe_composition", check_moe_composition),
           ("serve", check_serve), ("serve_int8", check_serve_int8),
           ("quant", check_quant), ("convnet", check_convnet),
-          ("resnet", check_resnet))
+          ("resnet", check_resnet), ("optim", check_optim),
+          ("resume", check_resume))
 
 
 def main() -> int:

@@ -38,6 +38,17 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch.examples.example_mp
         import tpu_dist_torch.benchmarks.convnet
         import tpu_dist_torch.benchmarks.resnet_cifar
+        import tpu_dist_torch.optim
+        import tpu_dist_torch.optim.adagrad
+        import tpu_dist_torch.optim.adamw
+        import tpu_dist_torch.optim.clip
+        import tpu_dist_torch.optim.ema
+        import tpu_dist_torch.optim.lr_scheduler
+        import tpu_dist_torch.optim.rmsprop
+        import tpu_dist_torch.optim.sgd
+        import tpu_dist_torch.checkpoint
+        import tpu_dist_torch.collectives
+        import tpu_dist_torch.examples.train_lm
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist")
                         and sys.modules[m] is not None)
@@ -72,7 +83,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from tpu_dist_torch import data, dist, nn, optim
     from tpu_dist_torch.benchmarks import convnet, resnet_cifar, serve_lm
     from tpu_dist_torch.benchmarks.transformer_lm import run
-    from tpu_dist_torch.examples import example_mp, mpspawn_dist
+    from tpu_dist_torch.examples import example_mp, mpspawn_dist, train_lm
     from tpu_dist_torch.models import ConvNet, TransformerLM, resnet18
     from tpu_dist_torch.parallel import DistributedDataParallel
 
@@ -86,9 +97,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dist.init_process_group()
     assert not dist.is_initialized()
-    for example in (mpspawn_dist, example_mp):
+    for example, argv in ((mpspawn_dist, ["--synthetic"]),
+                          (example_mp, ["--synthetic"]), (train_lm, [])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            example.train(example.parse_args(["--synthetic"]))
+            example.train(example.parse_args(argv))
         assert not dist.is_initialized()
     for bench in (convnet, resnet_cifar):
         with pytest.raises(RuntimeError, match="no CUDA device"):

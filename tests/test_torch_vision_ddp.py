@@ -607,13 +607,20 @@ def test_mpspawn_dist_twin_runs_two_ranks_on_cpu():
     assert "(10000 samples)" in out and out.count("Test: loss") == 1
 
 
-def test_example_mp_twin_runs_two_ranks_on_cpu():
-    r = _run_example("example_mp", *SPAWN_ARGS)
+def test_example_mp_twin_runs_two_ranks_on_cpu(tmp_path):
+    """Two ranks train, evaluate and checkpoint (rank 0 writes); then two
+    ranks resume: rank 0 finds the newest step and broadcasts it."""
+    r = _run_example("example_mp", *SPAWN_ARGS, "--checkpoint-dir",
+                     str(tmp_path))
     assert r.returncode == 0, r.stderr[-3000:]
     out = r.stdout
     assert "[init] == process rank 0, 2 device replicas ==" in out
     assert "[init] == process rank 1, 2 device replicas ==" in out
     assert "Training complete in:" in out and "(10000 samples)" in out
-    r = _run_example("example_mp", "--device", "cpu", "--synthetic",
-                     "--resume", "--checkpoint-dir", str(REPO / "nowhere"))
-    assert r.returncode != 0 and "A6" in r.stderr
+    assert os.listdir(tmp_path) == ["step_00000003"]
+    r = _run_example("example_mp", "--device", "cpu", "--spawn", "-g", "2",
+                     "--synthetic", "--max-steps", "1", "--resume",
+                     "--checkpoint-dir", str(tmp_path))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.count("resumed from step 3") == 1
+    assert sorted(os.listdir(tmp_path)) == ["step_00000003", "step_00000004"]

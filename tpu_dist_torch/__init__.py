@@ -19,11 +19,16 @@ CIFAR-10 ``resnet18`` trained through DDP with per-replica (or synced)
 BatchNorm and evaluated (``nn`` vision layers on cuDNN, ``models``), the
 data path (``data``: samplers, synthetic datasets, transforms, a threaded
 loader, a device loader), ``launch.spawn``, and ``examples``, the twins of
-the two ``mp.spawn`` scripts.
+the two ``mp.spawn`` scripts; and the training recipe: every optimizer of
+``optim`` (multi-tensor, in place), lr schedules, clipping, EMA, gradient
+accumulation in the DDP, ``checkpoint`` in the JAX package's format with
+``collectives.broadcast_object_list`` for resuming, and the
+``examples.train_lm`` twin.
 """
 
-from . import (data, dist, examples, launch, models, nn, ops, optim,
-               parallel, random, serve, utils)
+from . import (checkpoint, collectives, data, dist, examples, launch, models,
+               nn, ops, optim, parallel, random, serve, utils)
 
-__all__ = ["data", "dist", "examples", "launch", "models", "nn", "ops",
-           "optim", "parallel", "random", "serve", "utils"]
+__all__ = ["checkpoint", "collectives", "data", "dist", "examples", "launch",
+           "models", "nn", "ops", "optim", "parallel", "random", "serve",
+           "utils"]

@@ -7,16 +7,19 @@ reference's normalization, ``DistributedSampler(shuffle=True)`` with
 ``set_epoch``, SGD lr 0.02, momentum 0.9, weight decay 1e-4, nesterov;
 rank 0 logs every 25 steps.  ``--bf16`` computes in bfloat16 over float32
 masters, ``--sync-bn`` makes BatchNorm cross-replica, ``--evaluate`` runs
-the test set.  ``--device cuda|cpu`` (default ``cuda``) takes the place of
+the test set.  ``--checkpoint-dir`` saves the TrainState every
+``--checkpoint-every`` steps and at the end (keeping the newest 3), and
+``--resume`` continues from the newest checkpoint there: rank 0 decides
+whether to restore or start fresh, and above one process broadcasts the
+decision.  ``--device cuda|cpu`` (default ``cuda``) takes the place of
 ``--backend``; ``--spawn`` starts ``-g`` processes, one card each, that meet
 at ``--dist-url tcp://host:port`` (else at ``MASTER_ADDR``/``MASTER_PORT``)::
 
     python -m tpu_dist_torch.examples.example_mp --synthetic --epochs 1
     python -m tpu_dist_torch.examples.example_mp --device cpu --spawn -g 2 \\
         --synthetic --max-steps 3 --evaluate
-
-``--checkpoint-dir``/``--resume`` need checkpointing (ROADMAP A6) and, at
-more than one process, ``broadcast_object_list`` (ROADMAP A9): they raise.
+    python -m tpu_dist_torch.examples.example_mp --synthetic \\
+        --checkpoint-dir ckpt --resume
 """
 
 from __future__ import annotations
@@ -38,17 +41,14 @@ def train(args, rank=None, world_size=None) -> dict:
     ``--nodes`` by default)."""
     import torch
 
-    from .. import dist, nn, optim
+    from .. import checkpoint, collectives, dist, nn, optim
     from ..data import (CIFAR10, DataLoader, DeviceLoader, DistributedSampler,
                         transforms)
     from ..models import resnet18
     from ..parallel import DistributedDataParallel
 
-    if args.checkpoint_dir or args.resume:
-        raise NotImplementedError(
-            "--checkpoint-dir/--resume need the checkpoint module (ROADMAP "
-            "A6) and, at more than one process, broadcast_object_list "
-            "(ROADMAP A9)")
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume requires --checkpoint-dir")
     init_method = args.dist_url
     if init_method is None and "MASTER_ADDR" in os.environ:
         init_method = "env://"
@@ -73,6 +73,27 @@ def train(args, rank=None, world_size=None) -> dict:
             sync_batchnorm=args.sync_bn,
             compute_dtype=torch.bfloat16 if args.bf16 else None)
         state = ddp.init(seed=0)
+        if args.resume:
+            # every rank takes the same restore-or-fresh branch: rank 0
+            # decides and the decision is broadcast, so a directory that
+            # is not shared fails loudly on the other ranks instead of
+            # letting them diverge
+            last = None
+            if rank == 0:
+                last = checkpoint.latest_step(args.checkpoint_dir)
+            if world > 1:
+                (last,) = collectives.broadcast_object_list([last], src=0,
+                                                            group=pg)
+            if last is None:
+                if rank == 0:
+                    print(f"no checkpoint under {args.checkpoint_dir}; "
+                          f"starting fresh", flush=True)
+            else:
+                state = checkpoint.restore(
+                    args.checkpoint_dir, state, step=last,
+                    device=checkpoint.devices(state))
+                if rank == 0:
+                    print(f"resumed from step {last}", flush=True)
 
         aug = transforms.Compose([
             transforms.RandomCrop(32, padding=4),
@@ -93,6 +114,7 @@ def train(args, rank=None, world_size=None) -> dict:
         total_step = len(loader)
         start = datetime.now()
         steps = 0
+        last_saved = -1
         losses = []
         for ep in range(args.epochs):
             sampler.set_epoch(ep)  # epoch-seeded reshuffle
@@ -115,10 +137,17 @@ def train(args, rank=None, world_size=None) -> dict:
                           flush=True)
                 if (i + 1) % 25 == 0:
                     running_loss, running_correct, seen = 0.0, 0, 0
+                if args.checkpoint_dir and steps % args.checkpoint_every == 0:
+                    last_saved = state.step
+                    checkpoint.save(args.checkpoint_dir, state,
+                                    step=last_saved, keep=3)
                 if args.max_steps and steps >= args.max_steps:
                     break
             if args.max_steps and steps >= args.max_steps:
                 break
+        if args.checkpoint_dir and state.step != last_saved:
+            checkpoint.save(args.checkpoint_dir, state, step=state.step,
+                            keep=3)
         if rank == 0:
             print("Training complete in: " + str(datetime.now() - start),
                   flush=True)
@@ -157,6 +186,13 @@ def _spawn_worker(local_rank, args):
     train(args, rank=rank, world_size=world)
 
 
+def _positive(v):
+    v = int(v)
+    if v < 1:
+        raise argparse.ArgumentTypeError("must be >= 1")
+    return v
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--nodes", default=1, type=int)
@@ -181,12 +217,12 @@ def parse_args(argv=None):
     parser.add_argument("--evaluate", action="store_true",
                         help="run test-set evaluation after training")
     parser.add_argument("--checkpoint-dir", default=None, type=str,
-                        help="save TrainState checkpoints here (ROADMAP A6)")
-    parser.add_argument("--checkpoint-every", default=100, type=int,
+                        help="save TrainState checkpoints here")
+    parser.add_argument("--checkpoint-every", default=100, type=_positive,
                         help="steps between checkpoints")
     parser.add_argument("--resume", action="store_true",
                         help="resume from the latest checkpoint in "
-                             "--checkpoint-dir (ROADMAP A6)")
+                             "--checkpoint-dir")
     return parser.parse_args(argv)
 
 

@@ -41,6 +41,9 @@ its ``model_state`` as ``{path: {"mean", "var"}}``; the port keeps them in
 the layer's ``running_mean``/``running_var`` buffers, and its DDP
 ``TrainState.model_state`` has the JAX layout.  :func:`load_jax_state`
 copies a JAX state in, :func:`jax_state` gives the port's out as numpy.
+
+Optimizer state: :func:`load_jax_opt_state` carries a JAX optimizer's (or
+EMA's) state over, its per-parameter trees through the same layouts.
 """
 
 from __future__ import annotations
@@ -50,8 +53,9 @@ import torch
 
 from . import nn
 
-__all__ = ["load_jax_params", "load_jax_state", "jax_state",
-           "flatten_linear_from_torch", "flatten_linear_to_torch"]
+__all__ = ["load_jax_params", "load_jax_opt_state", "load_jax_state",
+           "jax_state", "flatten_linear_from_torch",
+           "flatten_linear_to_torch"]
 
 _TRANSPOSED = {nn.Linear: ("weight",),
                nn.MultiheadSelfAttention: ("qkv_weight", "out_weight"),
@@ -102,13 +106,10 @@ def _layouts(model: torch.nn.Module) -> dict:
     return {**out, **flattened}
 
 
-@torch.no_grad()
-def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
-    """Copy ``params`` into ``model``'s parameters in place (keeping their
-    dtype and device) and return ``model``.  Raises ``KeyError`` on any
-    missing or extra key and ``ValueError`` on a shape that does not map
-    or a non-int8 leaf for an int8 parameter."""
-    ours = dict(model.named_parameters())
+def _copy_tree(model: torch.nn.Module, ours: dict, params) -> None:
+    """Copy a JAX per-parameter tree ``{module_path: {leaf: array}}`` into
+    ``ours`` (``{parameter key: tensor}`` laid out as ``model``'s
+    parameters) in place, through the layouts of ``model``'s modules."""
     # aux_loss is MoE module state, never a parameter (a tree that merges
     # the JAX state in may carry it)
     theirs = {_join(path, leaf): np.asarray(a)
@@ -131,7 +132,44 @@ def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
         a = np.ascontiguousarray(
             a, dtype=np.int8 if a.dtype == np.int8 else np.float32)
         p.copy_(torch.tensor(a).to(p.dtype))
+
+
+@torch.no_grad()
+def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
+    """Copy ``params`` into ``model``'s parameters in place (keeping their
+    dtype and device) and return ``model``.  Raises ``KeyError`` on any
+    missing or extra key and ``ValueError`` on a shape that does not map
+    or a non-int8 leaf for an int8 parameter."""
+    _copy_tree(model, dict(model.named_parameters()), params)
     return model
+
+
+@torch.no_grad()
+def load_jax_opt_state(optimizer, jax_opt_state, model: torch.nn.Module):
+    """The port's state of ``optimizer`` (or of an :class:`~tpu_dist_torch.
+    optim.EMA`) for ``model``'s parameters, carried over from a JAX
+    package's state of its counterpart: a new state from
+    ``optimizer.init``, each per-parameter tree (``momentum``, ``m``,
+    ``v``, ``square_avg``, ``sum``, ``shadow``, ...) mapped exactly as
+    :func:`load_jax_params` maps the parameters, each scalar (``step``)
+    taken as it is in the port's dtype.  Raises ``KeyError`` on a missing
+    or extra key and ``ValueError`` on a mismatched shape."""
+    state = optimizer.init(dict(model.named_parameters()))
+    missing = sorted(set(state) - set(jax_opt_state))
+    extra = sorted(set(jax_opt_state) - set(state))
+    if missing or extra:
+        raise KeyError(f"optimizer states do not match: missing keys "
+                       f"{missing}, unexpected keys {extra}")
+    for key, ours in state.items():
+        if isinstance(ours, dict):
+            _copy_tree(model, ours, jax_opt_state[key])
+            continue
+        a = np.asarray(jax_opt_state[key])
+        if a.shape != tuple(ours.shape):
+            raise ValueError(f"{key}: JAX shape {a.shape} does not match "
+                             f"{tuple(ours.shape)}")
+        ours.copy_(torch.from_numpy(a.copy()).to(ours.dtype))
+    return state
 
 
 def _bn_layers(model: torch.nn.Module) -> dict:

@@ -29,9 +29,17 @@ Module state (``TrainState.model_state``, the JAX package's layout):
   package it is reported, not added to the objective.
 
 Randomness: ``TrainState.rng`` is the JAX package's base key data
-(``fold_in(key(seed), 0x5eed)``); step ``s`` on rank ``r`` runs its forward
-under ``nn.rng_scope(fold_in(fold_in(rng, s), r))``, so dropout draws the
-JAX package's masks, distinct on every rank and step."""
+(``fold_in(key(seed), 0x5eed)``); micro-batch ``i`` of step ``s`` on rank
+``r`` runs its forward under ``nn.rng_scope(fold_in(fold_in(rng, s * accum
++ i), r))`` (``accum = accum_steps``; ``i = 0`` without accumulation), so
+dropout draws the JAX package's masks, distinct on every rank, step and
+micro-batch.
+
+Every method reads the state it is given, never the module's own tensors:
+a state restored from a checkpoint (new tensors,
+:func:`tpu_dist_torch.checkpoint.restore`) trains and evaluates as the
+state it was saved from, while the module's parameters stay where
+:meth:`DistributedDataParallel.init` left them."""
 
 from __future__ import annotations
 
@@ -92,12 +100,12 @@ class DistributedDataParallel:
                  shard_optimizer: bool = False, comm_dtype=None):
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-        for flag, what in ((accum_steps > 1, "accum_steps > 1"),
-                           (shard_optimizer, "shard_optimizer (ZeRO-1)"),
+        for flag, what in ((shard_optimizer, "shard_optimizer (ZeRO-1)"),
                            (comm_dtype is not None, "comm_dtype")):
             if flag:
                 raise NotImplementedError(
-                    f"{what} comes with the optim/ZeRO slice of the port")
+                    f"{what} comes with the ZeRO slice of the port (ROADMAP "
+                    f"A9.1)")
         if group is None:
             from .. import dist as _dist
             group = _dist.get_default_group() if _dist.is_initialized() \
@@ -109,6 +117,7 @@ class DistributedDataParallel:
         self.world_size = group.size() if group is not None else 1
         self.rank = group.rank if group is not None else 0
         self.compute_dtype = compute_dtype
+        self.accum_steps = accum_steps
         if sync_batchnorm and group is not None:
             convert_sync_batchnorm(module, group)
         # the module tree is fixed once wrapped: find its stateful layers once
@@ -147,9 +156,11 @@ class DistributedDataParallel:
             tensors[f"{path}.running_var"] = model_state[path]["var"]
         return torch.func.functional_call(self.module, tensors, (x,))
 
-    def _step_key(self, state: TrainState):
-        return random.fold_in(random.fold_in(state.rng, state.step),
-                              self.rank)
+    def _micro_key(self, state: TrainState, i: int):
+        """Micro-batch ``i``'s key: ``fold_in(fold_in(rng, step * accum +
+        i), rank)``, the JAX package's."""
+        return random.fold_in(random.fold_in(
+            state.rng, state.step * self.accum_steps + i), self.rank)
 
     def _average_state(self, model_state) -> None:
         """Average every module-state leaf over the group, in place."""
@@ -158,15 +169,13 @@ class DistributedDataParallel:
                 torch.distributed.all_reduce(t)
                 t.div_(self.world_size)
 
-    def train_step(self, state: TrainState, x, y):
-        """One forward + backward + all-reduce + update step; returns
-        ``(new_state, {"loss": scalar, "correct": count})``."""
-        if self.optimizer is None or self.loss_fn is None:
-            raise ValueError("train_step requires optimizer= and loss_fn=")
+    def _micro_grads(self, state: TrainState, x, y, i: int):
+        """Forward and backward of micro-batch ``i`` (rows ``x``/``y``):
+        ``(grads, loss, correct)``, the gradients local to this rank."""
         params = state.params
         cdtype = self.compute_dtype
-        self.module.train()
-        with torch.enable_grad(), rng_scope(lambda: self._step_key(state)):
+        with torch.enable_grad(), rng_scope(
+                lambda: self._micro_key(state, i)):
             cast = params
             if cdtype is not None:
                 cast = {k: v.to(cdtype) if v.is_floating_point() else v
@@ -175,14 +184,49 @@ class DistributedDataParallel:
                     x = x.to(cdtype)
             out = self._call(cast, state.model_state, x)
             loss = self.loss_fn(out, y)
-            grads = dict(zip(params, torch.autograd.grad(
-                loss, list(params.values()))))
+            grads = torch.autograd.grad(loss, list(params.values()))
         with torch.no_grad():
-            loss = loss.detach()
-            correct = (out.argmax(-1) == y).sum()
-            # the BatchNorm statistics were updated in place by the forward;
-            # the aux losses in float32 under any compute dtype, as the JAX
-            # package keeps its state masters
+            return grads, loss.detach(), (out.argmax(-1) == y).sum()
+
+    def train_step(self, state: TrainState, x, y):
+        """One forward + backward + all-reduce + update step; returns
+        ``(new_state, {"loss": scalar, "correct": count})``.
+
+        With ``accum_steps = k > 1`` this rank's rows are split into k
+        micro-batches, run in turn (the BatchNorm statistics carried from
+        one to the next), their float32 gradients summed and divided by k,
+        the loss averaged and the correct counts summed; the gradients are
+        all-reduced once, after the last (torch DDP ``no_sync``)."""
+        if self.optimizer is None or self.loss_fn is None:
+            raise ValueError("train_step requires optimizer= and loss_fn=")
+        params = state.params
+        accum = self.accum_steps
+        rows = x.shape[0]
+        if rows % accum:
+            raise ValueError(f"this rank's {rows} rows do not split into "
+                             f"accum_steps={accum} micro-batches")
+        self.module.train()
+        if accum == 1:
+            grads, loss, correct = self._micro_grads(state, x, y, 0)
+        else:
+            grads, loss, correct = None, None, None
+            for i, (xb, yb) in enumerate(zip(x.chunk(accum), y.chunk(accum))):
+                g, lb, cb = self._micro_grads(state, xb, yb, i)
+                with torch.no_grad():
+                    if grads is None:
+                        grads = [t.float() for t in g]
+                        loss, correct = lb.float(), cb
+                    else:
+                        torch._foreach_add_(grads, list(g))
+                        loss, correct = loss + lb, correct + cb
+            with torch.no_grad():
+                torch._foreach_div_(grads, float(accum))
+                loss = loss / accum
+        grads = dict(zip(params, grads))
+        with torch.no_grad():
+            # the BatchNorm statistics were updated in place by the forwards;
+            # the aux losses (the last micro-batch's) in float32 under any
+            # compute dtype, as the JAX package keeps its state masters
             model_state = dict(state.model_state)
             model_state.update({path: {"aux_loss": m.aux_loss.detach().to(
                                     torch.float32, copy=True)}
