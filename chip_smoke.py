@@ -90,14 +90,35 @@ Phases, each printed as one JSON line:
    with ``--checkpoint-dir``/``--resume`` and the train_lm twin at its
    defaults with ``--generate 32`` (the loss falls tenfold, all 32
    transitions follow the permutation).
-9. ``kernels``: one line over all kernels; the card's name and power limit
+9. ``flash_offdiag``: K2f/K2b in ``causal="offdiag"`` mode against their
+   plain versions in each design (wgmma: bf16, D = 64, (8, 2048, 12) with
+   blocks (1024, 1024) and (1024, 512); mma_sync: bf16, D = 128; fma:
+   float32, blocks clamped to 512; and ragged T in each): tolerance, a
+   bit-for-bit repeat, exact launches by design and mode, the first query
+   block empty, and the plain causal result rejected; timed against the
+   operations bound over the offdiag pairs and SDPA with the band as a
+   boolean mask.  ``split_diag``: ``flash_attention(split_diag=True)``
+   against ``split_diag=False`` at (8, 2048, 12, 64) and (1, 8192, 12, 64),
+   bf16: forward and q/k/v grads, one causal and one offdiag call of each
+   kernel a pass (the kernels line's offdiag launches), both timed.
+10. ``ring``: the ring's hop functions over 4 virtual ranks in one process
+   at GPT-2-small's attention over 8192 positions (4 shards of 2048, bf16),
+   causal and not, against one K2f/K2b call on the gathered sequence, with
+   n(n+1)/2 or n² launches; Ulysses' local attention (3 heads a rank);
+   ``ring_self_attention`` at world 1 through its entry point.
+   ``sp_train``: ``train_lm --parallel sp`` at world 1, full width
+   (GPT-2-small, vocab 32768, T = 8192, batch 1, bf16), each mode: one step
+   against the model without ``sequence_axis``, then 20 steps (the loss
+   falls; K2f/K2b 12 launches a step; step ms, tokens/s).
+11. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
 named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``composition``, ``moe_slice``, ``moe_layer``, ``moe_composition``,
 ``serve``, ``serve_int8``, ``quant``, ``convnet``, ``resnet``, ``optim``,
-``resume``) and never prints the result line.
+``resume``, ``flash_offdiag``, ``split_diag``, ``ring``, ``sp_train``) and
+never prints the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -132,6 +153,26 @@ BF16_ATOL_ROW = 1.6e-2
 BF16_ATOL_ALL = 1e-3
 SENSITIVITY = 0.03
 
+# the tolerances flash attention's kernels are held to against their plain
+# versions, by dtype
+FLASH_BF16_TOL = {"rtol": 1.6e-2, "atol": 0.0, "atol_row": BF16_ATOL_ROW,
+                  "atol_all": BF16_ATOL_ALL,
+                  "why": "each element within 2 bf16 steps (2^-6 at the top "
+                         "of a binade) of the larger of its own value and its "
+                         "row's rms (the row over D: one query of o and dq, "
+                         "one key of dk and dv): kernel and plain round the "
+                         "outputs to bf16, and round p or dS to bf16 at other "
+                         "scales or from float32 values summed in other "
+                         "orders, which shows at the scale of the row's "
+                         "terms even where an element sums to near 0; plus "
+                         "1e-3 of the tensor's rms for a row whose terms "
+                         "cancel (a causal first query: its dS = p(dP - "
+                         "delta) is float32 round-off of 0)"}
+FLASH_F32_TOL = {"rtol": 2e-5, "atol": 2e-5, "atol_row": 0.0, "atol_all": 0.0,
+                 "why": "float32 throughout; the JAX package's forward "
+                        "tolerance (tests/test_flash_attention.py:42), here "
+                        "for o and the gradients alike"}
+
 KERNEL_INFO = {
     "cross_entropy_fwd": ("K1f", "triton",
                           "tpu_dist_torch/ops/_cross_entropy_triton.py",
@@ -143,6 +184,14 @@ KERNEL_INFO = {
                   "tpu_dist/ops/flash_attention.py:169"),
     "flash_bwd": ("K2b", "cuda", "tpu_dist_torch/csrc/flash_attention.cu",
                   "tpu_dist/ops/flash_attention.py:305"),
+    # the same kernels in causal="offdiag" mode (_tile_live, :89-100): a row
+    # key limit in place of the causal mask
+    "flash_fwd_offdiag": ("K2f-o", "cuda",
+                          "tpu_dist_torch/csrc/flash_attention.cu",
+                          "tpu_dist/ops/flash_attention.py:169"),
+    "flash_bwd_offdiag": ("K2b-o", "cuda",
+                          "tpu_dist_torch/csrc/flash_attention.cu",
+                          "tpu_dist/ops/flash_attention.py:305"),
     "gmm": ("K3", "cuda", "tpu_dist_torch/csrc/gmm.cu",
             "tpu_dist/ops/gmm.py:74"),
     "tgmm": ("K4", "cuda", "tpu_dist_torch/csrc/gmm.cu",
@@ -250,7 +299,21 @@ def compare(got, want, rtol: float, atol: float, atol_row: float = 0.0,
     return err, err / max(float(want.abs().max()), 1e-30), margin, ok
 
 
-def causal_pairs(tq: int, tk: int, causal: bool) -> int:
+def offdiag_live(t: int, blocks) -> tuple:
+    """The rows offdiag mode reads at Tq = Tk = t (``blocks`` = the clamped
+    (bq, bk)): queries from the first whose key limit is above 0 (the rows
+    before it see no key), and the keys below the last query's limit."""
+    bq, bk = blocks
+    return min(-(-bk // bq) * bq, t), min((t - 1) // bq * bq // bk * bk, t)
+
+
+def causal_pairs(tq: int, tk: int, causal, blocks=None) -> int:
+    """The (query, key) pairs a head computes: all, k <= q (causal), or k <
+    floor((q // bq) * bq / bk) * bk (offdiag, ``blocks`` = the clamped
+    (bq, bk))."""
+    if causal == "offdiag":
+        bq, bk = blocks
+        return sum(min((i // bq) * bq // bk * bk, tk) for i in range(tq))
     if not causal:
         return tq * tk
     return sum(min(i + 1, tk) for i in range(tq))
@@ -524,23 +587,7 @@ def check_flash(results):
             plain_ms=t_b[1], library_ms=t_b[2], bound_ms=bb[0],
             bound_by=bb[1])
 
-    bf16_tol = {"rtol": 1.6e-2, "atol": 0.0, "atol_row": BF16_ATOL_ROW,
-                "atol_all": BF16_ATOL_ALL,
-                "why": "each element within 2 bf16 steps (2^-6 at the top "
-                       "of a binade) of the larger of its own value and its "
-                       "row's rms (the row over D: one query of o and dq, "
-                       "one key of dk and dv): kernel and plain round the "
-                       "outputs to bf16, and round p or dS to bf16 at other "
-                       "scales or from float32 values summed in other "
-                       "orders, which shows at the scale of the row's "
-                       "terms even where an element sums to near 0; plus "
-                       "1e-3 of the tensor's rms for a row whose terms "
-                       "cancel (a causal first query: its dS = p(dP - "
-                       "delta) is float32 round-off of 0)"}
-    f32_tol = {"rtol": 2e-5, "atol": 2e-5, "atol_row": 0.0, "atol_all": 0.0,
-               "why": "float32 throughout; the JAX package's forward "
-                      "tolerance (tests/test_flash_attention.py:42), here "
-                      "for o and the gradients alike"}
+    bf16_tol, f32_tol = FLASH_BF16_TOL, FLASH_F32_TOL
     run_case(8, 2048, 12, 64, torch.bfloat16, True, bf16_tol, timed=True)
     # ragged T through the wgmma design (D = 64): a partial last tile of
     # queries and of keys, causal and not
@@ -548,6 +595,11 @@ def check_flash(results):
         run_case(2, 1000, 3, 64, torch.bfloat16, causal, bf16_tol,
                  timed=False)
     run_case(1, 515, 2, 64, torch.bfloat16, True, bf16_tol, timed=False)
+    # a ring hop's shape (a 2048-row shard of RING_SHAPE), causal (the
+    # diagonal block) and not (a block below it): full tiles, both modes
+    for causal in (True, False):
+        run_case(1, 2048, 12, 64, torch.bfloat16, causal, bf16_tol,
+                 timed=False)
     # ragged T and D, both head-dim instantiations of the older kernels
     # (D <= 64, D <= 128), both dtypes: the designs flash_design picks
     for dtype, tol in ((torch.bfloat16, bf16_tol), (torch.float32, f32_tol)):
@@ -697,8 +749,9 @@ def zero_launch_counts():
     from tpu_dist_torch.ops import KERNELS
     for k in KERNELS:
         k.launches = 0
-        if hasattr(k, "launches_by_design"):
-            k.launches_by_design.update(dict.fromkeys(k.launches_by_design, 0))
+        for by in ("launches_by_design", "launches_by_mode"):
+            if hasattr(k, by):
+                getattr(k, by).update(dict.fromkeys(getattr(k, by), 0))
 
 
 def library_grouped(fn_variants):
@@ -2063,6 +2116,517 @@ def check_resume(results):
     return ok_resume and ok_counts and ok_design and ok_example and ok_lm
 
 
+# ---------------------------------------------------------------------------
+# the sequence-parallel slice: K2's offdiag mode, the split, the ring and
+# train_lm --parallel sp
+# ---------------------------------------------------------------------------
+
+# design, (B, T, H, D), dtype, (block_q, block_k), timed: every design in
+# causal="offdiag" mode, at the path's shape and at ragged ones; the first
+# case gives the kernels line's rows
+OFFDIAG_CASES = (
+    ("wgmma", (8, 2048, 12, 64), torch.bfloat16, (1024, 1024), True),
+    ("wgmma", (8, 2048, 12, 64), torch.bfloat16, (1024, 512), True),
+    ("wgmma", (2, 1000, 3, 64), torch.bfloat16, (256, 384), False),
+    ("mma_sync", (8, 2048, 6, 128), torch.bfloat16, (1024, 1024), True),
+    ("mma_sync", (2, 1000, 3, 40), torch.bfloat16, (256, 128), False),
+    ("fma", (2, 2048, 6, 64), torch.float32, (1024, 1024), True),
+    ("fma", (2, 1000, 3, 40), torch.float32, (128, 384), False),
+)
+
+
+def check_flash_offdiag(results):
+    """K2f/K2b in causal="offdiag" mode against their plain versions, in
+    each design: within tolerance, two launches bit for bit alike, every
+    launch of the design and mode the case must take, the first query
+    block's rows empty (lse -1e30, o 0), and the plain causal result
+    rejected by the same comparison (the planted fault).  Timed against the
+    operations bound over the offdiag pairs, the plain version and SDPA
+    with the band as a boolean mask."""
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    ok_all = True
+    for design, (b, t, h, d), dtype, blocks, timed in OFFDIAG_CASES:
+        qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=g).to(dtype)
+        q, k, v = qkv.unbind(2)
+        do = torch.randn(b, t, h, d, device="cuda", generator=g).to(dtype)
+        scale = 1.0 / math.sqrt(d)
+        bq, bk = fa.clamp_blocks(dtype, t, t, *blocks)
+        tol = FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL
+        lims = (tol["rtol"], tol["atol"], tol["atol_row"], tol["atol_all"])
+        picked = fa.flash_design(dtype, t, t, d,
+                                 [x.stride() for x in (q, k, v)])
+
+        def fwd():
+            return fa.flash_fwd(q, k, v, "offdiag", scale, *blocks)
+
+        zero_launch_counts()
+        o_k, lse_k = fwd()
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, "offdiag", scale, *blocks)
+        delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+
+        def bwd():
+            return fa.flash_bwd(q, k, v, do, lse_p, delta, "offdiag", scale,
+                                *blocks)
+
+        grads_k = bwd()
+        grads_p = fa.flash_bwd_plain(q, k, v, do, lse_p, delta, "offdiag",
+                                     scale, *blocks)
+        o_k2, lse_k2 = fwd()
+        grads_k2 = bwd()
+        torch.cuda.synchronize()
+        bitwise = {"fwd": torch.equal(o_k, o_k2) and torch.equal(lse_k,
+                                                                 lse_k2),
+                   "bwd": all(torch.equal(a, b2)
+                              for a, b2 in zip(grads_k, grads_k2))}
+        ran = {w.__name__: {"by_design": dict(w.launches_by_design),
+                            "by_mode": dict(w.launches_by_mode)}
+               for w in (fa.flash_fwd, fa.flash_bwd)}
+        ok_launches = picked == design and all(
+            r["by_design"][design] == 2 == sum(r["by_design"].values())
+            and r["by_mode"]["offdiag"] == 2 == sum(r["by_mode"].values())
+            for r in ran.values())
+        pairs_kp = {"o": (o_k, o_p), "dq": (grads_k[0], grads_p[0]),
+                    "dk": (grads_k[1], grads_p[1]),
+                    "dv": (grads_k[2], grads_p[2])}
+        errs, margins = {}, {}
+        ok = True
+        for name, (got, want) in pairs_kp.items():
+            errs[name], _, margins[name], ok_t = compare(got, want, *lims)
+            ok = ok and ok_t
+        # rows before the first query block past key block 0 see no key:
+        # lse -1e30 and o 0 (held apart: the rms of -1e30 overflows)
+        first = offdiag_live(t, (bq, bk))[0]
+        ok_empty = (bool((lse_k[:, :, :first] <= -1e29).all())
+                    and bool((lse_p[:, :, :first] <= -1e29).all())
+                    and not bool(o_k[:, :first].any()))
+        errs["lse"], _, margins["lse"], ok_l = compare(
+            lse_k[:, :, first:], lse_p[:, :, first:], 1e-5, 1e-4)
+        # the planted fault: the plain causal pass (its own lse and delta)
+        # in place of the kernels' must fail every comparison
+        o_c, lse_c = fa.flash_fwd_plain(q, k, v, True, scale)
+        delta_c = (do.float() * o_c.float()).sum(-1).transpose(1, 2)
+        g_c = fa.flash_bwd_plain(q, k, v, do, lse_c, delta_c.contiguous(),
+                                 True, scale)
+        caught = {name: compare(got, pairs_kp[name][1], *lims)[2]
+                  for name, got in zip(("o", "dq", "dk", "dv"),
+                                       (o_c, *g_c))}
+        ok_fault = all(m > 1.0 for m in caught.values())
+        del o_c, lse_c, g_c, delta_c
+        ok = (ok and ok_l and ok_launches and ok_empty and ok_fault
+              and all(bitwise.values()))
+        ok_all = ok_all and ok
+        shape = {"q": [b, t, h, d], "dtype": str(dtype).split(".")[-1],
+                 "blocks": list(blocks), "clamped_blocks": [bq, bk]}
+        fields = {}
+        if timed:
+            keep = fa._keep_mask(t, t, "offdiag", dtype, "cuda", *blocks)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+
+            def lib_fwd():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=keep)
+
+            lib_o = lib_fwd()
+
+            def lib_bwd():
+                return torch.autograd.grad(lib_o, (qt, kt, vt),
+                                           do.transpose(1, 2),
+                                           retain_graph=True)
+
+            # bytes: only the rows the mode reads (q and dO from the first
+            # live query, k and v below the last query's limit, lse and
+            # delta of the live queries), every output written in full
+            row = b * h * d * q.element_size()
+            q0, k_end = offdiag_live(t, (bq, bk))
+            live_q = t - q0
+            pairs = b * h * causal_pairs(t, t, "offdiag", (bq, bk))
+            kind = "bf16_tensor" if dtype == torch.bfloat16 else "f32"
+            bf = bound(row * (live_q + 2 * k_end + t) + b * h * t * 4,
+                       4 * d * pairs, kind)
+            bb = bound(row * (2 * live_q + 2 * k_end + 3 * t)
+                       + 2 * b * h * live_q * 4, 10 * d * pairs, kind)
+            t_f = (time_ms(fwd), time_ms(lambda: fa.flash_fwd_plain(
+                q, k, v, "offdiag", scale, *blocks), reps=3),
+                time_ms(lib_fwd))
+            t_b = (time_ms(bwd), time_ms(lambda: fa.flash_bwd_plain(
+                q, k, v, do, lse_p, delta, "offdiag", scale, *blocks),
+                reps=3), time_ms(lib_bwd))
+            del lib_o, qt, kt, vt, keep
+            fields = {"pairs": pairs,
+                      "fwd": dict(ms=t_f[0], plain_ms=t_f[1],
+                                  library_ms=t_f[2], bound_ms=bf[0],
+                                  bound_by=bf[1], bound_share=bf[0] / t_f[0]),
+                      "bwd": dict(ms=t_b[0], plain_ms=t_b[1],
+                                  library_ms=t_b[2], bound_ms=bb[0],
+                                  bound_by=bb[1], bound_share=bb[0] / t_b[0]),
+                      "library": "F.scaled_dot_product_attention with the "
+                                 "offdiag band as a boolean attn_mask"}
+            if "flash_fwd_offdiag" not in results:  # the path's shape
+                results["flash_fwd_offdiag"] = dict(
+                    max_abs_err=max(errs["o"], errs["lse"]), ms=t_f[0],
+                    plain_ms=t_f[1], library_ms=t_f[2], bound_ms=bf[0],
+                    bound_by=bf[1])
+                results["flash_bwd_offdiag"] = dict(
+                    max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]),
+                    ms=t_b[0], plain_ms=t_b[1], library_ms=t_b[2],
+                    bound_ms=bb[0], bound_by=bb[1])
+        emit("flash_offdiag", shape=shape, design=design, picked=picked,
+             launches=ran, ok_launches=ok_launches, repeat_bitwise=bitwise,
+             max_abs_err=errs, margin=margins, tolerance=tol,
+             first_block_empty=ok_empty, planted_causal_margin=caught,
+             ok_fault_rejected=ok_fault, ok=ok, **fields)
+        del qkv, q, k, v, do, o_k, o_p, grads_k, grads_p, o_k2, grads_k2
+    return ok_all
+
+
+SPLIT_SHAPES = ((8, 2048, 12, 64), (1, 8192, 12, 64))
+
+
+def _split_pass(fa, qkv, do, split: bool, grad: bool = True):
+    """One causal flash pass over the fused projection's q/k/v views,
+    split or not: ``o``, or ``(o, (dq, dk, dv))`` for the cotangent
+    ``do``."""
+    q, k, v = qkv.unbind(2)
+    o = fa.flash_attention(q, k, v, causal=True, split_diag=split)
+    if not grad:
+        return o
+    return o.detach(), torch.autograd.grad(o, qkv, do)[0].unbind(2)
+
+
+def check_split_diag(results):
+    """``flash_attention(split_diag=True)`` against ``split_diag=False``:
+    the forward and the q/k/v grads (through the fused projection's views,
+    as on the path) within the flash tolerance, and two K2f and two K2b
+    calls a split pass, one causal and one offdiag each (this phase's
+    offdiag launches are the kernels line's).  Both timed, forward and
+    forward + backward, in turns; beside them the split's plain forward
+    (the plain versions of its two calls and the merge), SDPA's causal
+    call and the bound of the causal pairs (the split's executed area)."""
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    lims = tuple(FLASH_BF16_TOL[k] for k in ("rtol", "atol", "atol_row",
+                                             "atol_all"))
+    ok_all = True
+    runs = []
+    zero_launch_counts()
+    for b, t, h, d in SPLIT_SHAPES:
+        qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=g).to(
+            torch.bfloat16).requires_grad_(True)
+        do = torch.randn(b, t, h, d, device="cuda", generator=g).to(
+            torch.bfloat16)
+        before = {w.__name__: dict(w.launches_by_mode)
+                  for w in (fa.flash_fwd, fa.flash_bwd)}
+        o_s, g_s = _split_pass(fa, qkv, do, True)
+        torch.cuda.synchronize()
+        split_calls = {w.__name__: {m: w.launches_by_mode[m]
+                                    - before[w.__name__][m]
+                                    for m in fa.MODES}
+                       for w in (fa.flash_fwd, fa.flash_bwd)}
+        o_1, g_1 = _split_pass(fa, qkv, do, False)
+        torch.cuda.synchronize()
+        ok_calls = all(c == {"none": 0, "causal": 1, "offdiag": 1}
+                       for c in split_calls.values())
+        errs, margins, ok = {}, {}, ok_calls
+        for name, got, want in (("o", o_s, o_1), *zip(
+                ("dq", "dk", "dv"), g_s, g_1)):
+            errs[name], _, margins[name], ok_t = compare(got, want, *lims)
+            ok = ok and ok_t
+        runs.append(dict(shape=[b, t, h, d], calls_a_pass=split_calls,
+                         ok_calls=ok_calls, max_abs_err=errs,
+                         margin=margins, ok=ok, qkv=qkv, do=do))
+        ok_all = ok_all and ok
+    for name in ("flash_fwd", "flash_bwd"):
+        w = getattr(fa, name)
+        results.setdefault(f"{name}_offdiag", {})["launches"] = \
+            w.launches_by_mode["offdiag"]
+    for r in runs:
+        qkv, do = r.pop("qkv"), r.pop("do")
+
+        def fwd(split):
+            with torch.no_grad():
+                return _split_pass(fa, qkv, do, split, grad=False)
+
+        def fwd_bwd(split):
+            return _split_pass(fa, qkv, do, split)
+
+        times = {}
+        for label, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+            one = time_ms(lambda: fn(False))
+            split = (time_ms(lambda: fn(True)) + time_ms(lambda: fn(True))) / 2
+            one = (one + time_ms(lambda: fn(False))) / 2
+            times[label] = {"single_ms": one, "split_ms": split,
+                            "split_over_single": split / one}
+        b, t, h, d = r["shape"]
+        q, k, v = (x.detach() for x in qkv.unbind(2))
+        scale, band = 1.0 / math.sqrt(d), min(1024, t)
+
+        def plain_split():
+            o_d, lse_d = fa.flash_fwd_plain(
+                *(fa._to_bands(x, band) for x in (q, k, v)), True, scale)
+            o_off, lse_off = fa.flash_fwd_plain(q, k, v, "offdiag", scale)
+            return fa.merge_lse(o_off, lse_off, o_d.reshape(b, t, h, d),
+                                fa._rows_from_bands(lse_d, b))
+
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        lib_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        times["fwd"]["plain_ms"] = time_ms(plain_split, reps=3)
+        times["fwd"]["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True))
+        times["fwd_bwd"]["library_ms"] = times["fwd"]["library_ms"] + \
+            time_ms(lambda: torch.autograd.grad(
+                lib_o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+        pairs = b * h * causal_pairs(t, t, True)
+        tile = b * t * h * d * q.element_size()
+        times["fwd"]["bound_ms"], times["fwd"]["bound_by"] = bound(
+            4 * tile + b * h * t * 4, 4 * d * pairs, "bf16_tensor")
+        bb = bound(7 * tile + 2 * b * h * t * 4, 10 * d * pairs,
+                   "bf16_tensor")
+        times["fwd_bwd"]["bound_ms"] = times["fwd"]["bound_ms"] + bb[0]
+        del qkv, do, q, k, v, qt, kt, vt, lib_o
+        results.setdefault("split_diag", []).append(
+            {"shape": r["shape"], **times})
+        emit("split_diag", tolerance=FLASH_BF16_TOL["why"][:60], **r,
+             times=times)
+    return ok_all
+
+
+RING_N = 4
+RING_SHAPE = (1, 8192, 12, 64)  # global (B, T, H, D): 4 shards of 2048
+
+
+def check_ring(results):
+    """The ring's per-hop functions over ``RING_N`` virtual ranks in one
+    process (``ring_one_process``: lists stand in for the shifts) at
+    GPT-2-small's attention over 8192 positions, causal and not: first one
+    K2f/K2b call on the gathered sequence against the plain versions (o,
+    lse, q/k/v grads); then the ring's output and q/k/v grads against that
+    call, and n(n+1)/2 (causal) or n² launches of each; then Ulysses' local
+    attention (3 heads a rank over the whole sequence) the same way, n
+    launches each; then ``ring_self_attention`` at world 1 through its
+    entry point (one launch each, equal to the single call).  The hops'
+    own shape, (1, 2048, 12, 64) causal and not, is held against the plain
+    versions in the ``flash`` phase."""
+    from tpu_dist_torch import dist
+    from tpu_dist_torch.nn.attention import scaled_dot_product_attention
+    from tpu_dist_torch.parallel import ring_self_attention
+    from tpu_dist_torch.parallel.ring_attention import ring_one_process
+
+    fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    b, t, h, d = RING_SHAPE
+    n = RING_N
+    q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=g).to(
+        torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    lims = tuple(FLASH_BF16_TOL[key] for key in ("rtol", "atol", "atol_row",
+                                                 "atol_all"))
+    ok_all = True
+
+    def launches():
+        return fa.flash_fwd.launches, fa.flash_bwd.launches
+
+    def held(got, want):
+        """Errors and margins of o, dq, dk, dv against the reference."""
+        out = {}
+        for name, x, y in zip(("o", "dq", "dk", "dv"), got, want):
+            err, _, margin, ok = compare(x, y, *lims)
+            out[name] = {"max_abs_err": err, "margin": margin, "ok": ok}
+        return out, all(r["ok"] for r in out.values())
+
+    for causal in (True, False):
+        o_ref, lse_ref = fa.flash_fwd(q, k, v, causal, scale)
+        delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        g_ref = fa.flash_bwd(q, k, v, do, lse_ref, delta, causal, scale)
+        ref = (o_ref, *g_ref)
+        # the reference itself against the plain versions on its inputs
+        # (the backward from the kernel's own lse and delta): the single
+        # call at T = 8192, which the sp step's attention also runs
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, scale)
+        g_p = fa.flash_bwd_plain(q, k, v, do, lse_ref, delta, causal, scale)
+        single_err, ok_single = held(ref, (o_p, *g_p))
+        lse_err, _, lse_margin, ok_lse = compare(lse_ref, lse_p, 1e-5, 1e-4)
+        single_err["lse"] = {"max_abs_err": lse_err, "margin": lse_margin,
+                             "ok": ok_lse}
+        ok_single = ok_single and ok_lse
+        del o_p, lse_p, g_p
+        torch.cuda.empty_cache()
+        shards = [list(x.chunk(n, 1)) for x in (q, k, v, do)]
+
+        def ring():
+            return ring_one_process(*shards[:3], causal, "flash",
+                                    dos=shards[3])
+
+        zero_launch_counts()
+        outs, grads = ring()
+        torch.cuda.synchronize()
+        ring_launches = launches()
+        want = n * (n + 1) // 2 if causal else n * n
+        got = (torch.cat(outs, 1),
+               *(torch.cat([gr[i] for gr in grads], 1) for i in range(3)))
+        ring_err, ok_ring = held(got, ref)
+        ok_ring = ok_ring and ring_launches == (want, want)
+
+        def ulysses():
+            per = h // n
+            o_u, g_u = [], []
+            for r in range(n):
+                hs = slice(r * per, (r + 1) * per)
+                qh, kh, vh = (x[:, :, hs].detach().requires_grad_(True)
+                              for x in (q, k, v))
+                o = scaled_dot_product_attention(qh, kh, vh, causal=causal)
+                g_u.append(torch.autograd.grad(o, (qh, kh, vh),
+                                               do[:, :, hs]))
+                o_u.append(o.detach())
+            return (torch.cat(o_u, 2),
+                    *(torch.cat([gr[i] for gr in g_u], 2) for i in range(3)))
+
+        zero_launch_counts()
+        got_u = ulysses()
+        torch.cuda.synchronize()
+        uly_launches = launches()
+        uly_err, ok_uly = held(got_u, ref)
+        ok_uly = ok_uly and uly_launches == (n, n)
+
+        dist.init_process_group(axis_names=("seq",), mesh_shape=(1,))
+        try:
+            qx, kx, vx = (x.detach().requires_grad_(True) for x in (q, k, v))
+            zero_launch_counts()
+            o_w1 = ring_self_attention(qx, kx, vx, "seq", causal=causal)
+            g_w1 = torch.autograd.grad(o_w1, (qx, kx, vx), do)
+            torch.cuda.synchronize()
+            w1_launches = launches()
+        finally:
+            dist.destroy_process_group()
+        got_w1 = (o_w1.detach(), *g_w1)
+        w1_err, ok_w1 = held(got_w1, ref)
+        w1_bitwise = all(torch.equal(x, y) for x, y in zip(got_w1, ref))
+        ok_w1 = ok_w1 and w1_launches == (1, 1)
+
+        def single():
+            o, lse = fa.flash_fwd(q, k, v, causal, scale)
+            dl = (do.float() * o.float()).sum(-1).transpose(1, 2)
+            return fa.flash_bwd(q, k, v, do, lse, dl.contiguous(), causal,
+                                scale)
+
+        times = {"single_fwd_bwd_ms": time_ms(single, reps=5),
+                 "ring_one_process_fwd_bwd_ms": time_ms(ring, reps=5),
+                 "ulysses_local_fwd_bwd_ms": time_ms(ulysses, reps=5)}
+        ok = ok_single and ok_ring and ok_uly and ok_w1
+        ok_all = ok_all and ok
+        results.setdefault("ring", {})[f"causal={causal}"] = times
+        emit("ring", causal=causal, virtual_ranks=n, global_shape=[b, t, h, d],
+             single_call_vs_plain={"held": single_err, "ok": ok_single},
+             ring={"launches": ring_launches, "expected": [want, want],
+                   "held": ring_err, "ok": ok_ring},
+             ulysses_local={"launches": uly_launches, "expected": [n, n],
+                            "held": uly_err, "ok": ok_uly},
+             world1_entry_point={"launches": w1_launches, "held": w1_err,
+                                 "bitwise_equal_single_call": w1_bitwise,
+                                 "ok": ok_w1},
+             times=times, tolerance=FLASH_BF16_TOL["why"][:60], ok=ok)
+        del outs, grads, got, got_u, got_w1, o_ref, g_ref, ref, shards
+    return ok_all
+
+
+# GPT-2-small at long context through the sp twin, bf16 over float32
+# masters; SGD at SP_LR (see SP_STEP_TOL)
+SP_ARGV = ["--seq-len", "8192", "--batch-size", "1", "--dim", "768",
+           "--depth", "12", "--heads", "12", "--vocab", "32768",
+           "--compute-dtype", "bfloat16", "--log-every", "5"]
+SP_LR = "2.0"
+SP_STEPS = 20
+SP_STEP_TOL = {"loss_rtol": 1e-2, "update_rel": 5e-2, "leaf_update_rel": 0.25,
+               "why": "the dense slice's composition limits (loss, update "
+                      "and worst leaf): at world 1 the ring is one "
+                      "diagonal block and Ulysses' all-to-all the "
+                      "identity, so both run the dense model's kernels "
+                      "on the same inputs (bit for bit expected, reported "
+                      "as bitwise)"}
+
+
+def check_sp_train(results):
+    """``train_lm --parallel sp`` at world 1 on the card, full width
+    (GPT-2-small, vocab 32768, T = 8192, batch 1, bf16): one step of each
+    mode against the same model built without ``sequence_axis``
+    (``--parallel dp``) from the same seed and batch (``SP_STEP_TOL``);
+    then ``SP_STEPS`` steps a mode: the loss falls, K2f/K2b launch ``depth``
+    times a step (all wgmma), step ms and tokens/s."""
+    from tpu_dist_torch.examples import train_lm
+    fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
+
+    def run(parallel, mode, steps):
+        return train_lm.train(train_lm.parse_args(
+            SP_ARGV + ["--parallel", parallel, "--sp-mode", mode,
+                       "--steps", str(steps), "--lr", SP_LR]))
+
+    def params(r):
+        return {k: p.detach() for k, p in r["state"].params.items()}
+
+    p0 = params(run("dp", "ring", 0))
+    dense = run("dp", "ring", 1)
+    p_dense, loss_dense = params(dense), dense["losses"][0]
+    del dense
+    ok_all = True
+    for mode in ("ring", "ulysses"):
+        one = run("sp", mode, 1)
+        p_sp, loss_sp = params(one), one["losses"][0]
+        del one
+        num = {k: float((p_sp[k] - p_dense[k]).pow(2).sum()) for k in p0}
+        den = {k: float((p_dense[k] - p0[k]).pow(2).sum()) for k in p0}
+        rel = math.sqrt(sum(num.values()) / max(sum(den.values()), 1e-30))
+        leaf = {k: math.sqrt(num[k] / den[k]) if den[k] else
+                (0.0 if num[k] == 0 else math.inf) for k in p0}
+        worst = max(leaf, key=leaf.get)
+        bitwise = all(torch.equal(p_sp[k], p_dense[k]) for k in p0)
+        ok_step = (abs(loss_sp - loss_dense)
+                   <= SP_STEP_TOL["loss_rtol"] * abs(loss_dense)
+                   and rel <= SP_STEP_TOL["update_rel"]
+                   and leaf[worst] <= SP_STEP_TOL["leaf_update_rel"])
+        del p_sp
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        r = run("sp", mode, SP_STEPS)
+        counts = {w.__name__: {"launches": w.launches,
+                               "by_design": dict(w.launches_by_design)}
+                  for w in (fa.flash_fwd, fa.flash_bwd)}
+        depth = int(SP_ARGV[SP_ARGV.index("--depth") + 1])
+        ok_counts = all(c["launches"] == SP_STEPS * depth
+                        == c["by_design"]["wgmma"] for c in counts.values())
+        losses = r["losses"]
+        ok_loss = (all(map(math.isfinite, losses))
+                   and statistics.mean(losses[-5:]) < losses[0])
+        step_ms = r["loop_seconds"] / (SP_STEPS - 1) * 1e3
+        tokens_s = (r["batch"] * r["seq_len"] * (SP_STEPS - 1)
+                    / r["loop_seconds"])
+        r_first = r["first_step_seconds"]
+        peak = torch.cuda.max_memory_allocated()
+        del r
+        ok = ok_step and ok_counts and ok_loss
+        ok_all = ok_all and ok
+        results.setdefault("sp_train", {})[mode] = {
+            "step_ms": step_ms, "tokens_per_s": tokens_s}
+        emit("sp_train", mode=mode, world=1,
+             one_step={"loss_sp": loss_sp, "loss_dense": loss_dense,
+                       "update_rel_err": rel, "worst_leaf": [worst,
+                                                             leaf[worst]],
+                       "bitwise": bitwise, "tolerance": SP_STEP_TOL,
+                       "ok": ok_step},
+             steps=SP_STEPS, losses=losses, ok_loss_falls=ok_loss,
+             launches=counts, launches_per_step=depth, ok_launches=ok_counts,
+             step_ms=step_ms, tokens_per_s=tokens_s,
+             first_step_s=r_first, peak_mem_bytes=peak, ok=ok)
+    return ok_all
+
+
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("gmm", check_gmm), ("slice", check_slice),
           ("composition", check_composition), ("moe_slice", check_moe_slice),
@@ -2071,7 +2635,9 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("serve", check_serve), ("serve_int8", check_serve_int8),
           ("quant", check_quant), ("convnet", check_convnet),
           ("resnet", check_resnet), ("optim", check_optim),
-          ("resume", check_resume))
+          ("resume", check_resume), ("flash_offdiag", check_flash_offdiag),
+          ("split_diag", check_split_diag), ("ring", check_ring),
+          ("sp_train", check_sp_train))
 
 
 def main() -> int:

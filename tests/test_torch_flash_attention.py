@@ -101,7 +101,7 @@ def test_dispatch_rules():
             torch_sdpa(q, k, v, mask=torch.ones(16, 16, dtype=torch.bool))
     np.testing.assert_allclose(flash.numpy(), dense.numpy(), FWD_TOL, FWD_TOL)
     with pytest.raises(ValueError, match="causal"):
-        torch_flash_lse(q, k, v, causal="offdiag")
+        torch_flash_lse(q, k, v, causal="bogus")
 
 
 def _strides(b, t, h, d, layout, dtype=torch.bfloat16):

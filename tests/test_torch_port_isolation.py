@@ -49,6 +49,9 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch.checkpoint
         import tpu_dist_torch.collectives
         import tpu_dist_torch.examples.train_lm
+        import tpu_dist_torch.parallel.ring_attention
+        import tpu_dist_torch.dist.process_group
+        import tpu_dist_torch.benchmarks.sp_lm
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist")
                         and sys.modules[m] is not None)

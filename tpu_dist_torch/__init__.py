@@ -23,7 +23,10 @@ the two ``mp.spawn`` scripts; and the training recipe: every optimizer of
 ``optim`` (multi-tensor, in place), lr schedules, clipping, EMA, gradient
 accumulation in the DDP, ``checkpoint`` in the JAX package's format with
 ``collectives.broadcast_object_list`` for resuming, and the
-``examples.train_lm`` twin.
+``examples.train_lm`` twin; and sequence parallelism: process groups with
+mesh axes, ring attention and Ulysses (``parallel``), the sequence axis of
+the attention layer and the model, ``train_lm --parallel sp``, and flash
+attention's ``causal="offdiag"`` mode and ``split_diag`` variant.
 """
 
 from . import (checkpoint, collectives, data, dist, examples, launch, models,

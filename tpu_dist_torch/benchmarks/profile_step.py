@@ -5,8 +5,10 @@ with ``--model moe`` the dropless-MoE slice of
 :mod:`tpu_dist_torch.benchmarks.moe_lm`, with ``--model convnet`` the
 ConvNet of :mod:`tpu_dist_torch.benchmarks.convnet` (batch 8192, bf16),
 with ``--model resnet18`` the ResNet-18 of
-:mod:`tpu_dist_torch.benchmarks.resnet_cifar` (batch 1024, bf16; a
-training step each), or one
+:mod:`tpu_dist_torch.benchmarks.resnet_cifar` (batch 1024, bf16), with
+``--model sp_ring`` or ``sp_ulysses`` the sequence-parallel GPT-2-small of
+``train_lm --parallel sp`` at world 1 (T = 8192, batch 1, bf16, unfused
+loss; a training step each), or one
 decode iteration (``SlotEngine.step``: the pool's forward, the sampling and
 the read-back of the tokens) of the serving slice of
 :mod:`tpu_dist_torch.benchmarks.serve_lm` with its 8 slots filled by the
@@ -26,6 +28,7 @@ step's time without the profiler (host clock, synchronized).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import time
 from collections import defaultdict
@@ -66,7 +69,15 @@ def _decode_step(cache_dtype, sampled: bool):
     return make
 
 
+def _sp_step(mode):
+    return _train_step(functools.partial(
+        transformer_lm.build, batch=1, seq_len=8192, fused=False,
+        sequence_axis="seq", mode=mode))
+
+
 _BUILDERS = {"dense": _train_step(transformer_lm.build),
+             "sp_ring": _sp_step("ring"),
+             "sp_ulysses": _sp_step("ulysses"),
              "moe": _train_step(moe_lm.build),
              "convnet": _train_step(_convnet),
              "resnet18": _train_step(resnet_cifar.build),

@@ -29,15 +29,19 @@ __all__ = ["build", "run", "time_steps"]
 
 def build(batch: int = 8, seq_len: int = 2048, dim: int = 768,
           depth: int = 12, heads: int = 12, vocab: int = 32768,
-          fused: bool = True, group=None, device=None):
+          fused: bool = True, group=None, device=None,
+          sequence_axis=None, mode: str = "ring"):
     """The benchmark's model, DDP wrapper and batch: returns ``(ddp, x, y)``
     with ``x``/``y`` this rank's (batch, seq_len) slice of the global
-    random-token batch."""
+    random-token batch.  ``sequence_axis``/``mode``: the sequence-parallel
+    model (``TransformerLM(sequence_axis=, mode=)``; at world 1 its
+    attention is one ring block, or Ulysses' identity all-to-all)."""
     device = resolve_device(device)
     world = group.size() if group is not None else 1
     rank = group.rank if group is not None else 0
     model = TransformerLM(vocab_size=vocab, dim=dim, depth=depth,
-                          num_heads=heads, max_seq_len=seq_len, device=device)
+                          num_heads=heads, max_seq_len=seq_len, device=device,
+                          sequence_axis=sequence_axis, mode=mode)
     ddp = DistributedDataParallel(
         model, optimizer=optim.SGD(lr=0.01),
         loss_fn=nn.CrossEntropyLoss(fused=fused), group=group,

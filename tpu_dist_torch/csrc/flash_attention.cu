@@ -66,12 +66,23 @@
 // 3. FMA (float32): shared-memory tiles and plain FMA, full f32 precision,
 //    for the tests and ragged shapes.
 //
+// Every design takes three masking modes (Mask below): none, causal, and the
+// TPU kernels' causal="offdiag" (_tile_live), where query row q sees the
+// keys of the key blocks strictly left of its query block: k < L(q) =
+// floor((q / bq) * bq / bk) * bk, with bq, bk the caller's block sizes.  L is
+// a per-row key limit, nondecreasing in q, so offdiag needs no diagonal
+// tiles: the key sweep of a query tile ends at L of its last row, the query
+// sweep of a key tile starts at the first row whose L passes the tile, and a
+// tile crossing a limit (a ragged end, or a 192-row forward tile straddling
+// two query blocks) takes the same select as the ragged end of the keys.
+// The split_diag variant (ops/flash_attention.py) is an offdiag call plus a
+// batched causal call over the diagonal bands, merged by their lse.
+//
 // Rows with no visible key get lse = -1e30 and o = 0, as in the TPU kernel.
 // Layout: q, k, v are (B, T, H, D) with unit stride in D and any other
 // strides (so the split of a fused qkv projection needs no copy); o, dO, dQ,
 // dK, dV are contiguous (B, T, H, D); lse and delta are contiguous (B, H, Tq)
-// float32.  Not ported yet: the TPU kernels' causal="offdiag" mode and
-// split_diag variant, which serve ring attention.
+// float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,13 +103,40 @@ struct Strided {  // a (B, T, H, D) operand with unit stride in D
   long long sb, st, sh;
 };
 
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The masking mode of a launch: kFull (every key), kCausal (k <= q) or
+// kOffdiag (k < L(q), the key blocks strictly left of q's query block; bq and
+// bk are the block sizes, used only by kOffdiag).
+enum Mode { kFull = 0, kCausal = 1, kOffdiag = 2 };
+
+struct Mask {
+  int mode, bq, bk;
+
+  // Keys [0, key_end(q)) are visible to query row q: nondecreasing in q.
+  __device__ __forceinline__ int key_end(int q, int Tk) const {
+    if (mode == kCausal) return min(q + 1, Tk);
+    if (mode == kOffdiag) return min((q / bq) * bq / bk * bk, Tk);
+    return Tk;
+  }
+
+  // Queries [query_start(k), Tq) see key k (k < Tk), the inverse of
+  // key_end: nondecreasing in k.  Offdiag: the first query block j with
+  // floor(j bq / bk) > floor(k / bk).
+  __device__ __forceinline__ int query_start(int k) const {
+    if (mode == kCausal) return k;
+    if (mode == kOffdiag) return cdiv((k / bk + 1) * bk, bq) * bq;
+    return 0;
+  }
+};
+
 struct FwdParams {
   Strided q, k, v;
   void* o;
   float* lse;
   int H, Tq, Tk, D;
   float scale;
-  int causal;
+  Mask mask;
 };
 
 struct BwdParams {
@@ -110,19 +148,26 @@ struct BwdParams {
   void* dv;
   int H, Tq, Tk, D;
   float scale;
-  int causal;
+  Mask mask;
 };
-
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 template <typename T>
 __device__ __forceinline__ const T* head_base(const Strided& s, int b, int h) {
   return static_cast<const T*>(s.ptr) + b * s.sb + h * s.sh;
 }
 
-__device__ __forceinline__ bool visible(int qpos, int kpos, int Tq, int Tk,
-                                        int causal) {
-  return qpos < Tq && kpos < Tk && (!causal || kpos <= qpos);
+// The key tiles of TILE keys a query tile of rows [q0, q0 + rows) sweeps:
+// up to the key limit of its last row (zero when no row sees a key).
+template <int TILE>
+__device__ __forceinline__ int key_tiles(const Mask& m, int q0, int rows, int Tq, int Tk) {
+  return cdiv(m.key_end(min(q0 + rows, Tq) - 1, Tk), TILE);
+}
+
+// The first query tile of ROWS rows that a key tile starting at k0 (< Tk)
+// meets, at most n_qt.
+template <int ROWS>
+__device__ __forceinline__ int first_query_tile(const Mask& m, int k0, int n_qt) {
+  return min(m.query_start(k0) / ROWS, n_qt);
 }
 
 // ROWS x DP tile of rows [r0, r0 + ROWS) into shared memory (leading dim
@@ -294,8 +339,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(FwdParams p) {
   const int g = lane >> 2, t = lane & 3;
   const bf16* kb = head_base<bf16>(p.k, b, h);
   const bf16* vb = head_base<bf16>(p.v, b, h);
-  int n_kt = cdiv(p.Tk, kRows);
-  if (p.causal) n_kt = min(n_kt, cdiv(min(q0 + kRows, p.Tq), kRows));
+  const int n_kt = key_tiles<kRows>(p.mask, q0, kRows, p.Tq, p.Tk);
   auto prefetch = [&](int kt) {
     const int buf = (kt & 1) * kRows * LD;
     load_tile_async<kRows, DP, LD>(sK2 + buf, kb, p.k.st, kt * kRows, p.Tk, p.D);
@@ -311,6 +355,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(FwdParams p) {
   for (int kc = 0; kc < KD; ++kc) load_a(qa[kc], sQ, LD, warp * 16, kc * 16);
 
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  // each row's keys: [0, kend) (rows past Tq are computed, never stored)
+  const int kend[2] = {p.mask.key_end(row[0], p.Tk), p.mask.key_end(row[1], p.Tk)};
   float o[ND][4] = {};
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 
@@ -344,8 +390,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(FwdParams p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, kpos = k0 + j * 8 + 2 * t + (e & 1);
-        s[j][e] = visible(row[r], kpos, 0x7fffffff, p.Tk, p.causal)
-                      ? s[j][e] * p.scale : kNegInf;
+        s[j][e] = kpos < kend[r] ? s[j][e] * p.scale : kNegInf;
         mx[r] = fmaxf(mx[r], s[j][e]);
       }
     float alpha[2], rs[2] = {0.0f, 0.0f};
@@ -360,8 +405,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(FwdParams p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, kpos = k0 + j * 8 + 2 * t + (e & 1);
-        const float pr = visible(row[r], kpos, 0x7fffffff, p.Tk, p.causal)
-                             ? __expf(s[j][e] - m[r]) : 0.0f;
+        const float pr = kpos < kend[r] ? __expf(s[j][e] - m[r]) : 0.0f;
         s[j][e] = pr;
         rs[r] += pr;
       }
@@ -414,8 +458,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_mma_kernel(BwdParams p) {
   const int g = lane >> 2, t = lane & 3;
   const bf16* kb = head_base<bf16>(p.k, b, h);
   const bf16* vb = head_base<bf16>(p.v, b, h);
-  int n_kt = cdiv(p.Tk, kRows);
-  if (p.causal) n_kt = min(n_kt, cdiv(min(q0 + kRows, p.Tq), kRows));
+  const int n_kt = key_tiles<kRows>(p.mask, q0, kRows, p.Tq, p.Tk);
   auto prefetch = [&](int kt) {
     const int buf = (kt & 1) * kRows * LD;
     load_tile_async<kRows, DP, LD>(sK2 + buf, kb, p.k.st, kt * kRows, p.Tk, p.D);
@@ -435,11 +478,13 @@ __global__ void __launch_bounds__(kThreads) flash_dq_mma_kernel(BwdParams p) {
   }
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   float lse[2], delta[2];
+  int kend[2];  // each row's keys: [0, kend), none past Tq
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const bool in = row[r] < p.Tq;
     lse[r] = in ? p.lse[(long long)bh * p.Tq + row[r]] : 0.0f;
     delta[r] = in ? p.delta[(long long)bh * p.Tq + row[r]] : 0.0f;
+    kend[r] = in ? p.mask.key_end(row[r], p.Tk) : 0;
   }
   float dq[ND][4] = {};
 
@@ -473,8 +518,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_mma_kernel(BwdParams p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1, kpos = k0 + kc2 * 16 + j * 8 + 2 * t + (e & 1);
-          const float pr = visible(row[r], kpos, p.Tq, p.Tk, p.causal)
-                               ? __expf(s[j][e] * p.scale - lse[r]) : 0.0f;
+          const float pr = kpos < kend[r] ? __expf(s[j][e] * p.scale - lse[r]) : 0.0f;
           s[j][e] = pr * (dp[j][e] - delta[r]);  // dS
         }
       uint32_t dsa[4];
@@ -514,10 +558,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_mma_kernel(BwdParams p) {
   load_tile<bf16, kRows, DP, LD>(sK, head_base<bf16>(p.k, b, h), p.k.st, k0, p.Tk, p.D);
   load_tile<bf16, kRows, DP, LD>(sV, head_base<bf16>(p.v, b, h), p.v.st, k0, p.Tk, p.D);
   const int krow[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  // each key's queries: [qs, Tq); none for keys past Tk
+  const int qs[2] = {krow[0] < p.Tk ? p.mask.query_start(krow[0]) : 0x7fffffff,
+                     krow[1] < p.Tk ? p.mask.query_start(krow[1]) : 0x7fffffff};
   float dk[ND][4] = {}, dv[ND][4] = {};
   const int n_qt = cdiv(p.Tq, kRows);
-  // causal: the first query tile whose last row reaches this key tile
-  const int qt0 = p.causal ? k0 / kRows : 0;
+  // the first query tile that sees a key of this tile
+  const int qt0 = first_query_tile<kRows>(p.mask, k0, n_qt);
   auto prefetch = [&](int qt) {
     const int q0 = qt * kRows, buf = qt & 1;
     load_tile_async<kRows, DP, LD>(sQ2 + buf * kRows * LD, qb, p.q.st, q0, p.Tq, p.D);
@@ -565,7 +612,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_mma_kernel(BwdParams p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1, qi = qc * 16 + j * 8 + 2 * t + (e & 1);
-          const float pr = visible(q0 + qi, krow[r], p.Tq, p.Tk, p.causal)
+          const float pr = q0 + qi < p.Tq && q0 + qi >= qs[r]
                                ? __expf(st[j][e] * p.scale - sLse[qi]) : 0.0f;
           st[j][e] = pr;
           dpt[j][e] = pr * (dpt[j][e] - sDelta[qi]);  // dS^T
@@ -652,8 +699,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(FwdParams p) {
     sM[i] = kNegInf;
     sL[i] = 0.0f;
   }
-  int n_kt = cdiv(p.Tk, R);
-  if (p.causal) n_kt = min(n_kt, cdiv(min(q0 + R, p.Tq), R));
+  const int n_kt = key_tiles<R>(p.mask, q0, R, p.Tq, p.Tk);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -666,7 +712,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(FwdParams p) {
     __syncthreads();
     for (int r = warp; r < R; r += kWarps) {  // one warp per row, lane per key
       const int c = lane;
-      const bool ok = visible(q0 + r, k0 + c, 0x7fffffff, p.Tk, p.causal);
+      const bool ok = k0 + c < p.mask.key_end(q0 + r, p.Tk);
       const float s = ok ? sS[r * S::LDS + c] * p.scale : kNegInf;
       float mx = s;
       for (int off = 16; off > 0; off >>= 1)
@@ -735,8 +781,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(BwdParams p) {
     sLse[r] = in ? p.lse[(long long)bh * p.Tq + q0 + r] : 0.0f;
     sDelta[r] = in ? p.delta[(long long)bh * p.Tq + q0 + r] : 0.0f;
   }
-  int n_kt = cdiv(p.Tk, R);
-  if (p.causal) n_kt = min(n_kt, cdiv(min(q0 + R, p.Tq), R));
+  const int n_kt = key_tiles<R>(p.mask, q0, R, p.Tq, p.Tk);
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * R;
@@ -749,7 +794,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(BwdParams p) {
     __syncthreads();
     for (int i = threadIdx.x; i < R * R; i += kThreads) {
       const int r = i / R, c = i % R;
-      const float pr = visible(q0 + r, k0 + c, p.Tq, p.Tk, p.causal)
+      const float pr = q0 + r < p.Tq && k0 + c < p.mask.key_end(q0 + r, p.Tk)
                            ? expf(sS[r * S::LDS + c] * p.scale - sLse[r]) : 0.0f;
       sDS[r * S::LDS + c] = pr * (sDP[r * S::LDS + c] - sDelta[r]);
     }
@@ -795,7 +840,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(BwdParams p) {
     sDV[i] = 0.0f;
   }
   const int n_qt = cdiv(p.Tq, R);
-  const int qt0 = p.causal ? k0 / R : 0;
+  const int qt0 = first_query_tile<R>(p.mask, k0, n_qt);
 
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * R;
@@ -813,7 +858,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(BwdParams p) {
     __syncthreads();
     for (int i = threadIdx.x; i < R * R; i += kThreads) {
       const int j = i / R, c = i % R;
-      const float pr = visible(q0 + c, k0 + j, p.Tq, p.Tk, p.causal)
+      const float pr = q0 + c < p.Tq && k0 + j < p.Tk && q0 + c >= p.mask.query_start(k0 + j)
                            ? expf(sS[j * S::LDS + c] * p.scale - sLse[c]) : 0.0f;
       sP[j * S::LDS + c] = pr;
       sDS[j * S::LDS + c] = pr * (sDP[j * S::LDS + c] - sDelta[c]);
@@ -867,7 +912,7 @@ struct WgParams {
   const float* delta;   // backward
   int BH, H, Tq, Tk;
   float scale;
-  int causal;
+  Mask mask;
 };
 
 // Shared memory of a wgmma kernel, from a 1024-aligned base (the period of
@@ -1127,8 +1172,7 @@ __device__ __forceinline__ FwdTile fwd_tile(const WgParams& p, int i, int rows) 
   t.b = t.bh / p.H;
   t.h = t.bh % p.H;
   t.q0 = (n_qt - 1 - i / p.BH) * rows;
-  t.n_kt = cdiv(p.Tk, 128);
-  if (p.causal) t.n_kt = min(t.n_kt, cdiv(min(t.q0 + rows, p.Tq), 128));
+  t.n_kt = key_tiles<128>(p.mask, t.q0, rows, p.Tq, p.Tk);
   return t;
 }
 
@@ -1180,27 +1224,35 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = 0.0f;
     float m[2] = {-kInf, -kInf}, l[2] = {0.0f, 0.0f};
+    // this warpgroup's key limits: its first row's (the least) and this
+    // thread's two rows'
+    const int kend_lo = p.mask.key_end(row0, p.Tk);
+    const int kend[2] = {p.mask.key_end(row0 + r_lo, p.Tk),
+                         p.mask.key_end(row0 + r_lo + 8, p.Tk)};
     mbar_wait(pipe.rfull(rb), (it >> 1) & 1);
     const uint32_t qa = pipe.res(rb) + wg * BOX;
-    // S of the first key tile; every later S is issued behind the last PV
-    mbar_wait(pipe.full(pipe.stage), pipe.phase);
-    wgmma_fence();
+    // S of the first key tile; every later S is issued behind the last PV.
+    // An offdiag tile of the first query block sees no key: no tile at all.
+    if (t.n_kt > 0) {
+      mbar_wait(pipe.full(pipe.stage), pipe.phase);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss128(s, kmaj(qa, kk), kmaj(pipe.st(pipe.stage), kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(s);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss128(s, kmaj(qa, kk), kmaj(pipe.st(pipe.stage), kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+    }
     for (int kt = 0; kt < t.n_kt; ++kt) {
       const int cur = pipe.stage, k0 = kt * 128;
-      // the mask only on tiles that cross the diagonal or the end of the
-      // keys (a branch on the tile, uniform; the element test a select)
-      if ((p.causal && k0 + 127 > row0) || k0 + 128 > p.Tk) {
+      // the mask only on tiles that cross a row's key limit (the diagonal,
+      // the end of the keys, an offdiag limit past the warpgroup's first
+      // row): a branch on the tile, uniform; the element test a select
+      if (k0 + 128 > kend_lo) {
 #pragma unroll
         for (int i = 0; i < 64; ++i) {
           const int kpos = k0 + 8 * (i >> 2) + c_lo + (i & 1);
-          const int row = row0 + r_lo + 8 * ((i >> 1) & 1);
-          s[i] = kpos < p.Tk && (!p.causal || kpos <= row) ? s[i] : -kInf;
+          s[i] = kpos < kend[(i >> 1) & 1] ? s[i] : -kInf;
         }
       }
       float mx[2] = {-kInf, -kInf};
@@ -1278,8 +1330,7 @@ using DqLayout = WgLayout<4 * BOX, 2 * BOX, 4, BOX, 0>;
 
 __device__ __forceinline__ FwdTile dq_tile(const WgParams& p, int i) {
   FwdTile t = fwd_tile(p, i, 128);
-  t.n_kt = cdiv(p.Tk, 64);
-  if (p.causal) t.n_kt = min(t.n_kt, cdiv(min(t.q0 + 128, p.Tq), 64));
+  t.n_kt = key_tiles<64>(p.mask, t.q0, 128, p.Tq, p.Tk);
   return t;
 }
 
@@ -1327,34 +1378,38 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // this thread's two rows: lse (in log2 units) and delta; rows past Tq
     // read row Tq - 1 (their dQ is never stored)
     float lse2[2], dl[2];
+    int kend[2];  // the key limits of the thread's two rows
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const long long at = (long long)t.bh * p.Tq + min(row0 + r_lo + 8 * r, p.Tq - 1);
       lse2[r] = p.lse[at] * kLog2e;
       dl[r] = p.delta[at];
+      kend[r] = p.mask.key_end(row0 + r_lo + 8 * r, p.Tk);
     }
+    const int kend_lo = p.mask.key_end(row0, p.Tk);  // the warpgroup's least
     float dq[32], s[32], dp[32];
     uint32_t dsa[16];
 #pragma unroll
     for (int i = 0; i < 32; ++i) dq[i] = 0.0f;
     mbar_wait(pipe.rfull(rb), (it >> 1) & 1);
     const uint32_t qa = pipe.res(rb) + wg * BOX, da = qa + 2 * BOX;
-    mbar_wait(pipe.full(pipe.stage), pipe.phase);
-    wgmma_fence();
-    product64(s, qa, pipe.st(pipe.stage));        // S = Q K^T
-    product64(dp, da, pipe.st(pipe.stage) + BOX);  // dP = dO V^T
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(s);
-    fence_acc(dp);
+    if (t.n_kt > 0) {  // none for an offdiag tile of the first query block
+      mbar_wait(pipe.full(pipe.stage), pipe.phase);
+      wgmma_fence();
+      product64(s, qa, pipe.st(pipe.stage));        // S = Q K^T
+      product64(dp, da, pipe.st(pipe.stage) + BOX);  // dP = dO V^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+    }
     for (int kt = 0; kt < t.n_kt; ++kt) {
       const int cur = pipe.stage, k0 = kt * 64;
-      if ((p.causal && k0 + 63 > row0) || k0 + 64 > p.Tk) {
+      if (k0 + 64 > kend_lo) {  // see the forward
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int kpos = k0 + 8 * (i >> 2) + c_lo + (i & 1);
-          const int row = row0 + r_lo + 8 * ((i >> 1) & 1);
-          s[i] = kpos < p.Tk && (!p.causal || kpos <= row) ? s[i] : -kInf;
+          s[i] = kpos < kend[(i >> 1) & 1] ? s[i] : -kInf;
         }
       }
 #pragma unroll
@@ -1414,7 +1469,7 @@ __device__ __forceinline__ DkvTile dkv_tile(const WgParams& p, int i) {
   t.h = t.bh % p.H;
   t.k0 = (i / p.BH) * 128;
   t.n_qt = cdiv(p.Tq, 64);
-  t.qt0 = p.causal ? min(t.k0 / 64, t.n_qt) : 0;
+  t.qt0 = first_query_tile<64>(p.mask, t.k0, t.n_qt);
   return t;
 }
 
@@ -1491,6 +1546,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       dk[i] = 0.0f;
       dv[i] = 0.0f;
     }
+    // the first query of this warpgroup's last key (the largest), and of
+    // this thread's two keys; keys past Tk are computed, never stored
+    const int qs_hi = p.mask.query_start(key0 + 63);
+    const int qs[2] = {p.mask.query_start(key0 + r_lo), p.mask.query_start(key0 + r_lo + 8)};
     mbar_wait(pipe.rfull(rb), (it >> 1) & 1);
     const uint32_t ka = pipe.res(rb) + wg * BOX, va = ka + 2 * BOX;
     const int n = t.n_qt - t.qt0;
@@ -1506,12 +1565,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
     for (int qi = 0; qi < n; ++qi) {
       const int cur = pipe.stage, q0 = (t.qt0 + qi) * 64;
-      if ((p.causal && q0 < key0 + 63) || q0 + 64 > p.Tq) {
+      if (q0 < qs_hi || q0 + 64 > p.Tq) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int q = q0 + 8 * (i >> 2) + c_lo + (i & 1);
-          const int key = key0 + r_lo + 8 * ((i >> 1) & 1);
-          st[i] = q < p.Tq && (!p.causal || key <= q) ? st[i] : -kInf;
+          st[i] = q < p.Tq && q >= qs[(i >> 1) & 1] ? st[i] : -kInf;
         }
       }
       const float* side = pipe.side(cur);
@@ -1614,6 +1672,10 @@ Strided strided(const void* ptr, long long sb, long long st, long long sh) {
 // decides from the shapes and strides.
 enum Design { kFma = 0, kMmaSync = 1, kWgmma = 2 };
 
+bool valid_mask(int mode, int bq, int bk) {
+  return mode == kFull || mode == kCausal || (mode == kOffdiag && bq >= 1 && bk >= 1);
+}
+
 // The (D, H, T, B) map of a (B, T, H, 64) bf16 tensor with element strides
 // sb, st, sh (unit stride in D), in boxes of 64 rows of one head.
 int head_map(CUtensorMap* map, const void* base, int B, int T, int H, long long sb,
@@ -1659,16 +1721,21 @@ int launch_wgmma(int n_tiles, size_t smem, cudaStream_t stream, const FlashMaps&
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; design: 0 = FMA (float32), 1 = mma.sync,
-// 2 = wgmma (bf16, D = 64, 16-byte strides and bases).  Returns a
-// cudaError_t, or kErrNoEncoder / kErrEncode for a tensor map.
+// mode: 0 = no mask, 1 = causal, 2 = offdiag with block sizes bq, bk (>= 1;
+// read only in mode 2); dtype: 0 = float32, 1 = bfloat16; design: 0 = FMA
+// (float32), 1 = mma.sync, 2 = wgmma (bf16, D = 64, 16-byte strides and
+// bases).  Returns a cudaError_t, or kErrNoEncoder / kErrEncode for a tensor
+// map.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
               int B, int H, int Tq, int Tk, int D,
               long long q_sb, long long q_st, long long q_sh,
               long long k_sb, long long k_st, long long k_sh,
               long long v_sb, long long v_st, long long v_sh,
-              float scale, int causal, int dtype, int design, void* stream) {
+              float scale, int mode, int bq, int bk, int dtype, int design,
+              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!valid_mask(mode, bq, bk)) return cudaErrorInvalidValue;
+  const Mask mask{mode, bq, bk};
   if (design == kWgmma) {
     if (dtype != 1 || D != 64 || Tq < 1 || Tk < 1) return cudaErrorInvalidValue;
     FlashMaps maps{};
@@ -1677,7 +1744,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
     if (err == 0) err = head_map(&maps.v, v, B, Tk, H, v_sb, v_st, v_sh);
     if (err == 0) err = dense_map(&maps.o, o, B, Tq, H);
     if (err != 0) return err;
-    const WgParams wp{lse, nullptr, B * H, H, Tq, Tk, scale, causal};
+    const WgParams wp{lse, nullptr, B * H, H, Tq, Tk, scale, mask};
     return launch_wgmma<flash_fwd_wgmma_kernel>(cdiv(Tq, kFwdRows) * B * H, FwdLayout::bytes,
                                                 s, maps, wp, kFwdThreads);
   }
@@ -1693,7 +1760,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   p.Tk = Tk;
   p.D = D;
   p.scale = scale;
-  p.causal = causal;
+  p.mask = mask;
   return D <= 64 ? fwd<64>(p, B, dtype == 1, s) : fwd<128>(p, B, dtype == 1, s);
 }
 
@@ -1706,8 +1773,11 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
               long long q_sb, long long q_st, long long q_sh,
               long long k_sb, long long k_st, long long k_sh,
               long long v_sb, long long v_st, long long v_sh,
-              float scale, int causal, int dtype, int design, void* stream) {
+              float scale, int mode, int bq, int bk, int dtype, int design,
+              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!valid_mask(mode, bq, bk)) return cudaErrorInvalidValue;
+  const Mask mask{mode, bq, bk};
   if (design == kWgmma) {
     if (dtype != 1 || D != 64 || Tq < 1 || Tk < 1) return cudaErrorInvalidValue;
     FlashMaps maps{};
@@ -1719,7 +1789,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
     if (err == 0) err = dense_map(&maps.dk, dk, B, Tk, H);
     if (err == 0) err = dense_map(&maps.dv, dv, B, Tk, H);
     if (err != 0) return err;
-    const WgParams wp{const_cast<float*>(lse), delta, B * H, H, Tq, Tk, scale, causal};
+    const WgParams wp{const_cast<float*>(lse), delta, B * H, H, Tq, Tk, scale, mask};
     err = launch_wgmma<flash_dq_wgmma_kernel>(cdiv(Tq, 128) * B * H, DqLayout::bytes, s, maps,
                                               wp, kWgThreads);
     if (err != 0) return err;
@@ -1742,7 +1812,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
   p.Tk = Tk;
   p.D = D;
   p.scale = scale;
-  p.causal = causal;
+  p.mask = mask;
   return D <= 64 ? bwd<64>(p, B, dtype == 1, s) : bwd<128>(p, B, dtype == 1, s);
 }
 

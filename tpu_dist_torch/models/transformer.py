@@ -9,8 +9,10 @@ With ``num_experts > 0`` every ``moe_every``-th block's MLP is a routed
 paths match the JAX package's (``tok``, ``pos``, ``block0.attn``,
 ``block0.mlp.0`` or, for an MoE block, ``block0.mlp``, ``ln_f``, ``head``);
 KV caches are keyed by the attention layers' paths (``block0.attn``), as
-the JAX package's cache state is.  Remat and RMSNorm/rope come with later
-slices."""
+the JAX package's cache state is.  ``sequence_axis`` trains on sequence
+shards over a mesh axis (ring attention or Ulysses in every block; the
+parameters are the dense model's).  Remat and RMSNorm/rope come with later
+slices (ROADMAP A7)."""
 
 from __future__ import annotations
 
@@ -65,12 +67,15 @@ def _sample(logits, key, step: int, temperature: float, top_k: int,
 
 class TransformerBlock(torch.nn.Module):
     def __init__(self, dim: int, num_heads: int, causal: bool = True,
-                 mlp: Optional[torch.nn.Module] = None, device=None):
+                 mlp: Optional[torch.nn.Module] = None, device=None,
+                 sequence_axis: Optional[str] = None, mode: str = "ring"):
         super().__init__()
         device = resolve_device(device)
         self.ln1 = nn.LayerNorm(dim, device=device)
         self.attn = nn.MultiheadSelfAttention(dim, num_heads, causal=causal,
-                                              device=device)
+                                              device=device,
+                                              sequence_axis=sequence_axis,
+                                              mode=mode)
         self.ln2 = nn.LayerNorm(dim, device=device)
         # mlp override: an nn.MoELayer for mixture-of-experts blocks
         self.mlp = mlp if mlp is not None else nn.Sequential(
@@ -92,17 +97,24 @@ class TransformerLM(torch.nn.Module):
                  moe_top_k: int = 2, moe_every: int = 1,
                  moe_capacity_factor: float = 1.25,
                  moe_dispatch: str = "einsum", norm: str = "layernorm",
-                 device=None):
+                 device=None, sequence_axis: Optional[str] = None,
+                 mode: str = "ring"):
         """``num_experts > 0`` makes the MLP of every block ``i`` with
         ``i % moe_every == moe_every - 1`` a routed MoELayer; its aux loss
         is the layer's ``aux_loss`` after each forward (the DDP collects it
         into ``TrainState.model_state``).  As in the JAX package the
         default dispatch is ``"einsum"``, which the port does not have yet:
-        pass ``moe_dispatch="dropless"``."""
+        pass ``moe_dispatch="dropless"``.
+
+        ``sequence_axis``: a mesh axis of the default process group over
+        which ``idx`` is this rank's sequence shard; every block's attention
+        then runs ``mode`` (``"ring"`` or ``"ulysses"``) over the axis, and
+        the learned positions start at the shard's offset."""
         super().__init__()
         if norm != "layernorm":
             raise NotImplementedError(
-                f"norm={norm!r}: RMSNorm (with rope) comes with a later slice")
+                f"norm={norm!r}: RMSNorm (with rope) comes with a later "
+                f"slice (ROADMAP A7)")
         if num_experts > 0 and moe_every < 1:
             raise ValueError(f"moe_every must be >= 1, got {moe_every}")
         device = resolve_device(device)
@@ -110,13 +122,14 @@ class TransformerLM(torch.nn.Module):
         self.max_seq_len = max_seq_len
         self.depth = depth
         self.causal = causal
+        self.sequence_axis = sequence_axis
         self.tok = nn.Embedding(vocab_size, dim, device=device)
         self.pos = nn.Embedding(max_seq_len, dim, device=device)
         for i in range(depth):
             moe = num_experts > 0 and i % moe_every == moe_every - 1
             setattr(self, f"block{i}", TransformerBlock(
                 dim, num_heads, causal=causal, device=device,
-                mlp=nn.MoELayer(dim, num_experts, top_k=moe_top_k,
+                sequence_axis=sequence_axis, mode=mode, mlp=nn.MoELayer(dim, num_experts, top_k=moe_top_k,
                                 capacity_factor=moe_capacity_factor,
                                 dispatch=moe_dispatch, device=device)
                 if moe else None))
@@ -127,11 +140,18 @@ class TransformerLM(torch.nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
-    def embed_tokens(self, idx, pos_offset=0):
+    def embed_tokens(self, idx, pos_offset=None):
         """Token + learned positional embeddings for ``idx`` (B, T).
         ``pos_offset`` is an int, or a (B,) tensor of per-row positions
-        (the slot pool's decode step)."""
+        (the slot pool's decode step); None is 0, or with
+        ``sequence_axis`` the shard's offset, its index on the axis times
+        T (``lax.axis_index`` in the JAX package)."""
         t = idx.shape[1]
+        if pos_offset is None:
+            pos_offset = 0
+            if self.sequence_axis is not None:
+                from ..dist import axis_group
+                pos_offset = axis_group(self.sequence_axis).index * t
         if torch.is_tensor(pos_offset) and pos_offset.dim():
             pos = pos_offset[:, None] + torch.arange(t, device=idx.device)
         else:
@@ -139,7 +159,7 @@ class TransformerLM(torch.nn.Module):
                                device=idx.device)
         return self.tok(idx) + self.pos(pos)
 
-    def forward(self, idx, pos_offset=0, cache: Optional[dict] = None):
+    def forward(self, idx, pos_offset=None, cache: Optional[dict] = None):
         """``cache``: a KV cache from :meth:`init_cache` (keyed by attention
         path), written in place; None for the uncached forward."""
         x = self.embed_tokens(idx, pos_offset)
@@ -156,6 +176,10 @@ class TransformerLM(torch.nn.Module):
         """KV cache for :meth:`generate`: one ``{"k", "v", "index"}`` entry
         per attention layer (int8: plus the scales), keyed by module path,
         on the model's device."""
+        if self.sequence_axis is not None:
+            raise ValueError("KV-cache decode runs on gathered sequences; "
+                             "build the model without sequence_axis for "
+                             "generation")
         if not self.causal:
             raise ValueError("KV-cache decode requires causal attention: a "
                              "bidirectional model's logits depend on future "

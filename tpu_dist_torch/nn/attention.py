@@ -3,8 +3,9 @@
 :func:`scaled_dot_product_attention` dispatches between the dense
 composition and the flash kernel; :class:`MultiheadSelfAttention` is the
 fused-QKV layer, with the JAX package's KV cache for decoding (float32,
-bfloat16 or int8 with per-(token, head) scales).  The sequence axis and
-rotary embeddings come with later slices."""
+bfloat16 or int8 with per-(token, head) scales) and sequence parallelism
+over a mesh axis (``sequence_axis``: ring attention or Ulysses).  Rotary
+embeddings come with a later slice (ROADMAP A7)."""
 
 from __future__ import annotations
 
@@ -90,19 +91,36 @@ class MultiheadSelfAttention(torch.nn.Module):
     and v reach the flash kernel as strided views, with no copy.
 
     ``forward(x, cache=...)`` decodes through a KV cache from
-    :meth:`init_cache` (see :meth:`_decode`)."""
+    :meth:`init_cache` (see :meth:`_decode`).
+
+    ``sequence_axis``: a mesh axis of the default process group (e.g.
+    ``"seq"``) over which ``x`` is this rank's sequence shard; attention
+    then spans the gathered sequence, by ``mode="ring"``
+    (:func:`~tpu_dist_torch.parallel.ring_self_attention`) or
+    ``"ulysses"`` (:func:`~tpu_dist_torch.parallel.ulysses_self_attention`),
+    and equals the dense computation.  A KV-cache decode runs on gathered
+    sequences and refuses it."""
 
     def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
                  causal: bool = False, attn_impl: Optional[str] = None,
-                 device=None):
+                 device=None, sequence_axis: Optional[str] = None,
+                 mode: str = "ring", rope: bool = False):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} not divisible by "
                              f"num_heads {num_heads}")
+        if mode not in ("ring", "ulysses"):
+            raise ValueError(f"Unknown sequence-parallel mode {mode!r}")
+        if rope:
+            raise NotImplementedError(
+                "rope=True: rotary embeddings come with a later slice of "
+                "the port (ROADMAP A7)")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.causal = causal
+        self.sequence_axis = sequence_axis
+        self.mode = mode
         self.attn_impl = attn_impl  # None = auto | "dense" | "flash"
         self._init_projections(bias, resolve_device(device))
 
@@ -149,7 +167,18 @@ class MultiheadSelfAttention(torch.nn.Module):
         # one buffer instead of zero-filling and adding three
         q, k, v = qkv.unbind(2)
         if cache is not None:
+            if self.sequence_axis is not None:
+                raise ValueError("KV-cache decode runs on gathered "
+                                 "sequences; build the layer without "
+                                 "sequence_axis for decoding")
             out = self._decode(cache, q, k, v)
+        elif self.sequence_axis is not None:
+            from ..parallel.ring_attention import (ring_self_attention,
+                                                   ulysses_self_attention)
+            fn = (ring_self_attention if self.mode == "ring"
+                  else ulysses_self_attention)
+            out = fn(q, k, v, axis_name=self.sequence_axis,
+                     causal=self.causal, impl=self.attn_impl)
         else:
             out = scaled_dot_product_attention(q, k, v, causal=self.causal,
                                                impl=self.attn_impl)
@@ -240,5 +269,7 @@ class MultiheadSelfAttention(torch.nn.Module):
         return cache
 
     def extra_repr(self):
+        seq = ("" if self.sequence_axis is None else
+               f", sequence_axis={self.sequence_axis!r}, mode={self.mode!r}")
         return (f"{self.embed_dim}, heads={self.num_heads}, "
-                f"causal={self.causal}")
+                f"causal={self.causal}{seq}")

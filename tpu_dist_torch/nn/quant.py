@@ -176,7 +176,8 @@ def _quantized(mod: torch.nn.Module, attention: bool, embedding: bool):
         q_mod = QuantMultiheadSelfAttention(
             mod.embed_dim, mod.num_heads, bias=mod.qkv_bias is not None,
             causal=mod.causal, attn_impl=mod.attn_impl,
-            device=mod.qkv_weight.device)
+            device=mod.qkv_weight.device, sequence_axis=mod.sequence_axis,
+            mode=mod.mode)
         q_mod.qkv_q[:], q_mod.qkv_scale[:] = _quantize_weight(mod.qkv_weight)
         q_mod.out_q[:], q_mod.out_scale[:] = _quantize_weight(mod.out_weight)
         if mod.qkv_bias is not None:
