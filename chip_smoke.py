@@ -110,15 +110,30 @@ Phases, each printed as one JSON line:
    (GPT-2-small, vocab 32768, T = 8192, batch 1, bf16), each mode: one step
    against the model without ``sequence_axis``, then 20 steps (the loss
    falls; K2f/K2b 12 launches a step; step ms, tokens/s).
-11. ``kernels``: one line over all kernels; the card's name and power limit
+11. ``augment``: ``DeviceAugment.imagenet(224, bf16)``,
+   ``imagenet_eval(224, 256)`` and ``cifar10(32)`` at full batch on the
+   card against the same call on a CPU copy (float32 within 1e-5, bf16
+   within one ulp), the modes' invariants, images/s of the augmentation, of
+   the raw host gather and of the ResNet-50 step, the pinned staging's host
+   time and ``loader_keeps_card_fed``.  ``imagenet``: the
+   ``example_imagenet`` twin at its defaults (ResNet-50, 224, 128, bf16,
+   augmentation on the card) for 30 steps and ``--evaluate``; one float32
+   step at batch 4 against the CPU copy; the ``imagenet_e2e`` twin (the
+   step alone and the sustained rate).  ``vit``: the twin with ``--model
+   vit_b_16`` for 20 steps at 64; one float32 step at batch 2 against the
+   CPU copy; the ``vit_train`` twin; then ViT-B/16's attention at (64, 197,
+   12, 64) through the dense composition and through K2f/K2b, timed in
+   turns, the flash result held to its plain version.  None of the three
+   paths runs a hand-written kernel: every count over each must be 0.
+12. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
 named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``composition``, ``moe_slice``, ``moe_layer``, ``moe_composition``,
 ``serve``, ``serve_int8``, ``quant``, ``convnet``, ``resnet``, ``optim``,
-``resume``, ``flash_offdiag``, ``split_diag``, ``ring``, ``sp_train``) and
-never prints the result line.
+``resume``, ``flash_offdiag``, ``split_diag``, ``ring``, ``sp_train``,
+``augment``, ``imagenet``, ``vit``) and never prints the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -1560,15 +1575,18 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-def step_against_cpu(ddp, make_cpu_model, x, y, tol: dict):
+def step_against_cpu(ddp, make_cpu_model, x, y, tol: dict, prepare=None):
     """One float32 train step of ``ddp`` on the card against the same step
     of a CPU copy of the port (same weights, state and batch), TF32 off:
     the loss, every parameter's update and every BatchNorm statistic.
+    ``prepare(module)`` changes the initialized weights in place first.
     Returns the fields to print and whether each is within ``tol``."""
     from tpu_dist_torch.parallel import DistributedDataParallel
 
     with tf32(False):
         state = ddp.init(seed=0)
+        if prepare is not None:
+            prepare(ddp.module)
         cpu_model = make_cpu_model()
         cpu = DistributedDataParallel(cpu_model, optimizer=ddp.optimizer,
                                       loss_fn=ddp.loss_fn)
@@ -1613,6 +1631,14 @@ def timed_row(fn, **kw) -> dict:
         r = fn(**kw)
     return {k: r[k] for k in ("value", "step_ms", "peak_mem_bytes",
                               "per_gpu_batch", "dtype", "cudnn_allow_tf32")}
+
+
+def bn_moved(stats) -> bool:
+    """Every BatchNorm statistic finite and moved from its initial value
+    (mean 0, variance 1)."""
+    return all(bool(torch.isfinite(t).all()) and bool(
+        (t != (0.0 if leaf == "mean" else 1.0)).all())
+        for leaves in stats.values() for leaf, t in leaves.items())
 
 
 VISION_STEP_TOL = {
@@ -1693,9 +1719,7 @@ def check_resnet(results):
                                           ["--max-steps", "20"] + argv))
         losses = [float(v) for v in r["losses"]]
         stats = r["state"].model_state
-        moved = all(bool(torch.isfinite(t).all()) and bool(
-            (t != (0.0 if leaf == "mean" else 1.0)).all())
-            for leaves in stats.values() for leaf, t in leaves.items())
+        moved = bn_moved(stats)
         falling = statistics.mean(losses[-5:]) < statistics.mean(losses[:5])
         ev = r["eval"]
         ok = (len(losses) == 20 and all(map(math.isfinite, losses))
@@ -2627,6 +2651,353 @@ def check_sp_train(results):
     return ok_all
 
 
+# ---------------------------------------------------------------------------
+# ImageNet-class training: augmentation on the card, ResNet-50, ViT-B/16
+# ---------------------------------------------------------------------------
+
+AUG_BATCH, AUG_RAW = 128, 256  # the example's batch of raw 256² uint8
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest difference in units of bf16's spacing at the larger of
+    the two magnitudes (a value rounded the other way is one unit off)."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got - want).abs() / ulp).max())
+
+
+def check_augment(results):
+    """``DeviceAugment.imagenet(224, bf16)``, ``imagenet_eval(224, 256)`` and
+    ``cifar10(32)`` at the example's batch (128 × 256² × 3 uint8; 256 × 32²
+    × 3) on the card, each against the same call on a CPU copy with the
+    same key: float32 within 1e-5, bf16 within one bf16 ulp.  The modes'
+    invariants: a forced flip mirrors the image, a pad_crop window is an
+    integer crop of the padded image, the eval output ignores the key.
+    Images/s of the card's augmentation, of the raw host gather from an
+    in-RAM uint8 array (``DataLoader(to_float=False)``, one thread, as
+    ``benchmarks/input_pipeline.py`` measures it) and of the ResNet-50 step
+    alone; the pinned staging's host time and the H2D bytes a batch; and
+    ``loader_keeps_card_fed`` (``raw_host_rate >= 1/(1/aug_rate +
+    1/step_rate)``, the JAX benchmark's verdict)."""
+    import numpy as np
+
+    from tpu_dist_torch import random as trandom
+    from tpu_dist_torch.benchmarks import imagenet_e2e
+    from tpu_dist_torch.data import (ArrayImageDataset, DataLoader,
+                                     DeviceAugment)
+
+    zero_launch_counts()
+    rng = np.random.default_rng(0)
+    raw = torch.from_numpy(rng.integers(
+        0, 256, (AUG_BATCH, AUG_RAW, AUG_RAW, 3), np.uint8))
+    small = torch.from_numpy(rng.integers(0, 256, (256, 32, 32, 3),
+                                          np.uint8))
+    key = trandom.fold_in(trandom.key(3), 7)
+    cases = (("imagenet", DeviceAugment.imagenet(224, dtype=torch.bfloat16),
+              raw),
+             ("imagenet_eval", DeviceAugment.imagenet_eval(224, 256), raw),
+             ("cifar10", DeviceAugment.cifar10(32), small))
+    ok_all = True
+    rates = {}
+    for name, aug, x in cases:
+        x_dev = x.cuda()
+        got = aug(x_dev, key.cuda())
+        want = aug(x, key)
+        on_card = got.device.type == "cuda"
+        if aug.dtype == torch.bfloat16:
+            err, limit = bf16_ulps(got.cpu(), want), 1.0
+        else:
+            err, limit = float((got.cpu() - want).abs().max()), 1e-5
+        ok = (on_card and err <= limit and got.dtype == aug.dtype
+              and tuple(got.shape) == (x.shape[0], 3, *aug.size)
+              and bool(torch.isfinite(got).all()))
+        k_dev = key.cuda()
+        ms = time_ms(lambda: aug(x_dev, k_dev))
+        rates[name] = x.shape[0] / ms * 1e3
+        emit("augment", case=name, mode=aug.mode,
+             dtype=str(aug.dtype).split(".")[-1], shape=list(got.shape),
+             err_vs_cpu=err, limit=limit,
+             limit_unit="bf16 ulps" if aug.dtype == torch.bfloat16
+             else "abs", ms=ms, images_per_s=rates[name], ok=ok)
+        ok_all = ok_all and ok
+
+    # invariants, on the card
+    x_dev = raw.cuda()
+    k_dev = key.cuda()
+    flip = DeviceAugment.imagenet(224, flip_p=1.0)(x_dev, k_dev)
+    keep = DeviceAugment.imagenet(224, flip_p=0.0)(x_dev, k_dev)
+    ok_flip = torch.equal(flip, keep.flip(3))
+    plain = DeviceAugment(32, mode="pad_crop", padding=4, flip_p=0.0,
+                          mean=(0.0,) * 3, std=(1.0,) * 3)
+    s_dev = small.cuda()
+    out = plain(s_dev, k_dev)
+    # the augmentation's own /255: a tensor divisor (CUDA divides by a
+    # Python number as a multiply by its reciprocal)
+    padded = torch.nn.functional.pad(
+        s_dev.float() / torch.full((), 255.0, device="cuda"),
+        (0, 0, 4, 4, 4, 4))
+    keys = trandom.split(k_dev, 5)
+    top = trandom.randint(keys[2], (256,), 0, 9)
+    left = trandom.randint(keys[3], (256,), 0, 9)
+    windows = torch.stack([padded[i, t:t + 32, l:l + 32] for i, (t, l) in
+                           enumerate(zip(top.tolist(), left.tolist()))])
+    ok_pad = torch.equal(out, windows.permute(0, 3, 1, 2))
+    ev = DeviceAugment.imagenet_eval(224, 256)
+    ok_eval = torch.equal(ev(x_dev, k_dev),
+                          ev(x_dev, trandom.key(99).cuda()))
+    emit("augment", invariants={"forced_flip_mirrors": ok_flip,
+                                "pad_crop_is_integer_window": ok_pad,
+                                "eval_ignores_key": ok_eval})
+    ok_all = ok_all and ok_flip and ok_pad and ok_eval
+
+    # the host's half: the raw gather, the pinned copy
+    n_img = 1024
+    ds = ArrayImageDataset(rng.integers(0, 256, (n_img, AUG_RAW, AUG_RAW, 3),
+                                        np.uint8),
+                           rng.integers(0, 1000, n_img))
+    loader = DataLoader(ds, batch_size=AUG_BATCH, shuffle=True,
+                        drop_last=True, to_float=False)
+    best = math.inf
+    for ep in range(3):
+        loader.set_epoch(ep)
+        t0 = time.perf_counter()
+        seen = 0
+        for xb, _ in loader:
+            seen += xb.shape[0]
+        best = min(best, (time.perf_counter() - t0) / seen)
+    raw_host = 1.0 / best
+    pin_ms, copy_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pinned = raw.pin_memory()
+        t1 = time.perf_counter()
+        pinned.to("cuda", non_blocking=True)
+        torch.cuda.synchronize()
+        pin_ms.append((t1 - t0) * 1e3)
+        copy_ms.append((time.perf_counter() - t1) * 1e3)
+    with tf32(True):
+        ddp, xs, ys = imagenet_e2e.build(device="cuda")
+        state = ddp.init(seed=0)
+        step = lambda: ddp.train_step(state, xs, ys)
+        step_ms = time_ms(step, reps=5, warm=3)
+    del ddp, state, xs, ys
+    step_rate = AUG_BATCH / step_ms * 1e3
+    consume = 1.0 / (1.0 / rates["imagenet"] + 1.0 / step_rate)
+    counts = launch_counts()
+    ok_launches = not any(counts.values())
+    results["augment"] = {"aug_images_per_s": rates["imagenet"],
+                          "raw_host_images_per_s": raw_host,
+                          "step_images_per_s": step_rate}
+    emit("augment", aug_images_per_s=rates,
+         raw_host_images_per_s=raw_host,
+         h2d_bytes_per_batch=raw.numel(),
+         pin_memory_ms=statistics.median(pin_ms),
+         h2d_copy_ms=statistics.median(copy_ms),
+         resnet50_step_ms=step_ms, resnet50_step_images_per_s=step_rate,
+         card_consumes_images_per_s=consume,
+         loader_keeps_card_fed=raw_host >= consume,
+         kernel_launches=counts, ok_launches_zero=ok_launches)
+    return ok_all and ok_launches
+
+
+def _randomize_head(module) -> None:
+    """A ViT's head drawn N(0, 0.02) in place (its init is zero, under which
+    a first step reaches no parameter below the head)."""
+    g = torch.Generator(device=module.head.weight.device).manual_seed(5)
+    with torch.no_grad():
+        module.head.weight.normal_(0.0, 0.02, generator=g)
+
+
+RESNET50_STEP_TOL = {
+    "loss_rtol": 1e-5, "update_rel": 8e-2, "state_rel": 1e-4,
+    "why": "float32 with TF32 off on both sides, ResNet-50 at batch 4: "
+           "VISION_STEP_TOL's reasons, over 53 BatchNorm layers. A leaf is "
+           "held to the CPU parity tests' LEAF_TOL (tests/"
+           "test_torch_vision_ddp.py: a ReLU input within rounding of 0 "
+           "takes the other branch in one of two runs); measured on an "
+           "H100 at 700 W, bn1.bias 3.7e-2. The statistics to about 3.5 "
+           "times the worst measured there, layer4.2.bn1.var 2.8e-5: the "
+           "rounding of 50 layers below compounds into layer4's 7x7 maps"}
+
+
+def _one_step_vs_cpu(model_fn, batch, tol, prepare=None):
+    """One float32 step of ``model_fn``'s model on the card at ``batch``
+    images, SGD lr 0.1, against the CPU copy; the batch is
+    ``DeviceAugment.imagenet(224)`` (float32) over raw 256² images."""
+    import numpy as np
+
+    from tpu_dist_torch import nn, optim
+    from tpu_dist_torch import random as trandom
+    from tpu_dist_torch.data import DeviceAugment
+    from tpu_dist_torch.parallel import DistributedDataParallel
+
+    rng = np.random.default_rng(1)
+    raw = torch.from_numpy(rng.integers(0, 256, (batch, 256, 256, 3),
+                                        np.uint8)).cuda()
+    x = DeviceAugment.imagenet(224)(raw, trandom.key(1).cuda())
+    y = torch.from_numpy(rng.integers(0, 1000, batch)).cuda()
+    ddp = DistributedDataParallel(model_fn("cuda"),
+                                  optimizer=optim.SGD(lr=0.1),
+                                  loss_fn=nn.CrossEntropyLoss())
+    return step_against_cpu(ddp, lambda: model_fn("cpu"), x, y, tol,
+                            prepare=prepare)
+
+
+def check_imagenet(results):
+    """The ``example_imagenet`` twin at its defaults (ResNet-50, 224, 128 a
+    replica, bf16 over float32 masters, SGD 0.1/0.9/1e-4, augmentation on
+    the card) on ``SyntheticImageNet`` for 30 steps: the loss finite and
+    falling, every BatchNorm statistic moved and finite; ``--evaluate``
+    (``imagenet_eval`` on the card) counts exactly the set's 512 images.
+    One float32 step at batch 4 against the CPU copy (``RESNET50_STEP_TOL``).
+    Then the ``imagenet_e2e`` twin under torch's default TF32: the step
+    alone and the sustained rate with the loader and the augmentation in
+    the loop, and the peak memory.  No hand-written kernel may launch."""
+    from tpu_dist_torch.benchmarks import imagenet_e2e
+    from tpu_dist_torch.examples import example_imagenet
+    from tpu_dist_torch.models import resnet50
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    r = example_imagenet.train(example_imagenet.parse_args(
+        ["--epochs", "2", "--max-steps", "30", "--evaluate"]))
+    run_s = time.perf_counter() - t0
+    losses = [float(v) for v in r["losses"]]
+    stats = r["state"].model_state
+    moved = bn_moved(stats)
+    falling = statistics.mean(losses[-5:]) < statistics.mean(losses[:5])
+    ev = r["eval"]
+    ok_train = (len(losses) == 30 and all(map(math.isfinite, losses))
+                and falling and moved and len(stats) == 53
+                and ev["count"] == 512)
+    del r
+    cmp_ = _one_step_vs_cpu(
+        lambda d: resnet50(num_classes=1000, device=d), 4, RESNET50_STEP_TOL)
+    with tf32(True):
+        e2e = imagenet_e2e.run()
+    counts = launch_counts()
+    ok_launches = not any(counts.values())
+    fed = results.get("augment")
+    if fed:
+        consume = 1.0 / (1.0 / fed["aug_images_per_s"]
+                         + 1.0 / e2e["step_only_images_per_sec"])
+        fed = {**fed, "e2e_step_images_per_s":
+               e2e["step_only_images_per_sec"],
+               "loader_keeps_card_fed":
+                   fed["raw_host_images_per_s"] >= consume}
+    emit("imagenet", steps=len(losses), first_losses=losses[:5],
+         last_losses=losses[-5:], loss_falling=falling, bn_layers=len(stats),
+         bn_stats_moved_and_finite=moved, eval=ev, run_and_eval_s=run_s,
+         ok_train=ok_train, step_vs_cpu=cmp_, e2e=e2e, feed=fed,
+         timing_note="torch's default TF32 permissions (cuDNN yes, cuBLAS "
+                     "no); images/s/GPU at world 1",
+         kernel_launches=counts, ok_launches_zero=ok_launches)
+    return ok_train and cmp_["ok"] and ok_launches
+
+
+VIT_SHAPE = (64, 197, 12, 64)  # ViT-B/16 at 224, 64 images: (B, T, H, D)
+# the training run's classes: at 1000 (two images a class in the set) the
+# loss stays at ln(1000) within bf16's resolution over 20 AdamW steps at
+# 3e-4 from the zero head (measured on one H100); at 10 the class
+# templates are learnable that soon
+VIT_CLASSES = 10
+
+
+def check_vit(results):
+    """The twin with ``--model vit_b_16`` for 20 steps at 64 a card in bf16
+    (AdamW 3e-4, weight decay 0.05; ``VIT_CLASSES`` classes): the loss
+    finite and falling.  One
+    float32 step at batch 2 against the CPU copy (SGD, from a random head:
+    AdamW's first update is lr·sign(g), which a rounding flips wherever a
+    gradient is near 0).  The ``vit_train`` twin: images/s, step ms, model
+    TFLOP/s, peak memory.  No hand-written kernel may launch.  Then
+    ``_FLASH_MIN_SEQ`` measured: ViT-B/16's attention at (64, 197, 12, 64)
+    bf16, forward and backward, as the dense composition and through
+    K2f/K2b (``impl="flash"``), the flash result held against its plain
+    version at that ragged T."""
+    from tpu_dist_torch.benchmarks import vit_train
+    from tpu_dist_torch.examples import example_imagenet
+    from tpu_dist_torch.models import vit_b_16
+    from tpu_dist_torch.nn import scaled_dot_product_attention
+
+    fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    r = example_imagenet.train(example_imagenet.parse_args(
+        ["--model", "vit_b_16", "--batch-size", "64", "--max-steps", "20",
+         "--num-classes", str(VIT_CLASSES)]))
+    run_s = time.perf_counter() - t0
+    losses = [float(v) for v in r["losses"]]
+    n_params = sum(p.numel() for p in r["state"].params.values())
+    del r
+    falling = statistics.mean(losses[-5:]) < statistics.mean(losses[:5])
+    ok_train = (len(losses) == 20 and all(map(math.isfinite, losses))
+                and falling
+                and n_params == 86_567_656 - 990 * (768 + 1))
+    cmp_ = _one_step_vs_cpu(lambda d: vit_b_16(num_classes=1000, device=d),
+                            2, VISION_STEP_TOL, prepare=_randomize_head)
+    with tf32(True):
+        row = vit_train.run()
+    row.pop("losses")
+    counts = launch_counts()
+    ok_launches = not any(counts.values())
+    emit("vit", steps=len(losses), classes=VIT_CLASSES,
+         first_losses=losses[:5],
+         last_losses=losses[-5:], loss_falling=falling, n_params=n_params,
+         run_s=run_s, ok_train=ok_train, step_vs_cpu=cmp_, timing=row,
+         peak_tflops_bf16=PEAK_OPS_S["bf16_tensor"] / 1e12,
+         kernel_launches=counts, ok_launches_zero=ok_launches)
+
+    # the dispatch crossover at ViT's shape: dense against flash
+    b, t, h, d = VIT_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(4)
+    qkv = torch.randn(b, t, 3, h, d, device="cuda",
+                      generator=g).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(b, t, h, d, device="cuda",
+                     generator=g).to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
+    o_k, lse = fa.flash_fwd(q, k, v, False, scale)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, False, scale)
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+    gk = fa.flash_bwd(q, k, v, do, lse_p, delta, False, scale)
+    gp = fa.flash_bwd_plain(q, k, v, do, lse_p, delta, False, scale)
+    tol = FLASH_BF16_TOL
+    lims = (tol["rtol"], tol["atol"], tol["atol_row"], tol["atol_all"])
+    margins = {n: compare(a, w, *lims)[2] for n, a, w in
+               (("o", o_k, o_p), ("dq", gk[0], gp[0]), ("dk", gk[1], gp[1]),
+                ("dv", gk[2], gp[2]))}
+    ok_flash = all(m <= 1.0 for m in margins.values())
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+    def fwd(impl):
+        return lambda: scaled_dot_product_attention(*leaves, impl=impl)
+
+    def fwd_bwd(impl):
+        def f():
+            o = scaled_dot_product_attention(*leaves, impl=impl)
+            torch.autograd.grad(o, leaves, do)
+        return f
+
+    times = {}
+    for impl in ("dense", "flash", "flash", "dense"):  # in turns
+        for what, fn in (("fwd", fwd(impl)), ("fwd_bwd", fwd_bwd(impl))):
+            times.setdefault(f"{impl}_{what}_ms", []).append(time_ms(fn))
+    times = {k: statistics.mean(v) for k, v in times.items()}
+    emit("vit_attention", shape=list(VIT_SHAPE), dtype="bfloat16",
+         flash_margin=margins, flash_tolerance=tol, ok_flash=ok_flash,
+         flash_min_seq=importlib.import_module(
+             "tpu_dist_torch.nn.attention")._FLASH_MIN_SEQ,
+         flash_over_dense_fwd=times["flash_fwd_ms"] / times["dense_fwd_ms"],
+         flash_over_dense_fwd_bwd=(times["flash_fwd_bwd_ms"]
+                                   / times["dense_fwd_bwd_ms"]), **times)
+    results["vit"] = {"images_per_s": row["value"],
+                      "tflops": row["achieved_model_tflops"]}
+    return ok_train and cmp_["ok"] and ok_launches and ok_flash
+
+
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("gmm", check_gmm), ("slice", check_slice),
           ("composition", check_composition), ("moe_slice", check_moe_slice),
@@ -2637,7 +3008,8 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("resnet", check_resnet), ("optim", check_optim),
           ("resume", check_resume), ("flash_offdiag", check_flash_offdiag),
           ("split_diag", check_split_diag), ("ring", check_ring),
-          ("sp_train", check_sp_train))
+          ("sp_train", check_sp_train), ("augment", check_augment),
+          ("imagenet", check_imagenet), ("vit", check_vit))
 
 
 def main() -> int:

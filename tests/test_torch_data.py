@@ -96,10 +96,12 @@ def test_datasets_with_synthetic_fallback():
     x, y = ours.gather(np.array([3, 1]))
     assert np.array_equal(x, theirs.data[[3, 1]]) and list(y) == list(
         theirs.targets[[3, 1]])
-    with pytest.raises(FileNotFoundError, match="A4"):
-        tdata.CIFAR10("nowhere", train=False)
-    with pytest.raises(NotImplementedError, match="A4"):
-        tdata.MNIST("nowhere", download=True)
+    # without files or the fallback, the readers name both ways out
+    for cls in (tdata.CIFAR10, tdata.MNIST):
+        with pytest.raises(FileNotFoundError,
+                           match="missing dataset file.*download=True.*"
+                                 "synthetic_fallback=True"):
+            cls("nowhere", train=False)
     ds = tdata.TensorDataset(np.arange(4), np.arange(4) * 2)
     assert len(ds) == 4 and ds[2] == (2, 4)
     with pytest.raises(ValueError, match="size mismatch"):
@@ -215,9 +217,19 @@ def test_device_loader_propagates_errors_and_stops_early():
                                  device="cpu", prefetch=1))
     next(it)
     it.close()
-    with pytest.raises(NotImplementedError, match="A4"):
-        tdata.DeviceLoader(tdata.DataLoader(ours_ds), device="cpu",
-                           augment=object())
+    # augment= runs on the staged raw batch; its errors reach the consumer
+    raw = tdata.DataLoader(ours_ds, batch_size=4, to_float=False)
+    got = list(tdata.DeviceLoader(raw, device="cpu",
+                                  augment=tdata.DeviceAugment.cifar10(32)))
+    assert len(got) == 6 and got[0][0].shape == (4, 3, 32, 32)
+    assert got[0][0].dtype == torch.float32
+    assert torch.equal(got[0][1], next(iter(raw))[1])
+
+    def broken(x, key, rows):
+        raise KeyError("augment failed")
+
+    with pytest.raises(KeyError, match="augment failed"):
+        list(tdata.DeviceLoader(raw, device="cpu", augment=broken))
 
 
 def test_device_loader_warns_without_distributed_sampler():

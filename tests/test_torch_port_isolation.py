@@ -52,6 +52,14 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch.parallel.ring_attention
         import tpu_dist_torch.dist.process_group
         import tpu_dist_torch.benchmarks.sp_lm
+        import tpu_dist_torch.data.datasets
+        import tpu_dist_torch.data.device_augment
+        import tpu_dist_torch.data.sampler
+        import tpu_dist_torch.data.transforms
+        import tpu_dist_torch.models.vit
+        import tpu_dist_torch.examples.example_imagenet
+        import tpu_dist_torch.benchmarks.imagenet_e2e
+        import tpu_dist_torch.benchmarks.vit_train
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist")
                         and sys.modules[m] is not None)
@@ -84,10 +92,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     """With no device argument and no CUDA device, the entry points raise
     instead of running on the CPU."""
     from tpu_dist_torch import data, dist, nn, optim
-    from tpu_dist_torch.benchmarks import convnet, resnet_cifar, serve_lm
+    from tpu_dist_torch.benchmarks import (convnet, imagenet_e2e,
+                                           resnet_cifar, serve_lm, vit_train)
     from tpu_dist_torch.benchmarks.transformer_lm import run
-    from tpu_dist_torch.examples import example_mp, mpspawn_dist, train_lm
-    from tpu_dist_torch.models import ConvNet, TransformerLM, resnet18
+    from tpu_dist_torch.examples import (example_imagenet, example_mp,
+                                         mpspawn_dist, train_lm)
+    from tpu_dist_torch.models import (ConvNet, TransformerLM, resnet18,
+                                       vit_b_16)
     from tpu_dist_torch.parallel import DistributedDataParallel
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -101,18 +112,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         dist.init_process_group()
     assert not dist.is_initialized()
     for example, argv in ((mpspawn_dist, ["--synthetic"]),
-                          (example_mp, ["--synthetic"]), (train_lm, [])):
+                          (example_mp, ["--synthetic"]), (train_lm, []),
+                          (example_imagenet, [])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             example.train(example.parse_args(argv))
         assert not dist.is_initialized()
-    for bench in (convnet, resnet_cifar):
+    for bench in (convnet, resnet_cifar, imagenet_e2e, vit_train):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench.run()
     loader = data.DataLoader(data.TensorDataset(np.zeros(4), np.zeros(4)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         data.DeviceLoader(loader)
     # a DDP's model built on the default device
-    for build in (ConvNet, lambda: resnet18(num_classes=10)):
+    for build in (ConvNet, lambda: resnet18(num_classes=10),
+                  lambda: vit_b_16(num_classes=10)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DistributedDataParallel(build(), optimizer=optim.SGD(lr=0.1),
                                     loss_fn=nn.CrossEntropyLoss())

@@ -26,7 +26,11 @@ accumulation in the DDP, ``checkpoint`` in the JAX package's format with
 ``examples.train_lm`` twin; and sequence parallelism: process groups with
 mesh axes, ring attention and Ulysses (``parallel``), the sequence axis of
 the attention layer and the model, ``train_lm --parallel sp``, and flash
-attention's ``causal="offdiag"`` mode and ``split_diag`` variant.
+attention's ``causal="offdiag"`` mode and ``split_diag`` variant; and
+ImageNet-class training: the dataset readers, ``ImageFolder`` and
+``SyntheticImageNet``, the resize transforms, augmentation on the card
+(``data.DeviceAugment``), ``models.vit_b_16`` and the
+``examples.example_imagenet`` twin.
 """
 
 from . import (checkpoint, collectives, data, dist, examples, launch, models,

@@ -6,6 +6,10 @@ with ``--model moe`` the dropless-MoE slice of
 ConvNet of :mod:`tpu_dist_torch.benchmarks.convnet` (batch 8192, bf16),
 with ``--model resnet18`` the ResNet-18 of
 :mod:`tpu_dist_torch.benchmarks.resnet_cifar` (batch 1024, bf16), with
+``--model resnet50`` the ResNet-50 step of
+:mod:`tpu_dist_torch.benchmarks.imagenet_e2e` (224², batch 128, bf16), with
+``--model vit_b_16`` the ViT-B/16 step of
+:mod:`tpu_dist_torch.benchmarks.vit_train` (224², batch 64, bf16), with
 ``--model sp_ring`` or ``sp_ulysses`` the sequence-parallel GPT-2-small of
 ``train_lm --parallel sp`` at world 1 (T = 8192, batch 1, bf16, unfused
 loss; a training step each), or one
@@ -37,7 +41,8 @@ import torch
 
 from ..ops._build import resolve_device
 from ..serve import Request, SlotEngine
-from . import convnet, moe_lm, resnet_cifar, serve_lm, transformer_lm
+from . import (convnet, imagenet_e2e, moe_lm, resnet_cifar, serve_lm,
+               transformer_lm, vit_train)
 
 
 def _train_step(build):
@@ -81,6 +86,8 @@ _BUILDERS = {"dense": _train_step(transformer_lm.build),
              "moe": _train_step(moe_lm.build),
              "convnet": _train_step(_convnet),
              "resnet18": _train_step(resnet_cifar.build),
+             "resnet50": _train_step(imagenet_e2e.build),
+             "vit_b_16": _train_step(vit_train.build),
              "serve": _decode_step(torch.float32, sampled=False),
              "serve_sampled": _decode_step(torch.float32, sampled=True),
              "serve_int8": _decode_step(torch.int8, sampled=False)}
@@ -95,6 +102,7 @@ _GROUPS = (("flash", "flash attention (K2)"),
            ("wgrad", "convolution"), ("conv", "convolution"),
            ("gemm", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
            ("cutlass", "matmul"), ("pool", "pooling"),
+           ("softmax", "softmax"), ("layer_norm", "layernorm"),
            ("elementwise", "elementwise"),
            ("reduce", "reductions"))
 

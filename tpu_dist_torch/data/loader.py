@@ -11,11 +11,19 @@ N threads with an order-preserving window (numpy releases the interpreter
 lock in the heavy slicing), as in the JAX package; abandoning the iterator
 releases them.
 
+``DataLoader(to_float=False)`` yields the gathered batch raw instead: uint8
+NHWC, with no /255, no transform and no transpose, for ``DeviceAugment``.
+
 ``DeviceLoader`` stages the loader's batches onto this rank's device on a
 background fill thread, ``prefetch`` batches ahead: on the card each tensor
 is copied into pinned host memory and then onto the device with a
 ``non_blocking`` copy (torch's ``pin_memory``/``non_blocking`` idiom), so
-batch assembly and the copy overlap the training step.  With
+batch assembly and the copy overlap the training step.  With ``augment=``
+(a ``DeviceAugment``) the staged images are augmented there, on the
+loader's device, with the key ``fold_in(fold_in(key(augment_seed), epoch),
+batch_index)``, the JAX package's; the draws are made for the global batch
+and the rank keeps its own rows, so every rank's images are the rows the
+JAX package's mesh gives that device.  With
 ``local_shards=True`` (training) each rank's loader yields its own shard
 (``DistributedSampler``); with ``local_shards=False`` (evaluation) every
 rank's loader yields the identical global batch and the rank keeps its
@@ -131,9 +139,16 @@ class DataLoader:
                  sampler: Optional[Sampler] = None, drop_last: bool = False,
                  num_workers: int = 0, pin_memory: bool = False,
                  seed: int = 0, prefetch_factor: int = 2,
-                 collate_fn=default_collate):
+                 collate_fn=default_collate, to_float: bool = True):
         if sampler is not None and shuffle:
             raise ValueError("sampler and shuffle are mutually exclusive")
+        if not to_float and getattr(dataset, "gather", None) is None:
+            raise ValueError(
+                "to_float=False needs a dataset with a vectorized gather() "
+                "(ArrayImageDataset and the like); per-item datasets apply "
+                "their transform inside __getitem__ and would yield float "
+                "batches anyway")
+        self.to_float = to_float
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = int(num_workers)
@@ -165,6 +180,9 @@ class DataLoader:
         if gather is None:
             return self.collate_fn([ds[i] for i in indices])
         x, y = gather(np.asarray(indices, np.int64))
+        if not self.to_float:  # raw bytes, NHWC: the DeviceAugment path
+            return (torch.from_numpy(np.ascontiguousarray(x)),
+                    torch.from_numpy(np.asarray(y)))
         if x.dtype == np.uint8:  # torch ToTensor scaling, still NHWC
             x = x.astype(np.float32) / 255.0
         transform = getattr(ds, "transform", None)
@@ -190,11 +208,8 @@ class DeviceLoader:
     ``cuda`` (raises without one) unless named."""
 
     def __init__(self, loader: DataLoader, group=None, prefetch: int = 2,
-                 local_shards: bool = True, augment=None, device=None):
-        if augment is not None:
-            raise NotImplementedError(
-                "augment= (DeviceAugment, crop and flip on the card) comes "
-                "with the rest of the data module, ROADMAP A4")
+                 local_shards: bool = True, augment=None,
+                 augment_seed: int = 0, device=None):
         from .. import dist
         if group is None and dist.is_initialized():
             group = dist.get_default_group()
@@ -207,6 +222,9 @@ class DeviceLoader:
             else group.device if group is not None else None)
         self.prefetch = max(1, int(prefetch))
         self.local_shards = local_shards
+        self.augment = augment
+        self.augment_seed = int(augment_seed)
+        self._epoch = 0
         if (self.world > 1 and local_shards and not isinstance(
                 getattr(loader, "sampler", None), DistributedSampler)):
             warnings.warn(
@@ -218,10 +236,21 @@ class DeviceLoader:
                 "evaluation pattern).", stacklevel=2)
 
     def set_epoch(self, epoch: int) -> None:
+        """Reseed the loader's shuffle and the augmentation for ``epoch``."""
+        self._epoch = int(epoch)
         self.loader.set_epoch(epoch)
 
     def __len__(self):
         return len(self.loader)
+
+    def _rows(self, n: int) -> tuple:
+        """``(offset, total)``: where this rank's ``n`` staged rows sit in
+        the global batch (``ceil(n / world)`` rows a rank of the identical
+        global batch with ``local_shards=False``)."""
+        if self.local_shards:
+            return self.rank * n, self.world * n
+        per = math.ceil(n / self.world)
+        return min(self.rank * per, n), n
 
     def _stage(self, t: torch.Tensor) -> torch.Tensor:
         if not self.local_shards and self.world > 1:
@@ -231,7 +260,22 @@ class DeviceLoader:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    def _stage_batch(self, batch, key):
+        """Stage ``batch`` and, with ``augment``, augment its images on the
+        device with ``key``: the draws of the global batch, this rank's
+        rows."""
+        staged = tuple(self._stage(t) for t in batch)
+        if self.augment is None:
+            return staged
+        rows = self._rows(batch[0].shape[0])
+        return (self.augment(staged[0], key, rows=rows),) + staged[1:]
+
     def __iter__(self) -> Iterator:
+        from .. import random
+        base = None
+        if self.augment is not None:
+            # host keys: DeviceAugment draws on the host
+            base = random.fold_in(random.key(self.augment_seed), self._epoch)
         it = iter(self.loader)
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -241,8 +285,9 @@ class DeviceLoader:
             # assemble and stage ahead of the consumer; a full queue blocks
             # here, re-checking `stop` so an abandoned iterator releases us
             try:
-                for batch in it:
-                    staged = tuple(self._stage(t) for t in batch)
+                for i, batch in enumerate(it):
+                    key = None if base is None else random.fold_in(base, i)
+                    staged = self._stage_batch(batch, key)
                     if not _put_unless_stopped(q, stop, (None, staged)):
                         return
                 _put_unless_stopped(q, stop, (None, end))

@@ -13,8 +13,8 @@ are torch's partition rules:
 The shuffle is numpy's permutation seeded ``(seed, epoch)``, as in the JAX
 package (not torch's ``randperm``).  One process drives one card here, so
 ``DistributedSampler``'s defaults are the default group's world size and
-rank.  The weighted and subset samplers come with the rest of the data
-module (ROADMAP A4)."""
+rank.  ``WeightedRandomSampler`` and ``SubsetRandomSampler`` draw from
+numpy seeded ``(seed, epoch)`` in the JAX package's order."""
 
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 __all__ = ["Sampler", "SequentialSampler", "RandomSampler", "BatchSampler",
-           "DistributedSampler"]
+           "DistributedSampler", "WeightedRandomSampler",
+           "SubsetRandomSampler"]
 
 
 class Sampler:
@@ -70,6 +71,68 @@ class RandomSampler(Sampler):
 
     def __len__(self):
         return len(self.dataset)
+
+
+class WeightedRandomSampler(Sampler):
+    """``num_samples`` indices drawn with probability proportional to
+    ``weights`` (torch's ``WeightedRandomSampler``: the weights need not
+    sum to 1; ``replacement=False`` draws distinct indices), reshuffled by
+    ``set_epoch``."""
+
+    def __init__(self, weights, num_samples: int, replacement: bool = True,
+                 seed: int = 0):
+        self.weights = np.asarray(weights, dtype=np.float64)
+        if self.weights.ndim != 1 or len(self.weights) == 0:
+            raise ValueError("weights must be a non-empty 1-D sequence")
+        if (self.weights < 0).any():
+            raise ValueError("weights must be non-negative")
+        if self.weights.sum() == 0:
+            raise ValueError("weights must not all be zero")
+        if num_samples <= 0:
+            raise ValueError(f"num_samples must be positive, got "
+                             f"{num_samples}")
+        nonzero = int((self.weights > 0).sum())
+        if not replacement and num_samples > nonzero:
+            raise ValueError(f"cannot draw {num_samples} distinct indices "
+                             f"from {nonzero} positive weights without "
+                             f"replacement")
+        self.num_samples = num_samples
+        self.replacement = replacement
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __iter__(self):
+        rng = np.random.default_rng((self.seed, self.epoch))
+        p = self.weights / self.weights.sum()
+        idx = rng.choice(len(self.weights), size=self.num_samples,
+                         replace=self.replacement, p=p)
+        return iter(idx.tolist())
+
+    def __len__(self):
+        return self.num_samples
+
+
+class SubsetRandomSampler(Sampler):
+    """An epoch-seeded permutation of a fixed index list (torch's
+    ``SubsetRandomSampler``)."""
+
+    def __init__(self, indices, seed: int = 0):
+        self.indices = np.asarray(indices, dtype=np.int64)
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __iter__(self):
+        rng = np.random.default_rng((self.seed, self.epoch))
+        return iter(self.indices[rng.permutation(len(self.indices))].tolist())
+
+    def __len__(self):
+        return len(self.indices)
 
 
 class BatchSampler(Sampler):

@@ -5,18 +5,25 @@ They take batched NHWC numpy arrays, as the JAX package's do, and draw
 their randomness from an explicit ``numpy.random.Generator`` in the same
 order, so a batch comes out byte-equal to the JAX package's for the same
 seed, rank, epoch and batch.  The loader transposes to NCHW once, when it
-collates the batch into a tensor.  ``RandomResizedCrop``, ``Resize`` and
-``CenterCrop`` come with the rest of the data module (ROADMAP A4)."""
+collates the batch into a tensor.
+
+``RandomResizedCrop`` and ``Resize`` resample through
+:func:`bilinear_crop_resize`, one torch function over NHWC tensors (the
+JAX package's half-pixel-centred separable maths), which
+``DeviceAugment`` runs on the card; here it runs on CPU tensors over the
+numpy batch, whose draws stay numpy's."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 __all__ = ["Transform", "Compose", "ToFloat", "Normalize", "RandomCrop",
-           "RandomHorizontalFlip", "MNIST_MEAN", "MNIST_STD", "CIFAR10_MEAN",
-           "CIFAR10_STD", "IMAGENET_MEAN", "IMAGENET_STD"]
+           "RandomHorizontalFlip", "RandomResizedCrop", "Resize",
+           "CenterCrop", "bilinear_crop_resize", "MNIST_MEAN", "MNIST_STD",
+           "CIFAR10_MEAN", "CIFAR10_STD", "IMAGENET_MEAN", "IMAGENET_STD"]
 
 MNIST_MEAN = (0.1307,)
 MNIST_STD = (0.3081,)
@@ -127,3 +134,112 @@ class RandomHorizontalFlip(Transform):
         rng = self._require_rng(rng)
         mask = rng.random(x.shape[0]) < self.p
         return np.where(mask[:, None, None, None], flipped, x)
+
+
+def bilinear_crop_resize(x: torch.Tensor, top: torch.Tensor,
+                         left: torch.Tensor, crop_h: torch.Tensor,
+                         crop_w: torch.Tensor,
+                         out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Resample per-image boxes ``(top, left, crop_h, crop_w)`` (each (N,)
+    float) of ``x`` (N, H, W, C) to ``out_hw``, bilinearly, in float32:
+    half-pixel-centred source coordinates clamped to the image, rows
+    interpolated first (one gather of whole rows), then columns, as the JAX
+    package's ``bilinear_crop_resize`` computes it.  Runs where ``x`` is."""
+    x = x.float()
+    n, h, w, _ = x.shape
+    oh, ow = out_hw
+    f32 = dict(dtype=torch.float32, device=x.device)
+    top, left, crop_h, crop_w = (v.to(**f32) for v in (top, left, crop_h,
+                                                       crop_w))
+    # 0-d tensor divisors: CUDA divides by a Python number as a multiply
+    # by its reciprocal, which rounds otherwise than the CPU's division
+    step_h = crop_h[:, None] / torch.full((), float(oh), **f32)
+    step_w = crop_w[:, None] / torch.full((), float(ow), **f32)
+    ys = (top[:, None] + (torch.arange(oh, **f32)[None, :] + 0.5) * step_h
+          - 0.5).clamp(0.0, h - 1.0)                            # (N, oh)
+    xs = (left[:, None] + (torch.arange(ow, **f32)[None, :] + 0.5) * step_w
+          - 0.5).clamp(0.0, w - 1.0)                            # (N, ow)
+    y0 = ys.floor()
+    x0 = xs.floor()
+    wy = (ys - y0)[:, :, None, None]                            # (N, oh, 1, 1)
+    wx = (xs - x0)[:, None, :, None]                            # (N, 1, ow, 1)
+    y0, x0 = y0.long(), x0.long()
+    y1 = (y0 + 1).clamp_max(h - 1)
+    x1 = (x0 + 1).clamp_max(w - 1)
+    b = torch.arange(n, device=x.device)
+    rows = x[b[:, None], y0] * (1 - wy) + x[b[:, None], y1] * wy
+    bb = b[:, None, None]
+    rr = torch.arange(oh, device=x.device)[None, :, None]
+    return (rows[bb, rr, x0[:, None, :]] * (1 - wx)
+            + rows[bb, rr, x1[:, None, :]] * wx)
+
+
+def _resample(x: np.ndarray, top, left, crop_h, crop_w,
+              out_hw) -> np.ndarray:
+    """:func:`bilinear_crop_resize` over a numpy batch and float32 boxes."""
+    boxes = [torch.from_numpy(np.asarray(v, np.float32))
+             for v in (top, left, crop_h, crop_w)]
+    return bilinear_crop_resize(torch.from_numpy(np.asarray(x, np.float32)),
+                                *boxes, out_hw).numpy()
+
+
+class RandomResizedCrop(Transform):
+    """Random scale and aspect crop resized to ``size`` (torchvision's
+    semantics: area in ``scale``·A, log-uniform aspect in ``ratio``; a draw
+    that does not fit shrinks to the largest box of its aspect).  One
+    vectorized draw per image, from ``rng`` in the JAX package's order."""
+
+    def __init__(self, size: _Size, scale=(0.08, 1.0),
+                 ratio=(3.0 / 4.0, 4.0 / 3.0)):
+        self.size = _pair(size)
+        self.scale = scale
+        self.ratio = ratio
+
+    def __call__(self, x, rng=None):
+        rng = self._require_rng(rng)
+        n, h, w, _ = x.shape
+        area = h * w
+        target = area * rng.uniform(self.scale[0], self.scale[1], n)
+        aspect = np.exp(rng.uniform(np.log(self.ratio[0]),
+                                    np.log(self.ratio[1]), n))
+        cw = np.sqrt(target * aspect)
+        ch = np.sqrt(target / aspect)
+        bad = (cw > w) | (ch > h)
+        shrink = np.minimum(w / np.maximum(cw, 1e-6),
+                            h / np.maximum(ch, 1e-6))
+        cw = np.where(bad, cw * shrink, cw)
+        ch = np.where(bad, ch * shrink, ch)
+        top = rng.uniform(0, 1, n) * (h - ch)
+        left = rng.uniform(0, 1, n) * (w - cw)
+        return _resample(x, top, left, ch, cw, self.size)
+
+
+class Resize(Transform):
+    """Bilinear resize of the whole image to ``size`` (int → square)."""
+
+    def __init__(self, size: _Size):
+        self.size = _pair(size)
+
+    def __call__(self, x, rng=None):
+        n, h, w, _ = x.shape
+        if (h, w) == self.size:
+            return np.asarray(x, np.float32)
+        z = np.zeros(n, np.float32)
+        return _resample(x, z, z, np.full(n, h, np.float32),
+                         np.full(n, w, np.float32), self.size)
+
+
+class CenterCrop(Transform):
+    """The central ``size`` window of every image."""
+
+    def __init__(self, size: _Size):
+        self.size = _pair(size)
+
+    def __call__(self, x, rng=None):
+        _, h, w, _ = x.shape
+        th, tw = self.size
+        if th > h or tw > w:
+            raise ValueError(f"crop {self.size} larger than input ({h}, {w})")
+        i = (h - th) // 2
+        j = (w - tw) // 2
+        return x[:, i:i + th, j:j + tw, :]

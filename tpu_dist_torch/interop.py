@@ -12,6 +12,8 @@ Linear weight         (in, out)               (out, in)
 MultiheadSelfAttn     qkv_weight (d, 3d)      qkv_weight (3d, d)
                       out_weight (d, d)       out_weight (d, d), .T
 Embedding, LayerNorm  identical               identical
+ViT tokens            class_token, pos_embed- identical
+                      ding (1, n, d)
 Conv2d weight         HWIO (kh, kw, in, out)  OIHW, ``transpose(3, 2, 0, 1)``
 BatchNorm2d           weight, bias            identical
 Linear after a        (h*w*c, out): NHWC      (out, c*h*w): NCHW flattens

@@ -68,15 +68,19 @@ def _sample(logits, key, step: int, temperature: float, top_k: int,
 class TransformerBlock(torch.nn.Module):
     def __init__(self, dim: int, num_heads: int, causal: bool = True,
                  mlp: Optional[torch.nn.Module] = None, device=None,
-                 sequence_axis: Optional[str] = None, mode: str = "ring"):
+                 sequence_axis: Optional[str] = None, mode: str = "ring",
+                 norm_eps: Optional[float] = None):
+        """``norm_eps``: both LayerNorms' epsilon; None keeps LayerNorm's
+        own default (1e-5).  ViT passes 1e-6, torchvision's."""
         super().__init__()
         device = resolve_device(device)
-        self.ln1 = nn.LayerNorm(dim, device=device)
+        eps = {} if norm_eps is None else {"eps": norm_eps}
+        self.ln1 = nn.LayerNorm(dim, device=device, **eps)
         self.attn = nn.MultiheadSelfAttention(dim, num_heads, causal=causal,
                                               device=device,
                                               sequence_axis=sequence_axis,
                                               mode=mode)
-        self.ln2 = nn.LayerNorm(dim, device=device)
+        self.ln2 = nn.LayerNorm(dim, device=device, **eps)
         # mlp override: an nn.MoELayer for mixture-of-experts blocks
         self.mlp = mlp if mlp is not None else nn.Sequential(
             nn.Linear(dim, 4 * dim, device=device), nn.GELU(),

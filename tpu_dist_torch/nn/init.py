@@ -11,7 +11,7 @@ import math
 import torch
 
 __all__ = ["torch_default_uniform", "normal", "uniform", "kaiming_uniform",
-           "kaiming_normal"]
+           "kaiming_normal", "xavier_uniform", "trunc_normal"]
 
 
 @torch.no_grad()
@@ -60,3 +60,25 @@ def kaiming_normal(tensor, fan: int, a: float = 0.0,
     ``out_channels * kh * kw`` of an OIHW weight (the JAX package reads it
     from HWIO)."""
     return normal(tensor, _gain(nonlinearity, a) / math.sqrt(fan), generator)
+
+
+@torch.no_grad()
+def xavier_uniform(tensor, gain: float = 1.0, generator=None):
+    """torch's ``xavier_uniform_``: U(±gain·sqrt(6/(fan_in + fan_out)))
+    over a 2-D weight, whose bound is the same in the (out, in) and the
+    JAX package's (in, out) layout."""
+    if tensor.dim() != 2:
+        raise ValueError(f"xavier_uniform takes a 2-D weight, got shape "
+                         f"{tuple(tensor.shape)}")
+    limit = gain * math.sqrt(6.0 / sum(tensor.shape))
+    return uniform(tensor, -limit, limit, generator)
+
+
+@torch.no_grad()
+def trunc_normal(tensor, std: float = 1.0, mean: float = 0.0,
+                 a: float = -2.0, b: float = 2.0, generator=None):
+    """torch's ``trunc_normal_``: N(mean, std) truncated to [a, b], with
+    ``a`` and ``b`` in value units, not standard deviations (the defaults
+    ±2 leave the small stds torchvision passes untruncated in effect)."""
+    return torch.nn.init.trunc_normal_(tensor, mean, std, a, b,
+                                       generator=generator)

@@ -11,8 +11,11 @@ tokens for the same seed, so this module computes JAX's stream itself, as
   ``(0, data)``;
 - :func:`random_bits` — threefry2x32 over the 64-bit iota of the output
   shape, split into its high and low words, the two output words xor-ed;
-- :func:`uniform`, :func:`gumbel` (the ``"low"`` mode) and
-  :func:`categorical` (the Gumbel-max trick).
+- :func:`split` — threefry2x32 over the count pairs ``(0, i)``, ``i <
+  num``, the two output words a key;
+- :func:`uniform`, :func:`randint` (two sets of bits folded by the span,
+  as ``jax.random.randint`` computes them for int32), :func:`gumbel` (the
+  ``"low"`` mode) and :func:`categorical` (the Gumbel-max trick).
 
 Keys are int64 tensors of shape ``(..., 2)`` holding uint32 words (torch
 has no uint32 arithmetic on every device); every sum is masked back to 32
@@ -32,8 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["key", "fold_in", "random_bits", "uniform", "gumbel",
-           "categorical"]
+__all__ = ["key", "fold_in", "split", "random_bits", "uniform", "randint",
+           "gumbel", "categorical"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -79,6 +82,16 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([o1, o2], dim=-1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``num`` new keys from ``key`` (..., 2), shape
+    ``key.shape[:-1] + (num, 2)``."""
+    lo = torch.arange(int(num), dtype=torch.int64, device=key.device)
+    k1 = key[..., 0, None]
+    k2 = key[..., 1, None]
+    o1, o2 = _threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return torch.stack([o1, o2], dim=-1)
+
+
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """32 random bits per element, shape ``key.shape[:-1] + shape`` (int64
     holding uint32)."""
@@ -98,12 +111,42 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the top 23 bits as the mantissa
     of a float in [1, 2), minus 1, scaled to [minval, maxval) with one
-    fused multiply-add, as XLA computes it."""
+    fused multiply-add, as XLA computes it.  ``minval``/``maxval`` may be
+    tensors broadcast to the output: keys stacked in leading dims then draw
+    each stream's own range in one pass."""
     bits = (random_bits(key, shape) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.as_tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.as_tensor(maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, _fma(floats, hi - lo, lo))
+
+
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def randint(key: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
+    """``jax.random.randint`` with its default int32: values in [minval,
+    maxval), ``minval``/``maxval`` int32-range ints or int tensors broadcast
+    to ``shape``.  As JAX computes it: the key split in two, 32 bits from
+    each half, and ``((hi % span) * (2**32 % span) + lo % span) % span`` in
+    wrapping uint32 arithmetic, with ``span = 1`` where ``maxval <=
+    minval``."""
+    for v in (minval, maxval):
+        if not torch.is_tensor(v) and not _I32_MIN <= v <= _I32_MAX:
+            raise ValueError(f"randint bounds must lie in the int32 range, "
+                             f"got {v}")
+    minval = torch.as_tensor(minval, dtype=torch.int64, device=key.device)
+    maxval = torch.as_tensor(maxval, dtype=torch.int64, device=key.device)
+    k = split(key)
+    hi = random_bits(k[..., 0, :], shape)
+    lo = random_bits(k[..., 1, :], shape)
+    span = torch.where(maxval <= minval, torch.ones_like(maxval),
+                       maxval - minval)
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    off = ((hi % span) * mult) & _MASK
+    off = ((off + lo % span) & _MASK) % span
+    return (minval + off).to(torch.int32)
 
 
 def _f32(v: float) -> float:
