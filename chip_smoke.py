@@ -7,7 +7,8 @@ Phases, each printed as one JSON line:
 
 1. ``env``/``build``: versions, the card, and the build of the CUDA kernels
    from ``tpu_dist_torch/csrc`` (one ``nvcc`` per source, all at once; the
-   Triton kernels compile at first launch).
+   Triton kernels compile at first launch) with the control-plane store's
+   host library (``g++``, beside them).
 2. ``kernel``: every kernel of the training paths against its plain PyTorch
    version on the card, at the paths' shapes and at ragged shapes, with the
    tolerance it is held to; kernel, plain and library-yardstick times (CUDA
@@ -125,7 +126,28 @@ Phases, each printed as one JSON line:
    12, 64) through the dense composition and through K2f/K2b, timed in
    turns, the flash result held to its plain version.  None of the three
    paths runs a hand-written kernel: every count over each must be 0.
-12. ``kernels``: one line over all kernels; the card's name and power limit
+12. ``launch``: ``python -m tpu_dist_torch.launch --standalone
+   --nproc_per_node=1`` on a worker this script writes, which runs the
+   train_lm twin at GPT-2-small width (vocab 32768, T = 2048, batch 8,
+   bf16, 3 steps) on NCCL: the env contract, K2f/K2b launched in the child
+   (12 of each a step, all wgmma: the ``launch_kernels`` line), its losses
+   bit for bit those of the same twin run in this process, the seconds
+   from starting the launcher to the child's first step against this
+   process's, and that the launcher never holds a context on the card.
+   ``launch_restart``: the same with ``--max_restarts=1`` — generation 0
+   exits 1 after its first step, generation 1 sees
+   ``TPU_DIST_RESTART_COUNT=1`` and the store's ``tpu_dist/generation`` =
+   1 and finishes; the seconds from the failure to its first step.
+   ``gateway``: ``--max_restarts=1 --serve`` on the serve_lm twin at the
+   serve phases' model (float32, 8 slots, 2048 positions, seed 0): 8
+   greedy requests through the gateway, equal to the same requests sent
+   straight to the worker's Frontend and to ``generate()`` here (the tie
+   rule), tokens/s of each; a SIGKILL of the model rank with 8 requests
+   in flight, each of which must end done or named
+   (``BackendGoneError``/``BackendUnavailableError``); the same tokens on
+   the same connection after the relaunch.  ``store``: set/get/add round
+   trips through one client, µs per op, native and Python.
+13. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
@@ -133,7 +155,8 @@ named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``composition``, ``moe_slice``, ``moe_layer``, ``moe_composition``,
 ``serve``, ``serve_int8``, ``quant``, ``convnet``, ``resnet``, ``optim``,
 ``resume``, ``flash_offdiag``, ``split_diag``, ``ring``, ``sp_train``,
-``augment``, ``imagenet``, ``vit``) and never prints the result line.
+``augment``, ``imagenet``, ``vit``, ``launch``, ``launch_restart``,
+``gateway``, ``store``) and never prints the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -2998,6 +3021,668 @@ def check_vit(results):
     return ok_train and cmp_["ok"] and ok_launches and ok_flash
 
 
+# ---------------------------------------------------------------------------
+# the launcher and the control plane (slice 10)
+# ---------------------------------------------------------------------------
+
+# the launched path: the train_lm twin at GPT-2-small width, T = 2048, bf16
+LAUNCH_ARGV = ["--vocab", "32768", "--dim", "768", "--depth", "12",
+               "--heads", "12", "--seq-len", "2048", "--batch-size", "8",
+               "--compute-dtype", "bfloat16", "--steps", "3",
+               "--log-every", "1"]
+# the served model of the gateway phase: the serve phases' (GPT-2-small,
+# float32, seed 0), 8 slots over 2048 positions
+GATEWAY_ARGV = ["--dim", "768", "--depth", "12", "--heads", "12", "--vocab",
+                "32768", "--max-seq-len", "2048", "--slots", "8"]
+LAUNCH_TIMEOUT = 240     # seconds a launched world may take
+GATEWAY_WAIT = 300       # seconds for a request through the gateway
+SUSTAIN_RAMP = 2.0       # seconds from the submits to a window's start
+SUSTAIN_WINDOW = 10.0    # seconds a window of sustained traffic is counted
+# the order of the sustained windows: each path first and last in turn
+SUSTAIN_ORDER = ("direct", "gateway", "gateway", "direct", "direct",
+                 "gateway")
+
+# the launched worker: the train_lm twin's train(), with the env contract,
+# every step's loss, the flash launch counts of the run and the wall clock
+# at the end of the first step written to OUT; in generation 0 of MODE
+# "restart" it exits 1 right after its first step
+LAUNCH_WORKER = """
+import importlib, json, os, sys, time
+t_start = time.time()
+import torch
+from tpu_dist_torch.examples import train_lm
+from tpu_dist_torch.parallel import DistributedDataParallel as DDP
+from tpu_dist_torch.dist import TCPStore
+from chip_smoke import _digest
+fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
+out, mode, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+gen = os.environ["TPU_DIST_RESTART_COUNT"]
+rec = {"env": {k: os.environ.get(k) for k in (
+    "RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE", "NODE_RANK",
+    "MASTER_ADDR", "MASTER_PORT", "TPU_DIST_RESTART_COUNT",
+    "TPU_DIST_STORE_ADDR")}, "pid": os.getpid(), "start_at": t_start}
+host, _, port = rec["env"]["TPU_DIST_STORE_ADDR"].rpartition(":")
+store = TCPStore(host, int(port), timeout=60)
+rec["store_generation"] = store.get("tpu_dist/generation").decode()
+rec["store_native"] = store.native
+store.close()
+step = DDP.train_step
+
+def first_step(self, *a, **k):
+    res = step(self, *a, **k)
+    if "first_step_at" not in rec:
+        torch.cuda.synchronize()
+        rec["first_step_at"] = time.time()
+        rec["backend"] = torch.distributed.get_backend()
+        rec["device"] = str(self.device)
+        if mode == "restart" and gen == "0":
+            rec["failed_at"] = time.time()
+            with open(os.path.join(out, f"g{gen}.json"), "w") as f:
+                json.dump(rec, f)
+            os._exit(1)
+    return res
+
+DDP.train_step = first_step
+for k in (fa.flash_fwd, fa.flash_bwd):   # zeroed just before the path
+    k.launches = 0
+    for by in ("launches_by_design", "launches_by_mode"):
+        if hasattr(k, by):
+            getattr(k, by).update(dict.fromkeys(getattr(k, by), 0))
+res = train_lm.train(train_lm.parse_args(argv))
+rec.update(losses=res["losses"], params_sha256=_digest(res["state"].params),
+           launches={k.__name__: k.launches for k in (fa.flash_fwd,
+                                                      fa.flash_bwd)},
+           by_design={k.__name__: {d: n for d, n in
+                                   k.launches_by_design.items() if n}
+                      for k in (fa.flash_fwd, fa.flash_bwd)},
+           first_step_seconds=res["first_step_seconds"],
+           loop_seconds=res["loop_seconds"])
+with open(os.path.join(out, f"g{gen}.json"), "w") as f:
+    json.dump(rec, f)
+"""
+
+
+# runs ``python -m tpu_dist_torch.launch ARGS`` (runpy, as ``-m`` does) and
+# then writes to PROBE whether torch initialized CUDA in the launcher
+# process and whether ``libcuda.so`` was mapped after ``import torch`` and
+# at the end: the launcher must never touch the card
+LAUNCHER_PROBE = """
+import json, runpy, sys
+probe = sys.argv.pop(1)
+import torch
+def mapped():
+    with open("/proc/self/maps") as f:
+        return "libcuda.so" in f.read()
+rec = {"libcuda_after_import_torch": mapped()}
+sys.argv[0] = "tpu_dist_torch.launch"
+try:
+    runpy.run_module("tpu_dist_torch.launch", run_name="__main__",
+                     alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+rec.update(rc=rc, cuda_initialized=torch.cuda.is_initialized(),
+           libcuda_at_exit=mapped())
+with open(probe, "w") as f:
+    json.dump(rec, f)
+sys.exit(rc)
+"""
+
+
+def _repo() -> str:
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _launcher(args, out_dir, **popen):
+    """``python -m tpu_dist_torch.launch ARGS`` under :data:`LAUNCHER_PROBE`
+    (its record lands in ``OUT_DIR/launcher_probe.json``), in a session of
+    its own so that every process it starts can be stopped with it, the
+    repo on the path."""
+    env = dict(os.environ, PYTHONPATH=_repo() + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen(
+        [sys.executable, "-c", LAUNCHER_PROBE,
+         os.path.join(out_dir, "launcher_probe.json"), *args],
+        cwd=out_dir, env=env, start_new_session=True, **popen)
+
+
+def _probe(out_dir) -> dict:
+    try:
+        with open(os.path.join(out_dir, "launcher_probe.json")) as f:
+            return json.load(f)
+    except OSError:
+        return {}
+
+
+def _stop(proc, grace: float = 30.0) -> None:
+    """SIGINT the launcher (its clean teardown), then SIGKILL its whole
+    session after ``grace`` seconds."""
+    import signal
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=grace)
+        except subprocess.TimeoutExpired:
+            pass
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except OSError:
+        pass
+    proc.wait(timeout=30)
+
+
+def _run_launched(mode: str, extra: list) -> dict:
+    """The train_lm twin through ``python -m tpu_dist_torch.launch
+    --standalone --nproc_per_node=1 EXTRA``; returns the worker's records
+    by generation, the launcher's exit code, wall time, stderr and probe
+    (whether torch initialized CUDA in the launcher's process)."""
+    import tempfile
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # two processes share the card
+    out = tempfile.mkdtemp(prefix="launch_", dir=os.environ.get("TMPDIR"))
+    with open(os.path.join(out, "worker.py"), "w") as f:
+        f.write(LAUNCH_WORKER)
+    t0 = time.time()
+    proc = _launcher(["--standalone", "--nproc_per_node=1", *extra,
+                      os.path.join(out, "worker.py"), out, mode,
+                      *LAUNCH_ARGV], out, stderr=subprocess.PIPE, text=True)
+    try:
+        _, err = proc.communicate(timeout=LAUNCH_TIMEOUT)
+    finally:
+        _stop(proc)
+    recs = {}
+    for name in os.listdir(out):
+        if name.startswith("g") and name.endswith(".json"):
+            with open(os.path.join(out, name)) as f:
+                recs[int(name[1:-5])] = json.load(f)
+    probe = _probe(out)
+    return {"recs": recs, "rc": proc.returncode, "t0": t0,
+            "wall": time.time() - t0, "stderr": err[-3000:], "probe": probe,
+            "launcher_touched_card": probe.get("cuda_initialized") is not
+            False}
+
+
+def _digest(params) -> str:
+    """sha256 over every parameter's name and bytes, in name order: the
+    launched run's final parameters against this process's."""
+    import hashlib
+    h = hashlib.sha256()
+    for name, p in sorted(params.items()):
+        h.update(name.encode())
+        h.update(p.detach().cpu().contiguous().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _contract_ok(env: dict, gen: int) -> bool:
+    return (env["RANK"] == "0" and env["LOCAL_RANK"] == "0"
+            and env["WORLD_SIZE"] == "1" and env["LOCAL_WORLD_SIZE"] == "1"
+            and env["NODE_RANK"] == "0" and env["MASTER_ADDR"] == "127.0.0.1"
+            and int(env["MASTER_PORT"]) > 0
+            and env["TPU_DIST_RESTART_COUNT"] == str(gen)
+            and env["TPU_DIST_STORE_ADDR"].startswith("127.0.0.1:"))
+
+
+def check_launch(results):
+    """The train_lm twin at GPT-2-small width (T = 2048, batch 8, bf16, 3
+    steps) started by ``python -m tpu_dist_torch.launch --standalone
+    --nproc_per_node=1`` on NCCL: the env contract, K2f/K2b launched in the
+    child (12 each a step, all wgmma), the losses bit for bit those of the
+    same twin in this process, and the launcher's wall time to the child's
+    first step against this process's."""
+    from tpu_dist_torch.examples import train_lm
+
+    run = _run_launched("once", [])
+    rec = run["recs"].get(0, {})
+    ok_rc = run["rc"] == 0 and set(run["recs"]) == {0}
+    ok_contract = bool(rec) and _contract_ok(rec["env"], 0) and \
+        rec["store_generation"] == "0" and rec["backend"] == "nccl" \
+        and rec["device"] == "cuda:0"
+    steps = 3
+    want = {"flash_fwd": 12 * steps, "flash_bwd": 12 * steps}
+    ok_launches = bool(rec) and rec["launches"] == want and all(
+        d == {"wgmma": want[k]} for k, d in rec["by_design"].items())
+    emit("launch_kernels", kernel_launches=rec.get("launches"),
+         by_design=rec.get("by_design"), want=want, ok=ok_launches)
+    # the same twin in this process, no launcher, world 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    here = train_lm.train(train_lm.parse_args(LAUNCH_ARGV))
+    here_first = time.perf_counter() - t0 - here["loop_seconds"]
+    got, ref = rec.get("losses", []), here["losses"]
+    digest = _digest(here["state"].params)
+    ok_losses = (len(got) == steps and got == ref
+                 and all(math.isfinite(v) for v in got)
+                 and rec.get("params_sha256") == digest)
+    ok_card = not run["launcher_touched_card"]
+    emit("launch", argv=["--standalone", "--nproc_per_node=1"],
+         env=rec.get("env"), store_native=rec.get("store_native"),
+         backend=rec.get("backend"), device=rec.get("device"),
+         launcher_rc=run["rc"], ok_contract=ok_contract,
+         losses_launched=got, losses_in_process=ref,
+         losses_bitwise_equal=got == ref,
+         params_sha256_launched=rec.get("params_sha256"),
+         params_sha256_in_process=digest,
+         launch_to_first_step_s=(rec["first_step_at"] - run["t0"]
+                                 if rec else None),
+         child_start_to_first_step_s=(rec["first_step_at"] - rec["start_at"]
+                                      if rec else None),
+         in_process_to_first_step_s=here_first,
+         first_step_s_launched=rec.get("first_step_seconds"),
+         first_step_s_in_process=here["first_step_seconds"],
+         loop_s_launched=rec.get("loop_seconds"),
+         loop_s_in_process=here["loop_seconds"],
+         launcher_wall_s=run["wall"], launcher_probe=run["probe"],
+         stderr_tail=None if ok_rc else run["stderr"])
+    return ok_rc and ok_contract and ok_launches and ok_losses and ok_card
+
+
+def check_launch_restart(results):
+    """The same launch with ``--max_restarts=1 --restart_backoff=0``: the
+    worker exits 1 after generation 0's first step; generation 1 sees
+    ``TPU_DIST_RESTART_COUNT=1`` and the store's ``tpu_dist/generation`` =
+    1 and finishes; the launcher exits 0.  The seconds from the failure to
+    generation 1's first step."""
+    run = _run_launched("restart", ["--max_restarts=1",
+                                    "--restart_backoff=0"])
+    g0, g1 = run["recs"].get(0, {}), run["recs"].get(1, {})
+    ok = (run["rc"] == 0 and set(run["recs"]) == {0, 1}
+          and _contract_ok(g0["env"], 0) and _contract_ok(g1["env"], 1)
+          and g0["store_generation"] == "0"
+          and g1["store_generation"] == "1"
+          and len(g1["losses"]) == 3
+          and all(math.isfinite(v) for v in g1["losses"])
+          and g1["launches"] == {"flash_fwd": 36, "flash_bwd": 36}
+          and not run["launcher_touched_card"])
+    emit("launch_restart", launcher_rc=run["rc"],
+         generations=sorted(run["recs"]),
+         store_generation={g: r["store_generation"]
+                           for g, r in run["recs"].items()},
+         restart_count_env={g: r["env"]["TPU_DIST_RESTART_COUNT"]
+                            for g, r in run["recs"].items()},
+         losses_g1=g1.get("losses"), kernel_launches_g1=g1.get("launches"),
+         failure_to_first_step_s=(g1["first_step_at"] - g0["failed_at"]
+                                  if g0 and g1 else None),
+         failure_to_child_start_s=(g1["start_at"] - g0["failed_at"]
+                                   if g0 and g1 else None),
+         launcher_wall_s=run["wall"], launcher_probe=run["probe"],
+         ok=ok, stderr_tail=run["stderr"])
+    return ok
+
+
+def _gateway_requests() -> list:
+    """The first 8 greedy requests of :func:`smoke_requests`."""
+    return [r for r in smoke_requests() if not r["temperature"]][:8]
+
+
+def _stream_requests(n: int = 320) -> list:
+    """``n`` greedy requests drawn as :func:`smoke_requests` draws its
+    (prompt lengths uniform in 16-1536, new-token counts in 32-128) from
+    ``np.random.default_rng(1)``: the traffic of a sustained window."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    return [{"prompt": rng.integers(0, 32768, int(p)).astype(np.int32),
+             "max_new_tokens": int(g)}
+            for p, g in zip(rng.integers(16, 1536 + 1, n),
+                            rng.integers(32, 128 + 1, n))]
+
+
+def _sustained(port: int, reqs, ramp: float = SUSTAIN_RAMP,
+               window: float = SUSTAIN_WINDOW) -> dict:
+    """Every request of ``reqs`` submitted at once through a new serve
+    connection to ``port`` — more than the window can serve, so the queue
+    keeps every slot busy — then the tokens streamed to the client counted
+    over ``window`` seconds that start ``ramp`` seconds later; then the
+    rest cancelled, and every handle's end awaited.  ``queued`` is the
+    number of requests not yet ended at each end of the window: more than
+    the slots means the slots were full throughout."""
+    from tpu_dist_torch import serve
+    cli = serve.ServeClient("127.0.0.1", port, connect_retry=60, timeout=60)
+    try:
+        hs = [cli.submit(r["prompt"].tolist(),
+                         max_new_tokens=r["max_new_tokens"]) for r in reqs]
+        time.sleep(ramp)
+        t1, n1 = time.perf_counter(), sum(len(h.tokens()) for h in hs)
+        q1 = sum(not h.done for h in hs)
+        time.sleep(window)
+        t2, n2 = time.perf_counter(), sum(len(h.tokens()) for h in hs)
+        q2 = sum(not h.done for h in hs)
+        served = sum(h.done for h in hs)
+        for h in hs:
+            h.cancel()
+        for h in hs:
+            try:
+                h.wait_done(GATEWAY_WAIT)
+            except serve.RequestFailedError:
+                pass
+    finally:
+        cli.close()
+    return {"tokens_per_s": (n2 - n1) / (t2 - t1), "tokens": n2 - n1,
+            "seconds": t2 - t1, "queued": [q1, q2], "served": served}
+
+
+def _through(port: int, reqs, timeout=GATEWAY_WAIT, cli=None):
+    """``reqs`` submitted at once through a serve connection to ``port``
+    (``cli``, else a new one): the tokens and the wall time."""
+    from tpu_dist_torch import serve
+    own = cli is None
+    if own:
+        cli = serve.ServeClient("127.0.0.1", port, connect_retry=60,
+                                timeout=60)
+    try:
+        t0 = time.perf_counter()
+        hs = [cli.submit(r["prompt"].tolist(),
+                         max_new_tokens=r["max_new_tokens"]) for r in reqs]
+        got = [h.wait_done(timeout) for h in hs]
+        return got, time.perf_counter() - t0
+    finally:
+        if own:
+            cli.close()
+
+
+def check_gateway(results):
+    """``--max_restarts=1 --serve`` on the serve_lm twin at GPT-2-small
+    width (float32, 8 slots, max_len 2048, seed 0): 8 greedy requests
+    through the gateway against the in-process ``generate()`` on the same
+    weights (the serve phase's tie rule) and against the same requests sent
+    straight to the worker's Frontend (exact); tokens/s of sustained traffic
+    (:func:`_sustained`, windows of each path in :data:`SUSTAIN_ORDER`, the
+    8 slots full throughout); then a SIGKILL of the model rank with 8
+    requests in flight — each must end done or with
+    BackendGoneError/BackendUnavailableError within a bounded wait — and,
+    after the relaunch, the same connection's tokens."""
+    import signal
+    import socket
+    import tempfile
+
+    from tpu_dist_torch import serve
+
+    model = _serve_model()
+    reqs = _gateway_requests()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="gateway_", dir=os.environ.get("TMPDIR"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pid_file = os.path.join(out, "worker.pid")
+    log = open(os.path.join(out, "launcher.log"), "w")
+    proc = _launcher(["--standalone", "--max_restarts=1",
+                      "--restart_backoff=0", "--serve",
+                      f"--serve_port={port}", "-m",
+                      "tpu_dist_torch.examples.serve_lm", *GATEWAY_ARGV,
+                      "--pid-file", pid_file, "--run-seconds", "900"],
+                     out, stdout=log, stderr=subprocess.STDOUT)
+    cli = None
+    try:
+        t0 = time.perf_counter()
+        cli = serve.ServeClient("127.0.0.1", port, connect_retry=120,
+                                timeout=60)
+        warm = cli.submit(reqs[0]["prompt"][:16].tolist(),
+                          max_new_tokens=4).wait_done(GATEWAY_WAIT)
+        ready_s = time.perf_counter() - t0
+        # straight to the worker's frontend, the address the gateway
+        # resolved from the store's registry, and through the gateway
+        gw_stats = cli.stats(timeout=60)
+        backend = gw_stats["gateway"]["default"]["addr"]
+        fe_port = int(backend.rpartition(":")[2])
+        fe_got, _ = _through(fe_port, reqs)
+        gw_got, _ = _through(port, reqs, cli=cli)
+        ok_same = gw_got == fe_got
+        # tokens/s of sustained traffic, each path's windows in turns
+        stream = _stream_requests()
+        windows = [dict(path=path, **_sustained(
+            fe_port if path == "direct" else port, stream))
+            for path in SUSTAIN_ORDER]
+        ok_full = all(min(w["queued"]) > 8 for w in windows)
+        want = [_generate(model, r, torch.float32) for r in reqs]
+        vs_gen = _tie_rule(model, reqs, gw_got, want, torch.float32,
+                           "gateway_generate")
+        ok_ties = all(ok for _, ok, _ in vs_gen)
+        # SIGKILL the model rank with requests in flight
+        with open(pid_file) as f:
+            worker_pid = int(f.read())
+        long = [dict(r, max_new_tokens=128) for r in reqs]
+        hs = [cli.submit(r["prompt"].tolist(), max_new_tokens=128)
+              for r in long]
+        next(iter(hs[0].iter_tokens(timeout=GATEWAY_WAIT)))
+        t_kill = time.perf_counter()
+        os.kill(worker_pid, signal.SIGKILL)
+        outcomes = []
+        for h in hs:
+            try:
+                h.wait_done(120.0)
+                outcomes.append("done")
+            except serve.RequestFailedError as e:
+                outcomes.append(e.error)
+        ended_s = time.perf_counter() - t_kill
+        ok_named = all(o in ("done", "BackendGoneError",
+                             "BackendUnavailableError") for o in outcomes) \
+            and "done" != outcomes[0]
+        # the relaunched rank, on the same connection
+        after = None
+        deadline = time.perf_counter() + GATEWAY_WAIT
+        while time.perf_counter() < deadline:
+            try:
+                after, _ = _through(port, reqs[:2], cli=cli)
+                break
+            except serve.RequestFailedError:
+                time.sleep(0.5)
+        back_s = time.perf_counter() - t_kill
+        with open(pid_file) as f:
+            new_pid = int(f.read())
+        ok_back = after == gw_got[:2] and new_pid != worker_pid
+    finally:
+        if cli is not None:
+            cli.close()
+        _stop(proc)
+        log.close()
+    with open(os.path.join(out, "launcher.log")) as f:
+        log_tail = f.read()[-2000:]
+    probe = _probe(out)
+    ok_card = probe.get("cuda_initialized") is False
+    rate = {p: [w["tokens_per_s"] for w in windows if w["path"] == p]
+            for p in ("direct", "gateway")}
+    emit("gateway", requests=len(reqs),
+         prompt_lens=[len(r["prompt"]) for r in reqs],
+         max_new_tokens=[r["max_new_tokens"] for r in reqs],
+         ready_s=ready_s, warm_tokens=len(warm),
+         sustained=dict(requests=len(stream), ramp_s=SUSTAIN_RAMP,
+                        window_s=SUSTAIN_WINDOW, windows=windows,
+                        direct_tokens_per_s=rate["direct"],
+                        gateway_tokens_per_s=rate["gateway"],
+                        gateway_over_direct=(
+                            statistics.mean(rate["gateway"])
+                            / statistics.mean(rate["direct"])),
+                        gateway_over_direct_by_pair=[
+                            g / d for d, g in zip(rate["direct"],
+                                                  rate["gateway"])],
+                        ok_slots_full=ok_full),
+         ok_gateway_equals_direct=ok_same,
+         divergent_vs_generate=[i for i, _, d in vs_gen if d],
+         ok_tie_rule=ok_ties, kill_outcomes=outcomes,
+         kill_to_all_ended_s=ended_s, ok_named=ok_named,
+         kill_to_served_again_s=back_s, ok_same_tokens_after=ok_back,
+         gateway_stats=gw_stats["gateway"], launcher_rc=proc.returncode,
+         launcher_probe=probe,
+         launcher_log_tail=None if ok_back and ok_card else log_tail)
+
+    return (ok_same and ok_full and ok_ties and ok_named and ok_back
+            and ok_card)
+
+
+# a store server in a process of its own, as the launcher hosts one for its
+# workers: prints its port and whether it is the native server, then serves
+# until its standard input closes
+STORE_SERVER = """
+import sys
+from tpu_dist_torch.dist import TCPStore
+server = TCPStore(is_master=True, timeout=30)
+print(server.port, int(server.native), flush=True)
+sys.stdin.read()
+server.close()
+"""
+# one rank of a world at a rendezvous, standard library only so that many
+# start at once: a connection of its own to the store on port ARGV[1];
+# after "go" on its standard input, ARGV[3] rounds of set and get of its own
+# key and an add to the world's counter, each a request of the store's wire
+# in one send
+STORE_RANK = """
+import socket, struct, sys
+port, name, n = int(sys.argv[1]), sys.argv[2], int(sys.argv[3])
+s = socket.create_connection(("127.0.0.1", port))
+s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+def recv(n):
+    buf = b""
+    while len(buf) < n:
+        got = s.recv(n - len(buf))
+        if not got:
+            raise ConnectionError("store closed the connection")
+        buf += got
+    return buf
+def request(op, key, payload=b""):
+    key = key.encode()
+    s.sendall(struct.pack("<BI", op, len(key)) + key
+              + struct.pack("<I", len(payload)) + payload)
+    status, size = struct.unpack("<II", recv(8))
+    data = recv(size)
+    if status:
+        raise RuntimeError(f"store op {op} failed: {status}")
+    return data
+world = name.split("/")[0]
+print("ready", flush=True)
+sys.stdin.readline()
+for _ in range(n):
+    request(1, f"rank/{name}", b"x" * 64)   # SET
+    request(2, f"rank/{name}")               # GET
+    request(3, f"arrived/{world}", struct.pack("<q", 1))   # ADD
+print("done", flush=True)
+"""
+STORE_OPS = 2000         # round trips of each op through one client
+STORE_CLIENTS = (8, 64)  # concurrent ranks, one process and connection each
+STORE_CLIENT_OPS = 500   # rounds of set, get and add of each rank
+
+
+def _store_server(python: bool):
+    """A :data:`STORE_SERVER` process (the Python server when ``python``),
+    its port and whether it is native."""
+    env = dict(os.environ, PYTHONPATH=_repo() + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("TPU_DIST_PURE_PYTHON_STORE", None)
+    if python:
+        env["TPU_DIST_PURE_PYTHON_STORE"] = "1"
+    proc = subprocess.Popen([sys.executable, "-c", STORE_SERVER],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            env=env, cwd=_repo(), text=True)
+    try:
+        port, native = proc.stdout.readline().split()
+    except ValueError:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError("the store server process did not start")
+    return proc, int(port), native == "1"
+
+
+def check_store(results):
+    """The control-plane store with its server in a process of its own, as
+    the launcher hosts it: set/get/add round trips through one client,
+    microseconds an op (native client and server; Python client and
+    server; the native client to the Python server), and the ops a second
+    the native server and the Python one serve to ``k`` concurrent ranks
+    in :data:`STORE_CLIENTS` (:data:`STORE_RANK`: a process each, as the
+    ranks of a large world at a rendezvous, all with the same client).
+    The store on the card's machine must be the native one."""
+    from tpu_dist_torch.dist import store as tstore
+
+    def per_op(s, n=STORE_OPS):
+        row = {}
+        for op, fn in (("set", lambda i: s.set(f"k{i % 64}", b"x" * 64)),
+                       ("get", lambda i: s.get(f"k{i % 64}")),
+                       ("add", lambda i: s.add("ctr", 1))):
+            fn(0)
+            t0 = time.perf_counter()
+            for i in range(n):
+                fn(i)
+            row[f"{op}_us"] = (time.perf_counter() - t0) / n * 1e6
+        return row
+
+    def concurrent(port, k, n=STORE_CLIENT_OPS):
+        ranks = [subprocess.Popen(
+            [sys.executable, "-c", STORE_RANK, str(port), f"{k}/{i}",
+             str(n)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            text=True) for i in range(k)]
+        try:
+            for r in ranks:   # each has connected
+                assert r.stdout.readline().strip() == "ready"
+            t0 = time.perf_counter()
+            for r in ranks:
+                r.stdin.write("go\n")
+                r.stdin.flush()
+            done = [r.stdout.readline().strip() for r in ranks]
+            wall = time.perf_counter() - t0
+        finally:
+            for r in ranks:
+                if r.poll() is None:
+                    r.kill()
+                r.wait()
+        check = tstore.TCPStore("127.0.0.1", port, timeout=30)
+        total = check.add(f"arrived/{k}", 0)
+        check.close()
+        ops = 3 * n * k
+        return {"clients": k, "ops": ops, "seconds": wall,
+                "ops_per_s": ops / wall,
+                "ok": done == ["done"] * k and total == n * k}
+
+    saved = os.environ.pop("TPU_DIST_PURE_PYTHON_STORE", None)
+    tstore._load_native.reset()
+    servers = {}
+    rows, natives, conc = {}, {}, {}
+    try:
+        for name in ("native", "python"):
+            servers[name] = _store_server(python=name == "python")
+        for name, server, client_py in (
+                ("native", "native", False), ("python", "python", True),
+                ("native_client_python_server", "python", False)):
+            proc, port, server_native = servers[server]
+            os.environ.pop("TPU_DIST_PURE_PYTHON_STORE", None)
+            if client_py:
+                os.environ["TPU_DIST_PURE_PYTHON_STORE"] = "1"
+            tstore._load_native.reset()
+            client = tstore.TCPStore("127.0.0.1", port, timeout=30)
+            try:
+                natives[name] = (server_native, client.native)
+                rows[name] = per_op(client)
+            finally:
+                client.close()
+        os.environ.pop("TPU_DIST_PURE_PYTHON_STORE", None)
+        tstore._load_native.reset()
+        for name in ("native", "python"):
+            proc, port, _ = servers[name]
+            conc[name] = [concurrent(port, k) for k in STORE_CLIENTS]
+    finally:
+        for proc, _, _ in servers.values():
+            proc.stdin.close()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        os.environ.pop("TPU_DIST_PURE_PYTHON_STORE", None)
+        if saved is not None:
+            os.environ["TPU_DIST_PURE_PYTHON_STORE"] = saved
+        tstore._load_native.reset()
+    ok = (natives == {"native": (True, True), "python": (False, False),
+                      "native_client_python_server": (False, True)}
+          and all(r["ok"] for rs in conc.values() for r in rs))
+    emit("store", ops=STORE_OPS, value_bytes=64, rows=rows,
+         server_client_native=natives, concurrent=conc,
+         native_over_python_ops_per_s=[
+             n["ops_per_s"] / p["ops_per_s"]
+             for n, p in zip(conc["native"], conc["python"])], ok=ok)
+    return ok
+
+
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("gmm", check_gmm), ("slice", check_slice),
           ("composition", check_composition), ("moe_slice", check_moe_slice),
@@ -3009,7 +3694,9 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("resume", check_resume), ("flash_offdiag", check_flash_offdiag),
           ("split_diag", check_split_diag), ("ring", check_ring),
           ("sp_train", check_sp_train), ("augment", check_augment),
-          ("imagenet", check_imagenet), ("vit", check_vit))
+          ("imagenet", check_imagenet), ("vit", check_vit),
+          ("launch", check_launch), ("launch_restart", check_launch_restart),
+          ("gateway", check_gateway), ("store", check_store))
 
 
 def main() -> int:
@@ -3043,10 +3730,16 @@ def main() -> int:
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), nvidia_smi=smi)
     t0 = time.perf_counter()
-    _build.build_all()  # one nvcc per source, all at once
+    # one nvcc per CUDA source and g++ for the store's library, all at once
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        host = pool.submit(_build.build_host, "tcpstore")
+        _build.build_all()
+        store_lib = host.result()
     fa._lib()
     gm._lib()
     emit("build", seconds=time.perf_counter() - t0,
+         store_library=os.path.basename(store_lib),
          ptxas={name: [ln.strip() for ln in
                        _build.compile_log(name).splitlines()
                        if "registers" in ln or "spill" in ln

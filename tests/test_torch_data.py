@@ -239,9 +239,22 @@ def test_device_loader_warns_without_distributed_sampler():
         tdata.DeviceLoader(tdata.DataLoader(ours_ds), group=group)
 
 
-def test_spawn_runs_workers_and_reports_a_child_exception(capfd):
+_FLAKY = """
+import os, sys
+
+def flaky(i, out, failing_generations):
+    gen = int(os.environ["TPU_DIST_RESTART_COUNT"])
+    open(os.path.join(out, f"g{gen}_r{i}"), "w").close()
+    if i == 1 and gen < failing_generations:
+        sys.exit(3)
+"""
+
+
+def test_spawn_runs_workers_and_reports_a_child_exception(capfd, tmp_path,
+                                                          monkeypatch):
     # standard-library targets keep the children's imports cheap: child i
-    # prints i, computes i / 0, or exits with code i
+    # prints i, computes i / 0, or exits with code i; the restart target
+    # is a module of a few lines on the children's path
     spawn(print, args=("spawned",), nprocs=2)
     out = capfd.readouterr().out.split("\n")
     assert "0 spawned" in out and "1 spawned" in out
@@ -255,5 +268,21 @@ def test_spawn_runs_workers_and_reports_a_child_exception(capfd):
     ctx = spawn(time.sleep, nprocs=1, join=False)
     assert ctx.join(timeout=60) is True
     assert len(ctx.pids()) == 1
-    with pytest.raises(NotImplementedError, match="A5"):
-        spawn(time.sleep, nprocs=1, max_restarts=1)
+    # max_restarts: generation 0 fails, generation 1 finishes; a world
+    # that keeps failing raises once the budget is spent; the parent's
+    # environment is left as it was
+    (tmp_path / "spawn_flaky.py").write_text(_FLAKY)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    monkeypatch.delenv("TPU_DIST_RESTART_COUNT", raising=False)
+    from spawn_flaky import flaky
+    spawn(flaky, args=(str(tmp_path), 1), nprocs=2, max_restarts=1,
+          restart_backoff=0.01)
+    assert sorted(p.name for p in tmp_path.glob("g*")) == [
+        "g0_r0", "g0_r1", "g1_r0", "g1_r1"]
+    with pytest.raises(ProcessExitedException, match="exit code 3") as e:
+        spawn(flaky, args=(str(tmp_path), 99), nprocs=2, max_restarts=1,
+              restart_backoff=0.01)
+    assert e.value.exit_code == 3
+    assert "TPU_DIST_RESTART_COUNT" not in os.environ
+    with pytest.raises(ValueError, match="join=True"):
+        spawn(time.sleep, nprocs=1, join=False, max_restarts=1)

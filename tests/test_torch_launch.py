@@ -1,0 +1,262 @@
+"""The port's launcher (``python -m tpu_dist_torch.launch``) against the JAX
+package's (``python -m tpu_dist.launch``): the same argv and the same
+worker give the same env contract (ports aside) and the same exit codes —
+the env contract itself, ``--pass_local_rank``, fail-fast, the refused
+flag combinations, ``--max_restarts`` recovered and exhausted, a worker's
+130, ``--standalone`` and ``--module`` — and two of the port's launchers
+with ``--nnodes=2`` agree on a restart, or on giving up.  Flags whose
+machinery is a later ROADMAP item exit 2 before anything is spawned,
+naming the item; ``spawn(max_restarts=)`` restarts its world.
+
+The worker uses the standard library only: it writes its env, argv and
+exit code to a JSON file per rank and generation.  Every launch and every
+subprocess has a timeout of its own."""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+import time
+
+import pytest
+
+from tpu_dist.launch import cli as jcli
+from tpu_dist_torch.launch import cli as tcli
+
+pytestmark = pytest.mark.multiprocess
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONTRACT = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE",
+            "NODE_RANK", "MASTER_ADDR", "MASTER_PORT",
+            "TPU_DIST_RESTART_COUNT", "TPU_DIST_STORE_ADDR",
+            "TPU_DIST_HEARTBEAT_TIMEOUT")
+PORTS = ("MASTER_PORT", "TPU_DIST_STORE_ADDR")
+
+# argv: OUT_DIR MODE [rest...]; MODE picks the exit code
+WORKER = textwrap.dedent("""
+    import json, os, sys, time
+    out, mode = sys.argv[1], sys.argv[2]
+    gen = os.environ.get("TPU_DIST_RESTART_COUNT", "-")
+    rank = os.environ.get("RANK", "-")
+    rc = {"ok": 0, "always": 9}.get(mode, 0)
+    if mode == "flaky" and gen == "0":
+        rc = 7
+    if mode == "sigint" and gen == "0":
+        rc = 130
+    rec = {"env": {k: os.environ.get(k) for k in %r},
+           "argv": sys.argv[3:], "rc": rc}
+    with open(os.path.join(out, f"g{gen}_r{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    if mode == "failfast" and rank != "0":
+        time.sleep(30)       # must be torn down, not waited out
+        rc = 0
+    if mode == "failfast" and rank == "0":
+        rc = 7
+    if rc:
+        # fail only once every rank of this node and generation wrote its
+        # record: the teardown that follows must not race a sibling's start
+        n = int(os.environ["LOCAL_WORLD_SIZE"])
+        for _ in range(600):
+            if sum(name.startswith(f"g{gen}_") for name in
+                   os.listdir(out)) >= n:
+                break
+            time.sleep(0.05)
+    sys.exit(rc)
+""" % (CONTRACT,))
+
+
+@pytest.fixture
+def worker(tmp_path):
+    path = tmp_path / "probe.py"
+    path.write_text(WORKER)
+    return path
+
+
+def _records(out_dir):
+    recs = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".json"):
+            with open(os.path.join(out_dir, name)) as f:
+                rec = json.load(f)
+            for k in PORTS:
+                v = rec["env"][k]
+                if v is not None:
+                    rec["env"][k] = v.rsplit(":", 1)[0] + ":<port>" \
+                        if ":" in v else "<port>"
+            recs[name] = rec
+    return recs
+
+
+def _both(tmp_path, worker, argv, mode="ok", extra=()):
+    """Run the JAX launcher then the port's in this process on the same
+    argv and worker → ``[(rc, records, seconds)]`` for each."""
+    out = []
+    for name, cli in (("jax", jcli), ("port", tcli)):
+        d = tmp_path / name
+        d.mkdir()
+        t0 = time.monotonic()
+        rc = cli.main([*argv, str(worker), str(d), mode, *extra])
+        out.append((rc, _records(d), time.monotonic() - t0))
+    return out
+
+
+@pytest.mark.parametrize("argv,mode,extra,want_rc", [
+    (["--nproc_per_node=2", "--nnodes=2", "--node_rank=1",
+      "--master_addr=10.1.2.3", "--master_port=12345"], "ok", ["-x", "1"],
+     0),
+    (["--nproc_per_node=2", "--pass_local_rank", "--heartbeat_timeout=30"],
+     "ok", [], 0),
+    (["--nproc_per_node=2"], "failfast", [], 7),
+    (["--nproc_per_node=2", "--max_restarts=1", "--restart_backoff=0.05"],
+     "flaky", [], 0),
+    (["--nproc_per_node=1", "--max_restarts=2", "--restart_backoff=0.05"],
+     "always", [], 9),
+    (["--nproc_per_node=1", "--max_restarts=1", "--no_store",
+      "--restart_backoff=0.05"], "sigint", [], 0),
+], ids=["contract", "local_rank", "failfast", "restart-recovered",
+        "restart-exhausted", "rc130-restarted"])
+def test_same_contract_and_exit_code_as_the_jax_launcher(
+        tmp_path, worker, argv, mode, extra, want_rc):
+    (jrc, jrec, _), (trc, trec, tsec) = _both(tmp_path, worker, argv, mode,
+                                              extra)
+    assert trc == jrc == want_rc
+    assert trec == jrec and trec
+    if mode == "failfast":
+        assert tsec < 25   # the sleeping rank was torn down
+    if mode == "flaky":
+        assert {r["env"]["TPU_DIST_RESTART_COUNT"] for r in trec.values()} \
+            == {"0", "1"}
+
+
+@pytest.mark.parametrize("argv", [
+    ["--nnodes=2", "--node_rank=2"],
+    ["--max_restarts=-1"],
+    ["--master_port=0", "--no_store"],
+    ["--nnodes=2", "--max_restarts=1", "--no_store"],
+    ["--serve", "--no_store"],
+], ids=["node_rank", "negative-restarts", "negotiation-without-store",
+        "multinode-restarts-without-store", "serve-without-store"])
+def test_bad_flags_exit_2_like_the_jax_launcher(tmp_path, worker, argv):
+    (jrc, jrec, _), (trc, trec, _) = _both(tmp_path, worker, argv)
+    assert trc == jrc == 2
+    assert trec == jrec == {}
+
+
+@pytest.mark.parametrize("flag,item", [
+    ("--elastic_world=1:2", "A9.1"), ("--elastic_timeout=60", "A9.1"),
+    ("--coll_timeout=5", "A9.1"), ("--sanitize", "A9.2"),
+    ("--flight-recorder", "A9.2"), ("--roles=learner:1", "A9.2"),
+    ("--role_script=a=b.py", "A9.2"), ("--solo_restarts=1", "A9.2"),
+    ("--verify_graph", "A9.2"), ("--no_verify_graph", "A9.2"),
+    ("--store_endpoints=/x", "A9.2"), ("--store_replica", "A9.2"),
+    ("--netchaos=delay:surface=tcp", "A9.4")])
+def test_unported_flag_exits_2_naming_its_item(tmp_path, worker, capfd,
+                                               flag, item):
+    assert tcli.main([flag, str(worker), str(tmp_path), "ok"]) == 2
+    err = capfd.readouterr().err
+    assert flag.split("=")[0] in err and item in err
+    assert os.listdir(tmp_path) == ["probe.py"]   # nothing was spawned
+
+
+def test_flight_recorder_env_refused(tmp_path, worker, capfd, monkeypatch):
+    monkeypatch.setenv("TPU_DIST_OBS", "1")
+    assert tcli.main([str(worker), str(tmp_path), "ok"]) == 2
+    assert "A9.2" in capfd.readouterr().err
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+@pytest.mark.parametrize("how", ["standalone", "module"])
+def test_cli_entry_points_match(tmp_path, worker, how):
+    """``python -m <pkg>.run --standalone`` and ``python -m <pkg>.launch
+    --module``, each package's, as real subprocesses."""
+    (tmp_path / "mods").mkdir()
+    (tmp_path / "mods" / "probe_mod.py").write_text(WORKER)
+    env = _env()
+    env["PYTHONPATH"] = str(tmp_path / "mods") + os.pathsep + \
+        env["PYTHONPATH"]
+    recs = []
+    for pkg in ("tpu_dist", "tpu_dist_torch"):
+        d = tmp_path / pkg
+        d.mkdir()
+        if how == "standalone":
+            argv = ["-m", f"{pkg}.run", "--standalone", "--nproc_per_node=2",
+                    str(worker)]
+        else:
+            argv = ["-m", f"{pkg}.launch", "--nproc_per_node=2", "--module",
+                    "probe_mod"]
+        r = subprocess.run([sys.executable, *argv, str(d), "ok"], env=env,
+                           cwd=REPO, capture_output=True, text=True,
+                           timeout=120)
+        assert r.returncode == 0, r.stderr
+        recs.append(_records(d))
+    assert recs[0] == recs[1] and len(recs[1]) == 2
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+TWO_NODE_WORKER = textwrap.dedent("""
+    import os, sys, time
+    out, mode = sys.argv[1], sys.argv[2]
+    rnd, rank = os.environ["TPU_DIST_RESTART_COUNT"], os.environ["RANK"]
+    open(os.path.join(out, f"round{rnd}_rank{rank}"), "w").close()
+    if rank == "1" and (mode == "always" or rnd == "0"):
+        # node 1's worker fails, once node 0's has started this round
+        for _ in range(600):
+            if os.path.exists(os.path.join(out, f"round{rnd}_rank0")):
+                break
+            time.sleep(0.05)
+        sys.exit(3)
+    time.sleep(1.5)       # node 0's worker outlives the failure: it must be
+                          # stopped by the remote-failure poll
+""")
+
+
+@pytest.mark.parametrize("mode", ["flaky", "always"])
+def test_two_launchers_agree_on_a_restart(tmp_path, mode):
+    """--nnodes=2 on localhost: node 1's worker fails in round 0; both
+    launchers agree through the store and relaunch (``flaky``), or agree
+    that the budget is spent and both exit non-zero (``always``)."""
+    script = tmp_path / "w.py"
+    script.write_text(TWO_NODE_WORKER)
+    store_port, master_port = _free_port(), _free_port()
+
+    def launcher(node_rank):
+        return subprocess.Popen(
+            [sys.executable, "-m", "tpu_dist_torch.launch",
+             "--nproc_per_node=1", "--nnodes=2", f"--node_rank={node_rank}",
+             "--master_addr=127.0.0.1", f"--master_port={master_port}",
+             f"--store_port={store_port}", "--max_restarts=1",
+             "--restart_backoff=0.1", str(script), str(tmp_path), mode],
+            env=_env(), stderr=subprocess.PIPE, text=True)
+
+    l0 = launcher(0)
+    time.sleep(0.5)  # node 0 hosts the store
+    l1 = launcher(1)
+    try:
+        err0 = l0.communicate(timeout=120)[1]
+        err1 = l1.communicate(timeout=120)[1]
+    finally:
+        for p in (l0, l1):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert "agreed restart 1/1" in err0 + err1, (err0, err1)
+    assert "agreement failed" not in err0 + err1, (err0, err1)
+    for rnd in (0, 1):
+        for rank in (0, 1):
+            assert (tmp_path / f"round{rnd}_rank{rank}").exists()
+    if mode == "flaky":
+        assert l0.returncode == 0 and l1.returncode == 0, (err0, err1)
+    else:
+        assert l0.returncode != 0 and l1.returncode != 0, (err0, err1)

@@ -60,6 +60,23 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch.examples.example_imagenet
         import tpu_dist_torch.benchmarks.imagenet_e2e
         import tpu_dist_torch.benchmarks.vit_train
+        import tpu_dist_torch.dist.store
+        import tpu_dist_torch.dist.rendezvous
+        import tpu_dist_torch.resilience
+        import tpu_dist_torch.resilience.heartbeat
+        import tpu_dist_torch.launch.cli
+        import tpu_dist_torch.run
+        import tpu_dist_torch.serve.frontend
+        import tpu_dist_torch.serve.__main__
+        import tpu_dist_torch.examples.launch_dist
+        import tpu_dist_torch.examples.example_launch
+        import tpu_dist_torch.examples.serve_lm
+        # the native store is built and served with jax and tpu_dist blocked
+        from tpu_dist_torch.dist import TCPStore
+        s = TCPStore(is_master=True, timeout=10)
+        s.set("k", b"v")
+        assert s.get("k") == b"v" and s.native
+        s.close()
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist")
                         and sys.modules[m] is not None)
@@ -95,8 +112,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from tpu_dist_torch.benchmarks import (convnet, imagenet_e2e,
                                            resnet_cifar, serve_lm, vit_train)
     from tpu_dist_torch.benchmarks.transformer_lm import run
-    from tpu_dist_torch.examples import (example_imagenet, example_mp,
+    from tpu_dist_torch.examples import (example_imagenet, example_launch,
+                                         example_mp, launch_dist,
                                          mpspawn_dist, train_lm)
+    from tpu_dist_torch.examples import serve_lm as serve_twin
     from tpu_dist_torch.models import (ConvNet, TransformerLM, resnet18,
                                        vit_b_16)
     from tpu_dist_torch.parallel import DistributedDataParallel
@@ -113,10 +132,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert not dist.is_initialized()
     for example, argv in ((mpspawn_dist, ["--synthetic"]),
                           (example_mp, ["--synthetic"]), (train_lm, []),
-                          (example_imagenet, [])):
+                          (example_imagenet, []),
+                          (launch_dist, ["--synthetic"]),
+                          (example_launch, ["--synthetic"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             example.train(example.parse_args(argv))
         assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_twin.main(["--tiny"])
     for bench in (convnet, resnet_cifar, imagenet_e2e, vit_train):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench.run()

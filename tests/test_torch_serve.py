@@ -310,13 +310,34 @@ class TestSocketLayer:
         assert pool() is None
 
     def test_store_waits_for_the_launcher_slice(self, lm):
+        """``Frontend(store=)`` registers its address in the control-plane
+        store, under the JAX package's keys: the single-backend key for
+        the default name, and a registry entry per frontend, which either
+        package's ``list_backends`` folds latest-wins."""
+        from tpu_dist_torch.dist import TCPStore
         _, _, tm = lm
         sched = serve.Scheduler(_engine(tm, 1))
+        store = TCPStore(is_master=True, timeout=10)
+        fes = []
         try:
-            with pytest.raises(NotImplementedError, match="A5"):
-                serve.Frontend(sched, port=0, store=object())
+            fes.append(serve.Frontend(sched, port=0, store=store))
+            fes.append(serve.Frontend(sched, port=0, store=store,
+                                      backend_name="replica1"))
+            assert store.get("tpu_dist/serve/backend").decode() == \
+                fes[0].addr
+            assert store.add("tpu_dist/serve/backends/seq", 0) == 2
+            want = {"default": fes[0].addr, "replica1": fes[1].addr}
+            assert frontend.list_backends(store) == want
+            assert jfrontend.list_backends(store) == want
+            # a restarted incarnation under the same name replaces it
+            fes.append(serve.Frontend(sched, port=0, store=store,
+                                      backend_name="replica1"))
+            assert jfrontend.list_backends(store)["replica1"] == fes[2].addr
         finally:
+            for fe in fes:
+                fe.close()
             sched.close()
+            store.close()
 
 
 class TestCancellationAndDeadlines:

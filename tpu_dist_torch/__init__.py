@@ -30,12 +30,18 @@ attention's ``causal="offdiag"`` mode and ``split_diag`` variant; and
 ImageNet-class training: the dataset readers, ``ImageFolder`` and
 ``SyntheticImageNet``, the resize transforms, augmentation on the card
 (``data.DeviceAugment``), ``models.vit_b_16`` and the
-``examples.example_imagenet`` twin.
+``examples.example_imagenet`` twin; and the launcher and the control
+plane: ``python -m tpu_dist_torch.launch`` (the env contract, the
+control-plane ``dist.TCPStore`` on the JAX package's wire, fail-fast,
+supervised restarts, the serving gateway), rendezvous with its pre-flight,
+``dist.new_group``/``barrier``/``monitored_barrier``, ``resilience``'s
+heartbeat watchdog, ``serve.Gateway`` and the ``launch_dist``,
+``example_launch`` and ``serve_lm`` twins.
 """
 
 from . import (checkpoint, collectives, data, dist, examples, launch, models,
-               nn, ops, optim, parallel, random, serve, utils)
+               nn, ops, optim, parallel, random, resilience, serve, utils)
 
 __all__ = ["checkpoint", "collectives", "data", "dist", "examples", "launch",
-           "models", "nn", "ops", "optim", "parallel", "random", "serve",
-           "utils"]
+           "models", "nn", "ops", "optim", "parallel", "random",
+           "resilience", "serve", "utils"]

@@ -1,0 +1,691 @@
+"""``python -m tpu_dist_torch.launch`` — the torch.distributed.launch CLI;
+counterpart of ``tpu_dist/launch/cli.py``, with the same flags, the same
+env contract and the same store keys.
+
+The reference tutorial's second launch mode::
+
+    python -m tpu_dist_torch.launch --nproc_per_node=1 --nnodes=2 \\
+        --node_rank=0 --master_addr=HOST --master_port=22222 \\
+        -m tpu_dist_torch.examples.launch_dist
+
+Each child gets ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``, ``LOCAL_WORLD_SIZE``, ``NODE_RANK`` and
+``TPU_DIST_RESTART_COUNT``, then calls ``init_process_group(init_method=
+'env://')``; one process drives one card, ``cuda:LOCAL_RANK``.
+``--pass_local_rank`` also appends ``--local_rank=<n>`` to the script's
+argv (the classic contract; env-only delivery is the default, as torchrun
+does).  The launcher itself never touches the card.
+
+**Control-plane TCPStore** (on by default; ``--no_store`` disables): the
+node-0 launcher hosts a :class:`~tpu_dist_torch.dist.store.TCPStore`
+server (C++ when g++ builds it, Python otherwise) and passes its address
+to every child as ``TPU_DIST_STORE_ADDR``.  It is not torch's c10d store,
+which rank 0 hosts on ``MASTER_PORT``; it carries:
+
+- **MASTER_PORT negotiation**: ``--master_port=0`` makes node 0 pick a free
+  port; other nodes read it from the store (a fixed ``--store_port`` is
+  needed then, as the store is the only known address);
+- **worker liveness**: children check in under ``tpu_dist/alive/<rank>``
+  during rendezvous; if the world has not fully checked in after
+  ``--liveness_warn`` seconds the launcher names the missing ranks;
+- **pre-flight and teardown barriers** inside the children's
+  ``init_process_group``/``destroy_process_group``
+  (tpu_dist_torch/dist/rendezvous.py);
+- **supervised restarts** (``--max_restarts``): the generation under
+  ``tpu_dist/generation``, and across nodes the launchers' agreement on
+  each restart round;
+- the **serving gateway**'s backend registry (``--serve``).
+
+The names are the JAX package's, so either package's launcher starts either
+package's workers.  Flags whose machinery is a later ROADMAP item exit 2
+before anything is spawned, naming the item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+import signal
+import socket
+import subprocess
+import sys
+import time
+from typing import List, Optional
+
+__all__ = ["main", "build_parser", "reap_process"]
+
+# seconds a torn-down round's ranks get between SIGTERM and SIGKILL: a rank
+# blocked inside a collective (NCCL or gloo) cannot run a Python TERM handler
+# until the call returns, which it never does once a peer is gone
+_KILL_GRACE = 15.0
+# after SIGKILL, only the kernel's reaping of the zombie is left to wait for
+_REAP_GRACE = 5.0
+# seconds every launcher waits for the others at a multi-node restart
+# agreement (the JAX launcher's --elastic_timeout default; the flag itself
+# comes with the elastic world, ROADMAP A9.1)
+_AGREE_TIMEOUT = 120.0
+
+# flags whose machinery is a later item: (dest, flag, default, what)
+_A91 = "elastic world resizing, ROADMAP A9.1"
+_ROLES = "role graphs, with the control plane, ROADMAP A9.2"
+_FAILOVER = "store replication and leader failover, ROADMAP A9.2"
+_LATER = (
+    ("elastic_world", "--elastic_world", None, _A91),
+    ("elastic_timeout", "--elastic_timeout", 120.0, _A91),
+    ("coll_timeout", "--coll_timeout", 0.0,
+     "the host collectives' watchdog, ROADMAP A9.1"),
+    ("sanitize", "--sanitize", False,
+     "the collective sanitizer, with the control plane, ROADMAP A9.2"),
+    ("flight_recorder", "--flight-recorder", False,
+     "the flight recorder, with the control plane, ROADMAP A9.2"),
+    ("roles", "--roles", None, _ROLES),
+    ("role_script", "--role_script", [], _ROLES),
+    ("solo_restarts", "--solo_restarts", 2, _ROLES),
+    ("verify_graph", "--verify_graph", False,
+     "the role-graph verifier, with the control plane, ROADMAP A9.2"),
+    ("no_verify_graph", "--no_verify_graph", False,
+     "the role-graph verifier, with the control plane, ROADMAP A9.2"),
+    ("store_endpoints", "--store_endpoints", None, _FAILOVER),
+    ("store_replica", "--store_replica", False, _FAILOVER),
+    ("netchaos", "--netchaos", None, "network fault injection, ROADMAP "
+                                     "A9.4"))
+
+
+def build_parser() -> argparse.ArgumentParser:
+    later = " (not in the port yet: exits 2 naming its ROADMAP item)"
+    p = argparse.ArgumentParser(
+        prog="python -m tpu_dist_torch.launch",
+        description="Launch a script across processes/nodes with the "
+                    "RANK/LOCAL_RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT "
+                    "env contract (torch.distributed.launch parity).")
+    p.add_argument("--nproc_per_node", type=int, default=1,
+                   help="processes on this node, one card each")
+    p.add_argument("--nnodes", type=int, default=1)
+    p.add_argument("--node_rank", type=int, default=0)
+    p.add_argument("--master_addr", type=str, default="127.0.0.1")
+    p.add_argument("--master_port", type=int, default=29500,
+                   help="torch.distributed's rendezvous port (rank 0 hosts "
+                        "its c10d store there); 0 = negotiate a free port "
+                        "via the control-plane store (node 0 picks, others "
+                        "read)")
+    p.add_argument("--store_port", type=int, default=0,
+                   help="control-plane TCPStore port on node 0 (0 = free "
+                        "port single-node, master_port+1 multi-node)")
+    p.add_argument("--no_store", action="store_true",
+                   help="disable the control-plane store (no port "
+                        "negotiation, liveness, or pre-flight)")
+    p.add_argument("--store_endpoints", type=str, default=None,
+                   metavar="PATH", help="cluster endpoints file" + later)
+    p.add_argument("--store_replica", action="store_true",
+                   help="control-plane replica sidecar" + later)
+    p.add_argument("--liveness_warn", type=float, default=60.0,
+                   help="seconds before the node-0 launcher reports ranks "
+                        "that have not checked in to the store")
+    p.add_argument("--pass_local_rank", action="store_true",
+                   help="append --local_rank=<n> to the script args "
+                        "(classic torch.distributed.launch argv contract)")
+    p.add_argument("--max_restarts", type=int, default=0,
+                   help="relaunch the whole world up to N times after a "
+                        "worker failure. Multi-node: the launchers agree "
+                        "on each restart round through the control-plane "
+                        "store (run every node with the SAME "
+                        "--max_restarts; needs the store). Children see "
+                        "TPU_DIST_RESTART_COUNT and should resume from "
+                        "their latest checkpoint")
+    p.add_argument("--elastic_world", type=str, default=None,
+                   metavar="MIN:MAX", help="elastic world-size range" + later)
+    p.add_argument("--elastic_timeout", type=float, default=120.0,
+                   help="restart agreement timeout" + later)
+    p.add_argument("--restart_backoff", type=float, default=1.0,
+                   help="base seconds between restart rounds; doubles each "
+                        "round (capped at 30s) with up to 25%% jitter")
+    p.add_argument("--heartbeat_timeout", type=float, default=0.0,
+                   help="seconds of heartbeat silence after which a worker "
+                        "counts as lost (RankLostError): the supervisor "
+                        "kills the gang and, with --max_restarts, "
+                        "relaunches it. Needs the store and workers that "
+                        "publish heartbeats (resilience.Heartbeat; exported "
+                        "to them as TPU_DIST_HEARTBEAT_TIMEOUT). 0 disables")
+    p.add_argument("--sanitize", action="store_true",
+                   help="cross-rank collective sanitizer" + later)
+    p.add_argument("--coll_timeout", type=float, default=0.0,
+                   help="collective watchdog" + later)
+    p.add_argument("--netchaos", type=str, default=None,
+                   help="network fault injection" + later)
+    p.add_argument("--flight-recorder", "--flight_recorder",
+                   dest="flight_recorder", action="store_true",
+                   help="per-rank flight recorder" + later)
+    p.add_argument("--serve", action="store_true",
+                   help="start the serving gateway role alongside the "
+                        "workers (python -m tpu_dist_torch.serve gateway): "
+                        "a client-facing proxy on --serve_port that "
+                        "resolves the model rank's frontend through the "
+                        "store's backend registry and survives worker "
+                        "restarts — requests in flight at a model rank's "
+                        "death fail with a named BackendGoneError, new "
+                        "ones reach the relaunched rank. Needs the store")
+    p.add_argument("--serve_port", type=int, default=0,
+                   help="gateway's client-facing port (0 = ephemeral; the "
+                        "bound address is published to the store under "
+                        "tpu_dist/serve/gateway)")
+    p.add_argument("--roles", type=str, default=None,
+                   metavar="NAME:WORLD[:POLICY],...",
+                   help="heterogeneous role graph" + later)
+    p.add_argument("--role_script", action="append", default=[],
+                   metavar="ROLE=SCRIPT", help="per-role script" + later)
+    p.add_argument("--solo_restarts", type=int, default=2,
+                   help="per-rank respawn budget of solo roles" + later)
+    p.add_argument("--verify_graph", "--verify-graph", action="store_true",
+                   help="role-graph model check" + later)
+    p.add_argument("--no_verify_graph", "--no-verify-graph",
+                   action="store_true", help="skip the role-graph model "
+                                             "check" + later)
+    p.add_argument("--standalone", action="store_true",
+                   help="single-node mode with automatic rendezvous "
+                        "(torchrun parity): forces --nnodes=1 "
+                        "--node_rank=0 and a free master port")
+    p.add_argument("--module", "-m", action="store_true",
+                   help="treat script as a python module (python -m ...)")
+    p.add_argument("script", type=str)
+    p.add_argument("script_args", nargs=argparse.REMAINDER)
+    return p
+
+
+def reap_process(proc: subprocess.Popen, grace: float = _REAP_GRACE) -> None:
+    """SIGKILL ``proc`` (if still alive) and reap it with a bounded wait:
+    an unkillable (``D``-state) child must not hang the supervisor on
+    ``wait()``; the worst case is a leaked zombie and a log line."""
+    try:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=grace)
+    except Exception:
+        _log(f"reap_process: pid {proc.pid} did not reap within {grace}s "
+             f"of SIGKILL (unkillable child?); abandoning")
+
+
+def _log(msg: str) -> None:
+    sys.stderr.write(f"[tpu_dist_torch.launch] {msg}\n")
+    sys.stderr.flush()
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _setup_store(args):
+    """Host (node 0) or connect to the control-plane store.
+
+    Returns ``(store, master_port, store_addr)``; ``store`` is None when
+    disabled or unavailable (a warning is printed: the store is
+    diagnostics and negotiation, not the data path)."""
+    if args.no_store:
+        if args.master_port == 0:
+            sys.stderr.write("--master_port=0 needs the store for "
+                             "negotiation; drop --no_store or pick a port\n")
+            return None, None, None
+        return None, args.master_port, None
+
+    from ..dist.store import TCPStore
+
+    try:
+        if args.node_rank == 0:
+            port = args.store_port or (args.master_port + 1
+                                       if args.nnodes > 1 else 0)
+            if (args.master_port == 0 and args.nnodes > 1
+                    and not args.store_port):
+                sys.stderr.write(
+                    "--master_port=0 with --nnodes>1 requires an explicit "
+                    "--store_port (the store is then the only known "
+                    "address)\n")
+                return None, None, None
+            store = TCPStore(args.master_addr, port, is_master=True)
+            master_port = (_free_port() if args.master_port == 0
+                           else args.master_port)
+            store.set("tpu_dist/master_port", str(master_port))
+            return store, master_port, f"{args.master_addr}:{store.port}"
+        if args.master_port == 0 and not args.store_port:
+            sys.stderr.write("--master_port=0 with --node_rank>0 requires "
+                             "the --store_port used on node 0\n")
+            return None, None, None
+        port = args.store_port or args.master_port + 1
+        if args.master_port == 0:
+            # the store is the only known address: connect and read the
+            # negotiated port (node 0 may start later: a generous timeout)
+            store = TCPStore(args.master_addr, port, timeout=120.0)
+            master_port = int(store.get("tpu_dist/master_port"))
+        elif args.max_restarts > 0 and args.nnodes > 1:
+            # the restart agreement rides the store from EVERY launcher
+            store = TCPStore(args.master_addr, port, timeout=120.0)
+            master_port = args.master_port
+        else:
+            # a fixed port: the store's address is known, so hand it to the
+            # children without blocking this launcher on a connect
+            store, master_port = None, args.master_port
+        return store, master_port, f"{args.master_addr}:{port}"
+    except Exception as e:
+        if args.master_port == 0:
+            sys.stderr.write(f"store setup failed ({e!r}); cannot negotiate "
+                             f"--master_port=0\n")
+            return None, None, None
+        sys.stderr.write(f"store setup failed ({e!r}); launching without "
+                         f"liveness/pre-flight diagnostics\n")
+        return None, args.master_port, None
+
+
+def _check_liveness(store, world_size: int) -> List[int]:
+    """Ranks that have NOT checked in to the store."""
+    try:
+        return [r for r in range(world_size)
+                if not store.check(f"tpu_dist/alive/{r}")]
+    except Exception:
+        return []
+
+
+def _spawn_world(args, world_size: int, master_port: int,
+                 store_addr: Optional[str],
+                 restart_count: int) -> List[subprocess.Popen]:
+    """Spawn this node's ranks; on a partial failure kill the ranks already
+    spawned (never leave them waiting in the rendezvous) and re-raise."""
+    procs: List[subprocess.Popen] = []
+    base_rank = args.node_rank * args.nproc_per_node
+    try:
+        for local_rank in range(args.nproc_per_node):
+            env = dict(os.environ,
+                       RANK=str(base_rank + local_rank),
+                       LOCAL_RANK=str(local_rank),
+                       WORLD_SIZE=str(world_size),
+                       LOCAL_WORLD_SIZE=str(args.nproc_per_node),
+                       NODE_RANK=str(args.node_rank),
+                       MASTER_ADDR=args.master_addr,
+                       MASTER_PORT=str(master_port),
+                       TPU_DIST_RESTART_COUNT=str(restart_count))
+            if store_addr is not None:
+                env["TPU_DIST_STORE_ADDR"] = store_addr
+            if args.heartbeat_timeout > 0:
+                env["TPU_DIST_HEARTBEAT_TIMEOUT"] = str(
+                    args.heartbeat_timeout)
+            cmd = [sys.executable]
+            cmd += ["-m", args.script] if args.module else [args.script]
+            cmd += args.script_args
+            if args.pass_local_rank:
+                cmd += [f"--local_rank={local_rank}"]
+            procs.append(subprocess.Popen(cmd, env=env))
+    except BaseException:
+        for p in procs:
+            if p.poll() is None:
+                reap_process(p)
+        raise
+    return procs
+
+
+def _watch_world(args, procs: List[subprocess.Popen], store,
+                 world_size: int, rnd: int = 0):
+    """Watch one round until every rank exits → ``(exit_code,
+    interrupted)``; ``interrupted`` tells a Ctrl-C of the launcher (never
+    restarted) from a worker that exited 130.
+
+    Fail fast: the first non-zero exit tears the rest down, SIGTERM and
+    then, after ``_KILL_GRACE`` seconds, SIGKILL — a rank blocked in a
+    collective whose peer is gone ignores TERM until the call returns.
+    Multi-node with ``--max_restarts``: a launcher that sees a local worker
+    die publishes the round's failure key; every launcher polls it and
+    tears its own workers down, so the world stops together.  With
+    ``--heartbeat_timeout``, a rank that is alive but silent is lost
+    (``RankLostError``) and fails the round the same way."""
+    exit_code = 0
+    interrupted = False
+    t0 = time.monotonic()
+    kill_deadline = None
+    base_rank = args.node_rank * args.nproc_per_node
+    liveness_reported = (world_size <= 1 or store is None
+                         or args.node_rank != 0)
+    multi_node = args.max_restarts > 0 and args.nnodes > 1 \
+        and store is not None
+    fail_key = f"tpu_dist/elastic/fail/{rnd}"
+    last_remote_check = 0.0
+    remote_failed = False
+    # the heartbeat watchdog: ranks not yet beating get max(timeout,
+    # liveness_warn) of grace (a worker imports torch before its first beat)
+    monitor = None
+    hb_poll_every = 0.0
+    last_hb_check = 0.0
+    if args.heartbeat_timeout > 0 and store is not None:
+        from ..resilience.heartbeat import HeartbeatMonitor
+        monitor = HeartbeatMonitor(
+            store, world_size, timeout=args.heartbeat_timeout,
+            generation=rnd,
+            startup_grace=max(args.heartbeat_timeout, args.liveness_warn),
+            ranks=range(base_rank, base_rank + len(procs)))
+        hb_poll_every = min(0.5, args.heartbeat_timeout / 4)
+
+    def teardown(remaining):
+        nonlocal kill_deadline
+        for j in remaining:
+            procs[j].terminate()
+        kill_deadline = time.monotonic() + _KILL_GRACE
+
+    def publish_failure():
+        if multi_node:
+            try:
+                store.set(fail_key, str(args.node_rank).encode())
+            except Exception:
+                pass
+
+    try:
+        remaining = set(range(len(procs)))
+        while remaining:
+            if (not liveness_reported
+                    and time.monotonic() - t0 > args.liveness_warn):
+                liveness_reported = True
+                missing = _check_liveness(store, world_size)
+                if missing:
+                    _log(f"after {args.liveness_warn:.0f}s ranks {missing} "
+                         f"have not reached rendezvous (checked-in: "
+                         f"{world_size - len(missing)}/{world_size}); check "
+                         f"--nnodes/--node_rank on every node")
+            for i in list(remaining):
+                rc = procs[i].poll()
+                if rc is None:
+                    continue
+                remaining.discard(i)
+                if rc == 0 and monitor is not None:
+                    # a finished rank is done, not lost
+                    monitor.mark_done(base_rank + i)
+                if rc != 0 and exit_code == 0:
+                    exit_code = rc
+                    publish_failure()
+                    teardown(remaining)
+            if (multi_node and exit_code == 0 and not remote_failed
+                    and time.monotonic() - last_remote_check > 0.5):
+                last_remote_check = time.monotonic()
+                try:
+                    if store.check(fail_key):
+                        remote_failed = True
+                        _log("another node reported a worker failure; "
+                             "stopping local workers")
+                        teardown(remaining)
+                except Exception:
+                    pass
+            if (monitor is not None and exit_code == 0 and not remote_failed
+                    and time.monotonic() - last_hb_check > hb_poll_every):
+                last_hb_check = time.monotonic()
+                lost = monitor.poll()
+                if lost:
+                    monitor = None  # diagnosed; stop polling
+                    _log(f"RankLostError: {lost[0]}")
+                    exit_code = 1
+                    publish_failure()
+                    teardown(remaining)
+            if (kill_deadline is not None
+                    and time.monotonic() > kill_deadline):
+                for j in remaining:
+                    if procs[j].poll() is None:
+                        procs[j].kill()
+            if remaining:
+                try:
+                    procs[next(iter(remaining))].wait(timeout=0.2)
+                except subprocess.TimeoutExpired:
+                    pass
+        if remote_failed and exit_code == 0:
+            exit_code = 1  # this node restarts/exits with the group
+    except KeyboardInterrupt:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGINT)
+        deadline = time.monotonic() + _KILL_GRACE
+        for p in procs:
+            try:
+                p.wait(timeout=max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                reap_process(p)
+        exit_code = 130
+        interrupted = True
+    return exit_code, interrupted
+
+
+def _reset_round_state(store, finished_round: Optional[int] = None) -> None:
+    """Reset the last round's control-plane state before a restart: the
+    liveness marks and the teardown barrier's counter (a partial teardown
+    leaves it off-generation, and the next round's first caller would pass
+    the barrier early), the finished round's heartbeat keys and its whole
+    ``tpu_dist/g{round}/`` keyspace — each one server-side
+    ``DELETE_PREFIX`` sweep.  The port's launcher also sweeps
+    ``monitored_barrier``'s keys, which are numbered by call and not by
+    generation: a stale arrival from the failed round would let rank 0 of
+    the next one release a call before its peers arrive, and delete the
+    release key a peer still waits on."""
+    sweeps = ["tpu_dist/alive/", "__monitored_barrier__/"]
+    if finished_round is not None:
+        sweeps += [f"tpu_dist/hb/{finished_round}/",
+                   f"tpu_dist/g{finished_round}/"]
+    for prefix in sweeps:
+        try:
+            store.delete_prefix(prefix)
+        except Exception:
+            pass
+    try:
+        store.delete_key("__barrier__/teardown")
+    except Exception:
+        pass
+
+
+def _publish_generation(store, rnd: int) -> None:
+    """Fence out stragglers of earlier incarnations: children compare their
+    TPU_DIST_RESTART_COUNT with this key at the rendezvous pre-flight."""
+    try:
+        store.set("tpu_dist/generation", str(rnd))
+    except Exception:
+        pass
+
+
+def _restart_backoff(args, restarts: int) -> None:
+    """Exponential backoff with jitter before a relaunch round: restart
+    storms help nobody, and the jitter de-phases launchers of several
+    nodes racing to re-rendezvous."""
+    if args.restart_backoff <= 0:
+        return
+    delay = (min(args.restart_backoff * 2 ** (restarts - 1), 30.0)
+             * (1.0 + 0.25 * random.random()))
+    _log(f"backing off {delay:.1f}s before restart {restarts}")
+    time.sleep(delay)
+
+
+def _exit_sync(args, store, rnd: int) -> None:
+    """Final ack before the launchers leave the agreement: node 0 hosts the
+    store and must not tear it down while a peer still polls it."""
+    try:
+        key = f"tpu_dist/elastic/exit/{rnd}"
+        store.add(key, 1)
+        if args.node_rank == 0:
+            store.wait_value_ge(key, args.nnodes,
+                                timeout=min(15.0, _AGREE_TIMEOUT))
+    except Exception:
+        pass  # best effort: at worst the peer takes its noisier error path
+
+
+def _cluster_agree(args, store, rnd: int, local_rc: int,
+                   negotiated_port: bool, master_port: int):
+    """The launchers' end-of-round agreement (multi-node
+    ``--max_restarts``) → ``("done", 0)``, ``("giveup", rc)`` or
+    ``("restart", new_master_port)``, on the JAX launcher's round-scoped
+    keys:
+
+    1. a failed node publishes ``fail/{rnd}``; every launcher adds itself
+       to ``done/{rnd}`` once its workers have exited;
+    2. and waits for all ``--nnodes`` (bounded: a vanished machine must
+       not hang the rest);
+    3. the round failed iff anyone published ``fail/{rnd}``;
+    4. to restart, node 0 picks a fresh port when it was negotiated,
+       resets the round's keys, then publishes ``go/{rnd}``; the others
+       respawn only after reading it.
+
+    The JAX launcher's elastic re-form verdict (a world of another size)
+    comes with the elastic world, ROADMAP A9.1."""
+    prefix = "tpu_dist/elastic"
+    try:
+        if local_rc != 0:
+            store.set(f"{prefix}/fail/{rnd}", str(args.node_rank).encode())
+        store.add(f"{prefix}/done/{rnd}", 1)
+        store.wait_value_ge(f"{prefix}/done/{rnd}", args.nnodes,
+                            timeout=_AGREE_TIMEOUT)
+        failed = local_rc != 0 or store.check(f"{prefix}/fail/{rnd}")
+    except Exception as e:
+        _log(f"cluster agreement failed ({e!r}); giving up")
+        return ("giveup", local_rc or 1)
+    if not failed:
+        _exit_sync(args, store, rnd)
+        return ("done", 0)
+    if rnd >= args.max_restarts:
+        _exit_sync(args, store, rnd)
+        return ("giveup", local_rc or 1)
+    rc_port = master_port
+    try:
+        if args.node_rank == 0:
+            if negotiated_port:
+                rc_port = _free_port()
+            _reset_round_state(store, finished_round=rnd)
+            store.set(f"{prefix}/go/{rnd}",
+                      json.dumps({"port": rc_port, "plan": None}).encode())
+        else:
+            store.wait([f"{prefix}/go/{rnd}"], timeout=_AGREE_TIMEOUT)
+            go = json.loads(store.get(f"{prefix}/go/{rnd}").decode())
+            if go.get("plan"):
+                raise RuntimeError("node 0 published an elastic re-form "
+                                   "plan (ROADMAP A9.1)")
+            rc_port = int(go["port"])
+    except Exception as e:
+        _log(f"cluster restart handshake failed ({e!r}); giving up")
+        return ("giveup", local_rc or 1)
+    return ("restart", rc_port)
+
+
+def _refuse_later_flags(args) -> Optional[str]:
+    """The first flag given whose machinery the port lacks, as a message
+    naming its ROADMAP item; None when every such flag is at its default."""
+    for dest, flag, default, what in _LATER:
+        if getattr(args, dest) != default:
+            return f"{flag}: {what} is not in tpu_dist_torch yet"
+    if os.environ.get("TPU_DIST_OBS", "") not in ("", "0"):
+        return ("TPU_DIST_OBS: the flight recorder, with the control plane, "
+                "ROADMAP A9.2, is not in tpu_dist_torch yet")
+    return None
+
+
+def _stop_gateway(proc: Optional[subprocess.Popen]) -> None:
+    if proc is not None and proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            reap_process(proc)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    refused = _refuse_later_flags(args)
+    if refused:
+        sys.stderr.write(refused + "\n")
+        return 2
+    if args.standalone:
+        overridden = [f for f, default in (("--nnodes", 1),
+                                           ("--node_rank", 0),
+                                           ("--master_port", 29500))
+                      if getattr(args, f[2:]) != default]
+        if overridden:
+            sys.stderr.write(
+                f"--standalone overrides {', '.join(overridden)} "
+                f"(single-node, auto rendezvous port)\n")
+        args.nnodes, args.node_rank = 1, 0
+        # torchrun's --standalone needs no store: pick the port directly
+        # rather than through store negotiation (which --no_store disables)
+        args.master_port = _free_port() if args.no_store else 0
+    if args.node_rank >= args.nnodes or args.node_rank < 0:
+        sys.stderr.write(f"--node_rank {args.node_rank} out of range for "
+                         f"--nnodes {args.nnodes}\n")
+        return 2
+    if args.max_restarts < 0:
+        sys.stderr.write("--max_restarts must be >= 0\n")
+        return 2
+    if args.max_restarts > 0 and args.nnodes > 1 and args.no_store:
+        sys.stderr.write("--max_restarts with --nnodes>1 needs the "
+                         "control-plane store; drop --no_store\n")
+        return 2
+    world_size = args.nproc_per_node * args.nnodes
+
+    store, master_port, store_addr = _setup_store(args)
+    if master_port is None:
+        return 2
+    negotiated_port = args.master_port == 0
+    multi_node = args.nnodes > 1 and args.max_restarts > 0
+    if multi_node and store is None:
+        sys.stderr.write("--max_restarts with --nnodes>1 needs a working "
+                         "control-plane store; fix the store setup error "
+                         "above or drop the flag\n")
+        return 2
+    # --serve: the gateway is spawned ONCE, outside the restart loop — its
+    # whole point is surviving worker relaunches (it re-resolves the
+    # backend registry after each restart)
+    gateway_proc = None
+    if args.serve:
+        if store_addr is None:
+            sys.stderr.write("--serve needs the control-plane store (drop "
+                             "--no_store / fix the store error above)\n")
+            return 2
+        if args.node_rank == 0:
+            gateway_proc = subprocess.Popen(
+                [sys.executable, "-m", "tpu_dist_torch.serve", "gateway",
+                 "--port", str(args.serve_port)],
+                env=dict(os.environ, TPU_DIST_STORE_ADDR=store_addr))
+
+    restarts = 0
+    try:
+        while True:
+            if store is not None and args.node_rank == 0:
+                _publish_generation(store, restarts)
+            procs = _spawn_world(args, world_size, master_port, store_addr,
+                                 restarts)
+            exit_code, interrupted = _watch_world(args, procs, store,
+                                                  world_size, rnd=restarts)
+            if interrupted:
+                return exit_code
+            if multi_node:
+                verdict, val = _cluster_agree(args, store, restarts,
+                                              exit_code, negotiated_port,
+                                              master_port)
+                if verdict == "done":
+                    return 0
+                if verdict == "giveup":
+                    return val
+                master_port = val
+                restarts += 1
+                _log(f"world failed; agreed restart {restarts}/"
+                     f"{args.max_restarts} across {args.nnodes} nodes — "
+                     f"relaunching")
+                _restart_backoff(args, restarts)
+                continue
+            if exit_code == 0 or restarts >= args.max_restarts:
+                return exit_code
+            restarts += 1
+            _log(f"worker failed (rc={exit_code}); restart "
+                 f"{restarts}/{args.max_restarts} — relaunching the world")
+            if store is not None:
+                _reset_round_state(store, finished_round=restarts - 1)
+            _restart_backoff(args, restarts)
+            if negotiated_port:
+                # the previous round's c10d store socket may linger in
+                # TIME_WAIT: a negotiated port is picked afresh
+                master_port = _free_port()
+    finally:
+        _stop_gateway(gateway_proc)
+        if store is not None:
+            try:
+                store.close()
+            except Exception:
+                pass

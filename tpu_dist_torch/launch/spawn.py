@@ -14,6 +14,8 @@ come with the launcher, ROADMAP A5."""
 from __future__ import annotations
 
 import multiprocessing as mp
+import os
+import random
 import sys
 import time
 import traceback
@@ -93,19 +95,7 @@ class ProcessContext:
             alive[0].join(timeout=0.25)
 
 
-def spawn(fn, args: Tuple = (), nprocs: int = 1, join: bool = True,
-          daemon: bool = False, start_method: str = "spawn",
-          max_restarts: int = 0):
-    """Spawn ``nprocs`` processes running ``fn(i, *args)``; ``fn`` must be
-    picklable (module level).  With ``join=True`` block until all finish,
-    raising on the first failure; otherwise return a
-    :class:`ProcessContext`."""
-    if nprocs < 1:
-        raise ValueError(f"nprocs must be >= 1, got {nprocs}")
-    if max_restarts:
-        raise NotImplementedError(
-            "max_restarts (a supervised gang restart) comes with the "
-            "launcher, ROADMAP A5")
+def _spawn_once(fn, args, nprocs, daemon, start_method) -> ProcessContext:
     ctx = mp.get_context(start_method)
     error_queue = ctx.SimpleQueue()
     processes = []
@@ -114,8 +104,62 @@ def spawn(fn, args: Tuple = (), nprocs: int = 1, join: bool = True,
                         daemon=daemon)
         p.start()
         processes.append(p)
-    pc = ProcessContext(processes, error_queue)
-    if join:
-        pc.join()
-        return None
-    return pc
+    return ProcessContext(processes, error_queue)
+
+
+def spawn(fn, args: Tuple = (), nprocs: int = 1, join: bool = True,
+          daemon: bool = False, start_method: str = "spawn",
+          max_restarts: int = 0, restart_backoff: float = 1.0):
+    """Spawn ``nprocs`` processes running ``fn(i, *args)``; ``fn`` must be
+    picklable (module level).  With ``join=True`` block until all finish,
+    raising on the first failure; otherwise return a
+    :class:`ProcessContext`.
+
+    ``max_restarts=N`` (needs ``join=True``) supervises the gang: after a
+    failure (the rest torn down, as always) the whole world starts again up
+    to N times, after a backoff of ``restart_backoff`` seconds doubling a
+    round (capped at 30 s, up to 25% jitter).  Each round exports
+    ``TPU_DIST_RESTART_COUNT`` (the generation) to its children, so
+    rendezvous fences stale ranks and a worker can resume from its latest
+    checkpoint.  ``max_restarts=0`` (the default) leaves the environment
+    alone.  A child that exited 130 (KeyboardInterrupt) is never
+    restarted."""
+    if nprocs < 1:
+        raise ValueError(f"nprocs must be >= 1, got {nprocs}")
+    if max_restarts < 0:
+        raise ValueError(f"max_restarts must be >= 0, got {max_restarts}")
+    if max_restarts and not join:
+        raise ValueError("max_restarts requires join=True (the supervisor "
+                         "must observe child exits)")
+    if not max_restarts:
+        pc = _spawn_once(fn, args, nprocs, daemon, start_method)
+        if join:
+            pc.join()
+            return None
+        return pc
+
+    attempt = 0
+    prev_gen = os.environ.get("TPU_DIST_RESTART_COUNT")
+    try:
+        while True:
+            os.environ["TPU_DIST_RESTART_COUNT"] = str(attempt)
+            pc = _spawn_once(fn, args, nprocs, daemon, start_method)
+            try:
+                pc.join()
+                return None
+            except (ProcessRaisedException, ProcessExitedException) as e:
+                if (getattr(e, "exit_code", None) == 130
+                        or attempt >= max_restarts):
+                    raise
+                attempt += 1
+                delay = (min(restart_backoff * 2 ** (attempt - 1), 30.0)
+                         * (1.0 + 0.25 * random.random()))
+                sys.stderr.write(
+                    f"[tpu_dist_torch.spawn] world failed ({e}); restart "
+                    f"{attempt}/{max_restarts} in {delay:.1f}s\n")
+                time.sleep(delay)
+    finally:
+        if prev_gen is None:
+            os.environ.pop("TPU_DIST_RESTART_COUNT", None)
+        else:
+            os.environ["TPU_DIST_RESTART_COUNT"] = prev_gen

@@ -128,20 +128,21 @@ class _AllReduceMean(torch.autograd.Function):
     the gradient (what JAX's ``pmean`` transposes to)."""
 
     @staticmethod
-    def forward(ctx, x, world: int):
-        ctx.world = world
+    def forward(ctx, x, world: int, group):
+        ctx.world, ctx.group = world, group
         y = x.clone()
-        torch.distributed.all_reduce(y)
+        torch.distributed.all_reduce(y, group=group)
         return y.div_(world)
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        torch.distributed.all_reduce(g)
-        return g.div_(ctx.world), None
+        torch.distributed.all_reduce(g, group=ctx.group)
+        return g.div_(ctx.world), None, None
 
 
-def all_reduce_mean(x, world: int):
-    """``x`` averaged over the ``world`` ranks of the default
-    ``torch.distributed`` group, with the averaged cotangent backward."""
-    return _AllReduceMean.apply(x, world)
+def all_reduce_mean(x, world: int, group=None):
+    """``x`` averaged over the ``world`` ranks of the ``torch.distributed``
+    group ``group`` (``None``: the default group), with the averaged
+    cotangent backward."""
+    return _AllReduceMean.apply(x, world, group)

@@ -244,8 +244,8 @@ class BatchNorm2d(torch.nn.Module):
         group = self.process_group
         world = group.size() if group is not None else 1
         if world > 1:
-            mean = F.all_reduce_mean(mean, world)
-            mean2 = F.all_reduce_mean(mean2, world)
+            mean = F.all_reduce_mean(mean, world, group.torch_group)
+            mean2 = F.all_reduce_mean(mean2, world, group.torch_group)
         var = mean2 - mean * mean
         if self.track_running_stats:
             n = x.numel() // x.shape[1] * world

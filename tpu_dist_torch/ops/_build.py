@@ -12,6 +12,11 @@ ignored), named by a hash of the source, the shared headers (``csrc/*.cuh``)
 and the flags, so an edited source or header is rebuilt and an unchanged one
 is reused.  Every C entry point returns the
 ``cudaError_t`` of its launch; :func:`check` raises on anything but 0.
+
+Host C++ sources (``csrc/*.cpp``: the control-plane store's server and
+client, no kernel) take a second route: ``g++ -O3 -std=c++17 -shared -fPIC
+-pthread`` into the same ``_build/``, named by a hash of the source and
+those flags (:func:`load_host_library`).
 """
 
 from __future__ import annotations
@@ -29,16 +34,21 @@ from pathlib import Path
 import torch
 
 __all__ = ["resolve_device", "check_cuda_tensor", "load_library", "check",
-           "compile_log", "build_all", "source_digest", "SOURCES"]
+           "compile_log", "build_all", "source_digest", "SOURCES",
+           "HOST_SOURCES", "build_host", "load_host_library"]
 
 # every CUDA source of the port, in csrc/
 SOURCES = ("flash_attention", "gmm")
+# every host C++ source of the port, in csrc/
+HOST_SOURCES = ("tcpstore",)
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+
+_HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _LIBS: dict = {}
 _LOGS: dict = {}
@@ -159,3 +169,50 @@ def check(lib: ctypes.CDLL, name: str, err: int, what: str) -> None:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{what}: CUDA launch failed with error {err} "
                            f"({msg})")
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>.cpp`` with ``g++`` (once: the library is named
+    by a hash of the source and the flags) and return its path.  Ranks that
+    start together take a file lock, so one of them compiles and the others
+    load its result."""
+    import fcntl
+
+    src = _SRC_DIR / f"{name}.cpp"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(_HOST_FLAGS).encode())
+    so = _BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_DIR / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():  # another process built it while this one waited
+            return so
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run(["g++", *_HOST_FLAGS, "-o", tmp, str(src)],
+                                  capture_output=True, text=True,
+                                  timeout=300)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed on {src.name} "
+                                   f"(rc {proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return so
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cpp``.  ``ctypes`` opens it
+    ``RTLD_LOCAL``, and its C symbols carry a prefix of the port's own, so
+    a process that also loads the JAX package's library binds each name to
+    its own library."""
+    with _LOCK:
+        key = f"host:{name}"
+        lib = _LIBS.get(key)
+        if lib is None:
+            lib = _LIBS[key] = ctypes.CDLL(str(build_host(name)))
+        return lib

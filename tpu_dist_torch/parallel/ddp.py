@@ -116,6 +116,8 @@ class DistributedDataParallel:
         self.group = group
         self.world_size = group.size() if group is not None else 1
         self.rank = group.rank if group is not None else 0
+        # a sub-group's collectives take its torch group (None: the world)
+        self._tg = group.torch_group if group is not None else None
         self.compute_dtype = compute_dtype
         self.accum_steps = accum_steps
         if sync_batchnorm and group is not None:
@@ -166,7 +168,7 @@ class DistributedDataParallel:
         """Average every module-state leaf over the group, in place."""
         for leaves in model_state.values():
             for t in leaves.values():
-                torch.distributed.all_reduce(t)
+                torch.distributed.all_reduce(t, group=self._tg)
                 t.div_(self.world_size)
 
     def _micro_grads(self, state: TrainState, x, y, i: int):
@@ -233,11 +235,11 @@ class DistributedDataParallel:
                                 for path, m in self._moes})
             if self.world_size > 1:
                 for g in grads.values():
-                    torch.distributed.all_reduce(g)
+                    torch.distributed.all_reduce(g, group=self._tg)
                     g.div_(self.world_size)
-                torch.distributed.all_reduce(loss)
+                torch.distributed.all_reduce(loss, group=self._tg)
                 loss.div_(self.world_size)
-                torch.distributed.all_reduce(correct)
+                torch.distributed.all_reduce(correct, group=self._tg)
                 self._average_state(model_state)
             new_params, new_opt = self.optimizer.update(
                 grads, state.opt_state, params)
@@ -304,7 +306,7 @@ class DistributedDataParallel:
         correct = hit.sum()
         if self.world_size > 1:
             for t in (loss_sum, correct, kept):
-                torch.distributed.all_reduce(t)
+                torch.distributed.all_reduce(t, group=self._tg)
         return {"loss": loss_sum / kept.clamp_min(1), "loss_sum": loss_sum,
                 "correct": correct, "scored": kept}
 

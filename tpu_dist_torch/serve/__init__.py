@@ -8,14 +8,18 @@ continuous-batching LM serving.
   prompt staging, deadline-bounded batching window, drain and close.
 - :class:`Frontend` (frontend.py): the serve wire (protocol v2),
   byte-compatible with the JAX package's, so either package's client
-  drives either package's frontend.
+  drives either package's frontend; given a control-plane store it
+  registers itself in the backend registry.
+- :class:`Gateway` (frontend.py): the ``--serve`` role, one stable port in
+  front of the registry's backends, surviving their restarts
+  (``python -m tpu_dist_torch.serve gateway``).
 - :class:`ServeClient` (client.py): streaming handles whose terminal state
   is always reached — tokens and done, or a NAMED error.
 - :func:`random_key`: the key of a request's ``seed`` in the JAX package's
   random stream (:mod:`tpu_dist_torch.random`), which sampling draws from.
 
-The gateway and the backend registry come with the launcher (ROADMAP A5);
-multi-rank serving (sharded, disaggregated, prefix cache) with A9.
+Multi-rank serving (sharded, disaggregated, prefix cache) comes with
+ROADMAP A9.3.
 """
 
 from ..random import key as random_key
@@ -24,10 +28,14 @@ from .engine import (DeadlineExceededError, QueueFullError, Request,
                      RequestCancelledError, RequestHandle,
                      SchedulerClosedError, SchedulerDrainingError,
                      ServeError, SlotEngine, sample_tokens)
-from .frontend import Frontend
+from .frontend import (BACKEND_KEY, GATEWAY_KEY, BackendGoneError, Frontend,
+                       Gateway, list_backends, register_backend,
+                       store_from_env)
 from .scheduler import Scheduler
 
-__all__ = ["SlotEngine", "Scheduler", "Frontend", "ServeClient", "Request",
+__all__ = ["SlotEngine", "Scheduler", "Frontend", "Gateway", "ServeClient",
+           "BackendGoneError", "BACKEND_KEY", "GATEWAY_KEY",
+           "register_backend", "list_backends", "store_from_env", "Request",
            "RequestHandle", "ServeError", "QueueFullError",
            "SchedulerDrainingError", "SchedulerClosedError",
            "DeadlineExceededError", "RequestCancelledError",
