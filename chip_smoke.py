@@ -147,7 +147,30 @@ Phases, each printed as one JSON line:
    (``BackendGoneError``/``BackendUnavailableError``); the same tokens on
    the same connection after the relaunch.  ``store``: set/get/add round
    trips through one client, µs per op, native and Python.
-13. ``kernels``: one line over all kernels; the card's name and power limit
+13. ``moe_dispatch``: the ``moe_lm`` twin with each capacity dispatch at
+   full width (capacity factor 1.25): gather at batch 8 (23 steps), einsum
+   at the largest of 8, 4, 2 that fits (two steps, one timed); step ms,
+   tokens/s, peak memory, dropped choices a layer, K1f/K1b 1 and K2f/K2b
+   12 launches a step (wgmma), K3/K4 none; one step of each against the
+   plain composition (``MOE_DISPATCH_TOL``), and einsum's update against
+   gather's; one full-width float32 layer of each (2048 tokens, some
+   choices dropped) forward and backward against a CPU copy
+   (``MOE_CPU_TOL``, a planted expert swap rejected).  ``llama``: the
+   dense slice with ``norm="rmsnorm", rope=True`` (23 steps, K1 1 and K2
+   12 a step), its tokens/s beside the
+   layernorm model's run in the same phase, one step against the plain
+   composition, and K2f/K2b on the rotated q/k (views of one rotated
+   buffer) beside the projection's v (design, tolerance, times beside the
+   unrotated views).  ``long_32k``:
+   the ``run_32k`` twin (T = 32768, batch 1, remat): 24 K2f and 12 K2b a
+   step, a finite falling loss, tokens/s and peak memory beside
+   ``run_long`` (T = 8192) and T = 32768 without remat; K2f/K2b at (1,
+   32768, 12, 64) held head by head to their plain versions and timed
+   against their bound and SDPA.  ``serve_rope``: the slot engine (8
+   slots) on a float32 ``rope=True, norm="rmsnorm"`` model at full width,
+   eight ``smoke_requests`` each equal to ``generate()`` alone but for
+   ties, no kernel launch.
+14. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
@@ -156,7 +179,8 @@ named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``serve``, ``serve_int8``, ``quant``, ``convnet``, ``resnet``, ``optim``,
 ``resume``, ``flash_offdiag``, ``split_diag``, ``ring``, ``sp_train``,
 ``augment``, ``imagenet``, ``vit``, ``launch``, ``launch_restart``,
-``gateway``, ``store``) and never prints the result line.
+``gateway``, ``store``, ``moe_dispatch``, ``llama``, ``long_32k``,
+``serve_rope``) and never prints the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -679,14 +703,27 @@ def check_slice(results):
     return ok_counts and ok_design and ok_loss
 
 
-def check_composition(results):
-    """One step of the kernel path against the plain composition (dense
-    attention, unfused loss) from the same seed and batch."""
+COMPOSITION_TOL = {
+    "loss_rtol": 1e-2, "update_rel": 5e-2, "attn_leaf_update_rel": 3e-2,
+    "leaf_update_rel": 0.25,
+    "why": "bf16 compute on both paths: the plain loss is a bf16 mean (step "
+           "2^-8 relative) and dense attention rounds its scores and softmax "
+           "to bf16 where the kernel keeps float32. Leaf limits are twice the "
+           "worst leaf errors measured on an H100 (attention 1.5e-2; any leaf "
+           "0.125, a LayerNorm gain, whose gradient is a sum over all 16384 "
+           "tokens that mostly cancels); the run is seeded and its kernels "
+           "deterministic"}
+
+
+def step_vs_plain(**build_kw):
+    """One step of the dense kernel path (``transformer_lm.build(**build_kw)``
+    on the card) against the plain composition (dense attention, unfused
+    loss) from the same seed and batch: ``(fields, ok)``."""
     from tpu_dist_torch import nn, optim
     from tpu_dist_torch.benchmarks.transformer_lm import build
     from tpu_dist_torch.parallel import DistributedDataParallel
 
-    ddp, x, y = build(device="cuda")
+    ddp, x, y = build(device="cuda", **build_kw)
     state = ddp.init(seed=0)
     p0 = {k: p.detach().clone() for k, p in state.params.items()}
     state, m_k = ddp.train_step(state, x, y)
@@ -714,25 +751,23 @@ def check_composition(results):
     attn = {k: e for k, e in leaf.items() if ".attn." in k}
     worst_attn = max(attn, key=attn.get)
     loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
-    tol = {"loss_rtol": 1e-2, "update_rel": 5e-2, "attn_leaf_update_rel": 3e-2,
-           "leaf_update_rel": 0.25,
-           "why": "bf16 compute on both paths: the plain loss is a bf16 "
-                  "mean (step 2^-8 relative) and dense attention rounds its "
-                  "scores and softmax to bf16 where the kernel keeps "
-                  "float32. Leaf limits are twice the worst leaf errors "
-                  "measured on an H100 (attention 1.5e-2; any leaf 0.125, "
-                  "a LayerNorm gain, whose gradient is a sum over all "
-                  "16384 tokens that mostly cancels); the run is seeded "
-                  "and its kernels deterministic"}
+    tol = COMPOSITION_TOL
     ok = (same_init and abs(loss_k - loss_p) <= tol["loss_rtol"] * abs(loss_p)
           and rel <= tol["update_rel"]
           and attn[worst_attn] <= tol["attn_leaf_update_rel"]
           and leaf[worst] <= tol["leaf_update_rel"])
-    emit("composition", loss_kernel_path=loss_k, loss_plain_path=loss_p,
-         update_rel_err=rel, worst_leaf=[worst, leaf[worst]],
-         worst_attn_leaf=[worst_attn, attn[worst_attn]],
-         worst_leaves=sorted(leaf.items(), key=lambda kv: -kv[1])[:5],
-         same_init=same_init, tolerance=tol, ok=ok)
+    return dict(loss_kernel_path=loss_k, loss_plain_path=loss_p,
+                update_rel_err=rel, worst_leaf=[worst, leaf[worst]],
+                worst_attn_leaf=[worst_attn, attn[worst_attn]],
+                worst_leaves=sorted(leaf.items(), key=lambda kv: -kv[1])[:5],
+                same_init=same_init, tolerance=tol), ok
+
+
+def check_composition(results):
+    """One step of the kernel path against the plain composition (dense
+    attention, unfused loss) from the same seed and batch."""
+    fields, ok = step_vs_plain()
+    emit("composition", **fields, ok=ok)
     return ok
 
 
@@ -1059,7 +1094,7 @@ def check_moe_slice(results):
     from tpu_dist_torch.ops import KERNELS
 
     zero_launch_counts()
-    res = run()
+    res = run(dispatch="dropless")
     counts = {k.__name__: k.launches for k in KERNELS}
     steps, depth = res["steps_run"], res["model"]["depth"]
     per_step = {"gmm": 4 * depth, "tgmm": 2 * depth, "cross_entropy_fwd": 1,
@@ -1219,7 +1254,7 @@ def check_moe_composition(results):
     from tpu_dist_torch.ops.gmm import gmm_impl
     from tpu_dist_torch.parallel import DistributedDataParallel
 
-    ddp, x, y = build(device="cuda")
+    ddp, x, y = build(device="cuda", dispatch="dropless")
     moe = [(p, m) for p, m in ddp.module.named_modules()
            if isinstance(m, nn.MoELayer)]
     state = ddp.init(seed=0)
@@ -3683,6 +3718,526 @@ def check_store(results):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the capacity dispatches, RMSNorm with rope, remat
+# ---------------------------------------------------------------------------
+
+def path_launches(steps: int, per_step: dict):
+    """Every kernel's launch count since the counts were zeroed, against
+    ``steps`` times ``per_step``; every flash launch must be the wgmma
+    design: ``(counts, by_design, ok)``."""
+    from tpu_dist_torch.ops import KERNELS
+
+    counts = {k.__name__: k.launches for k in KERNELS}
+    by_design = {k.__name__: dict(k.launches_by_design)
+                 for k in KERNELS if hasattr(k, "launches_by_design")}
+    ok = (all(counts[n] == steps * c for n, c in per_step.items())
+          and all(by_design[n]["wgmma"] == counts[n]
+                  for n in ("flash_fwd", "flash_bwd")))
+    return counts, by_design, ok
+
+
+def largest_batch(fn, batches=(8, 4, 2)):
+    """``fn(batch)`` at the first of ``batches`` that fits on the card:
+    ``(batch, result, batches that did not fit)``."""
+    import gc
+
+    skipped = []
+    for b in batches:
+        try:
+            return b, fn(b), skipped
+        except torch.cuda.OutOfMemoryError:
+            skipped.append(b)
+        # outside the handler: the failed call's frames are gone
+        gc.collect()
+        torch.cuda.empty_cache()
+    raise RuntimeError(f"no batch of {batches} fits on the card")
+
+
+MOE_DISPATCH_RUN = {"gather": (3, 20), "einsum": (1, 1)}  # warm-up, timed
+MOE_DISPATCH_TOL = {
+    "plain_composition": MOE_STEP_TOL["plain_composition"],
+    "einsum_vs_gather": MOE_STEP_TOL["plain_products"],
+    "why": "as MOE_STEP_TOL: bf16 on both paths, so a token near a routing "
+           "tie can take another expert, and under a capacity another "
+           "token's arrival rank moves with it.  einsum against gather: the "
+           "same routing, the combine rounded once (fp32 sums of the (N, E, "
+           "C) product) or per term (bf16 products summed in bf16), a bf16 "
+           "step here and there, as the plain grouped products differ from "
+           "the kernels'; the fused loss on both sides"}
+
+
+def _moe_capacity_step(dispatch: str, batch: int, other=None) -> tuple:
+    """One step of the capacity-dispatch MoE slice on the card (fused loss,
+    flash attention) against the plain composition (dense attention,
+    unfused loss) from the same seed and batch, and, given ``other`` (the
+    gather step's update at this batch), against it.  Returns ``(fields,
+    ok, update)``."""
+    from tpu_dist_torch import nn, optim
+    from tpu_dist_torch.benchmarks.moe_lm import build
+    from tpu_dist_torch.parallel import DistributedDataParallel
+
+    ddp, x, y = build(batch=batch, device="cuda", dispatch=dispatch)
+    moe = [(p, m) for p, m in ddp.module.named_modules()
+           if isinstance(m, nn.MoELayer)]
+    state = ddp.init(seed=0)
+    p0 = {k: p.detach().clone() for k, p in state.params.items()}
+    state, m_k = ddp.train_step(state, x, y)
+    upd_k = {k: state.params[k].detach() - p0[k] for k in p0}
+    del state
+    route_k = {p: m.routing["gate_idx"].clone() for p, m in moe}
+    aux_k = {p: float(m.aux_loss.detach()) for p, m in moe}
+    dropped_k = {p: int(m.routing["dropped"]) for p, m in moe}
+    loss_k = float(m_k["loss"])
+    plain = DistributedDataParallel(
+        ddp.module, optimizer=optim.SGD(lr=0.01),
+        loss_fn=nn.CrossEntropyLoss(fused=False),
+        compute_dtype=torch.bfloat16)
+    state_p = plain.init(seed=0)
+    same_init = all(torch.equal(state_p.params[k], p0[k]) for k in p0)
+    with nn.attention_impl("dense"):
+        state_p, m_p = plain.train_step(state_p, x, y)
+    moved = {p: int((m.routing["gate_idx"] != route_k[p]).any(-1).sum())
+             for p, m in moe}
+    share = sum(moved.values()) / (x.numel() * len(moe))
+    rel, leaf, group_worst = _update_diff(p0, upd_k, state_p.params)
+    worst = max(leaf, key=leaf.get)
+    loss_p = float(m_p["loss"])
+    aux_err = max(abs(aux_k[p] - float(m.aux_loss.detach()))
+                  / abs(float(m.aux_loss.detach())) for p, m in moe)
+    tol = MOE_DISPATCH_TOL["plain_composition"]
+    ok = (same_init and abs(loss_k - loss_p) <= tol["loss_rtol"] * abs(loss_p)
+          and rel <= tol["update_rel"] and leaf[worst] <= tol["leaf_update_rel"]
+          and aux_err <= tol["aux_rtol"] and share <= tol["moved_share"])
+    fields = {"batch": batch, "loss_kernel_path": loss_k,
+              "loss_plain_path": loss_p, "update_rel_err": rel,
+              "worst_leaf": [worst, leaf[worst]],
+              "worst_leaf_by_group": group_worst, "aux_rel_err": aux_err,
+              "dropped_kernel_path": dropped_k,
+              "dropped_plain_path": {p: int(m.routing["dropped"])
+                                     for p, m in moe},
+              "tokens_with_other_experts": moved, "moved_share": share,
+              "same_init": same_init, "ok_plain_composition": ok}
+    if other is not None:
+        num = sum(float((upd_k[k] - other[k]).pow(2).sum()) for k in upd_k)
+        den = sum(float(other[k].pow(2).sum()) for k in upd_k)
+        vs = {k: math.sqrt(float((upd_k[k] - other[k]).pow(2).sum())
+                           / max(float(other[k].pow(2).sum()), 1e-30))
+              for k in upd_k}
+        wv = max(vs, key=vs.get)
+        tol_g = MOE_DISPATCH_TOL["einsum_vs_gather"]
+        ok_g = (math.sqrt(num / den) <= tol_g["update_rel"]
+                and vs[wv] <= tol_g["leaf_update_rel"])
+        fields.update(vs_gather_update_rel_err=math.sqrt(num / den),
+                      vs_gather_worst_leaf=[wv, vs[wv]],
+                      ok_vs_gather=ok_g)
+        ok = ok and ok_g
+    return fields, ok, upd_k
+
+
+MOE_CPU_TOL = {
+    "rtol": 1e-4, "atol_row": 1e-4,
+    "why": "float32 on both sides with TF32 off and the same routing: "
+           "cuBLAS and the CPU's BLAS sum the products in other orders, "
+           "through the GELU and the second product: 1e-4 of each element "
+           "plus 1e-4 of its row's rms, where an H100 measured margins of "
+           "0.03-0.27 (dx the largest) for both dispatches; two experts' "
+           "w1 swapped must be rejected"}
+
+
+def _capacity_layer_vs_cpu(dispatch: str) -> tuple:
+    """One full-width capacity-dispatch MoE layer (768 wide, 8 experts,
+    hidden 3072, top-2, capacity factor 1.0, 2048 tokens, float32) forward
+    and backward on the card against the same layer on a CPU copy — the
+    CPU being what the tests hold to the JAX package — with a router
+    scaled so that choices drop.  Returns ``(fields, ok)``."""
+    from tpu_dist_torch.nn import MoELayer
+
+    g = torch.Generator().manual_seed(21)
+    cpu = MoELayer(768, 8, hidden=3072, capacity_factor=1.0,
+                   dispatch=dispatch, device="cpu")
+    cpu.reset_parameters(g)
+    with torch.no_grad():
+        cpu.router.mul_(4.0)
+        cpu.b1.normal_(0.0, 0.1, generator=g)
+        cpu.b2.normal_(0.0, 0.1, generator=g)
+    card = MoELayer(768, 8, hidden=3072, capacity_factor=1.0,
+                    dispatch=dispatch, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(1, 2048, 768, generator=g)
+    cot = torch.randn(1, 2048, 768, generator=g)
+    leaves = ["router", "w1", "b1", "w2", "b2"]
+
+    def run_once(layer):
+        dev = layer.w1.device
+        xr = x.to(dev).requires_grad_(True)
+        y = layer(xr)
+        out = (y * cot.to(dev)).sum() + layer.aux_loss
+        grads = torch.autograd.grad(
+            out, [xr] + [getattr(layer, k) for k in leaves])
+        return ({"y": y.detach(), **dict(zip(["x"] + leaves, grads))},
+                dict(layer.routing))
+
+    with tf32(False):
+        got, r_card = run_once(card)
+        want, r_cpu = run_once(cpu)
+        with torch.no_grad():
+            card.w1[[0, 1]] = card.w1[[1, 0]]
+        bad = run_once(card)[0]["y"]
+    same_route = (torch.equal(r_card["gate_idx"].cpu(), r_cpu["gate_idx"])
+                  and int(r_card["dropped"]) == int(r_cpu["dropped"]))
+    lims = (MOE_CPU_TOL["rtol"], 0.0, MOE_CPU_TOL["atol_row"])
+    errs, margins, ok = {}, {}, same_route
+    for k in want:
+        errs[k], _, margins[k], ok_t = compare(got[k].cpu(), want[k], *lims)
+        ok = ok and ok_t
+    caught = compare(bad.cpu(), want["y"], *lims)[2]
+    ok = ok and caught > 1.0 and int(r_cpu["dropped"]) > 0
+    return {"tokens": 2048, "same_routing": same_route,
+            "dropped": int(r_cpu["dropped"]), "capacity": r_cpu["capacity"],
+            "max_abs_err": errs, "margin": margins,
+            "planted_w1_swap_margin": caught, "tolerance": MOE_CPU_TOL,
+            "ok": ok}, ok
+
+
+def check_moe_dispatch(results):
+    """The JAX ``moe_lm`` configuration at full width with each capacity
+    dispatch: gather at batch 8, einsum at the largest of 8, 4, 2 that fits;
+    step ms, tokens/s, peak memory, dropped choices a layer and exact
+    launches (K1 1, K2 12 a step, all wgmma, K3/K4 none); one step against
+    the plain composition, and einsum's against gather's at one batch; one
+    float32 layer against a CPU copy."""
+    from tpu_dist_torch.benchmarks.moe_lm import run
+
+    ok_all, gather_update = True, None
+    for dispatch in ("gather", "einsum"):
+        warm, steps = MOE_DISPATCH_RUN[dispatch]
+
+        def train(batch):
+            zero_launch_counts()
+            return run(batch=batch, dispatch=dispatch, steps=steps,
+                       warmup=warm)
+
+        batch, res, too_big = largest_batch(
+            train, (8,) if dispatch == "gather" else (8, 4, 2))
+        depth = res["model"]["depth"]
+        counts, by_design, ok_counts = path_launches(
+            res["steps_run"], {"cross_entropy_fwd": 1, "cross_entropy_bwd": 1,
+                               "flash_fwd": depth, "flash_bwd": depth,
+                               "gmm": 0, "tgmm": 0})
+        ok_loss = all(math.isfinite(v) for v in res["losses"])
+        choices = 2 * batch * res["model"]["seq_len"]
+        dropped = res["dropped_choices_last_step"]
+        step_batches = tuple(x for x in (8, 4, 2) if x <= batch)
+        other = gather_update if dispatch == "einsum" else None
+        cbatch, (fields, ok_cmp, upd), cmp_too_big = largest_batch(
+            lambda b: _moe_capacity_step(dispatch, b,
+                                         other if b == 8 else None),
+            step_batches)
+        if dispatch == "gather":
+            gather_update = upd
+        del upd
+        layer, ok_layer = _capacity_layer_vs_cpu(dispatch)
+        ok = ok_counts and ok_loss and ok_cmp and ok_layer
+        ok_all = ok_all and ok
+        emit("moe_dispatch", dispatch=dispatch, batch=batch,
+             batches_that_did_not_fit=too_big,
+             tokens_per_s_per_gpu=res["value"], step_ms=res["step_ms"],
+             peak_mem_bytes=res["peak_mem_bytes"], steps_run=res["steps_run"],
+             timed_steps=steps, launches=counts, launches_by_design=by_design,
+             ok_launches=ok_counts, losses=res["losses"],
+             ok_losses_finite=ok_loss,
+             aux_losses_last_step=res["aux_losses_last_step"],
+             dropped_choices_per_layer=dropped,
+             dropped_share_per_layer=[d / choices for d in dropped],
+             choices_per_layer=choices,
+             tokens_per_expert_last_step=res["tokens_per_expert_last_step"],
+             step_check=fields, step_check_batches_that_did_not_fit=cmp_too_big,
+             tolerance=MOE_DISPATCH_TOL, layer_vs_cpu=layer, ok=ok)
+    del gather_update
+    return ok_all
+
+
+def rope_qkv(b: int, t: int, h: int, d: int, g):
+    """q, k and v as the rope layer hands them to K2f, bf16: q and k views
+    of one rotated (B, T, 2, H, D) buffer, v a view of the fused
+    projection."""
+    from tpu_dist_torch.nn import rotary_embed
+
+    qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=g).to(
+        torch.bfloat16)
+    qk = rotary_embed(qkv[:, :, :2].reshape(b, t, 2 * h, d),
+                      torch.arange(t, device="cuda"))
+    q, k = qk.reshape(b, t, 2, h, d).unbind(2)
+    return q, k, qkv[:, :, 2]
+
+
+def flash_bounds(b, t, h, d, el=2):
+    """K2f's and K2b's bounds at causal (b, t, h, d), as in check_flash."""
+    pairs = b * h * causal_pairs(t, t, True)
+    tile = b * t * h * d * el
+    return (bound(4 * tile + b * h * t * 4, 4 * d * pairs, "bf16_tensor"),
+            bound(7 * tile + 2 * b * h * t * 4, 10 * d * pairs,
+                  "bf16_tensor"))
+
+
+def check_llama(results):
+    """The dense GPT-2-small slice with ``norm="rmsnorm", rope=True``: its
+    launches (K1 1, K2 12 a step, all wgmma), tokens/s beside the layernorm
+    model's in the same call, one step against the plain composition, and
+    K2f/K2b held to their plain versions on the rope layer's q/k (views of
+    one rotated buffer) beside the projection's v, timed beside the
+    unrotated views."""
+    import torch.nn.functional as F
+
+    from tpu_dist_torch.benchmarks.transformer_lm import run
+
+    fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
+    rows = {}
+    for name, kw in (("llama", dict(norm="rmsnorm", rope=True)),
+                     ("layernorm", {})):
+        zero_launch_counts()
+        res = run(**kw)
+        depth = res["model"]["depth"]
+        counts, by_design, ok_counts = path_launches(
+            res["steps_run"], {"cross_entropy_fwd": 1, "cross_entropy_bwd": 1,
+                               "flash_fwd": depth, "flash_bwd": depth,
+                               "gmm": 0, "tgmm": 0})
+        rows[name] = (res, counts, by_design, ok_counts)
+    res, counts, by_design, ok_counts = rows["llama"]
+    ok_loss = all(math.isfinite(v) for v in res["losses"])
+    fields, ok_cmp = step_vs_plain(norm="rmsnorm", rope=True)
+    # K2 on the rope layer's inputs
+    g = torch.Generator(device="cuda").manual_seed(11)
+    b, t, h, d = 8, 2048, 12, 64
+    q, k, v = rope_qkv(b, t, h, d, g)
+    do = torch.randn(b, t, h, d, device="cuda", generator=g).to(q.dtype)
+    scale = 1.0 / math.sqrt(d)
+    design = fa.flash_design(q.dtype, t, t, d, [x.stride() for x in (q, k, v)])
+    zero_launch_counts()
+    o_k, lse_k = fa.flash_fwd(q, k, v, True, scale)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, True, scale)
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+    grads_k = fa.flash_bwd(q, k, v, do, lse_p, delta, True, scale)
+    grads_p = fa.flash_bwd_plain(q, k, v, do, lse_p, delta, True, scale)
+    ran = {f.__name__: dict(f.launches_by_design)
+           for f in (fa.flash_fwd, fa.flash_bwd)}
+    tol = FLASH_BF16_TOL
+    lims = (tol["rtol"], tol["atol"], tol["atol_row"], tol["atol_all"])
+    errs, margins, ok_hold = {}, {}, True
+    for name, (got, want) in {"o": (o_k, o_p), "dq": (grads_k[0], grads_p[0]),
+                              "dk": (grads_k[1], grads_p[1]),
+                              "dv": (grads_k[2], grads_p[2])}.items():
+        errs[name], _, margins[name], ok_t = compare(got, want, *lims)
+        ok_hold = ok_hold and ok_t
+    ok_hold = (ok_hold and design == "wgmma"
+               and all(r["wgmma"] == 1 for r in ran.values()))
+    qs, ks, vs = torch.randn(b, t, 3, h, d, device="cuda",
+                             generator=g).to(q.dtype).unbind(2)
+    (bf, bb) = flash_bounds(b, t, h, d)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    lib_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    times = {
+        "fwd_rotated_ms": time_ms(lambda: fa.flash_fwd(q, k, v, True, scale)),
+        "fwd_strided_ms": time_ms(lambda: fa.flash_fwd(qs, ks, vs, True,
+                                                       scale)),
+        "bwd_rotated_ms": time_ms(lambda: fa.flash_bwd(
+            q, k, v, do, lse_p, delta, True, scale)),
+        "bwd_strided_ms": time_ms(lambda: fa.flash_bwd(
+            qs, ks, vs, do, lse_p, delta, True, scale)),
+        "fwd_library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        "bwd_library_ms": time_ms(lambda: torch.autograd.grad(
+            lib_o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)),
+        "fwd_bound_ms": bf[0], "bwd_bound_ms": bb[0]}
+    lay = rows["layernorm"][0]
+    ok = (ok_counts and rows["layernorm"][3] and ok_loss and ok_cmp
+          and ok_hold)
+    emit("llama", tokens_per_s_per_gpu=res["value"], step_ms=res["step_ms"],
+         peak_mem_bytes=res["peak_mem_bytes"], n_params=res["n_params"],
+         layernorm_tokens_per_s_per_gpu=lay["value"],
+         layernorm_step_ms=lay["step_ms"],
+         over_layernorm=res["value"] / lay["value"], model=res["model"],
+         steps_run=res["steps_run"], launches=counts,
+         launches_by_design=by_design, ok_launches=ok_counts,
+         layernorm_launches=rows["layernorm"][1], losses=res["losses"],
+         ok_losses_finite=ok_loss, step_check=fields,
+         flash_rotated={"shape": [b, t, h, d], "design": design,
+                        "strides": [list(x.stride()) for x in (q, k, v)],
+                        "launches_by_design": ran, "max_abs_err": errs,
+                        "margin": margins, "tolerance": tol,
+                        **times, "ok": ok_hold}, ok=ok)
+    return ok
+
+
+def check_long_32k(results):
+    """The ``run_32k`` twin (T = 32768, batch 1, remat, fused loss): 24 K2f
+    and 12 K2b a step, the loss finite and falling, tokens/s and peak
+    memory beside ``run_long`` (T = 8192, no remat) and T = 32768 without
+    remat; then K2f/K2b at (1, 32768, 12, 64) held head by head to their
+    plain versions (whose (T, T) float32 scores a head fit where all 12
+    would not), and timed against their bound and SDPA."""
+    import gc
+
+    import torch.nn.functional as F
+
+    from tpu_dist_torch.benchmarks.transformer_lm import run, run_32k, \
+        run_long
+
+    fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
+    zero_launch_counts()
+    res = run_32k(steps=4, warmup=2)
+    depth = res["model"]["depth"]
+    counts, by_design, ok_counts = path_launches(
+        res["steps_run"], {"cross_entropy_fwd": 1, "cross_entropy_bwd": 1,
+                           "flash_fwd": 2 * depth, "flash_bwd": depth,
+                           "gmm": 0, "tgmm": 0})
+    losses = res["losses"]
+    ok_loss = (all(math.isfinite(v) for v in losses)
+               and losses[-1] < losses[0])
+    zero_launch_counts()
+    long8k = run_long(steps=5, warmup=2)
+    _, _, ok_long = path_launches(
+        long8k["steps_run"], {"flash_fwd": depth, "flash_bwd": depth})
+    try:
+        no_remat = run(batch=1, seq_len=32768, remat=False, steps=3, warmup=1)
+        no_remat = {k: no_remat[k] for k in ("value", "step_ms",
+                                             "peak_mem_bytes")}
+    except torch.cuda.OutOfMemoryError:
+        no_remat = "does not fit"
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kernels at T = 32768, head by head
+    g = torch.Generator(device="cuda").manual_seed(12)
+    b, t, h, d = 1, 32768, 12, 64
+    q, k, v = torch.randn(b, t, 3, h, d, device="cuda",
+                          generator=g).to(torch.bfloat16).unbind(2)
+    do = torch.randn(b, t, h, d, device="cuda", generator=g).to(q.dtype)
+    scale = 1.0 / math.sqrt(d)
+    zero_launch_counts()
+    o_k, lse_k = fa.flash_fwd(q, k, v, True, scale)
+    design = {"fwd": dict(fa.flash_fwd.launches_by_design)}
+    lse_p = torch.empty_like(lse_k)
+    delta = torch.empty_like(lse_k)
+    tol = FLASH_BF16_TOL
+    lims = (tol["rtol"], tol["atol"], tol["atol_row"], tol["atol_all"])
+    errs = {n: 0.0 for n in ("o", "lse", "dq", "dk", "dv")}
+    margins = dict.fromkeys(errs, 0.0)
+    ok_hold = True
+
+    def hold(name, got, want, *lim):
+        nonlocal ok_hold
+        e, _, m, ok_t = compare(got, want, *lim)
+        errs[name], margins[name] = max(errs[name], e), max(margins[name], m)
+        ok_hold = ok_hold and ok_t
+
+    heads = lambda x, i: x[:, :, i:i + 1]  # noqa: E731
+    t0 = time.perf_counter()
+    for i in range(h):
+        o_p, lse_i = fa.flash_fwd_plain(heads(q, i), heads(k, i),
+                                        heads(v, i), True, scale)
+        hold("o", heads(o_k, i), o_p, *lims)
+        hold("lse", lse_k[:, i:i + 1], lse_i, 1e-5, 1e-4)
+        lse_p[:, i] = lse_i[:, 0]
+        delta[:, i] = (heads(do, i).float() * o_p.float()).sum(-1)[:, :, 0]
+        del o_p, lse_i
+    grads_k = fa.flash_bwd(q, k, v, do, lse_p, delta, True, scale)
+    design["bwd"] = dict(fa.flash_bwd.launches_by_design)
+    for i in range(h):
+        grads_p = fa.flash_bwd_plain(heads(q, i), heads(k, i), heads(v, i),
+                                     heads(do, i), lse_p[:, i:i + 1],
+                                     delta[:, i:i + 1], True, scale)
+        for name, got, want in zip(("dq", "dk", "dv"), grads_k, grads_p):
+            hold(name, heads(got, i), want, *lims)
+        del grads_p
+    hold_s = time.perf_counter() - t0
+    ok_hold = ok_hold and all(dd["wgmma"] == 1 for dd in design.values())
+    plain_head_ms = time_ms(lambda: fa.flash_fwd_plain(
+        heads(q, 0), heads(k, 0), heads(v, 0), True, scale), reps=3, warm=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    lib_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    bf, bb = flash_bounds(b, t, h, d)
+    times = {
+        "fwd_ms": time_ms(lambda: fa.flash_fwd(q, k, v, True, scale),
+                          reps=5),
+        "bwd_ms": time_ms(lambda: fa.flash_bwd(q, k, v, do, lse_p, delta,
+                                               True, scale), reps=5),
+        "fwd_library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), reps=5),
+        "bwd_library_ms": time_ms(lambda: torch.autograd.grad(
+            lib_o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+            reps=5),
+        "fwd_plain_one_head_ms": plain_head_ms,
+        "fwd_bound_ms": bf[0], "fwd_bound_by": bf[1],
+        "bwd_bound_ms": bb[0], "bwd_bound_by": bb[1]}
+    ok = ok_counts and ok_loss and ok_long and ok_hold
+    emit("long_32k", tokens_per_s_per_gpu=res["value"],
+         step_ms=res["step_ms"], peak_mem_bytes=res["peak_mem_bytes"],
+         model=res["model"], steps_run=res["steps_run"], launches=counts,
+         launches_by_design=by_design, ok_launches=ok_counts, losses=losses,
+         ok_loss_finite_and_falling=ok_loss,
+         run_long={k: long8k[k] for k in ("value", "step_ms",
+                                          "peak_mem_bytes")},
+         ok_run_long_launches=ok_long, no_remat_32k=no_remat,
+         kernels_32k={"shape": [b, t, h, d], "launches_by_design": design,
+                      "max_abs_err": errs, "margin": margins,
+                      "tolerance": tol, "held_head_by_head_s": hold_s,
+                      **times, "ok": ok_hold}, ok=ok)
+    return ok
+
+
+def check_serve_rope(results):
+    """The slot engine (8 slots, 2048 positions) on a full-width float32
+    ``norm="rmsnorm", rope=True`` model: six greedy and two sampled
+    ``smoke_requests`` admitted between decode steps, each slot rotating at
+    its own position; every request against ``generate()`` alone under the
+    tie rule; no kernel launch."""
+    from tpu_dist_torch import serve
+    from tpu_dist_torch.benchmarks.serve_lm import CONFIG, build
+
+    model = build({**CONFIG, "norm": "rmsnorm", "rope": True},
+                  device="cuda")
+    reqs = smoke_requests()
+    reqs = reqs[:6] + reqs[12:14]
+    engine = serve.SlotEngine(model, num_slots=8, max_len=2048,
+                              device=model.device)
+    outs = {}
+    pending = [serve.Request(r["prompt"], r["max_new_tokens"],
+                             temperature=r["temperature"], seed=r["seed"],
+                             on_token=lambda q, tok: outs.setdefault(
+                                 q.id, []).append(tok)) for r in reqs]
+    order = [r.id for r in pending]
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    while pending or not engine.idle():
+        if pending and engine.free_slots():
+            engine.admit(pending.pop(0))
+        engine.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    from tpu_dist_torch.ops import KERNELS
+    launches = {k.__name__: k.launches for k in KERNELS}
+    got = [outs.get(i, []) for i in order]
+    want = [_generate(model, r, torch.float32) for r in reqs]
+    vs_gen = _tie_rule(model, reqs, got, want, torch.float32,
+                       "generate_rope")
+    ok_ties = all(ok for _, ok, _ in vs_gen)
+    ok_launches = not any(launches.values())
+    ok = ok_ties and ok_launches
+    emit("serve_rope", requests=len(reqs),
+         prompt_lens=[len(r["prompt"]) for r in reqs],
+         max_new_tokens=[r["max_new_tokens"] for r in reqs],
+         sampled=[bool(r["temperature"]) for r in reqs],
+         generated_tokens=sum(map(len, got)), wall_s=wall,
+         tokens_per_s=sum(map(len, got)) / wall,
+         divergent_vs_generate=[i for i, _, dv in vs_gen if dv],
+         ok_tie_rule=ok_ties, kernel_launches=launches,
+         ok_launches_zero=ok_launches, ok=ok)
+    return ok
+
+
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("gmm", check_gmm), ("slice", check_slice),
           ("composition", check_composition), ("moe_slice", check_moe_slice),
@@ -3696,7 +4251,9 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("sp_train", check_sp_train), ("augment", check_augment),
           ("imagenet", check_imagenet), ("vit", check_vit),
           ("launch", check_launch), ("launch_restart", check_launch_restart),
-          ("gateway", check_gateway), ("store", check_store))
+          ("gateway", check_gateway), ("store", check_store),
+          ("moe_dispatch", check_moe_dispatch), ("llama", check_llama),
+          ("long_32k", check_long_32k), ("serve_rope", check_serve_rope))
 
 
 def main() -> int:

@@ -240,12 +240,18 @@ def test_device_loader_warns_without_distributed_sampler():
 
 
 _FLAKY = """
-import os, sys
+import os, sys, time
 
 def flaky(i, out, failing_generations):
     gen = int(os.environ["TPU_DIST_RESTART_COUNT"])
     open(os.path.join(out, f"g{gen}_r{i}"), "w").close()
     if i == 1 and gen < failing_generations:
+        # the join's fail-fast terminates rank 0 once rank 1 exits: wait,
+        # with a bound, until rank 0 has left its marker of this generation
+        mark = os.path.join(out, f"g{gen}_r0")
+        deadline = time.monotonic() + 30
+        while not os.path.exists(mark) and time.monotonic() < deadline:
+            time.sleep(0.01)
         sys.exit(3)
 """
 

@@ -145,19 +145,23 @@ def test_routing_is_integer_past_256_rows_under_bf16():
 
 
 def test_moe_layer_refuses_what_is_not_ported():
-    for dispatch in ("einsum", "gather"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tnn.MoELayer(8, 4, dispatch=dispatch, device="cpu")
     with pytest.raises(ValueError, match="dispatch"):
         tnn.MoELayer(8, 4, dispatch="sparse", device="cpu")
     with pytest.raises(ValueError, match="num_experts"):
         tnn.MoELayer(8, 1, dispatch="dropless", device="cpu")
     with pytest.raises(ValueError, match="top_k"):
         tnn.MoELayer(8, 4, top_k=5, dispatch="dropless", device="cpu")
-    # the JAX package's default dispatch is "einsum": not ported yet
+    # K3's in-kernel activation (ROADMAP B2) has no caller and is not ported
+    import importlib
+    gm = importlib.import_module("tpu_dist_torch.ops.gmm")
     with pytest.raises(NotImplementedError):
-        TorchLM(vocab_size=11, dim=8, depth=1, num_heads=2, num_experts=4,
-                device="cpu")
+        gm.gmm(torch.zeros(8, 4), torch.zeros(2, 4, 4),
+               torch.zeros(1, dtype=torch.int32), 8,
+               activation=torch.tanh)
+    # the JAX package's default dispatch, "einsum", is the port's default
+    model = TorchLM(vocab_size=11, dim=8, depth=1, num_heads=2,
+                    num_experts=4, device="cpu")
+    assert model.block0.mlp.dispatch == "einsum"
 
 
 def test_moe_init_distributions():
@@ -345,7 +349,8 @@ def test_moe_benchmark_builds_and_steps_on_cpu():
     from tpu_dist_torch.benchmarks import moe_lm
 
     ddp, x, y = moe_lm.build(batch=2, seq_len=8, dim=16, depth=2, heads=2,
-                             vocab=31, experts=4, device="cpu")
+                             vocab=31, experts=4, dispatch="dropless",
+                             device="cpu")
     state = ddp.init(seed=0)
     state, m = ddp.train_step(state, x, y)
     assert np.isfinite(float(m["loss"]))

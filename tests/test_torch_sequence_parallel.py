@@ -394,8 +394,8 @@ def test_option_and_mode_errors():
     from tpu_dist_torch import nn
     with pytest.raises(ValueError, match="sequence-parallel mode"):
         nn.MultiheadSelfAttention(32, 4, mode="tree", device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        nn.MultiheadSelfAttention(32, 4, rope=True, device="cpu")
+    with pytest.raises(ValueError, match="even head_dim"):
+        nn.MultiheadSelfAttention(36, 4, rope=True, device="cpu")
     from tpu_dist_torch.examples import train_lm
     with pytest.raises(ValueError, match="generate"):
         train_lm.train(train_lm.parse_args(

@@ -172,8 +172,8 @@ def test_init_cache_and_norm_rules(models):
     _, _, tm = models
     with pytest.raises(ValueError, match="causal"):
         TorchLM(**CFG, causal=False, device="cpu").init_cache(1)
-    with pytest.raises(NotImplementedError, match="RMSNorm"):
-        TorchLM(**CFG, norm="rmsnorm", device="cpu")
+    with pytest.raises(ValueError, match="Unknown norm"):
+        TorchLM(**CFG, norm="batchnorm", device="cpu")
     with pytest.raises(ValueError, match="exceeds max_seq_len"):
         tm.generate(torch.zeros(1, 60, dtype=torch.long), 5)
     with pytest.raises(ValueError, match="requires rng"):

@@ -28,7 +28,10 @@ from pathlib import Path
 _BENCHES = {
     "transformer_lm": (["tpu_dist_torch.benchmarks.transformer_lm"],
                        "step_ms"),
-    "moe_lm": (["tpu_dist_torch.benchmarks.moe_lm"], "step_ms"),
+    # the dropless step (a checkout whose twin has no --dispatch ignores
+    # the flag and runs it too)
+    "moe_lm": (["tpu_dist_torch.benchmarks.moe_lm", "--dispatch",
+                "dropless"], "step_ms"),
     "resnet18": (["tpu_dist_torch.benchmarks.profile_step", "--model",
                   "resnet18", "--steps", "5"], "unprofiled_ms_per_step"),
 }

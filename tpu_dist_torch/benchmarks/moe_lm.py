@@ -1,22 +1,24 @@
 """MoE TransformerLM training throughput — tokens/s/GPU on the card.
 
-Counterpart of ``benchmarks/moe_lm.py`` of the JAX package, with
-``dispatch="dropless"`` — the only dispatch that runs the grouped-matmul
-kernels (K3 ``gmm``, K4 ``tgmm``).  The GPT-2-small trunk of
-:mod:`~tpu_dist_torch.benchmarks.transformer_lm` (vocab 32768, dim 768, 12
-layers, 12 heads, T = 2048 causal, per-GPU batch 8) with every block's MLP a
-top-2-of-8 :class:`~tpu_dist_torch.nn.MoELayer` (hidden 3072), trained
-through :class:`~tpu_dist_torch.parallel.DistributedDataParallel` with
+Counterpart of ``benchmarks/moe_lm.py`` of the JAX package.  The GPT-2-small
+trunk of :mod:`~tpu_dist_torch.benchmarks.transformer_lm` (vocab 32768, dim
+768, 12 layers, 12 heads, T = 2048 causal, per-GPU batch 8) with every
+block's MLP a top-2-of-8 :class:`~tpu_dist_torch.nn.MoELayer` (hidden 3072,
+capacity factor 1.25), trained through
+:class:`~tpu_dist_torch.parallel.DistributedDataParallel` with
 ``compute_dtype=bfloat16`` over float32 masters, ``SGD(lr=0.01)`` and
-``CrossEntropyLoss(fused=True)``.  Random tokens from
-``np.random.default_rng(0)``, as in the JAX benchmark; steps timed with CUDA
-events after warm-up.
+``CrossEntropyLoss(fused=True)``.  ``dispatch`` defaults to ``"gather"``, as
+in the JAX benchmark; ``"einsum"`` builds the dense ``(N, E, C)`` tensors,
+and ``"dropless"`` is the only dispatch that runs the grouped-matmul kernels
+(K3 ``gmm``, K4 ``tgmm``).  Random tokens from ``np.random.default_rng(0)``,
+as in the JAX benchmark; steps timed with CUDA events after warm-up.
 
-    python3 -m tpu_dist_torch.benchmarks.moe_lm
+    python3 -m tpu_dist_torch.benchmarks.moe_lm [--dispatch D]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 
 import numpy as np
@@ -34,7 +36,7 @@ __all__ = ["build", "run", "active_params"]
 def build(batch: int = 8, seq_len: int = 2048, dim: int = 768,
           depth: int = 12, heads: int = 12, vocab: int = 32768,
           experts: int = 8, top_k: int = 2, fused: bool = True, group=None,
-          device=None):
+          device=None, dispatch: str = "gather"):
     """The benchmark's model, DDP wrapper and batch: returns ``(ddp, x, y)``
     with ``x``/``y`` this rank's (batch, seq_len) slice of the global
     random-token batch."""
@@ -44,7 +46,7 @@ def build(batch: int = 8, seq_len: int = 2048, dim: int = 768,
     model = TransformerLM(vocab_size=vocab, dim=dim, depth=depth,
                           num_heads=heads, max_seq_len=seq_len,
                           num_experts=experts, moe_top_k=top_k,
-                          moe_dispatch="dropless", device=device)
+                          moe_dispatch=dispatch, device=device)
     ddp = DistributedDataParallel(
         model, optimizer=optim.SGD(lr=0.01),
         loss_fn=nn.CrossEntropyLoss(fused=fused), group=group,
@@ -70,11 +72,12 @@ def active_params(n_params: int, dim: int, depth: int, experts: int,
 def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
         depth: int = 12, heads: int = 12, vocab: int = 32768,
         experts: int = 8, top_k: int = 2, steps: int = 20, warmup: int = 3,
-        device=None) -> dict:
+        device=None, dispatch: str = "gather") -> dict:
     """Train ``warmup + steps`` steps and time the last ``steps`` with CUDA
     events.  Returns tokens/s/GPU, step ms, peak device memory, total and
     active parameter counts, active-parameter model TFLOP/s, each step's
-    loss and aux losses, and the last step's tokens per expert."""
+    loss and aux losses, and the last step's choices per expert (and, for
+    a capacity dispatch, the choices past the capacity in each layer)."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError("run() times the card with CUDA events; on the "
@@ -84,14 +87,18 @@ def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
           else dist.get_default_group())
     try:
         ddp, x, y = build(batch, seq_len, dim, depth, heads, vocab, experts,
-                          top_k, group=pg, device=pg.device)
+                          top_k, group=pg, device=pg.device,
+                          dispatch=dispatch)
         res = time_steps(ddp, x, y, steps, warmup)
         state = res["state"]
         n_params = sum(p.numel() for p in state.params.values())
         aux = {path: float(v["aux_loss"])
                for path, v in state.model_state.items()}
-        counts = [ddp.module.get_submodule(path).routing["counts"].tolist()
-                  for path in state.model_state]
+        routing = [ddp.module.get_submodule(path).routing
+                   for path in state.model_state]
+        counts = [r["counts"].tolist() for r in routing]
+        dropped = ([int(r["dropped"]) for r in routing]
+                   if dispatch != "dropless" else None)
         world = pg.size()
     finally:
         if own_group:
@@ -111,15 +118,19 @@ def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
         "model": {"depth": depth, "dim": dim, "heads": heads,
                   "seq_len": seq_len, "per_gpu_batch": batch,
                   "vocab": vocab, "experts": experts, "top_k": top_k,
-                  "hidden": 4 * dim, "dispatch": "dropless"},
+                  "hidden": 4 * dim, "dispatch": dispatch},
         "device": torch.cuda.get_device_name(pg.device),
         "world_size": world,
         "steps_run": warmup + steps,
         "losses": res["losses"],
         "aux_losses_last_step": aux,
         "tokens_per_expert_last_step": counts,
+        "dropped_choices_last_step": dropped,
     }
 
 
 if __name__ == "__main__":
-    print(json.dumps(run()))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dispatch", default="gather",
+                    choices=("gather", "einsum", "dropless"))
+    print(json.dumps(run(dispatch=ap.parse_args().dispatch)))

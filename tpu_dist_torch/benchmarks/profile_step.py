@@ -1,8 +1,11 @@
 """Where the time of one step goes, on the card.
 
 Runs the dense slice of :mod:`tpu_dist_torch.benchmarks.transformer_lm`,
+with ``--model llama`` the same slice with ``norm="rmsnorm", rope=True``,
+with ``--model lm_32k`` its 32k-context row (T = 32768, batch 1, remat),
 with ``--model moe`` the dropless-MoE slice of
-:mod:`tpu_dist_torch.benchmarks.moe_lm`, with ``--model convnet`` the
+:mod:`tpu_dist_torch.benchmarks.moe_lm` (``moe_gather``, ``moe_einsum``: its
+capacity dispatches), with ``--model convnet`` the
 ConvNet of :mod:`tpu_dist_torch.benchmarks.convnet` (batch 8192, bf16),
 with ``--model resnet18`` the ResNet-18 of
 :mod:`tpu_dist_torch.benchmarks.resnet_cifar` (batch 1024, bf16), with
@@ -81,9 +84,18 @@ def _sp_step(mode):
 
 
 _BUILDERS = {"dense": _train_step(transformer_lm.build),
+             "llama": _train_step(functools.partial(
+                 transformer_lm.build, norm="rmsnorm", rope=True)),
+             "lm_32k": _train_step(functools.partial(
+                 transformer_lm.build, batch=1, seq_len=32768, remat=True)),
              "sp_ring": _sp_step("ring"),
              "sp_ulysses": _sp_step("ulysses"),
-             "moe": _train_step(moe_lm.build),
+             "moe": _train_step(functools.partial(moe_lm.build,
+                                                  dispatch="dropless")),
+             "moe_gather": _train_step(functools.partial(
+                 moe_lm.build, dispatch="gather")),
+             "moe_einsum": _train_step(functools.partial(
+                 moe_lm.build, dispatch="einsum")),
              "convnet": _train_step(_convnet),
              "resnet18": _train_step(resnet_cifar.build),
              "resnet50": _train_step(imagenet_e2e.build),

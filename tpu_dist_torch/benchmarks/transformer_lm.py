@@ -8,12 +8,17 @@ layers, 12 heads, T = 2048 causal, per-GPU batch 8) trains through
 ``CrossEntropyLoss(fused=True)``; at T = 2048 attention dispatches to the
 flash kernel.  Batches are random tokens from ``np.random.default_rng(0)``,
 as in the JAX benchmark.  Steps are timed with CUDA events after warm-up.
+``run(remat=, norm=, rope=)`` takes the model options; :func:`run_long` is
+the 8k-context row (T = 8192, batch 1, no remat) and :func:`run_32k` the
+32k one (T = 32768, batch 1, every block under remat), as in the JAX
+benchmark.
 
-    python -m tpu_dist_torch.benchmarks.transformer_lm
+    python -m tpu_dist_torch.benchmarks.transformer_lm [--row long|32k]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 
 import numpy as np
@@ -24,24 +29,28 @@ from ..models import TransformerLM
 from ..ops._build import resolve_device
 from ..parallel import DistributedDataParallel
 
-__all__ = ["build", "run", "time_steps"]
+__all__ = ["build", "run", "run_long", "run_32k", "time_steps"]
 
 
 def build(batch: int = 8, seq_len: int = 2048, dim: int = 768,
           depth: int = 12, heads: int = 12, vocab: int = 32768,
           fused: bool = True, group=None, device=None,
-          sequence_axis=None, mode: str = "ring"):
+          sequence_axis=None, mode: str = "ring", remat: bool = False,
+          norm: str = "layernorm", rope: bool = False):
     """The benchmark's model, DDP wrapper and batch: returns ``(ddp, x, y)``
     with ``x``/``y`` this rank's (batch, seq_len) slice of the global
     random-token batch.  ``sequence_axis``/``mode``: the sequence-parallel
     model (``TransformerLM(sequence_axis=, mode=)``; at world 1 its
-    attention is one ring block, or Ulysses' identity all-to-all)."""
+    attention is one ring block, or Ulysses' identity all-to-all).
+    ``remat``, ``norm``, ``rope``: the model's options (``norm="rmsnorm",
+    rope=True`` is the LLaMA-family recipe)."""
     device = resolve_device(device)
     world = group.size() if group is not None else 1
     rank = group.rank if group is not None else 0
     model = TransformerLM(vocab_size=vocab, dim=dim, depth=depth,
                           num_heads=heads, max_seq_len=seq_len, device=device,
-                          sequence_axis=sequence_axis, mode=mode)
+                          sequence_axis=sequence_axis, mode=mode,
+                          remat=remat, norm=norm, rope=rope)
     ddp = DistributedDataParallel(
         model, optimizer=optim.SGD(lr=0.01),
         loss_fn=nn.CrossEntropyLoss(fused=fused), group=group,
@@ -80,7 +89,10 @@ def time_steps(ddp, x, y, steps: int, warmup: int) -> dict:
 
 def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
         depth: int = 12, heads: int = 12, vocab: int = 32768,
-        steps: int = 20, warmup: int = 3, device=None) -> dict:
+        steps: int = 20, warmup: int = 3, device=None, remat: bool = False,
+        norm: str = "layernorm", rope: bool = False,
+        metric: str = "transformer_lm_bf16_train_tokens_per_sec_per_gpu"
+        ) -> dict:
     """Train ``warmup + steps`` steps and time the last ``steps`` with CUDA
     events.  Returns tokens/s/GPU, step ms, peak device memory, the
     parameter count and every step's loss."""
@@ -93,7 +105,8 @@ def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
           else dist.get_default_group())
     try:
         ddp, x, y = build(batch, seq_len, dim, depth, heads, vocab,
-                          group=pg, device=pg.device)
+                          group=pg, device=pg.device, remat=remat, norm=norm,
+                          rope=rope)
         res = time_steps(ddp, x, y, steps, warmup)
         n_params = sum(p.numel() for p in res["state"].params.values())
         world = pg.size()
@@ -105,7 +118,7 @@ def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
     # JAX benchmark's accounting, kept so the two read alike
     flops_per_token = 3 * (2 * n_params + 4 * depth * seq_len * dim)
     return {
-        "metric": "transformer_lm_bf16_train_tokens_per_sec_per_gpu",
+        "metric": metric,
         "value": tok_s,
         "unit": "tokens/sec/gpu",
         "step_ms": res["step_ms"],
@@ -114,7 +127,8 @@ def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
         "achieved_model_tflops": tok_s * flops_per_token / 1e12,
         "model": {"depth": depth, "dim": dim, "heads": heads,
                   "seq_len": seq_len, "per_gpu_batch": batch,
-                  "vocab": vocab},
+                  "vocab": vocab, "remat": remat, "norm": norm,
+                  "rope": rope},
         "device": torch.cuda.get_device_name(pg.device),
         "world_size": world,
         "steps_run": warmup + steps,
@@ -122,5 +136,27 @@ def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
     }
 
 
+def run_long(seq_len: int = 8192, batch: int = 1, **kw) -> dict:
+    """The long-context row: the same trunk at T = 8192, batch 1, without
+    remat (flash attention keeps the activations O(T))."""
+    return run(batch=batch, seq_len=seq_len, remat=False,
+               metric="transformer_lm_long_context_8k_bf16_tokens_per_sec_"
+                      "per_gpu", **kw)
+
+
+def run_32k(seq_len: int = 32768, batch: int = 1, **kw) -> dict:
+    """The 32k-context row: T = 32768, batch 1, every block under remat
+    (activations recomputed in backward); ``max_seq_len`` is the training
+    length, so the position table stays small."""
+    return run(batch=batch, seq_len=seq_len, remat=True,
+               metric="transformer_lm_long_context_32k_bf16_tokens_per_sec_"
+                      "per_gpu", **kw)
+
+
 if __name__ == "__main__":
-    print(json.dumps(run()))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--row", choices=("dense", "long", "32k"),
+                    default="dense")
+    args = ap.parse_args()
+    print(json.dumps({"dense": run, "long": run_long,
+                      "32k": run_32k}[args.row]()))

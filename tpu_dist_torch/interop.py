@@ -11,7 +11,8 @@ module                tpu_dist layout         tpu_dist_torch layout
 Linear weight         (in, out)               (out, in)
 MultiheadSelfAttn     qkv_weight (d, 3d)      qkv_weight (3d, d)
                       out_weight (d, d)       out_weight (d, d), .T
-Embedding, LayerNorm  identical               identical
+Embedding, LayerNorm, identical               identical
+RMSNorm
 ViT tokens            class_token, pos_embed- identical
                       ding (1, n, d)
 Conv2d weight         HWIO (kh, kw, in, out)  OIHW, ``transpose(3, 2, 0, 1)``
@@ -32,7 +33,8 @@ QuantEmbedding        q_weight, scale         identical
 ====================  ======================  ==========================
 
 int8 leaves load as int8; every other leaf goes through float32 into the
-parameter's dtype.
+parameter's dtype.  A rope model has no ``pos`` table on either side, and
+an ``nn.Remat`` keeps its module's leaves under ``inner.`` on both.
 
 A Linear whose input is a flattened (c, h, w) feature map is named in its
 model's ``flattened_inputs`` (``ConvNet.flattened_inputs = {"fc1": (128, 4,

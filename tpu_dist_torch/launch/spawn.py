@@ -8,8 +8,9 @@ first child to fail makes the others terminate, and its exception comes
 back as :class:`ProcessRaisedException` with the child's traceback (or
 :class:`ProcessExitedException` for a child that exited without raising).
 The parent must not initialize CUDA before spawning: each child takes its
-own card (``cuda:LOCAL_RANK``).  Supervised restarts (``max_restarts``)
-come with the launcher, ROADMAP A5."""
+own card (``cuda:LOCAL_RANK``).  ``max_restarts`` supervises the world:
+after a failure every child is stopped and a new generation starts, with
+``TPU_DIST_RESTART_COUNT`` counting the generations."""
 
 from __future__ import annotations
 

@@ -2,17 +2,19 @@
 ``tpu_dist/models/transformer.py`` (training forward, KV-cache decoding and
 the slot pool of continuous batching).
 
-Pre-LN blocks (LN → MHSA → residual, LN → MLP(4x, GELU) → residual),
-learned positional embeddings, weight-untied LM head, ``norm="layernorm"``.
+Pre-norm blocks (norm → MHSA → residual, norm → MLP(4x, GELU) → residual),
+weight-untied LM head.  ``norm="layernorm"`` with learned positional
+embeddings, or the LLaMA-family recipe ``norm="rmsnorm", rope=True``:
+RMSNorm and rotary embeddings in every attention layer, no position table.
 With ``num_experts > 0`` every ``moe_every``-th block's MLP is a routed
-:class:`~tpu_dist_torch.nn.MoELayer` (``moe_dispatch="dropless"``).  Module
-paths match the JAX package's (``tok``, ``pos``, ``block0.attn``,
-``block0.mlp.0`` or, for an MoE block, ``block0.mlp``, ``ln_f``, ``head``);
-KV caches are keyed by the attention layers' paths (``block0.attn``), as
-the JAX package's cache state is.  ``sequence_axis`` trains on sequence
-shards over a mesh axis (ring attention or Ulysses in every block; the
-parameters are the dense model's).  Remat and RMSNorm/rope come with later
-slices (ROADMAP A7)."""
+:class:`~tpu_dist_torch.nn.MoELayer` (``moe_dispatch``: ``"einsum"``,
+``"gather"`` or ``"dropless"``).  ``remat=True`` recomputes each block's
+activations in backward.  Module paths match the JAX package's (``tok``,
+``pos``, ``block0.attn``, ``block0.mlp.0`` or, for an MoE block,
+``block0.mlp``, ``ln_f``, ``head``); KV caches are keyed by the attention
+layers' paths (``block0.attn``), as the JAX package's cache state is.
+``sequence_axis`` trains on sequence shards over a mesh axis (ring attention
+or Ulysses in every block; the parameters are the dense model's)."""
 
 from __future__ import annotations
 
@@ -65,22 +67,34 @@ def _sample(logits, key, step: int, temperature: float, top_k: int,
     return random.categorical(random.fold_in(key, step), logits)
 
 
+def _norm_cls(norm: str):
+    if norm == "layernorm":
+        return nn.LayerNorm
+    if norm == "rmsnorm":
+        return nn.RMSNorm
+    raise ValueError(f"Unknown norm {norm!r} (layernorm|rmsnorm)")
+
+
 class TransformerBlock(torch.nn.Module):
     def __init__(self, dim: int, num_heads: int, causal: bool = True,
                  mlp: Optional[torch.nn.Module] = None, device=None,
                  sequence_axis: Optional[str] = None, mode: str = "ring",
-                 norm_eps: Optional[float] = None):
-        """``norm_eps``: both LayerNorms' epsilon; None keeps LayerNorm's
-        own default (1e-5).  ViT passes 1e-6, torchvision's."""
+                 norm_eps: Optional[float] = None, norm: str = "layernorm",
+                 rope: bool = False, rope_theta: float = 10000.0):
+        """``norm_eps``: both norms' epsilon; None keeps each norm's own
+        default (LayerNorm 1e-5, RMSNorm 1e-6).  ViT passes 1e-6,
+        torchvision's."""
         super().__init__()
         device = resolve_device(device)
+        norm_cls = _norm_cls(norm)
         eps = {} if norm_eps is None else {"eps": norm_eps}
-        self.ln1 = nn.LayerNorm(dim, device=device, **eps)
+        self.ln1 = norm_cls(dim, device=device, **eps)
         self.attn = nn.MultiheadSelfAttention(dim, num_heads, causal=causal,
                                               device=device,
                                               sequence_axis=sequence_axis,
-                                              mode=mode)
-        self.ln2 = nn.LayerNorm(dim, device=device, **eps)
+                                              mode=mode, rope=rope,
+                                              rope_theta=rope_theta)
+        self.ln2 = norm_cls(dim, device=device, **eps)
         # mlp override: an nn.MoELayer for mixture-of-experts blocks
         self.mlp = mlp if mlp is not None else nn.Sequential(
             nn.Linear(dim, 4 * dim, device=device), nn.GELU(),
@@ -102,42 +116,53 @@ class TransformerLM(torch.nn.Module):
                  moe_capacity_factor: float = 1.25,
                  moe_dispatch: str = "einsum", norm: str = "layernorm",
                  device=None, sequence_axis: Optional[str] = None,
-                 mode: str = "ring"):
+                 mode: str = "ring", remat: bool = False, rope: bool = False,
+                 rope_theta: float = 10000.0):
         """``num_experts > 0`` makes the MLP of every block ``i`` with
         ``i % moe_every == moe_every - 1`` a routed MoELayer; its aux loss
         is the layer's ``aux_loss`` after each forward (the DDP collects it
-        into ``TrainState.model_state``).  As in the JAX package the
-        default dispatch is ``"einsum"``, which the port does not have yet:
-        pass ``moe_dispatch="dropless"``.
+        into ``TrainState.model_state``).  ``moe_dispatch``: ``"einsum"``
+        (the default, as in the JAX package), ``"gather"`` or
+        ``"dropless"`` (nn/moe.py).
+
+        ``norm="rmsnorm"`` with ``rope=True`` is the LLaMA-family recipe:
+        RMSNorm, and rotary embeddings (``rope_theta``) in place of the
+        learned position table, which the model then does not have.
+
+        ``remat=True`` runs each block under :func:`nn.checkpoint
+        <tpu_dist_torch.nn.checkpoint>` when gradients are on and no KV
+        cache is passed: its activations are recomputed in backward
+        instead of kept for the whole step.  Parameter paths are unchanged.
 
         ``sequence_axis``: a mesh axis of the default process group over
         which ``idx`` is this rank's sequence shard; every block's attention
         then runs ``mode`` (``"ring"`` or ``"ulysses"``) over the axis, and
-        the learned positions start at the shard's offset."""
+        the positions (learned or rotary) start at the shard's offset."""
         super().__init__()
-        if norm != "layernorm":
-            raise NotImplementedError(
-                f"norm={norm!r}: RMSNorm (with rope) comes with a later "
-                f"slice (ROADMAP A7)")
         if num_experts > 0 and moe_every < 1:
             raise ValueError(f"moe_every must be >= 1, got {moe_every}")
+        norm_cls = _norm_cls(norm)
         device = resolve_device(device)
         self.vocab_size = vocab_size
         self.max_seq_len = max_seq_len
         self.depth = depth
         self.causal = causal
         self.sequence_axis = sequence_axis
+        self.remat = remat
         self.tok = nn.Embedding(vocab_size, dim, device=device)
-        self.pos = nn.Embedding(max_seq_len, dim, device=device)
+        self.pos = (None if rope
+                    else nn.Embedding(max_seq_len, dim, device=device))
         for i in range(depth):
             moe = num_experts > 0 and i % moe_every == moe_every - 1
             setattr(self, f"block{i}", TransformerBlock(
                 dim, num_heads, causal=causal, device=device,
-                sequence_axis=sequence_axis, mode=mode, mlp=nn.MoELayer(dim, num_experts, top_k=moe_top_k,
+                sequence_axis=sequence_axis, mode=mode, norm=norm, rope=rope,
+                rope_theta=rope_theta,
+                mlp=nn.MoELayer(dim, num_experts, top_k=moe_top_k,
                                 capacity_factor=moe_capacity_factor,
                                 dispatch=moe_dispatch, device=device)
                 if moe else None))
-        self.ln_f = nn.LayerNorm(dim, device=device)
+        self.ln_f = norm_cls(dim, device=device)
         self.head = nn.Linear(dim, vocab_size, device=device)
 
     @property
@@ -149,7 +174,10 @@ class TransformerLM(torch.nn.Module):
         ``pos_offset`` is an int, or a (B,) tensor of per-row positions
         (the slot pool's decode step); None is 0, or with
         ``sequence_axis`` the shard's offset, its index on the axis times
-        T (``lax.axis_index`` in the JAX package)."""
+        T (``lax.axis_index`` in the JAX package).  With rope the token
+        embeddings alone: positions enter in the attention layers."""
+        if self.pos is None:
+            return self.tok(idx)
         t = idx.shape[1]
         if pos_offset is None:
             pos_offset = 0
@@ -167,10 +195,15 @@ class TransformerLM(torch.nn.Module):
         """``cache``: a KV cache from :meth:`init_cache` (keyed by attention
         path), written in place; None for the uncached forward."""
         x = self.embed_tokens(idx, pos_offset)
+        use_remat = (self.remat and cache is None
+                     and torch.is_grad_enabled())
         for i in range(self.depth):
-            path = f"block{i}.attn"
-            x = getattr(self, f"block{i}")(
-                x, cache=None if cache is None else cache[path])
+            block = getattr(self, f"block{i}")
+            if use_remat:
+                x = nn.checkpoint(block, x)
+            else:
+                x = block(x, cache=None if cache is None
+                          else cache[f"block{i}.attn"])
         return self.head(self.ln_f(x))
 
     # -- autoregressive inference ------------------------------------------

@@ -4,8 +4,8 @@
 composition and the flash kernel; :class:`MultiheadSelfAttention` is the
 fused-QKV layer, with the JAX package's KV cache for decoding (float32,
 bfloat16 or int8 with per-(token, head) scales) and sequence parallelism
-over a mesh axis (``sequence_axis``: ring attention or Ulysses).  Rotary
-embeddings come with a later slice (ROADMAP A7)."""
+over a mesh axis (``sequence_axis``: ring attention or Ulysses), and
+rotary position embeddings (:func:`rotary_embed`, ``rope=True``)."""
 
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from . import init as init_lib
 from ..ops._build import resolve_device
 
 __all__ = ["scaled_dot_product_attention", "MultiheadSelfAttention",
-           "attention_impl"]
+           "attention_impl", "rotary_embed"]
 
 _IMPL_OVERRIDE: list = []
 
@@ -82,6 +82,29 @@ def scaled_dot_product_attention(q, k, v, causal: bool = False,
     return torch.einsum("...hqk,...khd->...qhd", w, v)
 
 
+def rotary_embed(x, positions, theta: float = 10000.0):
+    """Rotate ``x`` (..., T, H, D) by per-position angles — RoPE, the
+    rotate-half convention of the JAX package's ``rotary_embed``.
+    ``positions``: (T,) ints shared by the batch, or (B, T) (the slot pool's
+    decode, each row at its own position).  Frequencies, angles, cos and sin
+    in float32; the result is cast back to ``x.dtype``.
+
+    ``[x1·cos − x2·sin, x2·cos + x1·sin]`` is computed as ``x·[cos, cos] +
+    roll(x)·[−sin, sin]``: the same products and sums, rounded alike, in
+    three passes over x instead of six."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.tensor(theta, dtype=torch.float32, device=x.device) ** (
+        -torch.arange(0, half, dtype=torch.float32, device=x.device)
+        * 2.0 / d)
+    ang = positions.to(torch.float32)[..., None] * freqs      # (..., T, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos2 = torch.cat([cos, cos], -1)[..., None, :]            # (..., T, 1, D)
+    sin2 = torch.cat([-sin, sin], -1)[..., None, :]
+    xf = x.float()
+    return (xf * cos2 + xf.roll(half, -1) * sin2).to(x.dtype)
+
+
 class MultiheadSelfAttention(torch.nn.Module):
     """Multi-head self-attention with a fused QKV projection.
 
@@ -99,28 +122,36 @@ class MultiheadSelfAttention(torch.nn.Module):
     (:func:`~tpu_dist_torch.parallel.ring_self_attention`) or
     ``"ulysses"`` (:func:`~tpu_dist_torch.parallel.ulysses_self_attention`),
     and equals the dense computation.  A KV-cache decode runs on gathered
-    sequences and refuses it."""
+    sequences and refuses it.
+
+    ``rope=True`` rotates q and k (:func:`rotary_embed`, ``rope_theta``) by
+    the positions of this call's tokens: the cache's write index when a
+    cache is passed (an int, or the slot pool's (B,) lengths), the shard's
+    offset under ``sequence_axis``, else 0.  Keys are cached after the
+    rotation, as in the JAX package."""
 
     def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
                  causal: bool = False, attn_impl: Optional[str] = None,
                  device=None, sequence_axis: Optional[str] = None,
-                 mode: str = "ring", rope: bool = False):
+                 mode: str = "ring", rope: bool = False,
+                 rope_theta: float = 10000.0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} not divisible by "
                              f"num_heads {num_heads}")
         if mode not in ("ring", "ulysses"):
             raise ValueError(f"Unknown sequence-parallel mode {mode!r}")
-        if rope:
-            raise NotImplementedError(
-                "rope=True: rotary embeddings come with a later slice of "
-                "the port (ROADMAP A7)")
+        if rope and (embed_dim // num_heads) % 2:
+            raise ValueError(f"rotary embeddings need an even head_dim, "
+                             f"got {embed_dim // num_heads}")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.causal = causal
         self.sequence_axis = sequence_axis
         self.mode = mode
+        self.rope = rope
+        self.rope_theta = rope_theta
         self.attn_impl = attn_impl  # None = auto | "dense" | "flash"
         self._init_projections(bias, resolve_device(device))
 
@@ -165,7 +196,16 @@ class MultiheadSelfAttention(torch.nn.Module):
         qkv = qkv.reshape(b, t, 3, self.num_heads, self.head_dim)
         # unbind, not three selects: its backward stacks dq, dk, dv into
         # one buffer instead of zero-filling and adding three
-        q, k, v = qkv.unbind(2)
+        if self.rope:
+            # q and k rotated in one pass, as (B, t, 2H, D) (a view of the
+            # projection); v stays a view too
+            qk = self._rotate(qkv[:, :, :2].reshape(
+                b, t, 2 * self.num_heads, self.head_dim), cache)
+            q, k = qk.reshape(b, t, 2, self.num_heads,
+                              self.head_dim).unbind(2)
+            v = qkv[:, :, 2]
+        else:
+            q, k, v = qkv.unbind(2)
         if cache is not None:
             if self.sequence_axis is not None:
                 raise ValueError("KV-cache decode runs on gathered "
@@ -183,6 +223,24 @@ class MultiheadSelfAttention(torch.nn.Module):
             out = scaled_dot_product_attention(q, k, v, causal=self.causal,
                                                impl=self.attn_impl)
         return self._out_proj(out.reshape(b, t, self.embed_dim))
+
+    def _rotate(self, qk, cache):
+        """``qk`` (B, t, 2H, D) rotated by its tokens' positions (read
+        before :meth:`_decode` advances the cache's index)."""
+        t = qk.shape[1]
+        steps = torch.arange(t, device=qk.device)
+        if cache is not None:
+            offset = cache["index"]
+        elif self.sequence_axis is not None:
+            from ..dist import axis_group
+            offset = axis_group(self.sequence_axis).index * t
+        else:
+            offset = 0
+        if torch.is_tensor(offset) and offset.dim():
+            pos = offset.to(qk.device)[:, None] + steps      # (B, t)
+        else:
+            pos = int(offset) + steps
+        return rotary_embed(qk, pos, self.rope_theta)
 
     @staticmethod
     def _quantize_kv(x):
@@ -271,5 +329,6 @@ class MultiheadSelfAttention(torch.nn.Module):
     def extra_repr(self):
         seq = ("" if self.sequence_axis is None else
                f", sequence_axis={self.sequence_axis!r}, mode={self.mode!r}")
+        rope = f", rope_theta={self.rope_theta}" if self.rope else ""
         return (f"{self.embed_dim}, heads={self.num_heads}, "
-                f"causal={self.causal}{seq}")
+                f"causal={self.causal}{seq}{rope}")

@@ -19,7 +19,7 @@ from ..ops._build import resolve_device
 
 __all__ = ["Linear", "Conv2d", "MaxPool2d", "AvgPool2d", "AdaptiveAvgPool2d",
            "ReLU", "Identity", "Flatten", "Dropout", "BatchNorm2d",
-           "Embedding", "LayerNorm", "GELU", "unbiased_var"]
+           "Embedding", "LayerNorm", "RMSNorm", "GELU", "unbiased_var"]
 
 
 def _pair(v):
@@ -327,6 +327,43 @@ class LayerNorm(torch.nn.Module):
 
     def extra_repr(self):
         return f"{self.normalized_shape}"
+
+
+class RMSNorm(torch.nn.Module):
+    """Root-mean-square normalization over the trailing dimension(s), the
+    JAX package's formula: statistics in float32, ``x * rsqrt(mean(x²) +
+    eps)``, cast back to ``x.dtype``, then ``* weight`` in that dtype.  No
+    mean subtraction and no bias (the LLaMA-family norm).  The normalization
+    is ``F.rms_norm`` without a weight, which computes exactly that in
+    float32 and returns ``x.dtype`` (as the port's LayerNorm is
+    ``F.layer_norm``); the JAX package has no kernel here either."""
+
+    def __init__(self, normalized_shape, eps: float = 1e-6,
+                 elementwise_affine: bool = True, device=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.eps = eps
+        self.elementwise_affine = elementwise_affine
+        if elementwise_affine:
+            self.weight = torch.nn.Parameter(torch.empty(
+                self.normalized_shape, device=resolve_device(device)))
+            self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+
+    def forward(self, x):
+        y = torch.nn.functional.rms_norm(x, self.normalized_shape, None,
+                                         self.eps)
+        if self.elementwise_affine:
+            y = y * self.weight.to(x.dtype)
+        return y
+
+    def extra_repr(self):
+        return f"{self.normalized_shape}, eps={self.eps}"
 
 
 class GELU(torch.nn.Module):

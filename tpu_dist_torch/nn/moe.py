@@ -1,11 +1,26 @@
-"""Mixture-of-Experts layer — counterpart of ``tpu_dist/nn/moe.py``
-(``dispatch="dropless"``).
+"""Mixture-of-Experts layer — counterpart of ``tpu_dist/nn/moe.py``.
 
-Top-k routing over stacked expert FFNs, MegaBlocks-style: the (choice,
-token) rows are sorted by expert into segments padded to a row-block size,
-and each expert runs over its exact segment through the grouped-matmul
-kernels (:mod:`tpu_dist_torch.ops.gmm`).  No capacity, no dropped tokens, and
-a token's output never depends on the other tokens in the call.
+Top-k routing over stacked expert FFNs, with the JAX package's three
+dispatches (``dispatch=``):
+
+- ``"einsum"`` (the default in both packages) and ``"gather"``: the
+  GShard/Switch capacity formulation.  Each (choice, token) gets its
+  arrival rank at its expert; ranks at or past the capacity ``C = max(1,
+  min(ceil(k·N/E · capacity_factor), N))`` are dropped (combine weight 0,
+  so the surrounding residual carries the token).  ``"einsum"`` builds the
+  dense ``(N, E, C)`` dispatch and combine tensors from one-hots in the
+  compute dtype and contracts them with plain products; ``"gather"``
+  moves rows by the slot maps, both backward passes gathers by the
+  opposite map.  The two give the same outputs but for the rounding of
+  the combine.  The expert FFNs are batched products over the padded
+  ``(E, C, d)`` rows.
+- ``"dropless"``: MegaBlocks-style, the (choice, token) rows sorted by
+  expert into segments padded to a row-block size, each expert run over
+  its exact segment through the grouped-matmul kernels
+  (:mod:`tpu_dist_torch.ops.gmm`).  No capacity, no dropped tokens, and a
+  token's output never depends on the other tokens in the call.
+
+Shared by all three:
 
 - Parameters keep the JAX package's layout, which is the layout the kernels
   take: ``router`` (d, E), ``w1`` (E, d, h), ``b1`` (E, h), ``w2`` (E, h, d),
@@ -15,21 +30,14 @@ a token's output never depends on the other tokens in the call.
   often, and ``torch.topk`` on CUDA promises no order), optional gate
   renormalization, and each row's rank at its expert from an integer cumsum
   (a bf16 cumsum would mis-slot rows past 256).
-- Every shape is static — the row count is the bound ``(ceil(kN/b) + E)·b``
-  — and the kernels read the block→expert map from device memory, so no step
-  waits on the host.
-- Dispatch and combine are row gathers whose backward passes are gathers by
-  the opposite map: no scatter-add, so the backward is deterministic.
-- The expert FFN is ``gelu`` in its tanh form between two grouped linears,
-  as ``jax.nn.gelu`` is by default (the dense MLP uses the exact erf form).
+- Every shape is static, and no step waits on the host.
+- The expert FFN is ``gelu`` in its tanh form between two linears, as
+  ``jax.nn.gelu`` is by default (the dense MLP uses the exact erf form).
 - The Switch load-balancing loss ``E · Σ_e f_e · p_e`` over first choices is
   kept, in PyTorch's idiom, as the layer's ``aux_loss`` attribute after each
   forward, differentiable through the router; the DDP wrapper collects it
   into ``TrainState.model_state`` and does not add it to the objective, as
   in the JAX package.
-
-The ``"einsum"`` and ``"gather"`` (capacity) dispatches come with a later
-slice of the port.
 """
 
 from __future__ import annotations
@@ -49,7 +57,8 @@ __all__ = ["MoELayer"]
 class _DispatchRows(torch.autograd.Function):
     """xt (N, d) → rows (M, d): row ``token_for_row[r]`` of xt, zeros where
     it is N (padding).  Backward: ``grad_xt[i] = Σ_j g[slot[j, i]]``, a
-    gather by the forward map."""
+    gather by the forward map (the capacity dispatch's last row is the
+    zero row that dropped choices point at)."""
 
     @staticmethod
     def forward(ctx, xt, token_for_row, slot):
@@ -120,12 +129,19 @@ class MoELayer(torch.nn.Module):
         capacity_factor: kept for the JAX signature; the dropless dispatch
             has no capacity and ignores it.
         normalize_gates: renormalize the k selected gates to sum to 1.
-        dispatch: ``"dropless"``; ``"einsum"`` and ``"gather"`` raise
-            ``NotImplementedError`` until their slice is ported.
+        dispatch: ``"einsum"`` (dense dispatch and combine tensors),
+            ``"gather"`` (row gathers by the slot maps) or ``"dropless"``
+            (the grouped-matmul kernels; ``capacity_factor`` is ignored).
 
     After each forward, ``aux_loss`` holds the Switch load-balancing loss
-    and ``routing`` the last call's ``gate_idx`` (N, k), ``counts`` (E,),
-    ``block_groups`` and ``n_live_blocks`` (the kernels' block map)."""
+    and ``routing`` the last call's ``gate_idx`` (N, k) and ``counts``
+    (E,), the choices routed to each expert; the capacity dispatches add
+    ``capacity`` and ``dropped`` (choices past it, an int64 0-d tensor),
+    the dropless one ``block_groups`` and ``n_live_blocks`` (the kernels'
+    block map).  Both attributes are what :func:`~tpu_dist_torch.nn.
+    checkpoint` keeps from the first forward (``forward_state``)."""
+
+    forward_state = ("aux_loss", "routing")
 
     def __init__(self, dim: int, num_experts: int, hidden: int = 0,
                  top_k: int = 2, capacity_factor: float = 1.25,
@@ -136,12 +152,7 @@ class MoELayer(torch.nn.Module):
             raise ValueError(f"num_experts must be >= 2, got {num_experts}")
         if not 1 <= top_k <= num_experts:
             raise ValueError(f"top_k {top_k} not in [1, {num_experts}]")
-        if dispatch in ("einsum", "gather"):
-            raise NotImplementedError(
-                f"dispatch={dispatch!r} (the capacity formulation) comes with "
-                f"a later slice of the port (ROADMAP A7); use "
-                f"dispatch='dropless'")
-        if dispatch != "dropless":
+        if dispatch not in ("einsum", "gather", "dropless"):
             raise ValueError(f"dispatch must be 'einsum', 'gather', or "
                              f"'dropless', got {dispatch!r}")
         device = resolve_device(device)
@@ -197,12 +208,68 @@ class MoELayer(torch.nn.Module):
         rank = ((torch.cumsum(oh, 1, dtype=torch.int32) - oh) * oh).sum(
             0, dtype=torch.int32).reshape(k, n)
         counts = oh.sum(1, dtype=torch.int32)                    # (E,)
-        y = self._forward_dropless(xt, gate_vals, gate_idx, rank, counts)
+        if self.dispatch == "dropless":
+            y = self._forward_dropless(xt, gate_vals, gate_idx, rank, counts)
+        else:
+            y = self._forward_capacity(xt, gate_vals, gate_idx, rank, counts)
 
         # Switch load-balance loss on first-choice assignments
         frac = _one_hot(gate_idx[:, 0], e).to(xt.dtype).mean(0)
         self.aux_loss = e * (frac * probs.mean(0)).sum()
         return y.reshape(*lead, d)
+
+    def _capacity(self, n_tokens: int) -> int:
+        c = math.ceil(self.top_k * n_tokens / self.num_experts
+                      * self.capacity_factor)
+        # an expert receives each token at most once (the top-k experts are
+        # distinct), so a capacity past n_tokens would only pad
+        return max(1, min(c, n_tokens))
+
+    def _experts(self, xs):
+        """The expert FFNs over the padded rows ``xs`` (E, C, d)."""
+        hdn = _F.gelu(torch.bmm(xs, self.w1) + self.b1[:, None, :],
+                      approximate="tanh")
+        return torch.bmm(hdn, self.w2) + self.b2[:, None, :]
+
+    def _forward_capacity(self, xt, gate_vals, gate_idx, rank, counts):
+        e, k = self.num_experts, self.top_k
+        n, d = xt.shape
+        c = self._capacity(n)
+        keep = (rank < c).to(xt.dtype)                           # (k, N)
+        w = keep * gate_vals.T
+        self.routing = {"gate_idx": gate_idx.detach(), "counts": counts,
+                        "capacity": c,
+                        "dropped": (rank >= c).sum()}
+        if self.dispatch == "gather":
+            # forward map (choice, token) → flat slot e·C + rank, dropped
+            # choices at the zero row E·C; the inverse by one int scatter
+            # into E·C + 1 entries, the last of which is then emptied
+            kn = k * n
+            slot = torch.where(rank < c, gate_idx.T * c + rank,
+                               e * c)                            # (k, N)
+            choice_for_slot = torch.full(
+                (e * c + 1,), kn, device=xt.device).scatter_(
+                0, slot.reshape(-1), torch.arange(kn, device=xt.device))
+            choice_for_slot[-1] = kn
+            token_for_slot = torch.where(choice_for_slot == kn, n,
+                                         choice_for_slot % n)
+            xs = _DispatchRows.apply(xt, token_for_slot, slot)   # (EC+1, d)
+            out = self._experts(xs[:-1].reshape(e, c, d))
+            out = torch.cat([out.reshape(e * c, d), out.new_zeros(1, d)])
+            return _CombineRows.apply(out, w, choice_for_slot, slot)
+        # einsum: the (N, E, C) one-hot tensors, built per choice and summed
+        # over k as two products (a three-operand einsum could hold the
+        # (k, N, E, C) product); each (n, e, c) has at most one term
+        oh = (gate_idx.T[..., None] == torch.arange(
+            e, device=xt.device)).to(xt.dtype)                   # (k, N, E)
+        slot_oh = _one_hot(rank, c).to(xt.dtype)                 # (k, N, C)
+        dispatch_t = torch.einsum("kne,knc->nec", oh,
+                                  slot_oh * keep[..., None])
+        combine_t = torch.einsum("kne,knc->nec", oh,
+                                 slot_oh * w[..., None])
+        xs = dispatch_t.reshape(n, e * c).T @ xt                 # (E·C, d)
+        out = self._experts(xs.reshape(e, c, d))
+        return combine_t.reshape(n, e * c) @ out.reshape(e * c, d)
 
     def _forward_dropless(self, xt, gate_vals, gate_idx, rank, counts):
         e, k = self.num_experts, self.top_k
