@@ -170,7 +170,24 @@ Phases, each printed as one JSON line:
    slots) on a float32 ``rope=True, norm="rmsnorm"`` model at full width,
    eight ``smoke_requests`` each equal to ``generate()`` alone but for
    ties, no kernel launch.
-14. ``kernels``: one line over all kernels; the card's name and power limit
+14. ``zero_ddp``: the dense cell with ``AdamW(lr=1e-4)`` on one card under
+   the DDP replicated, with ``shard_optimizer=True`` (ZeRO-1: three steps
+   bit for bit the replicated ones) and with ``comm_dtype=bfloat16``
+   (within ``COMPOSITION_TOL`` of them); K1f/K1b 1 and K2f/K2b 12 launches
+   a step (wgmma) in each; step ms, peak memory and optimizer-state bytes
+   of each; the flat-shard AdamW update beside the per-leaf one and its
+   bytes bound.  ``zero_opt``: the ``bench_zero`` twin at world 1 (the
+   JAX benchmark's 64-leaf tree): the ZeRO parameters bit for bit the
+   replicated ones, steps/s and state bytes of each.  ``elastic``: the
+   ``elastic_train`` twin under ``python -m tpu_dist_torch.launch
+   --standalone --nproc_per_node=1 --max_restarts=1`` (batch 100, 40
+   steps, a save every 10), killed at step 20 by ``TPU_DIST_CHAOS`` and
+   restarted, with and without ``--zero``, beside uninterrupted runs (all
+   four at once): the resumed steps 21-39's losses and the final
+   parameters bit for bit the uninterrupted ones; the seconds from the
+   kill to the first resumed step; the twin's step with cuDNN's
+   deterministic algorithms and without.  No kernel on the elastic path.
+15. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
@@ -180,7 +197,8 @@ named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``resume``, ``flash_offdiag``, ``split_diag``, ``ring``, ``sp_train``,
 ``augment``, ``imagenet``, ``vit``, ``launch``, ``launch_restart``,
 ``gateway``, ``store``, ``moe_dispatch``, ``llama``, ``long_32k``,
-``serve_rope``) and never prints the result line.
+``serve_rope``, ``zero_ddp``, ``zero_opt``, ``elastic``) and never prints
+the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -4238,6 +4256,239 @@ def check_serve_rope(results):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# ZeRO and elastic training (slice 12)
+# ---------------------------------------------------------------------------
+
+ZERO_STEPS = (3, 5)      # zero_ddp.run_mode's kept steps, then timed ones
+ADAMW_BYTES_BOUND_MS = 28 * 136_993_280 / PEAK_BYTES_S * 1e3
+
+
+def _zero_mode(pg, **ddp_kw) -> dict:
+    """The dense cell (AdamW, batch 8) under the DDP with ``ddp_kw``
+    (``benchmarks/zero_ddp.py``'s ``run_mode``: 3 steps kept, 5 timed),
+    with every kernel's launches over the 8 steps."""
+    from tpu_dist_torch.benchmarks.zero_ddp import run_mode
+
+    zero_launch_counts()
+    out = run_mode(pg, 8, **ddp_kw)
+    counts, by_design, ok = path_launches(sum(ZERO_STEPS), {
+        "cross_entropy_fwd": 1, "cross_entropy_bwd": 1, "flash_fwd": 12,
+        "flash_bwd": 12})
+    out.update(launches=counts, launches_by_design=by_design,
+               ok_launches=ok)
+    return out
+
+
+def _flat_adamw_ms(n: int = 136_993_280) -> dict:
+    """AdamW's update on one flat float32 vector of the dense cell's size
+    (ZeRO-1's update at world 1) beside the per-leaf multi-tensor update
+    over the cell's 150 tensors, in turns, CUDA events."""
+    from tpu_dist_torch import optim
+    shapes = dense_shapes()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name in ("flat", "per_leaf", "per_leaf", "flat"):
+        if name == "flat":
+            params = {"flat": torch.randn(n, device="cuda", generator=g)}
+        else:
+            params = {k: torch.randn(s, device="cuda", generator=g)
+                      for k, s in shapes.items()}
+        grads = {k: torch.randn_like(v) for k, v in params.items()}
+        opt = optim.AdamW(lr=1e-4)
+        st = opt.init(params)
+        out.setdefault(name, []).append(time_ms(
+            lambda: opt.update(grads, st, params), reps=10, warm=2))
+        del params, grads, st
+        torch.cuda.empty_cache()
+    return {k: statistics.median(v) for k, v in out.items()}
+
+
+def check_zero_ddp(results):
+    """The dense GPT-2-small cell (AdamW, bf16 over float32 masters, fused
+    loss, T = 2048, batch 8) on one card under ``shard_optimizer=True``:
+    three steps bit for bit the replicated DDP's, exactly 1 K1f/K1b and 12
+    K2f/K2b (wgmma) launches a step; ``comm_dtype=bfloat16`` within the
+    dense composition limits of the replicated steps; step ms, peak memory
+    and optimizer-state bytes beside the replicated DDP's; the flat-shard
+    AdamW update against the per-leaf one and its bytes bound."""
+    from tpu_dist_torch import dist
+
+    pg = dist.init_process_group(device="cuda")
+    try:
+        repl = _zero_mode(pg)
+        zero = _zero_mode(pg, shard_optimizer=True)
+        comp = _zero_mode(pg, comm_dtype=torch.bfloat16)
+    finally:
+        dist.destroy_process_group()
+    p0 = repl["params0"]
+    bitwise = all(torch.equal(repl["params"][k], zero["params"][k])
+                  for k in p0) and repl["losses"] == zero["losses"]
+    num = sum(float((comp["params"][k] - repl["params"][k]).pow(2).sum())
+              for k in p0)
+    den = sum(float((repl["params"][k] - p0[k]).pow(2).sum()) for k in p0)
+    rel = math.sqrt(num / den) if den else math.inf
+    tol = COMPOSITION_TOL
+    loss_ok = all(abs(a - b) <= tol["loss_rtol"] * abs(b)
+                  for a, b in zip(comp["losses"], repl["losses"]))
+    ok_comm = loss_ok and rel <= tol["update_rel"]
+    upd = _flat_adamw_ms()
+    emit("zero_ddp", steps_bitwise=ZERO_STEPS[0],
+         zero_equals_replicated_bitwise=bitwise,
+         step_ms={"replicated": repl["step_ms"], "zero1": zero["step_ms"],
+                  "comm_bf16": comp["step_ms"]},
+         peak_mem_bytes={"replicated": repl["peak_mem_bytes"],
+                         "zero1": zero["peak_mem_bytes"],
+                         "comm_bf16": comp["peak_mem_bytes"]},
+         opt_state_bytes={"replicated": repl["opt_state_bytes_per_card"],
+                          "zero1": zero["opt_state_bytes_per_card"]},
+         losses={"replicated": repl["losses"], "zero1": zero["losses"],
+                 "comm_bf16": comp["losses"]},
+         comm_bf16_update_rel=rel, comm_bf16_ok=ok_comm,
+         tolerance=tol, launches_zero1=zero["launches"],
+         launches_by_design_zero1=zero["launches_by_design"],
+         ok_launches={"replicated": repl["ok_launches"],
+                      "zero1": zero["ok_launches"],
+                      "comm_bf16": comp["ok_launches"]},
+         adamw_update_ms={"flat_shard": upd["flat"],
+                          "per_leaf": upd["per_leaf"],
+                          "bytes_bound": ADAMW_BYTES_BOUND_MS})
+    return (bitwise and ok_comm and zero["ok_launches"]
+            and repl["ok_launches"] and comp["ok_launches"])
+
+
+def check_zero_opt(results):
+    """The ``bench_zero`` twin at world 1 on the card: the JAX benchmark's
+    64-leaf tree, replicated (Bucketer + Adam) against ZeroOptimizer;
+    the ZeRO parameters bit for bit the replicated ones; steps/s and
+    optimizer-state bytes of each."""
+    from tpu_dist_torch import dist
+    from tpu_dist_torch.benchmarks import bench_zero
+
+    pg = dist.init_process_group(device="cuda")
+    try:
+        zero_launch_counts()
+        rows = bench_zero.bench(pg, bench_zero._leaf_sizes(False), iters=20,
+                                check=True)
+    finally:
+        dist.destroy_process_group()
+    emit("zero_opt", rows=rows, bitwise_checked=True)
+    return len(rows) == 2 and all(r["value"] > 0 for r in rows)
+
+
+ELASTIC_ARGV = ["--synthetic", "--max-steps", "40", "--save-every", "10",
+                "--batch-size", "100"]
+ELASTIC_KILL = "kill:rank=0,step=20"   # after step 20's save: resume at 21
+ELASTIC_TIMEOUT = 300
+
+
+def _elastic_launch(out, name, extra, chaos=None):
+    env = dict(os.environ, PYTHONPATH=_repo() + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), PYTHONWARNINGS="ignore")
+    for var in ("TPU_DIST_CHAOS", "MASTER_ADDR", "MASTER_PORT", "RANK",
+                "WORLD_SIZE", "TPU_DIST_STORE_ADDR"):
+        env.pop(var, None)
+    if chaos:
+        env["TPU_DIST_CHAOS"] = chaos
+    return subprocess.Popen(
+        [sys.executable, "-m", "tpu_dist_torch.launch", "--standalone",
+         "--nproc_per_node=1", "--max_restarts=1", "--restart_backoff=0",
+         "-m", "tpu_dist_torch.examples.elastic_train", *ELASTIC_ARGV,
+         "--ckpt-root", os.path.join(out, f"ck_{name}"),
+         "--record", os.path.join(out, f"{name}.jsonl"), *extra],
+        cwd=out, env=env, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+
+
+def _twin_step_ms(deterministic: bool) -> float:
+    """The twin's ConvNet forward and backward at batch 100 with cuDNN's
+    deterministic algorithms on or off (CUDA events)."""
+    from tpu_dist_torch.models import ConvNet
+    from tpu_dist_torch.nn import functional as F
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        model = ConvNet(device="cuda")
+        x = torch.rand(100, 1, 28, 28, device="cuda")
+        y = torch.randint(0, 10, (100,), device="cuda")
+        params = dict(model.named_parameters())
+
+        def step():
+            loss = F.cross_entropy(torch.func.functional_call(
+                model, params, (x,)), y)
+            torch.autograd.grad(loss, list(params.values()))
+
+        return time_ms(step, reps=50, warm=5)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def check_elastic(results):
+    """The ``elastic_train`` twin under ``python -m tpu_dist_torch.launch
+    --standalone --nproc_per_node=1 --max_restarts=1`` on the card (batch
+    100, synthetic MNIST, 40 steps, a save every 10): with
+    ``TPU_DIST_CHAOS=kill:rank=0,step=20`` the launcher restarts once and
+    the twin resumes from the step-20 save; the resumed losses (steps
+    21-39) and the final parameters equal an uninterrupted run's bit for
+    bit.  The same with ``--zero``.  The four runs start together; the
+    seconds from the kill to the first resumed step."""
+    import tempfile
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="elastic_", dir=os.environ.get("TMPDIR"))
+    runs = {"plain": ([], None), "killed": ([], ELASTIC_KILL),
+            "zero_plain": (["--zero"], None),
+            "zero_killed": (["--zero"], ELASTIC_KILL)}
+    t0 = time.time()
+    procs = {n: _elastic_launch(out, n, extra, chaos)
+             for n, (extra, chaos) in runs.items()}
+    errs = {}
+    try:
+        for n, p in procs.items():
+            _, errs[n] = p.communicate(timeout=ELASTIC_TIMEOUT)
+    finally:
+        for p in procs.values():
+            _stop(p, grace=5)
+    wall = time.time() - t0
+    rec = {}
+    for n in runs:
+        try:
+            with open(os.path.join(out, f"{n}.jsonl")) as f:
+                rec[n] = [json.loads(line) for line in f]
+        except OSError:
+            rec[n] = []
+    fields, ok = {}, True
+    for plain, killed in (("plain", "killed"), ("zero_plain", "zero_killed")):
+        want = {r["step"]: r["loss"] for r in rec[plain] if "step" in r}
+        g1 = [r for r in rec[killed] if "step" in r and r["gen"] == 1]
+        g0 = {r["step"]: r for r in rec[killed]
+              if "step" in r and r["gen"] == 0}
+        finals = {r["final"] for r in rec[plain] + rec[killed]
+                  if "final" in r}
+        resumed = [r["step"] for r in g1]
+        same = bool(g1) and all(r["loss"] == want.get(r["step"])
+                                for r in g1)
+        gen0 = all(r["loss"] == want.get(s) for s, r in g0.items())
+        kill_to_step = (g1[0]["t"] - g0[20]["t"]) if g1 and 20 in g0 \
+            else None
+        good = (procs[plain].returncode == 0
+                and procs[killed].returncode == 0
+                and resumed == list(range(21, 40)) and same and gen0
+                and len(finals) == 1
+                and "restart 1/1" in errs[killed])
+        ok = ok and good
+        fields[killed] = dict(
+            rc=procs[killed].returncode, resumed_steps=resumed[:1] +
+            resumed[-1:], losses_bitwise=same, pre_kill_bitwise=gen0,
+            params_sha256_equal=len(finals) == 1,
+            kill_to_first_resumed_step_s=kill_to_step, ok=good,
+            stderr_tail=None if good else errs[killed][-2000:])
+    fields["twin_step_ms"] = {"cudnn_deterministic": _twin_step_ms(True),
+                              "default": _twin_step_ms(False)}
+    emit("elastic", chaos=ELASTIC_KILL, argv=ELASTIC_ARGV,
+         launcher_wall_s=wall, **fields)
+    return ok
+
+
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("gmm", check_gmm), ("slice", check_slice),
           ("composition", check_composition), ("moe_slice", check_moe_slice),
@@ -4253,7 +4504,9 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("launch", check_launch), ("launch_restart", check_launch_restart),
           ("gateway", check_gateway), ("store", check_store),
           ("moe_dispatch", check_moe_dispatch), ("llama", check_llama),
-          ("long_32k", check_long_32k), ("serve_rope", check_serve_rope))
+          ("long_32k", check_long_32k), ("serve_rope", check_serve_rope),
+          ("zero_ddp", check_zero_ddp), ("zero_opt", check_zero_opt),
+          ("elastic", check_elastic))
 
 
 def main() -> int:

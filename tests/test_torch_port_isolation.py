@@ -71,6 +71,17 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch.examples.launch_dist
         import tpu_dist_torch.examples.example_launch
         import tpu_dist_torch.examples.serve_lm
+        import tpu_dist_torch.collectives.ops
+        import tpu_dist_torch.collectives.eager
+        import tpu_dist_torch.collectives.work
+        import tpu_dist_torch.collectives.bucketer
+        import tpu_dist_torch.parallel.zero
+        import tpu_dist_torch.resilience.chaos
+        import tpu_dist_torch.resilience.reshard
+        import tpu_dist_torch.resilience.state
+        import tpu_dist_torch.utils.logging
+        import tpu_dist_torch.examples.elastic_train
+        import tpu_dist_torch.benchmarks.bench_zero
         # the native store is built and served with jax and tpu_dist blocked
         from tpu_dist_torch.dist import TCPStore
         s = TCPStore(is_master=True, timeout=10)
@@ -112,9 +123,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from tpu_dist_torch.benchmarks import (convnet, imagenet_e2e,
                                            resnet_cifar, serve_lm, vit_train)
     from tpu_dist_torch.benchmarks.transformer_lm import run
-    from tpu_dist_torch.examples import (example_imagenet, example_launch,
-                                         example_mp, launch_dist,
-                                         mpspawn_dist, train_lm)
+    from tpu_dist_torch.benchmarks import bench_zero
+    from tpu_dist_torch.examples import (elastic_train, example_imagenet,
+                                         example_launch, example_mp,
+                                         launch_dist, mpspawn_dist, train_lm)
     from tpu_dist_torch.examples import serve_lm as serve_twin
     from tpu_dist_torch.models import (ConvNet, TransformerLM, resnet18,
                                        vit_b_16)
@@ -134,7 +146,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                           (example_mp, ["--synthetic"]), (train_lm, []),
                           (example_imagenet, []),
                           (launch_dist, ["--synthetic"]),
-                          (example_launch, ["--synthetic"])):
+                          (example_launch, ["--synthetic"]),
+                          (elastic_train, ["--synthetic"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             example.train(example.parse_args(argv))
         assert not dist.is_initialized()
@@ -143,6 +156,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for bench in (convnet, resnet_cifar, imagenet_e2e, vit_train):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench.run()
+    assert bench_zero.main([]) == 2   # names --device cpu, runs nothing
     loader = data.DataLoader(data.TensorDataset(np.zeros(4), np.zeros(4)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         data.DeviceLoader(loader)

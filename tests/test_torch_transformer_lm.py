@@ -163,10 +163,20 @@ def test_sgd_options_match_jax():
 def test_ddp_refuses_options_of_later_slices():
     model = TorchLM(vocab_size=11, dim=8, depth=1, num_heads=2,
                     max_seq_len=4, device="cpu")
-    # accum_steps came with the optim slice (tests/test_torch_ddp_accum.py)
+    # accum_steps came with the optim slice (tests/test_torch_ddp_accum.py);
+    # shard_optimizer and comm_dtype with the ZeRO slice
+    # (tests/test_torch_zero.py): both build now
     for kw in (dict(shard_optimizer=True), dict(comm_dtype=torch.bfloat16)):
-        with pytest.raises(NotImplementedError, match="A9.1"):
-            TorchDDP(model, optimizer=toptim.SGD(lr=0.1), **kw)
+        ddp = TorchDDP(model, optimizer=toptim.SGD(lr=0.1),
+                       loss_fn=tnn.CrossEntropyLoss(), **kw)
+        assert ddp.init(seed=0).step == 0
+    # the JAX package's own refusals raise in the port too
+    with pytest.raises(ValueError, match="accum_steps must be >= 1"):
+        TorchDDP(model, optimizer=toptim.SGD(lr=0.1), accum_steps=0)
+    with pytest.raises(ValueError, match="requires optimizer= and loss_fn="):
+        TorchDDP(model).train_step(None, None, None)
+    with pytest.raises(ValueError, match="requires optimizer= and loss_fn="):
+        TorchDDP(model).train_repeat(None, None, None, 2)
     # sync_batchnorm came with the vision slice: a model without BatchNorm
     # trains as before
     ddp = TorchDDP(model, optimizer=toptim.SGD(lr=0.1),

@@ -36,14 +36,17 @@ def build(batch: int = 8, seq_len: int = 2048, dim: int = 768,
           depth: int = 12, heads: int = 12, vocab: int = 32768,
           fused: bool = True, group=None, device=None,
           sequence_axis=None, mode: str = "ring", remat: bool = False,
-          norm: str = "layernorm", rope: bool = False):
+          norm: str = "layernorm", rope: bool = False, optimizer=None,
+          **ddp_kw):
     """The benchmark's model, DDP wrapper and batch: returns ``(ddp, x, y)``
     with ``x``/``y`` this rank's (batch, seq_len) slice of the global
     random-token batch.  ``sequence_axis``/``mode``: the sequence-parallel
     model (``TransformerLM(sequence_axis=, mode=)``; at world 1 its
     attention is one ring block, or Ulysses' identity all-to-all).
     ``remat``, ``norm``, ``rope``: the model's options (``norm="rmsnorm",
-    rope=True`` is the LLaMA-family recipe)."""
+    rope=True`` is the LLaMA-family recipe).  ``optimizer`` (default
+    ``SGD(lr=0.01)``) and ``ddp_kw`` (``shard_optimizer=``,
+    ``comm_dtype=``) go to the DDP."""
     device = resolve_device(device)
     world = group.size() if group is not None else 1
     rank = group.rank if group is not None else 0
@@ -52,9 +55,9 @@ def build(batch: int = 8, seq_len: int = 2048, dim: int = 768,
                           sequence_axis=sequence_axis, mode=mode,
                           remat=remat, norm=norm, rope=rope)
     ddp = DistributedDataParallel(
-        model, optimizer=optim.SGD(lr=0.01),
+        model, optimizer=optimizer or optim.SGD(lr=0.01),
         loss_fn=nn.CrossEntropyLoss(fused=fused), group=group,
-        compute_dtype=torch.bfloat16)
+        compute_dtype=torch.bfloat16, **ddp_kw)
     rng = np.random.default_rng(0)
     x = rng.integers(0, vocab, (batch * world, seq_len))
     y = rng.integers(0, vocab, (batch * world, seq_len))

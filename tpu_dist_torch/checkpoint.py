@@ -25,9 +25,13 @@ Writes are atomic (a temporary directory, every file and the directory
 fsync'd, then renamed, and the parent fsync'd) and step-numbered; only rank
 0 of the default group writes, every rank restores.  ``shard=(rank,
 world)`` writes rank-sharded state: every rank its own tree under
-:func:`shard_root`, its coordinates in the metadata.  The JAX package's
-reshard manifest and ``prune_sharded`` belong to its elastic resharding,
-which the port does not have yet (ROADMAP A9.1).
+:func:`shard_root`, its coordinates in the metadata and, when the tree
+holds ZeRO layout metadata, the JAX package's **reshard manifest**
+(``tree.json``'s ``metadata.reshard``: leaf sizes and dtypes, which arrays
+are sharded, a sha256 per fragment), so a sharded checkpoint of either
+package restores at another world size in either
+(``resilience/reshard.py``).  :func:`prune_sharded` prunes such a tree on
+completeness.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ import numpy as np
 import torch
 
 __all__ = ["save", "restore", "latest_step", "all_steps", "shard_root",
-           "devices", "DigestError", "AsyncCheckpointer", "GracefulShutdown"]
+           "prune_sharded", "devices", "DigestError", "AsyncCheckpointer",
+           "GracefulShutdown"]
 
 _STEP_DIR = re.compile(r"^step_(\d{8})$")
 _BF16 = "bfloat16"
@@ -209,7 +214,12 @@ def save(root: str, tree: Any, step: int, metadata: Optional[Dict] = None,
         path = os.path.join(sroot, f"step_{step:08d}")
         meta = dict(metadata or {})
         meta["shard_rank"], meta["shard_world"] = rank, world
-        _write(sroot, path, *_host_arrays(tree), step, meta, keep)
+        arrays, dtypes = _host_arrays(tree)
+        from .resilience.reshard import manifest_from_arrays
+        manifest = manifest_from_arrays(arrays)
+        if manifest is not None:
+            meta["reshard"] = manifest
+        _write(sroot, path, arrays, dtypes, step, meta, keep)
         return path
     path = os.path.join(root, f"step_{step:08d}")
     if not _is_rank0():
@@ -365,6 +375,38 @@ def latest_step(root: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def prune_sharded(root: str, keep: int) -> list:
+    """Prune a sharded checkpoint tree (the replicated root and every
+    ``shard_r*`` root) to the newest ``keep`` **complete** steps; returns
+    the pruned step numbers.  A step is complete when the replicated
+    checkpoint and, at the world its own shard metadata records, every
+    shard 0..world-1 are present (``reshard.resumable_steps``); every step
+    older than the ``keep``-th newest complete one goes, complete or not,
+    and newer incomplete steps stay for their writers to finish.  Per-root
+    pruning could delete the one older step still complete everywhere, the
+    step the resume agreement would pick.  With private per-host disks the
+    local view never proves a step complete, so nothing is pruned."""
+    from .resilience.reshard import local_visibility, resumable_steps
+    complete = sorted(resumable_steps([local_visibility(root)]))
+    if keep is None or len(complete) <= max(int(keep), 0):
+        return []
+    cutoff = complete[-int(keep)]
+    roots = [root]
+    if os.path.isdir(root):
+        roots += [os.path.join(root, name)
+                  for name in sorted(os.listdir(root))
+                  if name.startswith("shard_r")
+                  and os.path.isdir(os.path.join(root, name))]
+    pruned = set()
+    for r in roots:
+        for s in all_steps(r):
+            if s < cutoff:
+                shutil.rmtree(os.path.join(r, f"step_{s:08d}"),
+                              ignore_errors=True)
+                pruned.add(s)
+    return sorted(pruned)
+
+
 # ---------------------------------------------------------------------------
 # restore
 # ---------------------------------------------------------------------------
@@ -410,9 +452,9 @@ def restore(root: str, template: Any, step: Optional[int] = None,
                 f"sharded checkpoint at {path!r} was saved as rank "
                 f"{got[0]} of world {got[1]}, but this process is rank "
                 f"{rank} of world {world}.  Direct restore is exact-match "
-                f"only; restoring at another world size needs elastic "
-                f"resharding, which the port does not have yet (ROADMAP "
-                f"A9.1).")
+                f"only; a different world size resumes through elastic "
+                f"resharding (resilience.TrainState.resume, or "
+                f"resilience.reshard.reshard_restore).")
     npz_path = os.path.join(path, "arrays.npz")
     if verify:
         recorded = meta.get("arrays_sha256")
@@ -460,7 +502,9 @@ def restore(root: str, template: Any, step: Optional[int] = None,
     if device is None or isinstance(device, (str, torch.device)):
         flat_d = {k: device for k in flat_t}
     else:
-        flat_d = _flatten(device)
+        # a tree of devices, or of the DDP's state_shardings placements
+        flat_d = {k: getattr(d, "device", d)
+                  for k, d in _flatten(device).items()}
         missing = sorted(set(flat_t) - set(flat_d))
         if missing:
             raise ValueError(f"device tree does not match template: "

@@ -193,12 +193,18 @@ def rendezvous(init_method: Optional[str], world_size: int = -1,
     generation and meet every peer in the store's pre-flight.  Returns
     :func:`parse_init_method`'s ``(coordinator, num_processes,
     process_id)``; the caller then starts ``torch.distributed``."""
+    chaos_active = None
     if os.environ.get("TPU_DIST_CHAOS"):
-        raise NotImplementedError(
-            "deterministic fault injection (TPU_DIST_CHAOS) comes with "
-            "resilience, ROADMAP A9.1")
+        # deterministic fault injection rides along with any worker, no
+        # code changes needed (tpu_dist_torch/resilience/chaos.py)
+        from ..resilience import chaos as _chaos
+        chaos_active = _chaos.install_from_env()
     coordinator, num_processes, process_id = parse_init_method(
         init_method, world_size, rank)
+    if chaos_active is not None:
+        # install_from_env could only guess from RANK; the resolved
+        # process id is authoritative (explicit tcp:// ranks set no RANK)
+        chaos_active.rank = process_id
     if coordinator is None or num_processes <= 1:
         return coordinator, num_processes, process_id
     try:

@@ -257,6 +257,11 @@ class PyTCPStoreServer:
 _IDEMPOTENT_OPS = frozenset({_OP_GET, _OP_CHECK, _OP_NUMKEYS, _OP_WAIT_GE,
                              _OP_DELETE_PREFIX})
 _RECONNECT_ATTEMPTS = 4
+# Chaos fault hook (tpu_dist_torch.resilience.chaos): called as
+# fn(client, op, key) at the top of every pure-Python client request; may
+# close the client socket or sleep to inject deterministic connection
+# faults.  None in production.
+FAULT_HOOK = None
 _RECONNECT_BACKOFF = 0.05  # doubles per attempt
 
 
@@ -299,6 +304,8 @@ class _PyClient:
             pass  # the next send fails fast and consumes an attempt
 
     def request(self, op: int, key: str, payload: bytes = b"") -> bytes:
+        if FAULT_HOOK is not None:
+            FAULT_HOOK(self, op, key)  # once per logical request, not retry
         kb = key.encode()
         msg = (struct.pack("<BI", op, len(kb)) + kb
                + struct.pack("<I", len(payload)) + payload)

@@ -58,7 +58,7 @@ import torch
 from . import nn
 
 __all__ = ["load_jax_params", "load_jax_opt_state", "load_jax_state",
-           "jax_state", "flatten_linear_from_torch",
+           "jax_state", "jax_leaf_order", "flatten_linear_from_torch",
            "flatten_linear_to_torch"]
 
 _TRANSPOSED = {nn.Linear: ("weight",),
@@ -69,6 +69,16 @@ _TRANSPOSED = {nn.Linear: ("weight",),
 
 def _join(path: str, leaf: str) -> str:
     return f"{path}.{leaf}" if path else leaf
+
+
+def jax_leaf_order(names):
+    """Parameter names (``block0.attn.qkv_weight``) in the order
+    ``jax.tree.leaves`` visits the JAX package's tree ``{module_path:
+    {leaf: array}}``: sorted by module path, then by leaf name — which is
+    not the sorted order of the dotted names (``a.bz`` comes before
+    ``a.b.c``)."""
+    return sorted(names, key=lambda k: (k.rpartition(".")[0],
+                                        k.rpartition(".")[2]))
 
 
 def flatten_linear_from_torch(c: int, h: int, w: int):

@@ -34,6 +34,10 @@ which rank 0 hosts on ``MASTER_PORT``; it carries:
 - **supervised restarts** (``--max_restarts``): the generation under
   ``tpu_dist/generation``, and across nodes the launchers' agreement on
   each restart round;
+- the **elastic world** (``--elastic_world MIN:MAX``, one node): a rank
+  exiting ``PREEMPTED_EXIT_CODE`` re-forms the gang at the survivors, one
+  exiting ``GROW_EXIT_CODE`` at MAX, outside the restart budget, with the
+  workers' reshard plan printed beside the restart log;
 - the **serving gateway**'s backend registry (``--serve``).
 
 The names are the JAX package's, so either package's launcher starts either
@@ -62,20 +66,14 @@ __all__ = ["main", "build_parser", "reap_process"]
 _KILL_GRACE = 15.0
 # after SIGKILL, only the kernel's reaping of the zombie is left to wait for
 _REAP_GRACE = 5.0
-# seconds every launcher waits for the others at a multi-node restart
-# agreement (the JAX launcher's --elastic_timeout default; the flag itself
-# comes with the elastic world, ROADMAP A9.1)
-_AGREE_TIMEOUT = 120.0
 
 # flags whose machinery is a later item: (dest, flag, default, what)
-_A91 = "elastic world resizing, ROADMAP A9.1"
 _ROLES = "role graphs, with the control plane, ROADMAP A9.2"
 _FAILOVER = "store replication and leader failover, ROADMAP A9.2"
 _LATER = (
-    ("elastic_world", "--elastic_world", None, _A91),
-    ("elastic_timeout", "--elastic_timeout", 120.0, _A91),
     ("coll_timeout", "--coll_timeout", 0.0,
-     "the host collectives' watchdog, ROADMAP A9.1"),
+     "the host collectives' watchdog, with the host data plane, ROADMAP "
+     "A9.1b"),
     ("sanitize", "--sanitize", False,
      "the collective sanitizer, with the control plane, ROADMAP A9.2"),
     ("flight_recorder", "--flight-recorder", False,
@@ -135,9 +133,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "TPU_DIST_RESTART_COUNT and should resume from "
                         "their latest checkpoint")
     p.add_argument("--elastic_world", type=str, default=None,
-                   metavar="MIN:MAX", help="elastic world-size range" + later)
+                   metavar="MIN:MAX",
+                   help="elastic world-size range (single-node). A worker "
+                        "exiting with PREEMPTED_EXIT_CODE (117: preempted "
+                        "for good; the chaos `shrink` fault) re-forms the "
+                        "gang at the surviving rank count instead of "
+                        "burning --max_restarts relaunching a world that "
+                        "can never fill; GROW_EXIT_CODE (118: capacity "
+                        "returned; the chaos `grow` fault) re-forms at MAX. "
+                        "World-size changes don't count against "
+                        "--max_restarts. Workers resume from sharded "
+                        "checkpoints via elastic resharding "
+                        "(resilience.TrainState). Multi-node: ROADMAP A9.2")
     p.add_argument("--elastic_timeout", type=float, default=120.0,
-                   help="restart agreement timeout" + later)
+                   help="seconds to wait for every launcher to join the "
+                        "restart agreement before giving up (multi-node "
+                        "--max_restarts only)")
     p.add_argument("--restart_backoff", type=float, default=1.0,
                    help="base seconds between restart rounds; doubles each "
                         "round (capped at 30s) with up to 25%% jitter")
@@ -289,19 +300,22 @@ def _check_liveness(store, world_size: int) -> List[int]:
 
 
 def _spawn_world(args, world_size: int, master_port: int,
-                 store_addr: Optional[str],
-                 restart_count: int) -> List[subprocess.Popen]:
-    """Spawn this node's ranks; on a partial failure kill the ranks already
-    spawned (never leave them waiting in the rendezvous) and re-raise."""
+                 store_addr: Optional[str], restart_count: int,
+                 nproc: Optional[int] = None) -> List[subprocess.Popen]:
+    """Spawn this node's ranks (``nproc`` of them: an elastic world may run
+    fewer than ``--nproc_per_node``); on a partial failure kill the ranks
+    already spawned (never leave them waiting in the rendezvous) and
+    re-raise."""
     procs: List[subprocess.Popen] = []
     base_rank = args.node_rank * args.nproc_per_node
+    nproc = args.nproc_per_node if nproc is None else nproc
     try:
-        for local_rank in range(args.nproc_per_node):
+        for local_rank in range(nproc):
             env = dict(os.environ,
                        RANK=str(base_rank + local_rank),
                        LOCAL_RANK=str(local_rank),
                        WORLD_SIZE=str(world_size),
-                       LOCAL_WORLD_SIZE=str(args.nproc_per_node),
+                       LOCAL_WORLD_SIZE=str(nproc),
                        NODE_RANK=str(args.node_rank),
                        MASTER_ADDR=args.master_addr,
                        MASTER_PORT=str(master_port),
@@ -328,8 +342,12 @@ def _spawn_world(args, world_size: int, master_port: int,
 def _watch_world(args, procs: List[subprocess.Popen], store,
                  world_size: int, rnd: int = 0):
     """Watch one round until every rank exits → ``(exit_code,
-    interrupted)``; ``interrupted`` tells a Ctrl-C of the launcher (never
-    restarted) from a worker that exited 130.
+    interrupted, rcs)``; ``interrupted`` tells a Ctrl-C of the launcher
+    (never restarted) from a worker that exited 130, and ``rcs`` holds each
+    local rank's exit code as reaped BEFORE the launcher's own teardown
+    (``None`` after it: an exit code answering our TERM is not a
+    preemption), so ``--elastic_world`` can tell preempted ranks (117) and
+    grow requests (118) from crashes.
 
     Fail fast: the first non-zero exit tears the rest down, SIGTERM and
     then, after ``_KILL_GRACE`` seconds, SIGKILL — a rank blocked in a
@@ -338,7 +356,21 @@ def _watch_world(args, procs: List[subprocess.Popen], store,
     die publishes the round's failure key; every launcher polls it and
     tears its own workers down, so the world stops together.  With
     ``--heartbeat_timeout``, a rank that is alive but silent is lost
-    (``RankLostError``) and fails the round the same way."""
+    (``RankLostError``) and fails the round the same way.
+
+    ``--elastic_world``: preemptions come in batches, so when the first
+    failing exit is the elastic protocol (117/118) the teardown waits a
+    settle window (``TPU_DIST_PREEMPT_SETTLE``, 2 s) for the siblings' own
+    exits before TERMing the rest; any other crash tears down at once."""
+    from ..resilience.chaos import GROW_EXIT_CODE, PREEMPTED_EXIT_CODE
+    elastic_rcs = (PREEMPTED_EXIT_CODE, GROW_EXIT_CODE)
+    try:
+        settle = float(os.environ.get("TPU_DIST_PREEMPT_SETTLE", "2.0"))
+    except ValueError:
+        settle = 2.0
+    teardown_at = None    # when to TERM the still-running ranks
+    teardown_done = False
+    pre_teardown_rcs = {}
     exit_code = 0
     interrupted = False
     t0 = time.monotonic()
@@ -366,7 +398,8 @@ def _watch_world(args, procs: List[subprocess.Popen], store,
         hb_poll_every = min(0.5, args.heartbeat_timeout / 4)
 
     def teardown(remaining):
-        nonlocal kill_deadline
+        nonlocal kill_deadline, teardown_done
+        teardown_done = True
         for j in remaining:
             procs[j].terminate()
         kill_deadline = time.monotonic() + _KILL_GRACE
@@ -395,13 +428,26 @@ def _watch_world(args, procs: List[subprocess.Popen], store,
                 if rc is None:
                     continue
                 remaining.discard(i)
+                if not teardown_done:
+                    pre_teardown_rcs[i] = rc
                 if rc == 0 and monitor is not None:
                     # a finished rank is done, not lost
                     monitor.mark_done(base_rank + i)
-                if rc != 0 and exit_code == 0:
-                    exit_code = rc
-                    publish_failure()
-                    teardown(remaining)
+                if rc != 0:
+                    if exit_code == 0:
+                        exit_code = rc
+                        publish_failure()
+                    if args.elastic_world and rc in elastic_rcs:
+                        # batched preemption: let sibling 117/118s land
+                        # before tearing down, so the survivor count (the
+                        # re-formed world size) is right
+                        if teardown_at is None:
+                            teardown_at = time.monotonic() + settle
+                    else:
+                        teardown_at = time.monotonic()
+            if (teardown_at is not None and not teardown_done
+                    and time.monotonic() >= teardown_at):
+                teardown(remaining)
             if (multi_node and exit_code == 0 and not remote_failed
                     and time.monotonic() - last_remote_check > 0.5):
                 last_remote_check = time.monotonic()
@@ -447,7 +493,70 @@ def _watch_world(args, procs: List[subprocess.Popen], store,
                 reap_process(p)
         exit_code = 130
         interrupted = True
-    return exit_code, interrupted
+    return exit_code, interrupted, [pre_teardown_rcs.get(i)
+                                    for i in range(len(procs))]
+
+
+def _report_reshard_plan(store, new_world: int) -> None:
+    """Print the elastic resharding plan next to the restart log
+    (best-effort diagnostics): the workers published their checkpoint root
+    under ``tpu_dist/elastic/ckpt_root`` (resilience.TrainState); from the
+    newest locally resumable step's manifest the supervisor derives the
+    old-world → ``new_world`` fragment plan the re-formed gang will run."""
+    if store is None:
+        return
+    try:
+        if not store.check("tpu_dist/elastic/ckpt_root"):
+            return
+        root = store.get("tpu_dist/elastic/ckpt_root").decode()
+        from ..resilience import reshard
+        vis = reshard.local_visibility(root)
+        steps = reshard.resumable_steps([vis])
+        if not steps:
+            return
+        step = max(steps)
+        manifest = None
+        for o in sorted(vis["shards"]):
+            if vis["shards"][o].get(step) == steps[step]:
+                manifest = reshard.load_manifest(root, step, o)
+                if manifest is not None:
+                    break
+        if manifest is None:
+            return
+        for line in reshard.plan_summary(manifest, new_world).splitlines():
+            _log(line)
+    except Exception as e:  # a summary must never block the restart
+        _log(f"reshard plan summary unavailable ({e!r})")
+
+
+def _elastic_new_world(elastic_range, cur_world: int,
+                       rcs: List[Optional[int]]) -> Optional[int]:
+    """The world size the next round re-forms at, or None when this failed
+    round is not an elastic world change (an ordinary crash: the restart
+    budget applies).  The JAX launcher's rule, rule for rule: a rank exiting
+    PREEMPTED_EXIT_CODE (117) is gone for good — re-form at the survivors
+    (clamped to MIN: below it there is no legal world, so the round falls
+    back to a budgeted full-world restart); GROW_EXIT_CODE (118) means
+    capacity is back — re-form at MAX, but a simultaneous preemption wins
+    (the grow came from a world that no longer exists)."""
+    if elastic_range is None:
+        return None
+    from ..resilience.chaos import GROW_EXIT_CODE, PREEMPTED_EXIT_CODE
+    lo, hi = elastic_range
+    preempted = sum(1 for rc in rcs if rc == PREEMPTED_EXIT_CODE)
+    if preempted:
+        surviving = cur_world - preempted
+        if surviving < lo:
+            _log(f"{preempted} rank(s) preempted but {surviving} survivors "
+                 f"is below --elastic_world MIN {lo}; retrying at the full "
+                 f"world size")
+            return None
+        return surviving if surviving != cur_world else None
+    if any(rc == GROW_EXIT_CODE for rc in rcs):
+        # already at MAX: a redundant grow request is a free same-world
+        # relaunch, not a crash
+        return hi if hi != cur_world else cur_world
+    return None
 
 
 def _reset_round_state(store, finished_round: Optional[int] = None) -> None:
@@ -505,7 +614,7 @@ def _exit_sync(args, store, rnd: int) -> None:
         store.add(key, 1)
         if args.node_rank == 0:
             store.wait_value_ge(key, args.nnodes,
-                                timeout=min(15.0, _AGREE_TIMEOUT))
+                                timeout=min(15.0, args.elastic_timeout))
     except Exception:
         pass  # best effort: at worst the peer takes its noisier error path
 
@@ -526,15 +635,15 @@ def _cluster_agree(args, store, rnd: int, local_rc: int,
        resets the round's keys, then publishes ``go/{rnd}``; the others
        respawn only after reading it.
 
-    The JAX launcher's elastic re-form verdict (a world of another size)
-    comes with the elastic world, ROADMAP A9.1."""
+    The JAX launcher's cluster re-form verdict (a world of another size
+    across nodes) rides its cluster membership, ROADMAP A9.2."""
     prefix = "tpu_dist/elastic"
     try:
         if local_rc != 0:
             store.set(f"{prefix}/fail/{rnd}", str(args.node_rank).encode())
         store.add(f"{prefix}/done/{rnd}", 1)
         store.wait_value_ge(f"{prefix}/done/{rnd}", args.nnodes,
-                            timeout=_AGREE_TIMEOUT)
+                            timeout=args.elastic_timeout)
         failed = local_rc != 0 or store.check(f"{prefix}/fail/{rnd}")
     except Exception as e:
         _log(f"cluster agreement failed ({e!r}); giving up")
@@ -554,11 +663,11 @@ def _cluster_agree(args, store, rnd: int, local_rc: int,
             store.set(f"{prefix}/go/{rnd}",
                       json.dumps({"port": rc_port, "plan": None}).encode())
         else:
-            store.wait([f"{prefix}/go/{rnd}"], timeout=_AGREE_TIMEOUT)
+            store.wait([f"{prefix}/go/{rnd}"], timeout=args.elastic_timeout)
             go = json.loads(store.get(f"{prefix}/go/{rnd}").decode())
             if go.get("plan"):
                 raise RuntimeError("node 0 published an elastic re-form "
-                                   "plan (ROADMAP A9.1)")
+                                   "plan (ROADMAP A9.2)")
             rc_port = int(go["port"])
     except Exception as e:
         _log(f"cluster restart handshake failed ({e!r}); giving up")
@@ -618,6 +727,35 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "control-plane store; drop --no_store\n")
         return 2
     world_size = args.nproc_per_node * args.nnodes
+    elastic_range = None
+    if args.elastic_world:
+        if args.nnodes > 1:
+            sys.stderr.write("--elastic_world with --nnodes>1: the cluster "
+                             "re-form rides the cluster membership, with "
+                             "the control plane, ROADMAP A9.2, which is not "
+                             "in tpu_dist_torch yet\n")
+            return 2
+        try:
+            lo, hi = (int(v) for v in args.elastic_world.split(":"))
+        except ValueError:
+            sys.stderr.write(f"--elastic_world must be MIN:MAX, got "
+                             f"{args.elastic_world!r}\n")
+            return 2
+        if not 1 <= lo <= hi:
+            sys.stderr.write(f"--elastic_world needs 1 <= MIN <= MAX, got "
+                             f"{lo}:{hi}\n")
+            return 2
+        if args.no_store:
+            # generation fencing and the reshard visibility exchange ride
+            # the store
+            sys.stderr.write("--elastic_world needs the control-plane "
+                             "store; drop --no_store\n")
+            return 2
+        if not lo <= world_size <= hi:
+            sys.stderr.write(f"--nproc_per_node={args.nproc_per_node} is "
+                             f"outside --elastic_world={lo}:{hi}\n")
+            return 2
+        elastic_range = (lo, hi)
 
     store, master_port, store_addr = _setup_store(args)
     if master_port is None:
@@ -644,19 +782,24 @@ def main(argv: Optional[List[str]] = None) -> int:
                  "--port", str(args.serve_port)],
                 env=dict(os.environ, TPU_DIST_STORE_ADDR=store_addr))
 
-    restarts = 0
+    restarts = 0   # failure budget, compared against --max_restarts
+    rnd = 0        # generation: EVERY relaunch (failure or elastic world
+    #                change) advances it, so a re-formed gang never meets a
+    #                stale rank's keyspace
+    cur_world = world_size
     try:
         while True:
             if store is not None and args.node_rank == 0:
-                _publish_generation(store, restarts)
-            procs = _spawn_world(args, world_size, master_port, store_addr,
-                                 restarts)
-            exit_code, interrupted = _watch_world(args, procs, store,
-                                                  world_size, rnd=restarts)
+                _publish_generation(store, rnd)
+            procs = _spawn_world(args, cur_world, master_port, store_addr,
+                                 rnd, nproc=(cur_world if elastic_range
+                                             else None))
+            exit_code, interrupted, rcs = _watch_world(args, procs, store,
+                                                       cur_world, rnd=rnd)
             if interrupted:
                 return exit_code
             if multi_node:
-                verdict, val = _cluster_agree(args, store, restarts,
+                verdict, val = _cluster_agree(args, store, rnd,
                                               exit_code, negotiated_port,
                                               master_port)
                 if verdict == "done":
@@ -665,18 +808,39 @@ def main(argv: Optional[List[str]] = None) -> int:
                     return val
                 master_port = val
                 restarts += 1
+                rnd += 1
                 _log(f"world failed; agreed restart {restarts}/"
                      f"{args.max_restarts} across {args.nnodes} nodes — "
                      f"relaunching")
                 _restart_backoff(args, restarts)
                 continue
+            new_world = (_elastic_new_world(elastic_range, cur_world, rcs)
+                         if exit_code != 0 else None)
+            if new_world is not None:
+                # elastic re-form: preempted ranks are gone for good (117)
+                # or capacity returned (118).  Not a failure restart: the
+                # budget stays untouched, the generation advances; other
+                # non-zero exits of the round are the dying gang's fallout
+                rnd += 1
+                _log(f"elastic world change: {cur_world} -> {new_world} "
+                     f"(generation {rnd}; restart budget untouched at "
+                     f"{restarts}/{args.max_restarts}) — re-forming")
+                _report_reshard_plan(store, new_world)
+                cur_world = new_world
+                if store is not None:
+                    _reset_round_state(store, finished_round=rnd - 1)
+                _restart_backoff(args, 1)
+                if negotiated_port:
+                    master_port = _free_port()
+                continue
             if exit_code == 0 or restarts >= args.max_restarts:
                 return exit_code
             restarts += 1
+            rnd += 1
             _log(f"worker failed (rc={exit_code}); restart "
                  f"{restarts}/{args.max_restarts} — relaunching the world")
             if store is not None:
-                _reset_round_state(store, finished_round=restarts - 1)
+                _reset_round_state(store, finished_round=rnd - 1)
             _restart_backoff(args, restarts)
             if negotiated_port:
                 # the previous round's c10d store socket may linger in

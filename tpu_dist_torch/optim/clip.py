@@ -94,7 +94,8 @@ def sharded_global_norm(shards: Grads, group=None,
     world = (group.size() if group is not None else
              dist.get_world_size() if dist.is_initialized() else 1)
     if world > 1:
-        torch.distributed.all_reduce(local)
+        torch.distributed.all_reduce(
+            local, group=group.torch_group if group is not None else None)
     return local.sqrt()
 
 

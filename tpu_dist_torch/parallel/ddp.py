@@ -5,9 +5,26 @@ update into one program under ``shard_map``.  The port runs the same step
 eagerly: float32 master parameters (the module's own) are cast to
 ``compute_dtype`` for the forward and backward, the gradients land in float32
 on the masters through the cast's backward, and with world > 1 they are
-averaged over the group with ``torch.distributed.all_reduce`` before the
-optimizer updates the masters in place.  Each rank steps on its own rows of
-the global batch (the JAX package's device shard).
+averaged over the group before the optimizer updates the masters in place.
+Each rank steps on its own rows of the global batch (the JAX package's
+device shard).
+
+**The gradient sync.**  The gradients are concatenated in the JAX package's
+leaf order (``interop.jax_leaf_order``: its parameter tree's sorted keys,
+not torch's registration order) into one flat vector per dtype, zero-padded
+to a multiple of the world size, and averaged as one
+``reduce_scatter_tensor`` (each rank divides its chunk's sum by the world
+size) and one ``all_gather_into_tensor``.  ``shard_optimizer=True`` (ZeRO-1,
+the JAX option) stops after the reduce-scatter: each rank updates only its
+chunk of the flat float32 parameters, with optimizer state ``{"flat":
+chunk}`` (1/world of the replicated state), and all-gathers the updated
+parameters; the module's parameters are views of one flat buffer, so the
+gather lands in place.  Both paths sum every element in the same order, and
+the optimizers are element-wise, so ZeRO-1's parameters are the replicated
+path's bit for bit at any world.  ``comm_dtype`` (torch's
+``bf16_compress_hook``) divides by the world size before casting, reduces in
+``comm_dtype`` and casts back; at world 1 it still rounds the gradients
+through ``comm_dtype``, as the JAX package does.
 
 ``train_step`` consumes its state: the parameters, module state and
 optimizer buffers are updated in place (the JAX package donates them), and
@@ -43,6 +60,7 @@ state it was saved from, while the module's parameters stay where
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -52,7 +70,8 @@ from ..nn.layers import BatchNorm2d
 from ..nn.module import reset_parameters, rng_scope
 from ..nn.moe import MoELayer
 
-__all__ = ["TrainState", "DistributedDataParallel", "convert_sync_batchnorm"]
+__all__ = ["TrainState", "DistributedDataParallel", "convert_sync_batchnorm",
+           "Placement"]
 
 
 class TrainState(NamedTuple):
@@ -66,6 +85,21 @@ class TrainState(NamedTuple):
     opt_state: Dict[str, Any]
     step: int
     rng: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a state leaf lives (the port's counterpart of a JAX
+    ``NamedSharding``): its ``device``, and whether each rank holds its own
+    shard of it (``sharded``: ZeRO-1's optimizer state) or a replica.
+    ``checkpoint.restore(device=ddp.state_shardings(state))`` puts each
+    restored leaf on its device."""
+    device: torch.device
+    sharded: bool = False
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
 
 
 def convert_sync_batchnorm(module: torch.nn.Module, group) -> torch.nn.Module:
@@ -98,14 +132,14 @@ class DistributedDataParallel:
                  group=None, sync_batchnorm: bool = False,
                  compute_dtype=None, accum_steps: int = 1,
                  shard_optimizer: bool = False, comm_dtype=None):
+        """``shard_optimizer``: ZeRO-1 — the optimizer state and update of
+        each rank cover 1/world of the flattened parameters (module
+        docstring).  ``comm_dtype``: compress the gradient sync to this
+        dtype (divide by the world size first, reduce, cast back); composes
+        with ``accum_steps`` (one compression, at sync time) and ZeRO-1 (the
+        reduce-scatter runs compressed)."""
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-        for flag, what in ((shard_optimizer, "shard_optimizer (ZeRO-1)"),
-                           (comm_dtype is not None, "comm_dtype")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} comes with the ZeRO slice of the port (ROADMAP "
-                    f"A9.1)")
         if group is None:
             from .. import dist as _dist
             group = _dist.get_default_group() if _dist.is_initialized() \
@@ -120,6 +154,10 @@ class DistributedDataParallel:
         self._tg = group.torch_group if group is not None else None
         self.compute_dtype = compute_dtype
         self.accum_steps = accum_steps
+        self.shard_optimizer = shard_optimizer
+        self.comm_dtype = comm_dtype
+        self._flat = None      # ZeRO-1: the flat parameter buffer
+        self._flat_ptrs = None
         if sync_batchnorm and group is not None:
             convert_sync_batchnorm(module, group)
         # the module tree is fixed once wrapped: find its stateful layers once
@@ -139,7 +177,12 @@ class DistributedDataParallel:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         reset_parameters(self.module, generator)
         params = dict(self.module.named_parameters())
-        opt_state = self.optimizer.init(params) if self.optimizer else {}
+        if self.optimizer is None:
+            opt_state = {}
+        elif self.shard_optimizer:
+            opt_state = self._zero1_init(params)
+        else:
+            opt_state = self.optimizer.init(params)
         model_state = {path: {"mean": m.running_mean, "var": m.running_var}
                        for path, m in self._bns}
         model_state.update(
@@ -147,6 +190,137 @@ class DistributedDataParallel:
              for path, _ in self._moes})
         rng = random.fold_in(random.key(seed), 0x5EED)
         return TrainState(params, model_state, opt_state, 0, rng)
+
+    # -- the flat gradient sync and ZeRO-1 -----------------------------------
+
+    def _order(self, params) -> list:
+        from ..interop import jax_leaf_order
+        return jax_leaf_order(params)
+
+    @torch.no_grad()
+    def _zero1_init(self, params) -> Dict[str, Any]:
+        """Make the module's parameters views of one flat float32 buffer
+        (JAX leaf order, padded to a multiple of the world size) and build
+        this rank's optimizer state over its chunk of it."""
+        order = self._order(params)
+        dtypes = {params[k].dtype for k in order}
+        if dtypes != {torch.float32}:
+            raise ValueError(f"shard_optimizer needs float32 master "
+                             f"parameters, got {sorted(map(str, dtypes))}")
+        numel = sum(params[k].numel() for k in order)
+        padded = _ceil_to(numel, self.world_size)
+        flat = torch.zeros(padded, dtype=torch.float32, device=self.device)
+        off = 0
+        for k in order:
+            p = params[k]
+            view = flat[off:off + p.numel()].view_as(p)
+            view.copy_(p)
+            p.data = view
+            off += p.numel()
+        self._flat = flat
+        self._flat_ptrs = [params[k].data_ptr() for k in order]
+        chunk = padded // self.world_size
+        return self.optimizer.init(
+            {"flat": torch.zeros(chunk, dtype=torch.float32,
+                                 device=self.device)})
+
+    def _divisor(self, t: torch.Tensor) -> torch.Tensor:
+        # a 0-d device divisor: the card divides by a host scalar as a
+        # multiply by its reciprocal, which rounds otherwise
+        return torch.tensor(float(self.world_size), dtype=t.dtype,
+                            device=t.device)
+
+    def _reduce_scatter_avg(self, flat: torch.Tensor) -> torch.Tensor:
+        """This rank's chunk of the group average of the padded ``flat``
+        (``comm_dtype``: divided first, reduced in ``comm_dtype``, cast
+        back)."""
+        n, cd = self.world_size, self.comm_dtype
+        div = self._divisor(flat)
+        src = flat if cd is None else (flat / div).to(cd)
+        if n == 1:
+            shard = src
+        else:
+            shard = src.new_empty(src.numel() // n)
+            torch.distributed.reduce_scatter_tensor(shard, src,
+                                                    group=self._tg)
+        return shard / div if cd is None else shard.to(flat.dtype)
+
+    @torch.no_grad()
+    def _sync_grads(self, grads: Dict[str, torch.Tensor]):
+        """The group average of ``grads``: per dtype, one flat reduce-
+        scatter and all-gather in JAX leaf order (module docstring)."""
+        n = self.world_size
+        order = self._order(grads)
+        out = {}
+        for dt in dict.fromkeys(grads[k].dtype for k in order):
+            names = [k for k in order if grads[k].dtype == dt]
+            flat = torch.cat([grads[k].reshape(-1) for k in names])
+            numel = flat.numel()
+            flat = torch.nn.functional.pad(flat, (0, _ceil_to(numel, n)
+                                                  - numel))
+            shard = self._reduce_scatter_avg(flat)
+            if n > 1:
+                full = shard.new_empty(flat.numel())
+                torch.distributed.all_gather_into_tensor(full, shard,
+                                                         group=self._tg)
+            else:
+                full = shard
+            for k, v in zip(names, full[:numel].split(
+                    [grads[k].numel() for k in names])):
+                out[k] = v.view_as(grads[k])
+        return {k: out[k] for k in grads}
+
+    @torch.no_grad()
+    def _zero1_update(self, grads, state: "TrainState"):
+        """ZeRO-1: reduce-scatter the flat gradients, update this rank's
+        chunk of the flat parameters with its optimizer state, all-gather
+        the parameters (in place when they are the flat buffer's views)."""
+        params = state.params
+        order = self._order(params)
+        n, me = self.world_size, self.rank
+        g = torch.cat([grads[k].reshape(-1) for k in order])
+        numel = g.numel()
+        padded = _ceil_to(numel, n)
+        g = torch.nn.functional.pad(g, (0, padded - numel))
+        g_shard = self._reduce_scatter_avg(g)
+        in_place = (self._flat is not None and self._flat_ptrs
+                    == [params[k].data_ptr() for k in order])
+        flat = (self._flat if in_place else torch.nn.functional.pad(
+            torch.cat([params[k].detach().reshape(-1) for k in order]),
+            (0, padded - numel)))
+        chunk = padded // n
+        p_shard = flat[me * chunk:(me + 1) * chunk]
+        _, new_opt = self.optimizer.update({"flat": g_shard},
+                                           state.opt_state, {"flat": p_shard})
+        if n > 1:
+            torch.distributed.all_gather_into_tensor(flat, p_shard.clone(),
+                                                     group=self._tg)
+        if not in_place:
+            views = flat[:numel].split([params[k].numel() for k in order])
+            torch._foreach_copy_([params[k].data for k in order],
+                                 [v.view_as(params[k]) for k, v in
+                                  zip(order, views)])
+        return params, new_opt
+
+    def state_shardings(self, state: "TrainState") -> "TrainState":
+        """A tree of :class:`Placement` mirroring ``state``: every leaf
+        replicated on its device, except ZeRO-1's optimizer state (its
+        tensors of one or more dimensions are this rank's shard; scalar
+        counters stay replicated).  Feed it to
+        ``checkpoint.restore(device=...)`` so a restored state lands where
+        this one lives."""
+        from .. import checkpoint
+
+        def place(path, leaf):
+            dev = (leaf.device if isinstance(leaf, torch.Tensor)
+                   else torch.device("cpu"))
+            sharded = (self.shard_optimizer and path.startswith(".opt_state")
+                       and getattr(leaf, "ndim", 0) >= 1)
+            return Placement(dev, sharded)
+
+        flat = checkpoint._flatten(state)
+        return checkpoint._unflatten(state, {k: place(k, v)
+                                             for k, v in flat.items()})
 
     def _call(self, params, model_state, x):
         """The module's forward on ``params`` with the BatchNorm statistics
@@ -234,15 +408,17 @@ class DistributedDataParallel:
                                     torch.float32, copy=True)}
                                 for path, m in self._moes})
             if self.world_size > 1:
-                for g in grads.values():
-                    torch.distributed.all_reduce(g, group=self._tg)
-                    g.div_(self.world_size)
                 torch.distributed.all_reduce(loss, group=self._tg)
                 loss.div_(self.world_size)
                 torch.distributed.all_reduce(correct, group=self._tg)
                 self._average_state(model_state)
-            new_params, new_opt = self.optimizer.update(
-                grads, state.opt_state, params)
+            if self.shard_optimizer:
+                new_params, new_opt = self._zero1_update(grads, state)
+            else:
+                if self.world_size > 1 or self.comm_dtype is not None:
+                    grads = self._sync_grads(grads)
+                new_params, new_opt = self.optimizer.update(
+                    grads, state.opt_state, params)
         return (TrainState(new_params, model_state, new_opt,
                            state.step + 1, state.rng),
                 {"loss": loss, "correct": correct})
@@ -254,6 +430,21 @@ class DistributedDataParallel:
         shape ``(k,)``."""
         losses, corrects = [], []
         for x, y in zip(xs, ys):
+            state, m = self.train_step(state, x, y)
+            losses.append(m["loss"])
+            corrects.append(m["correct"])
+        return state, {"loss": torch.stack(losses),
+                       "correct": torch.stack(corrects)}
+
+    def train_repeat(self, state: TrainState, x, y, num_steps: int):
+        """``num_steps`` train steps on the same batch: what that many
+        :meth:`train_step` calls return (the step counter still advances,
+        so dropout draws anew).  Returns ``(new_state, metrics)`` with each
+        metric stacked per step, shape ``(num_steps,)``."""
+        if self.optimizer is None or self.loss_fn is None:
+            raise ValueError("train_repeat requires optimizer= and loss_fn=")
+        losses, corrects = [], []
+        for _ in range(num_steps):
             state, m = self.train_step(state, x, y)
             losses.append(m["loss"])
             corrects.append(m["correct"])

@@ -143,6 +143,10 @@ class Heartbeat:
     def _beat(self, final: bool = False) -> None:
         if self.store is None:
             return
+        from . import chaos as _chaos
+        c = _chaos.active()
+        if c is not None and c.heartbeat_stalled(self._step, self.rank):
+            return  # a chaos-stalled rank must not even announce its exit
         self._seq += 1
         seq = "exit" if final else self._seq
         step = -1 if self._step is None else self._step
