@@ -187,7 +187,33 @@ Phases, each printed as one JSON line:
    parameters bit for bit the uninterrupted ones; the seconds from the
    kill to the first resumed step; the twin's step with cuDNN's
    deterministic algorithms and without.  No kernel on the elastic path.
-15. ``kernels``: one line over all kernels; the card's name and power limit
+15. ``host_ring``: the dense cell's gradients (four seeded batches of 2
+   rows: K1f/K1b 4 and K2f/K2b 48 launches, wgmma; 548 MB of CUDA leaves a
+   rank) reduced by four thread ranks on the host data plane (one port
+   TCPStore, a DataPlane and a ``Bucketer(dp=, comm_dtype=)`` a rank), op
+   ``avg``: float32, bfloat16 and ``int8_block256`` with an ErrorFeedback
+   over the flat TCP ring; float32 and int8 over SHM lanes and over the
+   hierarchical ring (hosts simulated 2 x 2 with
+   ``TPU_DIST_HOST_ID_R{rank}``).  Every result byte-identical across
+   ranks and back on the card; hier and SHM bit for bit the flat TCP ring;
+   the float32 ring at world 2 bit for bit ``(g0 + g1) / 2`` on the card;
+   the float32 and int8 rings bit for bit the same rings over CPU copies
+   of the gradients; int8 within 0.05 x max(|exact|, 1).  MB/s per wire and
+   algorithm, the wire compression off the byte counters, which lanes were
+   live, the D2H, pack and H2D staging ms, the checksum that resolved and
+   its cost (the float32 ring with checksums off).  ``host_zero``:
+   ``ZeroOptimizer(AdamW, dp=, comm_dtype="int8_block256",
+   error_feedback=True)`` on four thread ranks for three steps of those
+   gradients: parameters byte-identical across ranks, ``zstate["ef"]``
+   shard-shaped on the host, the exact gather equal to the master shards;
+   a sharded save (ranks 2 and 3 share a root, the others each their own)
+   and a reshard 4 -> 3 in which the fragments a new rank's root lacks are
+   pushed over the data plane, bit for bit the saved shards; ``frags_peer``,
+   the bytes pushed and the reshard seconds.  ``quant_gate``: the
+   ``accuracy_run`` twin's ConvNet gate at world 2 (two worker processes on
+   this card, store and data plane only, no NCCL; 150 steps, batch 128, lr
+   0.02): the int8 + EF accuracy within ±3 SE of the float32 wire's.
+16. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
@@ -197,8 +223,8 @@ named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``resume``, ``flash_offdiag``, ``split_diag``, ``ring``, ``sp_train``,
 ``augment``, ``imagenet``, ``vit``, ``launch``, ``launch_restart``,
 ``gateway``, ``store``, ``moe_dispatch``, ``llama``, ``long_32k``,
-``serve_rope``, ``zero_ddp``, ``zero_opt``, ``elastic``) and never prints
-the result line.
+``serve_rope``, ``zero_ddp``, ``zero_opt``, ``elastic``, ``host_ring``,
+``host_zero``, ``quant_gate``) and never prints the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -4489,6 +4515,375 @@ def check_elastic(results):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# The host data plane (slice 13)
+# ---------------------------------------------------------------------------
+
+HOST_WORLD = 4
+HOST_LAYOUT = ("h0", "h0", "h1", "h1")      # 2 hosts x 2 ranks, per rank
+# tests/test_quant_collectives.py's int8 bound, a share of max(|exact|, 1)
+HOST_INT8_BOUND = 0.05
+HOST_RESHARD_TO = 3
+
+
+def _host_env(shm: bool, crc: bool = True) -> None:
+    """The thread rig's transport knobs (read per send): SHM lanes on or off,
+    frame checksums on or off, and the simulated 2 x 2 host layout."""
+    os.environ["TPU_DIST_SHM"] = "auto" if shm else "0"
+    os.environ["TPU_DIST_FRAME_CRC"] = "1" if crc else "0"
+    for r, h in enumerate(HOST_LAYOUT):
+        os.environ[f"TPU_DIST_HOST_ID_R{r}"] = h
+
+
+def _host_ranks(store, n: int, fn, timeout: float = 600):
+    """``fn(dp, rank)`` on one thread a rank, each with its own DataPlane
+    over ``store`` (the JAX tests' rig, ``tests/test_zero.py:27-54``);
+    every plane is closed afterwards and every thread must finish."""
+    import threading
+
+    from tpu_dist_torch.collectives import transport as T
+
+    dps = [T.DataPlane(store, r, n) for r in range(n)]
+    out, errs = [None] * n, []
+
+    def run(r):
+        try:
+            out[r] = fn(dps[r], r)
+        except Exception as e:  # re-raised below
+            errs.append((r, e))
+
+    threads = [threading.Thread(target=run, args=(r,), daemon=True)
+               for r in range(n)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout)
+        if any(t.is_alive() for t in threads):
+            raise TimeoutError(f"a host rank did not finish in {timeout}s")
+    finally:
+        for dp in dps:
+            dp.close()
+    if errs:
+        raise errs[0][1]
+    return out
+
+
+def _ring_sync(store, grads, wire=None, ef: bool = False, hier: bool = False):
+    """One ``Bucketer(dp=, comm_dtype=wire).all_reduce(op="avg")`` of each
+    rank's gradient tree over the thread rig (the hierarchical ring: the
+    Bucketer over the host-major group view, ``topology.hier_group``).
+    Returns ``(results, seconds, staging, shm_active, compression)``."""
+    from tpu_dist_torch.collectives import Bucketer
+    from tpu_dist_torch.collectives import eager as E
+    from tpu_dist_torch.collectives import topology as TO
+    from tpu_dist_torch.collectives.quant import ErrorFeedback
+
+    n = len(grads)
+    E.reset_transport_counters()
+
+    def body(dp, r):
+        plane = TO.hier_group(dp).view(dp) if hier else dp
+        b = Bucketer(dp=plane, comm_dtype=wire)
+        efo = ErrorFeedback() if ef else None
+        if grads[r][next(iter(grads[r]))].is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = b.all_reduce(grads[r], op="avg",
+                           error_feedback=efo).wait_all(600)
+        if grads[r][next(iter(grads[r]))].is_cuda:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lanes = any(dp.shm_active(p) for p in range(n) if p != r)
+        return res, t1 - t0, dict(b.staging), lanes, (
+            efo.norm() if efo is not None else None)
+
+    out = _host_ranks(store, n, body)
+    c = E.transport_counters().get("bucket_all_reduce/dataplane", {})
+    return ([o[0] for o in out], max(o[1] for o in out), out[0][2],
+            [o[3] for o in out], c.get("compression"), out[0][4])
+
+
+def _trees_equal(a: dict, b: dict) -> bool:
+    """Bit for bit, leaf by leaf (on the host when the devices differ)."""
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) if a[k].device == b[k].device
+        else torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def _dense_rank_grads(n: int):
+    """The dense cell (``host_sync.dense_cell``: GPT-2-small, T = 2048,
+    bf16 over float32 masters, fused loss) and ``n`` ranks' gradients, each
+    from its own seeded batch of 2 rows, with every kernel's launches over
+    the ``n`` forward and backward passes."""
+    from tpu_dist_torch import dist
+    from tpu_dist_torch.benchmarks.host_sync import dense_cell, rank_grads
+    dist.init_process_group(device="cuda")
+    try:
+        ddp, state = dense_cell(device="cuda")
+        zero_launch_counts()
+        grads = [rank_grads(ddp, state, r) for r in range(n)]
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    counts, by_design, ok = path_launches(n, {
+        "cross_entropy_fwd": 1, "cross_entropy_bwd": 1, "flash_fwd": 12,
+        "flash_bwd": 12})
+    return ddp, state, grads, counts, by_design, ok
+
+
+def check_host_ring(results):
+    """The dense cell's gradients (548 MB of CUDA leaves a rank) reduced
+    by four thread ranks on the host ring: float32, bfloat16 and
+    ``int8_block256`` with an ErrorFeedback over the flat TCP ring; float32
+    and int8 over SHM lanes and over the hierarchical ring (2 hosts x 2);
+    every result byte-identical across ranks and back on the card; hier
+    bit for bit the flat ring, SHM the TCP ring; the float32 ring at world
+    2 bit for bit ``(g0 + g1) / 2`` on the card; the float32 and int8 rings
+    bit for bit the same rings over CPU copies of the gradients; int8
+    within ``HOST_INT8_BOUND``.  MB/s per wire and algorithm, compression
+    off the wire-byte counters, staging ms, the checksum and its cost."""
+    from tpu_dist_torch.collectives import transport as T
+    from tpu_dist_torch.dist.store import TCPStore
+
+    store = TCPStore(is_master=True, timeout=120)
+    _, _, grads, counts, by_design, ok_launch = _dense_rank_grads(
+        HOST_WORLD)
+    nbytes = sum(v.numel() * v.element_size() for v in grads[0].values())
+    exact = {k: sum(g[k] for g in grads) / HOST_WORLD for k in grads[0]}
+    rows, checks = {}, {}
+    keep = {}
+    try:
+        for name, wire, ef, shm, hier in (
+                ("f32_flat", None, False, False, False),
+                ("bf16_flat", "bfloat16", False, False, False),
+                ("int8_ef_flat", "int8_block256", True, False, False),
+                ("f32_flat_shm", None, False, True, False),
+                ("int8_ef_flat_shm", "int8_block256", True, True, False),
+                ("f32_hier", None, False, True, True),
+                ("int8_ef_hier", "int8_block256", True, True, True)):
+            _host_env(shm)
+            res, sec, staging, lanes, comp, efn = _ring_sync(
+                store, grads, wire, ef, hier)
+            same = all(_trees_equal(res[0], res[r])
+                       for r in range(1, HOST_WORLD))
+            on_card = all(v.is_cuda for r in res for v in r.values())
+            rows[name] = {"mb_s": nbytes / sec / 1e6, "seconds": sec,
+                          "compression": comp, "shm_active": lanes,
+                          "transport": ("shm" if all(lanes) else "tcp"
+                                        if not any(lanes) else "mixed"),
+                          "staging_ms": {k[:-2] + "_ms": v * 1e3
+                                         for k, v in staging.items()},
+                          "ef_residual_norm": efn}
+            checks[f"{name}_byte_identical"] = same
+            checks[f"{name}_on_card"] = on_card
+            if name in ("f32_flat", "int8_ef_flat"):
+                keep[name] = res[0]
+            elif name.startswith("f32"):
+                checks[f"{name}_equals_flat"] = _trees_equal(
+                    res[0], keep["f32_flat"])
+            elif name.startswith("int8"):
+                checks[f"{name}_equals_flat"] = _trees_equal(
+                    res[0], keep["int8_ef_flat"])
+            if name == "int8_ef_flat":
+                err = max(float((res[0][k] - exact[k]).abs().max())
+                          for k in exact)
+                top = max(float(v.abs().max()) for v in exact.values())
+                checks["int8_max_err_within_bound"] = \
+                    err <= HOST_INT8_BOUND * max(top, 1.0)
+                rows[name]["max_abs_err"] = err
+                rows[name]["bound"] = HOST_INT8_BOUND * max(top, 1.0)
+            del res
+            torch.cuda.empty_cache()
+        # the steady D2H snapshot (the pinned buffers of a first one kept)
+        from tpu_dist_torch.collectives import Bucketer
+        b = Bucketer()
+        for _ in range(2):
+            b._snapshot(list(grads[0].values()))
+        steady_d2h_ms = b.staging["d2h_s"] * 1e3
+        del b
+        # the checksum's cost: the float32 TCP ring with checksums off
+        _host_env(False, crc=False)
+        _, sec_off, _, _, _, _ = _ring_sync(store, grads)
+        crc = {"impl": T.crc_impl(), "mb_s_on": rows["f32_flat"]["mb_s"],
+               "mb_s_off": nbytes / sec_off / 1e6,
+               "overhead": rows["f32_flat"]["seconds"] / sec_off - 1.0}
+        # world 2: two addends have one order
+        _host_env(False)
+        res2, sec2, _, _, _, _ = _ring_sync(store, grads[:2])
+        want2 = {k: (grads[0][k] + grads[1][k]) / 2 for k in grads[0]}
+        checks["f32_w2_equals_card_mean"] = _trees_equal(res2[0], want2)
+        rows["f32_flat_w2"] = {"mb_s": nbytes / sec2 / 1e6, "seconds": sec2}
+        del res2, want2
+        # the same rings over CPU copies: the arithmetic is the host's
+        # either way, so this holds the staging, dtypes and leaf order
+        cpu = [{k: v.cpu() for k, v in g.items()} for g in grads]
+        for name, wire, ef in (("f32_flat", None, False),
+                               ("int8_ef_flat", "int8_block256", True)):
+            res, sec, _, _, _, _ = _ring_sync(store, cpu, wire, ef)
+            checks[f"{name}_equals_cpu_copy"] = _trees_equal(
+                keep[name], res[0])
+            rows[f"{name}_cpu_copy"] = {"mb_s": nbytes / sec / 1e6,
+                                        "seconds": sec}
+            del res
+        del cpu
+    finally:
+        for k in ("TPU_DIST_SHM", "TPU_DIST_FRAME_CRC"):
+            os.environ.pop(k, None)
+        for r in range(HOST_WORLD):
+            os.environ.pop(f"TPU_DIST_HOST_ID_R{r}", None)
+        store.close()
+    for name in ("cross_entropy_fwd", "cross_entropy_bwd", "flash_fwd",
+                 "flash_bwd"):
+        results.setdefault(name, {}).setdefault("launches", counts[name])
+    emit("host_ring", world=HOST_WORLD, bytes_per_rank=nbytes,
+         leaves=len(grads[0]), host_layout=HOST_LAYOUT, rows=rows,
+         checks=checks, crc=crc, steady_d2h_ms=steady_d2h_ms,
+         launches=counts,
+         launches_by_design=by_design, ok_launches=ok_launch)
+    return ok_launch and all(checks.values())
+
+
+def _owned_shards_equal(z, zs, params) -> bool:
+    """This rank's gathered parameters, cut at its owned spans, equal its
+    master shards bit for bit (the exact gather)."""
+    from tpu_dist_torch.collectives import _tree
+    leaves = [t.reshape(-1) for t in _tree.flatten(params)[0]]
+    plan = z._plan
+    return all(torch.equal(torch.cat([leaves[i][slice(*plan.spans[i])]
+                                      for i in idxs]), zs["shards"][key])
+               for key, idxs in plan.groups)
+
+
+def check_host_zero(results):
+    """``ZeroOptimizer(dp=, comm_dtype="int8_block256", error_feedback=True)``
+    over AdamW on four thread ranks, three steps of the dense cell's
+    gradients: parameters byte-identical across ranks, ``zstate["ef"]``
+    shard-shaped on the host, the exact gather equal to the master shards;
+    then a sharded save with the residuals (ranks 2 and 3 share a root, the
+    others each their own) and a reshard 4 -> 3 in which every fragment a
+    new rank's root does not hold is pushed over the data plane, the
+    restored shards bit for bit the saved ones."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpu_dist_torch import checkpoint, optim
+    from tpu_dist_torch.dist.store import TCPStore
+    from tpu_dist_torch.parallel import ZeroOptimizer
+    from tpu_dist_torch.resilience import reshard
+
+    _, state, grads, counts, _, ok_launch = _dense_rank_grads(HOST_WORLD)
+    params0 = state.params
+    store = TCPStore(is_master=True, timeout=120)
+    _host_env(False)
+    out = tempfile.mkdtemp(prefix="host_zero_", dir=os.environ.get("TMPDIR"))
+    roots = [os.path.join(out, f"root{min(r, 2)}") for r in range(HOST_WORLD)]
+    try:
+        def train(dp, r):
+            z = ZeroOptimizer(optim.AdamW(lr=1e-4), dp=dp,
+                              comm_dtype="int8_block256",
+                              error_feedback=True)
+            params = {k: v.clone() for k, v in params0.items()}
+            zs = z.init(params)
+            step_s = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                h, zs = z.update(grads[r], zs, timeout=600)
+                params = h.wait(600)
+                if params0[next(iter(params0))].is_cuda:
+                    torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            exact = _owned_shards_equal(z, zs, params)
+            shaped = all(zs["ef"][k].shape == zs["shards"][k].shape
+                         and zs["ef"][k].device.type == "cpu"
+                         for k in zs["shards"])
+            t0 = time.perf_counter()
+            checkpoint.save(roots[r], {"zero": zs}, step=3,
+                            shard=(r, HOST_WORLD))
+            save_s = time.perf_counter() - t0
+            saved = {p: v.cpu().numpy().copy() if isinstance(
+                v, torch.Tensor) else np.asarray(v).copy()
+                for p, v in checkpoint._flatten({"zero": zs}).items()}
+            return params, exact, shaped, step_s, save_s, saved, float(
+                sum(float(v.norm()) ** 2 for v in zs["ef"].values())) ** .5
+
+        res = _host_ranks(store, HOST_WORLD, train)
+        same = all(_trees_equal(res[0][0], res[r][0])
+                   for r in range(1, HOST_WORLD))
+        finite = all(bool(torch.isfinite(v).all()) for v in
+                     res[0][0].values())
+        saved = [x[5] for x in res]
+        res = [x[1:5] + x[6:] for x in res]    # the parameters go
+        plan = reshard.ReshardPlan(reshard.load_manifest(roots[0], 3, 0),
+                                   HOST_RESHARD_TO)
+        vis = {0: {0}, 1: {1}, 2: {2, 3}}
+        new_roots = [os.path.join(out, f"root{r}")
+                     for r in range(HOST_RESHARD_TO)]
+
+        def restore(dp, r):
+            t0 = time.perf_counter()
+            arrays, stats = reshard.execute_plan(
+                plan, rank=r, root=new_roots[r], step=3, visibility=vis,
+                dp=dp, verify=True, timeout=300)
+            return arrays, stats, time.perf_counter() - t0
+
+        back = _host_ranks(store, HOST_RESHARD_TO, restore)
+        sources = plan.resolve_sources(vis)
+        bitwise, frags_peer, bytes_peer = True, 0, 0
+        for r, (arrays, stats, _) in enumerate(back):
+            want = {p: np.zeros(n[r], plan.new_dtype[p])
+                    for p, n in plan.new_len.items()}
+            for f in plan.frags_for(r):
+                want[f.path][f.new_off:f.new_off + f.length] = \
+                    saved[f.old_rank][f.path].reshape(-1)[
+                        f.old_off:f.old_off + f.length]
+                if sources[f.fid] != r:
+                    bytes_peer += f.length * np.dtype(f.dtype).itemsize
+            for rp in plan.repl:
+                want[rp.path] = saved[0][rp.path]
+            bitwise = bitwise and all(
+                arrays[p].tobytes() == np.asarray(w).tobytes()
+                for p, w in want.items())
+            frags_peer += stats.frags_peer
+        ef_paths = [p for p in plan.new_len if "['ef']" in p]
+    finally:
+        for k in ("TPU_DIST_SHM", "TPU_DIST_FRAME_CRC"):
+            os.environ.pop(k, None)
+        for r in range(HOST_WORLD):
+            os.environ.pop(f"TPU_DIST_HOST_ID_R{r}", None)
+        store.close()
+        shutil.rmtree(out, ignore_errors=True)
+    checks = {"params_byte_identical": same, "params_finite": finite,
+              "exact_gather_equals_master_shards": all(x[0] for x in res),
+              "ef_shard_shaped_on_host": all(x[1] for x in res),
+              "ef_rides_the_manifest": bool(ef_paths),
+              "reshard_bitwise": bitwise, "frags_pushed": frags_peer > 0}
+    emit("host_zero", world=HOST_WORLD, reshard_to=HOST_RESHARD_TO,
+         visibility={r: sorted(v) for r, v in vis.items()},
+         step_s=[x[2] for x in res], save_s=[x[3] for x in res],
+         ef_residual_norm=[x[4] for x in res],
+         frags_peer=frags_peer, bytes_pushed=bytes_peer,
+         frags_pushed={r: back[r][1].frags_pushed for r in range(len(back))},
+         reshard_s=max(b[2] for b in back),
+         reshard=[b[1].describe() for b in back], checks=checks,
+         launches=counts, ok_launches=ok_launch)
+    return ok_launch and all(checks.values())
+
+
+def check_quant_gate(results):
+    """The ``accuracy_run`` twin's ConvNet gate at world 2 (two worker
+    processes on this one card, store and data plane only, no NCCL): the
+    JAX spec (150 steps, batch 128, lr 0.02), float32 wire against
+    ``int8_block256`` with error feedback; ``|delta|`` within the ±3 SE
+    band."""
+    from tpu_dist_torch.benchmarks.accuracy_run import run_quant_ef_gate
+    row = run_quant_ef_gate(model="convnet", device="cuda")
+    emit("quant_gate", **row)
+    return row["within_noise"]
+
+
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("gmm", check_gmm), ("slice", check_slice),
           ("composition", check_composition), ("moe_slice", check_moe_slice),
@@ -4506,7 +4901,8 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("moe_dispatch", check_moe_dispatch), ("llama", check_llama),
           ("long_32k", check_long_32k), ("serve_rope", check_serve_rope),
           ("zero_ddp", check_zero_ddp), ("zero_opt", check_zero_opt),
-          ("elastic", check_elastic))
+          ("elastic", check_elastic), ("host_ring", check_host_ring),
+          ("host_zero", check_host_zero), ("quant_gate", check_quant_gate))
 
 
 def main() -> int:

@@ -139,11 +139,25 @@ def test_chunk_bounds_are_the_jax_rings(size, n):
     assert chunk_bounds(size, n) == _bounds(size, n)
 
 
+class _Plane:
+    """A pinned-mode stand-in for a DataPlane (rank and world only)."""
+
+    def __init__(self, rank, n):
+        self.rank, self.num_processes = rank, n
+
+
 def test_comm_dtype_and_error_feedback_name_a9_1b():
-    with pytest.raises(NotImplementedError, match="A9.1b"):
-        Bucketer(comm_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="A9.1b"):
-        Bucketer().all_reduce({"a": torch.ones(2)}, error_feedback=object())
+    # A9.1b (the host data plane) brought both: a pinned world of one
+    # returns copies of its leaves, on their devices
+    from tpu_dist_torch.collectives.quant import ErrorFeedback
+    x = torch.arange(4.0)
+    b = Bucketer(comm_dtype="bfloat16", dp=_Plane(0, 1))
+    out = b.all_reduce({"a": x}, error_feedback=ErrorFeedback()).wait_all()
+    assert torch.equal(out["a"], x) and out["a"].data_ptr() != x.data_ptr()
+    # what is still refused: the pinned ring-only harness takes no leaf
+    # the ring cannot reduce
+    with pytest.raises(ValueError, match="ring-only"):
+        Bucketer(dp=_Plane(0, 2)).all_reduce({"m": torch.ones(2) > 0})
 
 
 # ---------------------------------------------------------------------------

@@ -144,10 +144,28 @@ def test_bad_flags_exit_2_like_the_jax_launcher(tmp_path, worker, argv):
     assert trec == jrec == {}
 
 
+def test_coll_timeout_reaches_the_child_as_under_the_jax_launcher(tmp_path):
+    # --coll_timeout left the refused flags with the host data plane: both
+    # launchers export it to the child as TPU_DIST_COLL_TIMEOUT
+    probe = tmp_path / "coll.py"
+    probe.write_text(textwrap.dedent("""
+        import os, sys
+        with open(sys.argv[1], "w") as f:
+            f.write(os.environ.get("TPU_DIST_COLL_TIMEOUT", "<unset>"))
+    """))
+    seen = {}
+    for name, cli in (("jax", jcli), ("port", tcli)):
+        out = tmp_path / f"{name}.txt"
+        assert cli.main(["--nproc_per_node=1", "--coll_timeout=5",
+                         str(probe), str(out)]) == 0
+        seen[name] = out.read_text()
+    assert seen["port"] == seen["jax"] == "5.0"
+
+
 @pytest.mark.parametrize("flag,item", [
     ("--nnodes=2 --elastic_world=1:2", "A9.2"),
     ("--nnodes=2 --elastic_timeout=60 --elastic_world=2:2", "A9.2"),
-    ("--coll_timeout=5", "A9.1b"), ("--sanitize", "A9.2"),
+    ("--sanitize", "A9.2"),
     ("--flight-recorder", "A9.2"), ("--roles=learner:1", "A9.2"),
     ("--role_script=a=b.py", "A9.2"), ("--solo_restarts=1", "A9.2"),
     ("--verify_graph", "A9.2"), ("--no_verify_graph", "A9.2"),

@@ -1,5 +1,6 @@
 """The port stands alone: ``tpu_dist_torch`` imports neither ``jax`` nor
-``tpu_dist``, and its entry points do not move to the CPU on their own."""
+``tpu_dist`` (nor ``ml_dtypes``, which the card's machine lacks), and its
+entry points do not move to the CPU on their own."""
 
 import ast
 import pathlib
@@ -13,7 +14,7 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "tpu_dist_torch"
-FORBIDDEN = ("jax", "tpu_dist")
+FORBIDDEN = ("jax", "tpu_dist", "ml_dtypes")
 
 
 def test_imports_with_jax_and_tpu_dist_blocked():
@@ -21,6 +22,7 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import sys
         sys.modules["jax"] = None
         sys.modules["tpu_dist"] = None
+        sys.modules["ml_dtypes"] = None
         import tpu_dist_torch
         import tpu_dist_torch.interop
         import tpu_dist_torch.benchmarks.transformer_lm
@@ -82,6 +84,17 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch.utils.logging
         import tpu_dist_torch.examples.elastic_train
         import tpu_dist_torch.benchmarks.bench_zero
+        import tpu_dist_torch.collectives._lowp
+        import tpu_dist_torch.collectives.quant
+        import tpu_dist_torch.collectives.transport
+        import tpu_dist_torch.collectives.shm
+        import tpu_dist_torch.collectives.ring
+        import tpu_dist_torch.collectives.topology
+        import tpu_dist_torch.benchmarks.bench_host_collectives
+        import tpu_dist_torch.benchmarks.bench_overlap
+        import tpu_dist_torch.benchmarks.accuracy_run
+        import tpu_dist_torch.benchmarks.host_sync
+        import tpu_dist_torch.benchmarks.elastic_ring
         # the native store is built and served with jax and tpu_dist blocked
         from tpu_dist_torch.dist import TCPStore
         s = TCPStore(is_master=True, timeout=10)
@@ -89,7 +102,8 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         assert s.get("k") == b"v" and s.native
         s.close()
         loaded = sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist")
+                        if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist",
+                                               "ml_dtypes")
                         and sys.modules[m] is not None)
         assert not loaded, loaded
         print("ok")
@@ -157,6 +171,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench.run()
     assert bench_zero.main([]) == 2   # names --device cpu, runs nothing
+    from tpu_dist_torch.benchmarks import (accuracy_run,
+                                           bench_host_collectives,
+                                           bench_overlap, elastic_ring,
+                                           host_sync)
+    for bench in (bench_host_collectives, bench_overlap, host_sync,
+                  elastic_ring):
+        assert bench.main([]) == 2
+    assert accuracy_run.main(["--quant-gate-only"]) == 2
     loader = data.DataLoader(data.TensorDataset(np.zeros(4), np.zeros(4)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         data.DeviceLoader(loader)

@@ -289,6 +289,18 @@ def test_sharded_zero_checkpoint_crosses_packages(tmp_path, saver, old, new):
             assert flat[k].tobytes() == want[k].tobytes(), k
 
 
+class _SilentPeer:
+    """A data plane whose every receive fails with ``err``."""
+
+    rank, num_processes = 1, 2
+
+    def __init__(self, err):
+        self.err = err
+
+    def recv_array(self, src, tag, timeout=None):
+        raise self.err
+
+
 def test_missing_fragment_raises_the_named_error(tmp_path):
     full = _full()
     root = str(tmp_path)
@@ -297,9 +309,14 @@ def test_missing_fragment_raises_the_named_error(tmp_path):
     with pytest.raises(treshard.ReshardError, match="data plane"):
         treshard.execute_plan(plan, rank=1, root=root, step=5,
                               visibility={0: {0, 1}, 1: set()})
-    with pytest.raises(NotImplementedError, match="A9.1b"):
-        treshard.execute_plan(plan, rank=1, root=root, step=5,
-                              visibility={0: {0, 1}, 1: set()}, dp=object())
+    # with a data plane the fragment is awaited from its source rank, and a
+    # peer that never delivers, or dies, is named
+    for err, match in ((TimeoutError("late"), "did not deliver"),
+                       (ConnectionError("reset"), "died while serving")):
+        with pytest.raises(treshard.ReshardError, match=match):
+            treshard.execute_plan(plan, rank=1, root=root, step=5,
+                                  visibility={0: {0, 1}, 1: set()},
+                                  dp=_SilentPeer(err), timeout=0.5)
     with pytest.raises(treshard.ReshardError, match=r"old rank\(s\)"):
         plan.resolve_sources({0: {0}, 1: set()})
 

@@ -404,10 +404,20 @@ def test_zero_state_errors(pg1):
         z.update(ns["grad_tree"](0), bad)
     with pytest.raises(ZeroStateError, match="leaves"):
         z.update({"w1": torch.zeros(1001)}, zs)
+    # the host ring's wire options are accepted now; error feedback keeps
+    # a host residual a dtype group, and a reduce-scatter without the state
+    # that holds it is refused
     for kw in (dict(comm_dtype="bfloat16"), dict(error_feedback=True),
                dict(gather_comm_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="A9.1b"):
-            ZeroOptimizer(optim.SGD(lr=0.1), **kw)
+        zk = ZeroOptimizer(optim.SGD(lr=0.1), **kw)
+        st = zk.init(ns["params0"]())
+        assert ("ef" in st) == bool(kw.get("error_feedback"))
+        if "ef" in st:
+            assert all(v.device.type == "cpu" and not v.any()
+                       and v.shape == st["shards"][k].shape
+                       for k, v in st["ef"].items())
+            with pytest.raises(ZeroStateError, match="needs the current"):
+                zk.reduce_scatter(ns["grad_tree"](0))
 
 
 # ---------------------------------------------------------------------------

@@ -7,19 +7,26 @@
   gloo on the CPU).
 - **Eager** (:mod:`.eager`): host-level collectives of numpy values on a
   :class:`~tpu_dist_torch.dist.ProcessGroup` (metric averaging, parameter
-  broadcast, object collectives, ``send``/``recv``), staged through the
-  group's device on its own backend.
+  broadcast, object collectives, ``send``/``recv``), on the group's backend
+  or on the JAX package's routing (the store and the host data plane), as
+  ``TPU_DIST_HOST_TRANSPORT`` and the group's backend decide.
+- **The host data plane**: :mod:`.transport` (rank-to-rank sockets, CRC
+  frames, ``PeerGoneError``/``FrameCorruptError``/
+  ``CollectiveTimeoutError``), :mod:`.ring` (the chunk-pipelined ring
+  collectives; ``ring.ring_all_reduce`` is the host twin of the in-step
+  ``ops.ring_all_reduce``), :mod:`.shm` (shared-memory lanes),
+  :mod:`.topology` (host detection, data-plane sub-groups, the
+  hierarchical ring, ``TPU_DIST_ALGO``) and :mod:`.quant` (the
+  ``int8_block256`` wire and ``ErrorFeedback``) — the JAX package's
+  modules on its wire format.
 - **Async** (:mod:`.work`): ``async_op=True`` returns a :class:`Work`; the
   :class:`Bucketer` (:mod:`.bucketer`) coalesces a gradient tree into
   chunk-major buckets, each one asynchronous reduce-scatter (and
-  all-gather), so ZeRO's shards are the all-reduce's own spans.
-
-The JAX package's host socket data plane (``transport``, ``ring``,
-``shm``, ``topology``), its quantized wire (``quant``, ``ErrorFeedback``)
-and the errors of that transport are ROADMAP A9.1b.
+  all-gather) on the backend or one ring collective on the host data
+  plane, so ZeRO's shards are the all-reduce's own spans.
 """
 
-from . import bucketer, eager, ops, work
+from . import bucketer, eager, ops, quant, ring, shm, topology, transport, work
 from .bucketer import (Bucketer, BucketWork, bucketed_all_reduce,
                        bucketed_reduce_scatter)
 from .eager import (ReduceOp, all_gather_host, all_gather_object,
@@ -29,6 +36,11 @@ from .eager import (ReduceOp, all_gather_host, all_gather_object,
                     send_recv_device)
 from .ops import (all_gather, all_reduce, all_to_all, broadcast, pmean,
                   ppermute, psum, reduce_scatter, ring_all_reduce)
+from .quant import ErrorFeedback, QuantScheme
+from .topology import (GroupMembershipError, SubGroup, Topology,
+                       detect_topology, hier_all_reduce, new_group)
+from .transport import (CollectiveTimeoutError, DataPlane,
+                        FrameCorruptError, PeerGoneError)
 from .work import Work, wait_all
 
 __all__ = [
@@ -39,6 +51,11 @@ __all__ = [
     "send_recv_device",
     "all_gather_object", "gather_object", "broadcast_object_list",
     "scatter_object_list", "all_to_all_host",
+    "ring", "transport", "DataPlane", "PeerGoneError",
+    "FrameCorruptError", "CollectiveTimeoutError",
     "work", "Work", "wait_all", "bucketer", "Bucketer", "BucketWork",
     "bucketed_all_reduce", "bucketed_reduce_scatter",
+    "quant", "QuantScheme", "ErrorFeedback",
+    "shm", "topology", "Topology", "SubGroup", "GroupMembershipError",
+    "new_group", "detect_topology", "hier_all_reduce",
 ]

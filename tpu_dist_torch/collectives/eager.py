@@ -8,17 +8,37 @@ control decisions.  Each function takes this process's value (a numpy array,
 a Python scalar or a tensor, or a dict/list/tuple tree of them) and returns
 numpy, as the JAX functions do; a group of one process returns at once.
 
-**Transport.**  Everything rides the group's own ``torch.distributed``
-backend, staged through the group's device (NCCL: the rank's card; gloo:
-the CPU): the payload is pickled, moved as a uint8 tensor (an all-gather of
-the lengths, then of the padded payloads, or a broadcast of the length and
-then of the payload) and reduced on the host in rank order with the JAX
-package's numpy ufuncs (``np.mean`` for ``avg``), so each reduction gives
-the JAX store path's result bit for bit.  The JAX routing layer (store keys,
-the socket data plane, the sanitizer) belongs to the host data plane,
-ROADMAP A9.1b; :func:`send`/:func:`recv` ride ``torch.distributed.send``/
-``recv`` with the tag.  The objects are pickled: send only what this job
-made.
+**Which transport** (``TPU_DIST_HOST_TRANSPORT``, uniform across ranks;
+:func:`_prefer_backend` stands where the JAX package's ``_prefer_mesh``
+stands, the group's backend where XLA's mesh does):
+
+- **the group's backend** — ``auto`` on an NCCL group (the card), and
+  ``mesh``: the payload is pickled, moved as a uint8 tensor through
+  ``torch.distributed`` on the group's device and reduced on the host in
+  rank order with the JAX package's numpy ufuncs, so a reduction gives the
+  JAX store path's result bit for bit;
+- **the JAX routing** — ``auto`` on a gloo group (the CPU), and
+  ``dataplane``/``store`` anywhere (CUDA leaves are staged through host
+  memory): leaves below ``TPU_DIST_DP_THRESHOLD`` (64 KiB) batch into one
+  round of pickled keys on the control-plane store, under the JAX keys and
+  generation namespace; larger array leaves ride the host data plane
+  (:mod:`.transport`) as ring all-reduces and all-gathers and tree
+  broadcasts (:mod:`.ring`), ``TPU_DIST_ALGO`` choosing the flat or the
+  hierarchical ring (:mod:`.topology`), ``TPU_DIST_COMM_DTYPE`` /
+  ``TPU_DIST_COMM_DTYPE_GATHER`` compressing the wire; ``send``/``recv``
+  of a large array go as one frame.  A data-plane setup failure raises
+  rather than degrading one rank alone, and ``TPU_DIST_NO_DATAPLANE=1``
+  keeps every leaf on the store.  This is the JAX package's code path, so
+  the results agree with it bit for bit on both sides of the threshold,
+  and a JAX rank can share the ring.
+
+A group without the control-plane store (a ``tcp://`` rendezvous without
+the store pre-flight) keeps the backend — where the JAX package refuses
+(``eager.py`` ``_p2p_store``) or falls back to its mesh; a sub-group made
+by ``dist.new_group`` also keeps its backend (the data plane's own groups
+are :func:`.topology.new_group`).  The collective sanitizer and the flight
+recorder are the control plane's (ROADMAP A9.2).  Objects are pickled:
+send only what this job made.
 
 ``async_op=True`` (``all_reduce_host``, ``all_gather_host``,
 ``broadcast_host``, ``send``, ``recv``) returns a
@@ -29,20 +49,25 @@ its input copied at issue; every synchronous call first drains that queue.
 from __future__ import annotations
 
 import io
+import os
 import pickle
-from typing import Any, List, Optional
+import struct
+import threading
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from . import _tree
+from . import _lowp, _tree
 from .work import completed_work, drain_pending, engine
 
 __all__ = ["ReduceOp", "all_reduce_host", "all_gather_host",
            "broadcast_host", "reduce_host", "gather_host", "scatter_host",
            "send", "recv", "send_recv_device", "all_gather_object",
            "gather_object", "broadcast_object_list", "scatter_object_list",
-           "all_to_all_host"]
+           "all_to_all_host", "transport_counters",
+           "reset_transport_counters"]
 
 
 class ReduceOp:
@@ -80,6 +105,10 @@ def _default_group(group):
     if group is None:
         from .. import dist
         group = dist.get_default_group()
+    elif getattr(group, "rank", 0) is None:
+        # a data-plane SubGroup held by a non-member: fail before any
+        # payload moves (a non-member would desynchronize the members)
+        group.require_member()
     return group
 
 
@@ -90,9 +119,10 @@ def _check_peer(rank: int, group, what: str) -> None:
 
 
 def _host(v) -> np.ndarray:
-    """A leaf as numpy (a tensor is copied to the host)."""
+    """A leaf as numpy (a tensor is copied to the host; bfloat16 and
+    float8 as :mod:`._lowp` arrays)."""
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        return _lowp.from_torch(v)
     return np.asarray(v)
 
 
@@ -101,6 +131,67 @@ def _snapshot(x):
     may change its arrays the moment the Work returns."""
     return _tree.tree_map(lambda v: np.array(_host(v)), x)
 
+
+# -- which transport ----------------------------------------------------------
+
+def _host_transport() -> str:
+    return os.environ.get("TPU_DIST_HOST_TRANSPORT",
+                          "auto").strip().lower()
+
+
+def _prefer_backend(group) -> bool:
+    """True when host collectives stay on the group's own backend although
+    a store is up (the JAX ``_prefer_mesh``): ``mesh`` forces it,
+    ``dataplane``/``store`` force the JAX routing, and ``auto`` keeps an
+    NCCL group on NCCL (as the JAX package keeps a TPU job on its mesh) and
+    routes a gloo group (the CPU) as the JAX package routes its CPU
+    backend."""
+    mode = _host_transport()
+    if mode == "mesh":
+        return True
+    if mode in ("dataplane", "store"):
+        return False
+    return getattr(group, "backend", None) == "nccl"
+
+
+def _group_id(group) -> Optional[str]:
+    """A data-plane SubGroup's id, None for the flat world."""
+    return getattr(group, "group_id", None)
+
+
+def _group_scope(group) -> str:
+    gid = _group_id(group)
+    return f"/grp{gid}" if gid else ""
+
+
+def _use_backend(group, store) -> bool:
+    """Whether this collective rides the group's backend.  A data-plane
+    SubGroup never does (and needs the store); a group without the store,
+    or a backend sub-group of ``dist.new_group``, always does."""
+    if _group_id(group) is not None:
+        if store is None:
+            raise RuntimeError(
+                "sub-group collectives need the control-plane store "
+                "(launch with tpu_dist_torch.launch or set "
+                f"TPU_DIST_STORE_ADDR): {group.describe()}")
+        return False
+    if store is None or getattr(group, "_parent", None) is not None:
+        return True
+    return _prefer_backend(group)
+
+
+def _coll_store():
+    from ..dist import get_store
+    return get_store()
+
+
+def _ns() -> str:
+    """Store-key namespace of this gang incarnation (the JAX keys)."""
+    from ..dist import generation
+    return f"tpu_dist/g{generation()}"
+
+
+# -- the backend --------------------------------------------------------------
 
 def _stage(group) -> torch.device:
     """Where payloads are staged for the group's backend."""
@@ -160,26 +251,79 @@ def _submit(body, label: str, group, fast_path):
     return engine().submit(body, label=label)
 
 
+# -- the collectives ----------------------------------------------------------
+
 def all_reduce_host(x, group=None, op: str = ReduceOp.SUM,
                     async_op: bool = False):
     """Reduce a per-process value across the group; returns the reduced
-    value (numpy tree) on every process, reduced in rank order."""
+    value (numpy tree) on every process.  On the JAX routing, leaves of at
+    least ``TPU_DIST_DP_THRESHOLD`` bytes with a ring op (sum/avg/max/min)
+    ride the ring, the rest one store round."""
     group = _default_group(group)
     fn = _reduce_fn(op)
     if async_op:
         x = _snapshot(x)
-        return _submit(lambda: _all_reduce_body(x, group, fn),
+        return _submit(lambda: _all_reduce_body(x, group, op, fn),
                        f"all_reduce[{str(op).lower()}]", group, lambda: x)
     if group.num_processes <= 1:
         return _tree.tree_map(_host, x)
     drain_pending()
-    return _all_reduce_body(x, group, fn)
+    return _all_reduce_body(x, group, op, fn)
 
 
-def _all_reduce_body(x, group, fn):
+def _all_reduce_body(x, group, op, fn):
+    store = _coll_store()
+    if not _use_backend(group, store):
+        return _routed_all_reduce(x, group, store, op, fn)
     rows, treedef = _leaves_of_all(x, group)
     return _tree.unflatten(treedef, [
         fn(np.stack([row[i] for row in rows])) for i in range(len(rows[0]))])
+
+
+def _routed_all_reduce(x, group, store, op, fn):
+    from . import ring as _ring
+    from . import topology as _topo
+    n = group.num_processes
+    leaves, treedef = _tree.flatten(x)
+    arrs = [_host(v) for v in leaves]
+    opl = str(op).lower()
+    scope = _group_scope(group)
+    seq = _next_seq(f"allreduce{scope}", 0)
+    base = f"{_ns()}{scope}/coll/ar/{seq}"
+    ring_idx, small, dp = _partition_and_dp(arrs, group, store, opl)
+    out: List = [None] * len(arrs)
+    if small:
+        t0 = time.perf_counter()
+        rows = _store_all_gather_payload([arrs[i] for i in small], group,
+                                         store, base + "/sm")
+        for pos, i in enumerate(small):
+            out[i] = fn(np.stack([np.asarray(rows[r][pos])
+                                  for r in range(n)]))
+        record_transport("all_reduce", "store",
+                         sum(arrs[i].nbytes for i in small), t0)
+        _topo.record_algo("all_reduce", "store")
+    comm = _comm_dtype()
+    in_group = _group_id(group) is not None
+    for j, i in enumerate(ring_idx):
+        t0 = time.perf_counter()
+        stats: dict = {}
+        # per leaf: flat or two-level ring, and the compute-bound float32
+        # fallback (size, store-agreed topology and env only, so every rank
+        # picks the same); inside a SubGroup the ring has its own order
+        if in_group:
+            algo, comm_ok = "flat", True
+        else:
+            algo, comm_ok = _topo.select_algo(arrs[i].nbytes, dp=dp)
+        leaf_comm = comm if comm_ok else None
+        _topo.record_algo("all_reduce", algo)
+        reduce = (_topo.hier_all_reduce if algo == "hier"
+                  else _ring.ring_all_reduce)
+        out[i] = reduce(dp, arrs[i], op=opl, tag=f"{base}/{j}",
+                        comm_dtype=leaf_comm, stats=stats)
+        record_transport("all_reduce", "dataplane", arrs[i].nbytes, t0,
+                         wire_bytes=stats.get("wire_bytes"),
+                         raw_wire_bytes=stats.get("raw_wire_bytes"))
+    return _tree.unflatten(treedef, out)
 
 
 def all_gather_host(x, group=None, async_op: bool = False):
@@ -197,9 +341,42 @@ def all_gather_host(x, group=None, async_op: bool = False):
 
 
 def _all_gather_body(x, group):
+    store = _coll_store()
+    if not _use_backend(group, store):
+        return _routed_all_gather(x, group, store)
     rows, treedef = _leaves_of_all(x, group)
     return _tree.unflatten(treedef, [
         np.stack([row[i] for row in rows]) for i in range(len(rows[0]))])
+
+
+def _routed_all_gather(x, group, store):
+    from . import ring as _ring
+    n = group.num_processes
+    leaves, treedef = _tree.flatten(x)
+    arrs = [_host(v) for v in leaves]
+    scope = _group_scope(group)
+    seq = _next_seq(f"allgather{scope}", 0)
+    base = f"{_ns()}{scope}/coll/ag/{seq}"
+    ring_idx, small, dp = _partition_and_dp(arrs, group, store)
+    out: List = [None] * len(arrs)
+    if small:
+        t0 = time.perf_counter()
+        rows = _store_all_gather_payload([arrs[i] for i in small], group,
+                                         store, base + "/sm")
+        for pos, i in enumerate(small):
+            out[i] = np.stack([np.asarray(rows[r][pos]) for r in range(n)])
+        record_transport("all_gather", "store",
+                         sum(arrs[i].nbytes for i in small), t0)
+    comm = _gather_comm_dtype()  # its own knob: gathers are often exact
+    for j, i in enumerate(ring_idx):
+        t0 = time.perf_counter()
+        stats: dict = {}
+        out[i] = _ring.ring_all_gather(dp, arrs[i], tag=f"{base}/{j}",
+                                       comm_dtype=comm, stats=stats)
+        record_transport("all_gather", "dataplane", arrs[i].nbytes, t0,
+                         wire_bytes=stats.get("wire_bytes"),
+                         raw_wire_bytes=stats.get("raw_wire_bytes"))
+    return _tree.unflatten(treedef, out)
 
 
 def broadcast_host(x, group=None, src: int = 0, async_op: bool = False):
@@ -221,11 +398,49 @@ def broadcast_host(x, group=None, src: int = 0, async_op: bool = False):
 
 def _broadcast_body(x, group, src):
     _check_peer(src, group, "src")
+    store = _coll_store()
+    if not _use_backend(group, store):
+        return _routed_broadcast(x, group, store, src)
     leaves, treedef = _tree.flatten(x)
     raw = (_dumps([np.array(_host(v)) for v in leaves])
            if group.rank == src else None)
     vals = pickle.loads(_broadcast_bytes(raw, src, group))
     return _tree.unflatten(treedef, [np.asarray(v) for v in vals])
+
+
+def _routed_broadcast(x, group, store, src):
+    from . import ring as _ring
+    n, me = group.num_processes, group.rank
+    leaves, treedef = _tree.flatten(x)
+    arrs = [_host(v) for v in leaves]
+    scope = _group_scope(group)
+    seq = _next_seq(f"bcast{scope}", src)
+    base = f"{_ns()}{scope}/coll/bc/{seq}"
+    tree_idx, small, dp = _partition_and_dp(arrs, group, store)
+    out: List = [None] * len(arrs)
+    if small:
+        t0 = time.perf_counter()
+        key = f"{base}/sm"
+        if me == src:
+            store.set(key, _seal(_dumps([arrs[i] for i in small])))
+            # copies: the source must not hand back aliases of its input
+            vals = [np.array(arrs[i]) for i in small]
+        else:
+            _wait_peer_keys(store, [key])  # bounded: src may have died
+            vals = pickle.loads(_unseal(store.get(key), "store-broadcast"))
+        if me != src and store.add(f"{key}/ack", 1) >= n - 1:
+            store.delete_key(key)
+            store.delete_key(f"{key}/ack")
+        for pos, i in enumerate(small):
+            out[i] = np.asarray(vals[pos])
+        record_transport("broadcast", "store",
+                         sum(arrs[i].nbytes for i in small), t0)
+    for j, i in enumerate(tree_idx):
+        t0 = time.perf_counter()
+        out[i] = _ring.tree_broadcast(dp, arrs[i], src=src,
+                                      tag=f"{base}/{j}")
+        record_transport("broadcast", "dataplane", arrs[i].nbytes, t0)
+    return _tree.unflatten(treedef, out)
 
 
 def reduce_host(x, dst: int = 0, group=None, op: str = ReduceOp.SUM):
@@ -249,16 +464,45 @@ def reduce_host(x, dst: int = 0, group=None, op: str = ReduceOp.SUM):
 def gather_host(x, dst: int = 0, group=None) -> Optional[List]:
     """torch ``dist.gather`` parity: process ``dst`` returns the list of
     every process's value (index = rank; shapes may differ by rank); every
-    other process returns ``None``."""
+    other process returns ``None``.  On the JAX routing each rank posts
+    one store key and ``dst`` collects them."""
     group = _default_group(group)
     _check_peer(dst, group, "dst")
-    if group.num_processes <= 1:
+    n = group.num_processes
+    if n <= 1:
         return [_tree.tree_map(_host, x)]
     drain_pending()
+    store = _coll_store()
+    if not _use_backend(group, store):
+        return _routed_gather(x, dst, group, store, n)
     rows = _all_gather_bytes(_dumps(_tree.tree_map(_host, x)), group)
     if group.rank != dst:
         return None
     return [pickle.loads(r) for r in rows]
+
+
+def _routed_gather(x, dst, group, store, n):
+    seq = _next_seq(f"gather{_group_scope(group)}", dst)
+    t0 = time.perf_counter()
+    if group.rank != dst:
+        store.set(_coll_key("gather", dst, seq, group.rank, group),
+                  _tree_to_bytes(x))
+        return None
+    keys = [_coll_key("gather", dst, seq, r, group) for r in range(n)
+            if r != dst]
+    _wait_peer_keys(store, keys)
+    out, nbytes = [], 0
+    for r in range(n):
+        if r == dst:
+            out.append(_tree.tree_map(_host, x))
+            continue
+        key = _coll_key("gather", dst, seq, r, group)
+        raw = store.get(key)
+        nbytes += len(raw)
+        out.append(_tree_from_bytes(raw))
+        store.delete_key(key)
+    record_transport("gather", "store", nbytes, t0)
+    return out
 
 
 def scatter_host(output_template, scatter_list: Optional[List] = None,
@@ -288,9 +532,58 @@ def scatter_host(output_template, scatter_list: Optional[List] = None,
         if n <= 1:
             return payload[0]
     drain_pending()
+    store = _coll_store()
+    if not _use_backend(group, store):
+        return _routed_scatter(payload, src, group, store, n)
     full = pickle.loads(_broadcast_bytes(
         _dumps(payload) if group.rank == src else None, src, group))
     return full[group.rank]
+
+
+def _routed_scatter(payload, src, group, store, n):
+    # src posts one store key a destination; each rank fetches its own
+    seq = _next_seq(f"scatter{_group_scope(group)}", src)
+    t0 = time.perf_counter()
+    if group.rank == src:
+        nbytes = 0
+        for dst in range(n):
+            if dst != src:
+                raw = _tree_to_bytes(payload[dst])
+                nbytes += len(raw)
+                store.set(_coll_key("scatter", src, seq, dst, group), raw)
+        record_transport("scatter", "store", nbytes, t0)
+        return payload[src]
+    key = _coll_key("scatter", src, seq, group.rank, group)
+    raw = store.get(key)       # blocks until src posts it
+    store.delete_key(key)
+    record_transport("scatter", "store", len(raw), t0)
+    return _tree_from_bytes(raw)
+
+
+# -- object collectives -------------------------------------------------------
+
+def _obj_to_u8(obj: Any) -> np.ndarray:
+    return np.frombuffer(pickle.dumps(obj), np.uint8)
+
+
+def _all_gather_u8(obj: Any, group) -> tuple:
+    """The JAX routing's object gather: pickle, pad, all-gather; returns
+    ``(rows, lens)``."""
+    payload = _obj_to_u8(obj)
+    lens = all_gather_host(np.int64(payload.size), group)
+    padded = np.zeros(int(lens.max()), np.uint8)
+    padded[:payload.size] = payload
+    return all_gather_host(padded, group), lens
+
+
+def _object_rows(obj: Any, group) -> List[bytes]:
+    """Every rank's pickled ``obj``, by rank, on either transport."""
+    if not _use_backend(group, _coll_store()):
+        rows, lens = _all_gather_u8(obj, group)
+        return [rows[r, :int(lens[r])].tobytes()
+                for r in range(group.num_processes)]
+    drain_pending()
+    return _all_gather_bytes(_dumps(obj), group)
 
 
 def all_gather_object(obj: Any, group=None) -> List[Any]:
@@ -299,8 +592,7 @@ def all_gather_object(obj: Any, group=None) -> List[Any]:
     group = _default_group(group)
     if group.num_processes <= 1:
         return [obj]
-    drain_pending()
-    return [pickle.loads(r) for r in _all_gather_bytes(_dumps(obj), group)]
+    return [pickle.loads(r) for r in _object_rows(obj, group)]
 
 
 def gather_object(obj: Any, dst: int = 0, group=None) -> Optional[List[Any]]:
@@ -310,8 +602,7 @@ def gather_object(obj: Any, dst: int = 0, group=None) -> Optional[List[Any]]:
     _check_peer(dst, group, "dst")
     if group.num_processes <= 1:
         return [obj] if group.rank == dst else None
-    drain_pending()
-    rows = _all_gather_bytes(_dumps(obj), group)
+    rows = _object_rows(obj, group)
     if group.rank != dst:
         return None
     return [pickle.loads(r) for r in rows]
@@ -325,8 +616,17 @@ def broadcast_object_list(object_list: List[Any], src: int = 0,
     _check_peer(src, group, "src")
     if group.num_processes <= 1:
         return list(object_list)
+    is_src = group.rank == src
+    if not _use_backend(group, _coll_store()):
+        payload = (_obj_to_u8(list(object_list)) if is_src
+                   else np.zeros(0, np.uint8))
+        size = int(broadcast_host(np.int64(payload.size), group, src=src))
+        buf = np.zeros(size, np.uint8)
+        buf[:payload.size] = payload
+        out = broadcast_host(buf, group, src=src)
+        return pickle.loads(np.asarray(out).tobytes())
     drain_pending()
-    raw = _dumps(list(object_list)) if group.rank == src else None
+    raw = _dumps(list(object_list)) if is_src else None
     return pickle.loads(_broadcast_bytes(raw, src, group))
 
 
@@ -348,6 +648,21 @@ def scatter_object_list(scatter_object_input_list: Optional[List[Any]] = None,
                 f"num_processes={n} entries, got {got}")
         if n <= 1:
             return scatter_object_input_list[0]
+    store = _coll_store()
+    if not _use_backend(group, store):
+        # one store key a destination (see gather_host)
+        drain_pending()
+        seq = _next_seq(f"scatter_obj{_group_scope(group)}", src)
+        if group.rank == src:
+            for dst in range(n):
+                if dst != src:
+                    store.set(_coll_key("scatter_obj", src, seq, dst, group),
+                              pickle.dumps(scatter_object_input_list[dst]))
+            return scatter_object_input_list[src]
+        key = _coll_key("scatter_obj", src, seq, group.rank, group)
+        obj = pickle.loads(store.get(key))
+        store.delete_key(key)
+        return obj
     full = broadcast_object_list(
         scatter_object_input_list if group.rank == src else [None] * n,
         src=src, group=group)
@@ -365,11 +680,266 @@ def all_to_all_host(input_list: List[Any], group=None) -> List[Any]:
                          f"(num_processes={n}), got {len(input_list)}")
     if n <= 1:
         return list(input_list)
+    store = _coll_store()
+    if not _use_backend(group, store):
+        drain_pending()
+        return _routed_all_to_all(input_list, group, store, n)
     rows = all_gather_object(list(input_list), group)
     return [rows[r][group.rank] for r in range(n)]
 
 
+def _routed_all_to_all(input_list, group, store, n):
+    # pairwise store keys: rank p moves only its row and its column
+    me = group.rank
+    seq = _next_seq(f"a2a{_group_scope(group)}", 0)
+    t0 = time.perf_counter()
+    nbytes = 0
+    for q in range(n):
+        if q != me:
+            store.set(_coll_key("a2a", q, seq, me, group),
+                      pickle.dumps(input_list[q]))
+    out = []
+    for r in range(n):
+        if r == me:
+            out.append(input_list[me])
+            continue
+        key = _coll_key("a2a", me, seq, r, group)
+        raw = store.get(key)
+        nbytes += len(raw)
+        out.append(pickle.loads(raw))
+        store.delete_key(key)
+    record_transport("all_to_all", "store", nbytes, t0)
+    return out
+
+
+# -- the JAX routing: store keys, sealing, the data plane ---------------------
+
+_coll_seq: dict = {}    # (op, root) -> next sequence number
+
+
+def _next_seq(op: str, root: int) -> int:
+    seq = _coll_seq.get((op, root), 0)
+    _coll_seq[(op, root)] = seq + 1
+    return seq
+
+
+def _coll_key(op: str, root: int, seq: int, peer: int, group=None) -> str:
+    return f"{_ns()}{_group_scope(group)}/coll/{op}/{root}/{seq}/{peer}"
+
+
+# sealed store payloads: the frame checksum over a pickled payload, so a
+# flipped bit fails as a named FrameCorruptError at the consumer; the magic
+# cannot collide with pickle (protocol 2+ starts with 0x80)
+_SEAL_MAGIC = b"TPCK"
+
+
+def _seal(raw: bytes) -> bytes:
+    from .transport import frame_checksum, frame_crc_enabled
+    if not frame_crc_enabled():
+        return raw
+    return _SEAL_MAGIC + struct.pack("<I", frame_checksum((raw,))) + raw
+
+
+def _unseal(raw: bytes, what: str) -> bytes:
+    if raw[:4] != _SEAL_MAGIC:
+        return raw  # posted by a checksum-disabled peer: deliver as-is
+    from .transport import FrameCorruptError, frame_checksum
+    (expected,) = struct.unpack("<I", raw[4:8])
+    body = raw[8:]
+    got = frame_checksum((body,))
+    if got != expected:
+        raise FrameCorruptError(None, what, len(body), expected, got, 0)
+    return body
+
+
+def _tree_to_bytes(tree) -> bytes:
+    return _seal(_dumps(_tree.tree_map(_host, tree)))
+
+
+def _tree_from_bytes(raw: bytes):
+    return pickle.loads(_unseal(raw, "store-tree"))
+
+
+def _wait_peer_keys(store, keys) -> None:
+    """Bounded wait for peer-posted store keys: ``TPU_DIST_COLL_TIMEOUT``
+    (a named CollectiveTimeoutError) when armed, else the per-frame
+    ``TPU_DIST_DP_TIMEOUT``."""
+    from .transport import (CollectiveTimeoutError, _default_timeout,
+                            coll_timeout)
+    ct = coll_timeout()
+    if ct > 0:
+        try:
+            store.wait(keys, timeout=ct)
+        except TimeoutError as e:
+            raise CollectiveTimeoutError(
+                f"store collective wedged: peer key never posted within "
+                f"TPU_DIST_COLL_TIMEOUT={ct:.0f}s — a peer is dead or "
+                f"partitioned: {e}") from e
+        return
+    timeout = _default_timeout()
+    try:
+        store.wait(keys, timeout=timeout if timeout > 0 else None)
+    except TimeoutError as e:
+        raise TimeoutError(
+            f"store collective: peer key never posted within "
+            f"{timeout:.0f}s (TPU_DIST_DP_TIMEOUT) — a peer likely died "
+            f"mid-collective: {e}") from e
+
+
+def _store_all_gather_payload(payload, group, store, base: str) -> dict:
+    """All-gather a pickled payload through the store: post one key, wait
+    for the peers' keys, fetch.  The last reader of a key deletes it."""
+    n, me = group.num_processes, group.rank
+    store.set(f"{base}/{me}", _seal(_dumps(payload)))
+    peers = [r for r in range(n) if r != me]
+    _wait_peer_keys(store, [f"{base}/{r}" for r in peers])
+    rows = {me: payload}
+    for r in peers:
+        rows[r] = pickle.loads(_unseal(store.get(f"{base}/{r}"),
+                                       "store-allgather"))
+        if store.add(f"{base}/{r}/ack", 1) >= n - 1:
+            store.delete_key(f"{base}/{r}")
+            store.delete_key(f"{base}/{r}/ack")
+    return rows
+
+
+def _dp_threshold() -> int:
+    try:
+        return int(os.environ.get("TPU_DIST_DP_THRESHOLD", str(64 * 1024)))
+    except ValueError:
+        return 64 * 1024
+
+
+def _comm_dtype():
+    """``TPU_DIST_COMM_DTYPE``: a dtype name (cast wire) or a quant scheme
+    (``int8_block256``), resolved as the JAX package resolves it."""
+    name = os.environ.get("TPU_DIST_COMM_DTYPE", "").strip()
+    if not name:
+        return None
+    from . import quant as _quant
+    return _quant.resolve_wire(name)
+
+
+def _gather_comm_dtype():
+    """``TPU_DIST_COMM_DTYPE_GATHER``: the all-gather's own, explicit wire
+    compression (gathered values are often exact-value exchanges)."""
+    name = os.environ.get("TPU_DIST_COMM_DTYPE_GATHER", "").strip()
+    if not name:
+        return None
+    from . import quant as _quant
+    return _quant.resolve_wire(name)
+
+
+def _host_transport_is_store_only() -> bool:
+    return _host_transport() == "store"
+
+
+def _dp_enabled() -> bool:
+    if os.environ.get("TPU_DIST_NO_DATAPLANE"):
+        return False
+    return not _host_transport_is_store_only()
+
+
+def _maybe_data_plane(group, store):
+    """The process's data plane (a group view for a SubGroup), or None when
+    disabled.  A rank whose setup fails raises: degrading alone would leave
+    its peers waiting on the ring."""
+    if _host_transport_is_store_only():
+        return None
+    from . import transport
+    sub = _group_id(group) is not None
+    rank = group.parent_rank if sub else group.rank
+    world = group.parent_world if sub else group.num_processes
+    try:
+        dp = transport.get_data_plane(store, rank, world)
+    except Exception as e:
+        raise RuntimeError(
+            f"rank {rank}: p2p data-plane setup failed ({e!r}); "
+            f"failing fast rather than degrading one-sidedly (peers would "
+            f"deadlock routing this rank's payloads to the ring).  Set "
+            f"TPU_DIST_NO_DATAPLANE=1 on ALL ranks to run store-only."
+        ) from e
+    if dp is not None and sub:
+        return group.view(dp)
+    return dp
+
+
+def _dp_leaf_ok(a: np.ndarray, reduce_op: Optional[str] = None) -> bool:
+    """The per-leaf routing decision: True iff this array leaf rides the
+    data plane (dtype, size and launcher-uniform env only, so every rank
+    answers the same)."""
+    if not _dp_enabled() or a.nbytes < _dp_threshold():
+        return False
+    from . import topology as _topo
+    if _topo.algo_mode() == "store":
+        return False
+    dt = a.dtype
+    if reduce_op is not None:
+        from . import ring as _ring
+        if reduce_op not in _ring.RING_OPS:
+            return False
+        return dt.kind in "iuf" or _lowp.is_lowp(dt)
+    return dt.kind in "iufb" or _lowp.is_lowp(dt)
+
+
+def _partition_and_dp(arrs, group, store, reduce_op=None):
+    """Split leaves into (data-plane indices, store indices) and bring up
+    the data plane only when a leaf needs it."""
+    big = {i for i, a in enumerate(arrs) if _dp_leaf_ok(a, reduce_op)}
+    dp = _maybe_data_plane(group, store) if big else None
+    return sorted(big), [i for i in range(len(arrs)) if i not in big], dp
+
+
+# -- transport counters -------------------------------------------------------
+
+_agg: Dict[str, Dict[str, float]] = {}
+_agg_mu = threading.Lock()
+
+
+def record_transport(op: str, path: str, nbytes: int, t0: float,
+                     wire_bytes=None, raw_wire_bytes=None) -> None:
+    """Count one transport leg of ``op`` over ``path`` (``dataplane`` |
+    ``store``): logical bytes, wire bytes and the uncompressed wire bytes
+    of the same traffic (the JAX recorder's ``record_transport``)."""
+    seconds = time.perf_counter() - t0
+    with _agg_mu:
+        c = _agg.setdefault(f"{op}/{path}", {
+            "calls": 0, "bytes": 0, "wire_bytes": 0, "raw_wire_bytes": 0,
+            "seconds": 0.0})
+        c["calls"] += 1
+        c["bytes"] += int(nbytes)
+        c["wire_bytes"] += int(nbytes if wire_bytes is None else wire_bytes)
+        c["raw_wire_bytes"] += int(nbytes if raw_wire_bytes is None
+                                   else raw_wire_bytes)
+        c["seconds"] += float(seconds)
+
+
+def transport_counters(reset: bool = False) -> Dict[str, Dict[str, float]]:
+    """Per ``op/path``: calls, bytes, wire_bytes, raw_wire_bytes, seconds,
+    ``mb_per_s`` (logical bytes over wall time) and ``compression`` (raw
+    over wire bytes)."""
+    with _agg_mu:
+        out = {k: dict(v) for k, v in _agg.items()}
+        if reset:
+            _agg.clear()
+    for v in out.values():
+        v["mb_per_s"] = (v["bytes"] / v["seconds"] / 1e6
+                         if v["seconds"] > 0 else 0.0)
+        v["compression"] = (v["raw_wire_bytes"] / v["wire_bytes"]
+                            if v["wire_bytes"] > 0 else 1.0)
+    return out
+
+
+def reset_transport_counters() -> None:
+    with _agg_mu:
+        _agg.clear()
+
+
 # -- point to point -----------------------------------------------------------
+
+_p2p_send_seq: dict = {}   # (me, dst, tag, group) -> next sequence number
+_p2p_recv_seq: dict = {}   # (src, me, tag, group) -> next sequence number
+
 
 def _check_p2p(peer: int, group, what: str) -> None:
     if peer == group.rank:
@@ -380,11 +950,21 @@ def _check_p2p(peer: int, group, what: str) -> None:
                          f"{group.num_processes})")
 
 
+def _p2p_key(src: int, dst: int, tag: int, seq: int, group=None) -> str:
+    return f"{_ns()}{_group_scope(group)}/p2p/{src}->{dst}/t{tag}/{seq}"
+
+
+def _p2p_wire_tag(tag: int, seq: int) -> str:
+    return f"p2p/t{tag}/{seq}"
+
+
 def send(x, dst: int, group=None, tag: int = 0, async_op: bool = False):
     """torch ``dist.send`` parity: deliver this process's array to process
-    ``dst``, matched by program order per (src, dst, tag).  The array's
-    shape and dtype travel with it (``np.save`` framing).  ``async_op=True``
-    returns a Work; the payload is copied at issue."""
+    ``dst``, matched by program order per (src, dst, tag).  On the JAX
+    routing an array of at least ``TPU_DIST_DP_THRESHOLD`` bytes goes as
+    one data-plane frame and a smaller one through a store key; on the
+    backend it rides ``torch.distributed.send`` (``np.save`` framing).
+    ``async_op=True`` returns a Work; the payload is copied at issue."""
     group = _default_group(group)
     _check_p2p(dst, group, "send to")
     arr = np.array(_host(x))
@@ -396,6 +976,9 @@ def send(x, dst: int, group=None, tag: int = 0, async_op: bool = False):
 
 
 def _send_body(arr: np.ndarray, dst: int, group, tag: int) -> None:
+    store = _coll_store()
+    if not _use_backend(group, store):
+        return _routed_send(arr, dst, group, tag, store)
     buf = io.BytesIO()
     np.save(buf, arr, allow_pickle=False)
     raw = np.frombuffer(buf.getvalue(), np.uint8).copy()
@@ -407,10 +990,32 @@ def _send_body(arr: np.ndarray, dst: int, group, tag: int) -> None:
                            group=group.torch_group, tag=tag)
 
 
+def _routed_send(arr, dst: int, group, tag: int, store) -> None:
+    me = group.rank
+    # the sequence number is consumed only on a successful handoff, so a
+    # caller that recovers and retries stays matched with the receiver
+    key = (me, dst, tag, _group_id(group))
+    seq = _p2p_send_seq.get(key, 0)
+    t0 = time.perf_counter()
+    if _dp_leaf_ok(arr):
+        dp = _maybe_data_plane(group, store)
+        if dp is not None:
+            dp.send_array(dst, _p2p_wire_tag(tag, seq), arr)
+            _p2p_send_seq[key] = seq + 1
+            record_transport("send", "dataplane", arr.nbytes, t0)
+            return
+    buf = io.BytesIO()
+    np.save(buf, arr, allow_pickle=False)
+    store.set(_p2p_key(me, dst, tag, seq, group), buf.getvalue())
+    _p2p_send_seq[key] = seq + 1
+    record_transport("send", "store", arr.nbytes, t0)
+
+
 def recv(src: int, group=None, tag: int = 0, async_op: bool = False):
     """torch ``dist.recv`` parity: block until the matching :func:`send`
-    from ``src`` arrives; returns the array.  ``async_op=True`` returns a
-    Work whose ``wait()`` yields it."""
+    from ``src`` arrives; returns the array.  On the JAX routing it waits
+    on the data-plane frame and the store key together.  ``async_op=True``
+    returns a Work whose ``wait()`` yields it."""
     group = _default_group(group)
     _check_p2p(src, group, "recv from")
     if async_op:
@@ -421,6 +1026,9 @@ def recv(src: int, group=None, tag: int = 0, async_op: bool = False):
 
 
 def _recv_body(src: int, group, tag: int) -> np.ndarray:
+    store = _coll_store()
+    if not _use_backend(group, store):
+        return _routed_recv(src, group, tag, store)
     dev, peer = _stage(group), group.ranks[src]
     size = torch.empty(1, dtype=torch.int64, device=dev)
     torch.distributed.recv(size, src=peer, group=group.torch_group, tag=tag)
@@ -428,6 +1036,41 @@ def _recv_body(src: int, group, tag: int) -> np.ndarray:
     torch.distributed.recv(buf, src=peer, group=group.torch_group, tag=tag)
     return np.load(io.BytesIO(buf.cpu().numpy().tobytes()),
                    allow_pickle=False)
+
+
+def _routed_recv(src: int, group, tag: int, store) -> np.ndarray:
+    me = group.rank
+    # consumed only on delivery (mirrors send)
+    skey = (src, me, tag, _group_id(group))
+    seq = _p2p_recv_seq.get(skey, 0)
+    key = _p2p_key(src, me, tag, seq, group)
+    t0 = time.perf_counter()
+
+    def delivered(out, path):
+        _p2p_recv_seq[skey] = seq + 1
+        record_transport("recv", path, out.nbytes, t0)
+        return out
+
+    def from_store():
+        raw = store.get(key)
+        store.delete_key(key)
+        return delivered(np.load(io.BytesIO(raw), allow_pickle=False),
+                         "store")
+
+    dp = _maybe_data_plane(group, store) if _dp_enabled() else None
+    if dp is None:
+        return from_store()
+    try:
+        path, arr = dp.recv_array_dual(src, _p2p_wire_tag(tag, seq),
+                                       alt_check=lambda: store.check(key))
+    except TimeoutError as e:
+        raise TimeoutError(
+            f"recv from rank {src} tag {tag} seq {seq} got neither a "
+            f"data-plane frame nor a store key before the "
+            f"TPU_DIST_DP_TIMEOUT deadline: {e}") from e
+    if path == "dataplane":
+        return delivered(arr, "dataplane")
+    return from_store()
 
 
 def send_recv_device(x: torch.Tensor, src: int, dst: int, group=None):

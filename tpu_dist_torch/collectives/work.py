@@ -29,10 +29,12 @@ from __future__ import annotations
 import datetime
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Callable, List, Optional, Sequence
 
-__all__ = ["Work", "completed_work", "wait_all", "drain_pending", "reset"]
+__all__ = ["Work", "completed_work", "wait_all", "drain_pending", "reset",
+           "engine", "engine_for"]
 
 
 class Work:
@@ -197,6 +199,10 @@ class _OrderedExecutor:
 
 _engine: Optional[_OrderedExecutor] = None
 _engine_mu = threading.Lock()
+# per-DataPlane engines: the in-process multi-rank rigs (one plane and one
+# ordered stream per fake rank, Bucketer(dp=...)); weak so they die with
+# their planes
+_engines: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def engine() -> _OrderedExecutor:
@@ -208,16 +214,31 @@ def engine() -> _OrderedExecutor:
         return _engine
 
 
+def engine_for(dp=None) -> _OrderedExecutor:
+    """The ordered executor of ``dp``'s ring, or the process's for
+    ``dp=None`` (the JAX package's ``engine_for``)."""
+    if dp is None:
+        return engine()
+    with _engine_mu:
+        eng = _engines.get(dp)
+        if eng is None:
+            eng = _engines[dp] = _OrderedExecutor(
+                f"tpu_dist_torch-async-coll-r{getattr(dp, 'rank', '?')}")
+        return eng
+
+
 def drain_pending(timeout: Optional[float] = None) -> None:
-    """Wait for every queued async host collective to finish.  Called at
-    the top of every synchronous collective, and a no-op on the executor's
-    own thread (a body calling a sync collective must not wait on its own
-    queue)."""
+    """Wait for every queued async host collective (every engine) to
+    finish.  Called at the top of every synchronous collective, and a no-op
+    on an executor's own thread (a body calling a sync collective must not
+    wait on its own queue)."""
     if getattr(_tls, "on_engine", False):
         return
     with _engine_mu:
-        eng = _engine
-    if eng is not None:
+        engines = list(_engines.values())
+        if _engine is not None:
+            engines.append(_engine)
+    for eng in engines:
         eng.drain(timeout)
 
 

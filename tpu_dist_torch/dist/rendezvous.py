@@ -228,8 +228,8 @@ def rendezvous(init_method: Optional[str], world_size: int = -1,
 
 
 def shutdown() -> None:
-    """The teardown barrier, then close the store client.  Short timeout:
-    a peer that died never arrives, and the launcher's TERM→KILL
+    """The teardown barrier, the data plane, then the store client.  Short
+    timeout: a peer that died never arrives, and the launcher's TERM→KILL
     escalation handles a rank that lingers."""
     global _store, _store_num_processes
     if _store is None:
@@ -240,6 +240,11 @@ def shutdown() -> None:
             timeout=float(os.environ.get("TPU_DIST_TEARDOWN_TIMEOUT", "10")))
     except Exception as e:
         warnings.warn(f"store teardown barrier failed ({e!r})")
+    # the data plane closes after the barrier (a peer may still be sending
+    # to our listener) and before the store (its address key goes through
+    # the store)
+    from ..collectives import transport as _transport
+    _transport.close_data_plane()
     try:
         _store.close()
     except Exception:

@@ -71,9 +71,6 @@ _REAP_GRACE = 5.0
 _ROLES = "role graphs, with the control plane, ROADMAP A9.2"
 _FAILOVER = "store replication and leader failover, ROADMAP A9.2"
 _LATER = (
-    ("coll_timeout", "--coll_timeout", 0.0,
-     "the host collectives' watchdog, with the host data plane, ROADMAP "
-     "A9.1b"),
     ("sanitize", "--sanitize", False,
      "the collective sanitizer, with the control plane, ROADMAP A9.2"),
     ("flight_recorder", "--flight-recorder", False,
@@ -162,7 +159,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sanitize", action="store_true",
                    help="cross-rank collective sanitizer" + later)
     p.add_argument("--coll_timeout", type=float, default=0.0,
-                   help="collective watchdog" + later)
+                   help="end-to-end collective watchdog in every worker "
+                        "(TPU_DIST_COLL_TIMEOUT, seconds): a host ring, "
+                        "tree or store collective that cannot finish "
+                        "within the budget raises a named "
+                        "CollectiveTimeoutError naming the stalled hop "
+                        "instead of waiting out the per-frame "
+                        "TPU_DIST_DP_TIMEOUT. 0 disables")
     p.add_argument("--netchaos", type=str, default=None,
                    help="network fault injection" + later)
     p.add_argument("--flight-recorder", "--flight_recorder",
@@ -325,6 +328,8 @@ def _spawn_world(args, world_size: int, master_port: int,
             if args.heartbeat_timeout > 0:
                 env["TPU_DIST_HEARTBEAT_TIMEOUT"] = str(
                     args.heartbeat_timeout)
+            if args.coll_timeout > 0:
+                env["TPU_DIST_COLL_TIMEOUT"] = str(args.coll_timeout)
             cmd = [sys.executable]
             cmd += ["-m", args.script] if args.module else [args.script]
             cmd += args.script_args

@@ -12,8 +12,8 @@ elastic fault tolerance for long-running gangs.
 - :mod:`.chaos` — deterministic fault injection (``TPU_DIST_CHAOS``: kill
   rank r at step k, shrink/grow the elastic world, stall a heartbeat,
   drop or delay store requests).
-- :mod:`.reshard` — elastic world-size resharding of sharded checkpoints
-  from disk (peer fetches over the host data plane are ROADMAP A9.1b).
+- :mod:`.reshard` — elastic world-size resharding of sharded checkpoints,
+  from disk or pushed by a peer over the host data plane.
 
 The network chaos layer (``TPU_DIST_NETCHAOS``) is ROADMAP A9.4.
 ``PREEMPTED_EXIT_CODE`` (117) and ``GROW_EXIT_CODE`` (118) are the JAX

@@ -2,10 +2,9 @@
 ``tpu_dist/resilience/reshard.py``: resume a sharded (ZeRO) checkpoint saved
 at world N on a gang of world M.  The manifest, the plan, the range reads
 and the digests are the JAX package's, so a sharded checkpoint written by
-either package reshards in the other.  Fragments come from disk; a fragment
-that no rank's disk holds raises the JAX package's named error, as JAX does
-without its data plane (peer pushes over the host data plane are ROADMAP
-A9.1b).
+either package reshards in the other.  A fragment comes from a disk this
+rank sees, or is pushed by the rank that sees it over the host data plane
+(:func:`execute_plan` with ``dp``), as in the JAX package.
 
 The redistribution discipline is the one from "Memory-efficient array
 redistribution through portable collective communication": never
@@ -35,8 +34,9 @@ Three layers:
   path run as a pre-agreed push/fetch with no request/response protocol.
 - **Execution** (:func:`reshard_restore`): fragments whose old shard
   checkpoint is disk-visible are **range-read** straight out of the
-  uncompressed ``arrays.npz`` (no full-file load).  Peak memory is
-  accounted and bounded by ``old_shard + new_shard + one fragment``.
+  uncompressed ``arrays.npz`` (no full-file load); the others are pushed
+  by their source rank over the data plane.  Peak memory is accounted and
+  bounded by ``old_shard + new_shard + one fragment``.
 
 ``resilience.TrainState.resume`` drives this automatically (visibility
 exchange + step/world agreement through the control-plane store); the
@@ -672,9 +672,11 @@ def _digest_error(msg: str):
     return checkpoint.DigestError(msg)
 
 
-def _no_data_plane() -> NotImplementedError:
-    return NotImplementedError(
-        "peer fragment pushes ride the host data plane, ROADMAP A9.1b")
+def _frag_timeout() -> float:
+    try:
+        return float(os.environ.get("TPU_DIST_RESHARD_TIMEOUT", "120"))
+    except ValueError:
+        return 120.0
 
 
 def execute_plan(plan: ReshardPlan, *, rank: int, root: str, step: int,
@@ -683,11 +685,20 @@ def execute_plan(plan: ReshardPlan, *, rank: int, root: str, step: int,
                  ) -> Tuple[Dict[str, np.ndarray], ReshardStats]:
     """Run this rank's share of the redistribution; returns the assembled
     ``{path: flat array}`` for every sharded and replicated path, and the
-    stats.  Every fragment is read from a disk this rank sees; a fragment
-    only a peer's disk holds raises :class:`ReshardError` naming the peer
-    (the JAX package pushes it over its data plane, ROADMAP A9.1b)."""
-    if dp is not None:
-        raise _no_data_plane()
+    stats.  A fragment is read from a disk this rank sees, or pushed by the
+    rank the plan names as its source over the host data plane ``dp``
+    (every source pushes what it serves, on ``dp``'s ordered engine, so disk
+    reads overlap the wire; there is no request protocol).  So EVERY new
+    rank must call this together whenever a fragment needs a peer.  A peer
+    that does not deliver within ``timeout`` (``TPU_DIST_RESHARD_TIMEOUT``,
+    120 s), or dies, raises :class:`ReshardError` naming it; without ``dp``
+    such a fragment raises at once."""
+    import time as _time
+
+    from ..collectives.work import engine_for, wait_all
+
+    timeout = _frag_timeout() if timeout is None else float(timeout)
+    deadline = _time.monotonic() + timeout
     stats = ReshardStats()
     stats.old_world, stats.new_world = plan.old_world, plan.new_world
     stats.step = step
@@ -708,19 +719,59 @@ def execute_plan(plan: ReshardPlan, *, rank: int, root: str, step: int,
         out[path] = a
     stats.new_shard_bytes = sum(a.nbytes for a in out.values())
 
+    # replicated arrays: one source old rank, served like a whole-array
+    # fragment by the lowest rank that sees it
     repl_src_old = plan.repl_source_old_rank(visibility) if plan.repl \
         else None
     repl_server = None
     if plan.repl:
         repl_server = min(r for r in sorted(visibility)
                           if repl_src_old in visibility[r])
+
+    push_handles = []
+    if dp is not None:
+        engine = engine_for(dp)
+        for f in plan.frags:
+            if sources[f.fid] != rank or f.new_rank == rank:
+                continue
+
+            def push(f=f):
+                a = _read_fragment(reader_for(f.old_rank), f, verify, stats)
+                stats._alloc(a.nbytes)
+                try:
+                    dp.send_array(f.new_rank, _frag_tag(step, f.fid), a)
+                finally:
+                    stats._free(a.nbytes)
+                stats.frags_pushed += 1
+
+            push_handles.append(engine.submit(push,
+                                              label=f"reshard_push/{f.fid}"))
+        if repl_server == rank:
+            for rp in plan.repl:
+                for d in sorted(visibility):
+                    if d == rank or repl_src_old in visibility.get(d, ()):
+                        continue
+
+                    def push_repl(rp=rp, d=d):
+                        a = reader_for(repl_src_old).read_range(
+                            rp.path, 0,
+                            int(np.prod(rp.shape, dtype=np.int64)),
+                            rp.dtype)
+                        dp.send_array(d, _repl_tag(step, rp.rid), a)
+
+                    push_handles.append(engine.submit(
+                        push_repl, label=f"reshard_push_repl/{rp.rid}"))
     try:
+        # fills: this rank's owned fragments, disk or peer
         for f in plan.frags_for(rank):
             src = sources[f.fid]
-            if src != rank:
-                _recv_fragment(dp, src, _frag_tag(step, f.fid), f, 0.0)
-            a = _read_fragment(reader_for(f.old_rank), f, verify, stats)
-            stats.frags_disk += 1
+            if src == rank:
+                a = _read_fragment(reader_for(f.old_rank), f, verify, stats)
+                stats.frags_disk += 1
+            else:
+                a = _recv_fragment(dp, src, _frag_tag(step, f.fid), f,
+                                   deadline)
+                stats.frags_peer += 1
             stats._alloc(a.nbytes)
             stats.frag_bytes_max = max(stats.frag_bytes_max, a.nbytes)
             if a.size != f.length or a.dtype != f.dtype:
@@ -733,19 +784,23 @@ def execute_plan(plan: ReshardPlan, *, rank: int, root: str, step: int,
             stats.bytes_total += a.nbytes
         for rp in plan.repl:
             n = int(np.prod(rp.shape, dtype=np.int64))
-            if repl_src_old not in my_old:
-                _recv_repl(dp, repl_server, _repl_tag(step, rp.rid), rp,
-                           0.0)
-            a = reader_for(repl_src_old).read_range(rp.path, 0, n, rp.dtype)
-            if verify and rp.sha256:
-                actual = hashlib.sha256(
-                    np.ascontiguousarray(a).tobytes()).hexdigest()
-                if actual != rp.sha256:
-                    raise _digest_error(
-                        f"replicated array {rp.path!r} digest mismatch "
-                        f"(recorded {rp.sha256[:12]}…, actual "
-                        f"{actual[:12]}…)")
+            if repl_src_old in my_old:
+                a = reader_for(repl_src_old).read_range(rp.path, 0, n,
+                                                        rp.dtype)
+                if verify and rp.sha256:
+                    actual = hashlib.sha256(
+                        np.ascontiguousarray(a).tobytes()).hexdigest()
+                    if actual != rp.sha256:
+                        raise _digest_error(
+                            f"replicated array {rp.path!r} digest mismatch "
+                            f"(recorded {rp.sha256[:12]}…, actual "
+                            f"{actual[:12]}…)")
+            else:
+                a = _recv_repl(dp, repl_server, _repl_tag(step, rp.rid), rp,
+                               deadline)
             out[rp.path] = np.asarray(a, dtype=rp.dtype).reshape(rp.shape)
+        if push_handles:
+            wait_all(push_handles, max(0.1, deadline - _time.monotonic()))
     finally:
         for r in readers.values():
             r.close()
@@ -761,19 +816,42 @@ def _repl_tag(step: int, rid: int) -> str:
 
 
 def _recv_fragment(dp, src: int, tag: str, f: _Frag, deadline: float):
+    import time as _time
     if dp is None:
         raise ReshardError(
             f"fragment {f.describe()} lives only on rank {src}'s disk and "
             f"no data plane is available for the peer fetch")
-    raise _no_data_plane()
+    left = max(0.1, deadline - _time.monotonic())
+    try:
+        return dp.recv_array(src, tag, timeout=left)
+    except TimeoutError as e:
+        raise ReshardError(
+            f"peer rank {src} did not deliver fragment {f.describe()} "
+            f"within {left:.0f}s — peer dead or its disk read stalled"
+        ) from e
+    except ConnectionError as e:  # PeerGoneError names the peer
+        raise ReshardError(
+            f"peer rank {src} died while serving fragment "
+            f"{f.describe()}: {e}") from e
 
 
 def _recv_repl(dp, src: int, tag: str, rp: _Repl, deadline: float):
+    import time as _time
     if dp is None:
         raise ReshardError(
             f"replicated array {rp.path!r} lives only on rank {src}'s "
             f"disk and no data plane is available for the peer fetch")
-    raise _no_data_plane()
+    left = max(0.1, deadline - _time.monotonic())
+    try:
+        return dp.recv_array(src, tag, timeout=left)
+    except TimeoutError as e:
+        raise ReshardError(
+            f"peer rank {src} did not deliver replicated array "
+            f"{rp.path!r} within {left:.0f}s") from e
+    except ConnectionError as e:
+        raise ReshardError(
+            f"peer rank {src} died while serving replicated array "
+            f"{rp.path!r}: {e}") from e
 
 
 # ---------------------------------------------------------------------------

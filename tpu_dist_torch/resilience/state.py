@@ -426,10 +426,15 @@ class TrainState:
                 pass
 
     def _data_plane(self, world: int):
-        """The p2p data plane for peer fragment fetches: None until the host
-        data plane is ported (ROADMAP A9.1b), so a fragment that truly needs
-        a peer raises the reshard's named error."""
-        return None
+        """This incarnation's host data plane for peer fragment pushes
+        (None when unavailable: the reshard then raises its named error if
+        a fragment truly needs a peer)."""
+        try:
+            from ..collectives.eager import _coll_store
+            from ..collectives.transport import get_data_plane
+            return get_data_plane(_coll_store(), self.shard[0], world)
+        except Exception:
+            return None
 
     def _agree_resume_step(self, steps) -> int:
         """Fixed-world step agreement: all ranks settle on the newest step
