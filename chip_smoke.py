@@ -213,7 +213,38 @@ Phases, each printed as one JSON line:
    ``accuracy_run`` twin's ConvNet gate at world 2 (two worker processes on
    this card, store and data plane only, no NCCL; 150 steps, batch 128, lr
    0.02): the int8 + EF accuracy within ±3 SE of the float32 wire's.
-16. ``kernels``: one line over all kernels; the card's name and power limit
+16. ``obs``: the flight recorder on the dense cell's real gradients at
+   world 2 — ``python -m tpu_dist_torch.launch --standalone
+   --nproc_per_node=2 --flight-recorder --heartbeat_timeout=5`` on a worker
+   this script writes (both ranks on this card, the store and the host data
+   plane only, no NCCL: a step is the gradients of one seeded row, K1 once
+   and K2 12 times, then the 548 MB tree averaged by a ``Bucketer`` over
+   the float32 host ring inside ``resilience.TrainState``), rank 1
+   chaos-stalled at step 3: the launcher names ``RankLostError`` for rank
+   1 with its last obs position, prints the positions table and the dump
+   directory; both dumps read; every collective number up to the stall has
+   the same op, digest and bytes on both ranks, path ``dataplane``;
+   ``diagnose`` names rank 1 the straggler and rank 0 pending in the next
+   bucket's span and the ring span in it, at the worker's line; ``python
+   -m tpu_dist_torch.obs diagnose`` exits 3 and ``merge`` writes two
+   tracks.  Then the same worker under ``--flight-recorder --sanitize``
+   (one launch, shared with ``sanitize``): steps 0-7 with the recorder
+   armed on even steps and disarmed on odd ones, the sanitizer off: step
+   and sync ms of each arm, and the dumps' bytes.  ``sanitize``: steps 8-9
+   of that launch pass the signature checks (the sanitizer's ms a
+   collective); at step 10 rank 1 casts its last gradient leaf to bfloat16
+   and both ranks raise ``CollectiveMismatchError`` naming the ``leaves``
+   divergence, with no payload moved for the refused collective.  ``roles``: the ``actor_learner`` twin under
+   ``--roles learner:1,actor:4:solo --solo_restarts 2`` (100 steps, the
+   recorder armed) and the ``param_server`` twin (``server:1,worker:4:solo``,
+   48 rounds), each with rank 2 killed at its 3rd message: exit 0, one solo
+   restart and no gang restart, the learner or server on the card in
+   generation 0 for every step with its loss falling by the JAX tests'
+   margins, the respawn's messages reaching it, data-plane frames on the
+   queue, no kernel launch and no NCCL; the dumps' channel put, claim and
+   ack events; then the ``bench_roles`` twin's channel cells, every
+   payload equal.
+17. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
@@ -224,7 +255,8 @@ named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``augment``, ``imagenet``, ``vit``, ``launch``, ``launch_restart``,
 ``gateway``, ``store``, ``moe_dispatch``, ``llama``, ``long_32k``,
 ``serve_rope``, ``zero_ddp``, ``zero_opt``, ``elastic``, ``host_ring``,
-``host_zero``, ``quant_gate``) and never prints the result line.
+``host_zero``, ``quant_gate``, ``obs``, ``sanitize``, ``roles``) and
+never prints the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -4884,6 +4916,486 @@ def check_quant_gate(results):
     return row["within_noise"]
 
 
+# ---------------------------------------------------------------------------
+# The control plane: flight recorder, sanitizer, role graphs (slice 14)
+# ---------------------------------------------------------------------------
+
+OBS_WORLD = 2
+OBS_HB_TIMEOUT = 5           # the launcher's heartbeat deadline, seconds
+OBS_STALL = "stall:rank=1,step=3"
+OBS_TIMEOUT = 420            # seconds a launched control-plane run may take
+OBS_PER_STEP = {"cross_entropy_fwd": 1, "cross_entropy_bwd": 1,
+                "flash_fwd": 12, "flash_bwd": 12, "gmm": 0, "tgmm": 0}
+
+# the worker of the obs and sanitize phases, under ``python -m
+# tpu_dist_torch.launch --standalone --nproc_per_node=2``: both ranks on
+# cuda:0, the group the store and the host data plane only (a rank shim,
+# no torch.distributed group, no NCCL).  A step: the dense cell's
+# gradients on the rank's own seeded row (K1 once, K2 12 times), then the
+# 548 MB tree averaged by a Bucketer over the float32 host ring, inside
+# resilience.TrainState.  argv: OUT MODE STEPS.  MODE ``stall``: every
+# step as launched.  ``timing`` (launched with --flight-recorder and
+# --sanitize): steps 0-7 with the sanitizer off and the recorder armed on
+# even steps, disarmed on odd ones (both read their env var per call;
+# nothing else changes), steps 8-9 with both on, and at step 10 rank 1
+# casts its last gradient leaf to bfloat16.  Each rank writes its steps to
+# OUT/r{rank}.json as it goes.
+OBS_WORKER = """
+import json, os, sys, time
+import numpy as np
+import torch
+from tpu_dist_torch import dist, resilience
+from tpu_dist_torch.analysis import sanitizer
+from tpu_dist_torch.benchmarks.bench_host_collectives import (
+    _Group, attach_store)
+from tpu_dist_torch.benchmarks.host_sync import dense_cell, rank_grads
+from tpu_dist_torch.collectives import Bucketer, eager
+from tpu_dist_torch.obs import hooks, recorder
+from tpu_dist_torch.ops import KERNELS
+
+out, mode, steps = sys.argv[1], sys.argv[2], int(sys.argv[3])
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+san_env = os.environ.get("TPU_DIST_SANITIZE")
+hooks.install_from_env()
+torch.cuda.set_device(0)
+dist.init_process_group(device="cuda:0")    # world 1: the model's group
+rec = recorder.get_recorder()
+if rec is not None:
+    rec.rank, rec.world = rank, world
+store = attach_store(os.environ["TPU_DIST_STORE_ADDR"])
+group = _Group(rank, world)
+ddp, state = dense_cell(device="cuda:0", batch=1)
+bucketer = Bucketer()
+san = [0.0, 0]
+check = sanitizer.check_collective
+
+def timed_check(*a, **k):
+    t = time.perf_counter()
+    try:
+        return check(*a, **k)
+    finally:
+        san[0] += time.perf_counter() - t
+        san[1] += 1
+
+sanitizer.check_collective = timed_check
+log = {"rank": rank, "pid": os.getpid(), "steps": []}
+
+def flush():
+    with open(os.path.join(out, f"r{rank}.json"), "w") as f:
+        json.dump(log, f)
+
+def payload_calls():
+    return eager.transport_counters().get(
+        "bucket_all_reduce/dataplane", {}).get("calls", 0)
+
+with resilience.TrainState(os.path.join(out, f"ck{rank}"), save_every=0,
+                           heartbeat_interval=0.2, monitor=False) as ts:
+    st, start = ts.resume({"x": np.zeros(1)})
+    for step in range(start, steps):
+        if mode == "timing":
+            os.environ["TPU_DIST_OBS"] = ("1" if step % 2 == 0 or step >= 8
+                                          else "0")
+            if step < 8:
+                os.environ.pop("TPU_DIST_SANITIZE", None)
+            elif san_env is not None:
+                os.environ["TPU_DIST_SANITIZE"] = san_env
+        for k in KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads = rank_grads(ddp, state, rank, batch=1)
+        if mode == "timing" and step == 10 and rank == 1:
+            last = list(grads)[-1]
+            grads[last] = grads[last].to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s0, before = list(san), payload_calls()
+        try:
+            bucketer.all_reduce(grads, op="avg", group=group).wait_all(600)
+            torch.cuda.synchronize()
+        except sanitizer.CollectiveMismatchError as e:
+            log["mismatch"] = {"step": step, "error": str(e)[:2000],
+                               "seq": e.seq,
+                               # sanitized collectives of this step that
+                               # passed (and moved) before the refused one
+                               "passed_in_step": e.seq - s0[1],
+                               "divergent": sorted(e.divergent),
+                               "payload_calls_before": before,
+                               "payload_calls_after": payload_calls()}
+            flush()
+            raise
+        t2 = time.perf_counter()
+        log["steps"].append({
+            "step": step, "obs": recorder.enabled(),
+            "sanitize": sanitizer.enabled(),
+            "grads_ms": (t1 - t0) * 1e3, "sync_ms": (t2 - t1) * 1e3,
+            "step_ms": (t2 - t0) * 1e3,
+            "san_ms": (san[0] - s0[0]) * 1e3, "san_calls": san[1] - s0[1],
+            "payload_calls": payload_calls() - before,
+            "launches": {k.__name__: k.launches for k in KERNELS},
+            "bytes": sum(v.numel() * v.element_size()
+                         for v in grads.values())})
+        flush()
+        ts.end_step(st, step)
+log["done"] = True
+flush()
+store.barrier(world, tag="obs-exit", timeout=120)
+"""
+
+
+def _ctrl_launch(out: str, args: list, env_extra: dict):
+    """``python -m tpu_dist_torch.launch ARGS`` in a session of its own,
+    the repo on the path, every worker on one CPU thread."""
+    env = dict(os.environ, PYTHONPATH=_repo() + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1",
+               PYTHONWARNINGS="ignore")
+    for var in ("TPU_DIST_CHAOS", "TPU_DIST_OBS", "TPU_DIST_SANITIZE",
+                "TPU_DIST_OBS_DIR", "MASTER_ADDR", "MASTER_PORT", "RANK",
+                "WORLD_SIZE", "TPU_DIST_STORE_ADDR"):
+        env.pop(var, None)
+    env.update(env_extra)
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_dist_torch.launch", *args], cwd=out,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        so, se = proc.communicate(timeout=OBS_TIMEOUT)
+    finally:
+        _stop(proc, grace=5)
+    return proc.returncode, so, se, time.time() - t0
+
+
+def _obs_run(mode: str, steps: int, flags: list, env_extra: dict) -> dict:
+    """One launch of :data:`OBS_WORKER`; the ranks' logs, the dumps."""
+    import tempfile
+
+    from tpu_dist_torch import obs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # two ranks and this process share the card
+    out = tempfile.mkdtemp(prefix=f"obs_{mode}_",
+                           dir=os.environ.get("TMPDIR"))
+    obs_dir = os.path.join(out, "obs")
+    with open(os.path.join(out, "worker.py"), "w") as f:
+        f.write(OBS_WORKER)
+    rc, _, err, wall = _ctrl_launch(
+        out, ["--standalone", f"--nproc_per_node={OBS_WORLD}",
+              "--master_port=0", *flags, os.path.join(out, "worker.py"),
+              out, mode, str(steps)],
+        dict(env_extra, TPU_DIST_OBS_DIR=obs_dir))
+    logs = {}
+    for r in range(OBS_WORLD):
+        try:
+            with open(os.path.join(out, f"r{r}.json")) as f:
+                logs[r] = json.load(f)
+        except OSError:
+            logs[r] = {"steps": []}
+    files = (sorted(os.listdir(obs_dir)) if os.path.isdir(obs_dir) else [])
+    return {"rc": rc, "stderr": err, "wall_s": wall, "logs": logs,
+            "obs_dir": obs_dir, "dumps": obs.read_dumps(obs_dir),
+            "dump_bytes": {n: os.path.getsize(os.path.join(obs_dir, n))
+                           for n in files}}
+
+
+def _steps_launch_ok(logs: dict) -> bool:
+    """Every completed step of every rank launched K1 once and K2 12
+    times, and nothing else."""
+    steps = [s for lg in logs.values() for s in lg["steps"]]
+    return bool(steps) and all(s["launches"] == OBS_PER_STEP for s in steps)
+
+
+def _obs_cli(*args) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=_repo() + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return subprocess.run([sys.executable, "-m", "tpu_dist_torch.obs",
+                           *args], cwd=_repo(), env=env, capture_output=True,
+                          text=True, timeout=120)
+
+
+def _med(xs):
+    return statistics.median(xs) if xs else None
+
+
+def check_obs(results):
+    """The flight recorder on the dense cell's real gradients at world 2
+    (two ranks on this card, store and host data plane, no NCCL).
+
+    The stall: ``--flight-recorder --heartbeat_timeout=5`` with rank 1
+    chaos-stalled at step 3.  The launcher exits non-zero naming
+    ``RankLostError`` for rank 1 with its last obs position, prints the
+    positions table and the dump directory; both ranks' dumps read; up to
+    the stall every collective number has the same op, digest and bytes
+    on both ranks, path ``dataplane``; ``diagnose`` names rank 1 the
+    straggler, rank 0 pending in the next bucket's span and the ring span
+    nested in it, at the worker's line; the CLI exits 3 and ``merge``
+    writes a trace with two tracks; every completed step launched K1 once
+    and K2 12 times.  Then steps 0-7 of the ``timing`` launch, the
+    recorder armed on even steps and disarmed on odd ones: step and sync
+    ms of each, and the dumps' bytes."""
+    from tpu_dist_torch import obs
+    run = _obs_run("stall", 10, ["--flight-recorder",
+                                 f"--heartbeat_timeout={OBS_HB_TIMEOUT}"],
+                   {"TPU_DIST_CHAOS": OBS_STALL})
+    err, dumps = run["stderr"], run["dumps"]
+    checks = {
+        "launcher_failed": run["rc"] not in (0, None),
+        "rank_lost_named": "RankLostError" in err and "rank 1" in err,
+        "last_obs_in_error": "last obs:" in err and "all_reduce" in err,
+        "positions_table": "last known positions" in err,
+        "dump_dir_named": "flight-recorder dumps in" in err,
+        "both_dumps": sorted(d["rank"] for d in dumps) == [0, 1]}
+    colls = {}
+    for d in dumps:
+        colls[d["rank"]] = {e["coll"]: e for e in d["events"]
+                            if e.get("kind") == "collective"}
+    diag = obs.diagnose(dumps) if dumps else {}
+    last1 = diag.get("straggler_last_coll")
+    if checks["both_dumps"] and last1 is not None:
+        keys = range(last1 + 1)
+        checks["lockstep_until_stall"] = all(
+            k in colls[0] and k in colls[1]
+            and all(colls[0][k].get(f) == colls[1][k].get(f)
+                    for f in ("op", "digest", "bytes", "path"))
+            and colls[0][k].get("path") == "dataplane"
+            and colls[0][k]["outcome"] == "ok" for k in keys)
+        pend = {k: e["op"] for k, e in colls[0].items()
+                if e["outcome"] == "pending"}
+        checks["rank0_pending_next"] = pend == {
+            last1 + 1: "bucket_all_reduce", last1 + 2: "ring_all_reduce"}
+    checks["diagnosis"] = (diag.get("verdict") == "straggler"
+                           and diag.get("straggler") == 1
+                           and diag.get("stuck_coll") == (last1 or 0) + 2
+                           and "worker.py" in (diag.get("stuck_site") or ""))
+    cli = _obs_cli("diagnose", "--dir", run["obs_dir"])
+    trace_path = os.path.join(run["obs_dir"], "..", "trace.json")
+    merged = _obs_cli("merge", "--dir", run["obs_dir"], "--out", trace_path)
+    tracks = set()
+    if merged.returncode == 0:
+        with open(trace_path) as f:
+            tracks = {e["pid"] for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"}
+    checks["cli_exit_3"] = cli.returncode == 3
+    checks["merge_two_tracks"] = tracks == {0, 1}
+    checks["launches_per_step"] = _steps_launch_ok(run["logs"])
+    checks["steps_before_stall"] = [len(run["logs"][r]["steps"])
+                                    for r in range(OBS_WORLD)] == [4, 4]
+
+    timing = _timing_run(results)
+    steps = [s for r in range(OBS_WORLD)
+             for s in timing["logs"][r]["steps"] if s["step"] < 8]
+    checks["timing_steps_done"] = len(steps) == 8 * OBS_WORLD
+    checks["timing_launches_per_step"] = _steps_launch_ok(timing["logs"])
+    # the first step of a run warms up: left out of both arms
+    arm = {a: [s for s in steps if s["obs"] == a and s["step"] > 0]
+           for a in (True, False)}
+    row = {a: {"step_ms": _med([s["step_ms"] for s in arm[a]]),
+               "sync_ms": _med([s["sync_ms"] for s in arm[a]]),
+               "grads_ms": _med([s["grads_ms"] for s in arm[a]])}
+           for a in (True, False)}
+    nbytes = steps[0]["bytes"] if steps else None
+    emit("obs", world=OBS_WORLD, chaos=OBS_STALL,
+         heartbeat_timeout=OBS_HB_TIMEOUT, launcher_rc=run["rc"],
+         launcher_wall_s=run["wall_s"], diagnosis={
+             k: diag.get(k) for k in ("verdict", "straggler",
+                                      "straggler_last_coll", "stuck_coll",
+                                      "stuck_op", "stuck_site",
+                                      "waiting_ranks")},
+         events_per_rank={d["rank"]: len(d["events"]) for d in dumps},
+         stall_dump_bytes=run["dump_bytes"],
+         timing={"armed": row[True], "disarmed": row[False],
+                 "step_overhead_ms": (row[True]["step_ms"]
+                                      - row[False]["step_ms"])
+                 if arm[True] and arm[False] else None,
+                 "bytes_per_rank": nbytes,
+                 "dump_bytes": timing["dump_bytes"],
+                 "launcher_wall_s": timing["wall_s"]},
+         checks=checks,
+         stderr_tail=None if all(checks.values()) else err[-3000:])
+    return all(checks.values())
+
+
+def _timing_run(results) -> dict:
+    """The ``timing`` launch (recorder arms, then the sanitizer), shared by
+    the ``obs`` and ``sanitize`` phases: run once, by whichever comes
+    first."""
+    if "_obs_timing" not in results:
+        results["_obs_timing"] = _obs_run(
+            "timing", 11, ["--flight-recorder", "--sanitize"], {})
+    return results["_obs_timing"]
+
+
+def check_sanitize(results):
+    """The ``timing`` launch under ``--sanitize``: its steps 8-9 pass the
+    signature checks (the sanitizer's ms a collective); at step 10 rank 1
+    casts its last gradient leaf to bfloat16, and both ranks raise
+    ``CollectiveMismatchError`` naming the ``leaves`` divergence of rank
+    1, with no payload moved for the refused collective (the buckets
+    before it match and move); the launcher exits non-zero with the error
+    on stderr."""
+    run = _timing_run(results)
+    logs = run["logs"]
+    steps = [s for r in range(OBS_WORLD) for s in logs[r]["steps"]
+             if s["step"] >= 8]
+    mism = [logs[r].get("mismatch") or {} for r in range(OBS_WORLD)]
+    checks = {
+        "launcher_failed": run["rc"] not in (0, None),
+        "error_on_stderr": "CollectiveMismatchError" in run["stderr"],
+        "steps_before_mismatch": [len(logs[r]["steps"])
+                                  for r in range(OBS_WORLD)] == [10, 10],
+        "sanitized_steps_checked": len(steps) == 2 * OBS_WORLD and all(
+            s["sanitize"] and s["san_calls"] > 0 for s in steps),
+        "unsanitized_steps_unchecked": all(
+            not s["sanitize"] and s["san_calls"] == 0
+            for r in range(OBS_WORLD) for s in logs[r]["steps"]
+            if s["step"] < 8),
+        "both_ranks_raise_at_step_10": all(m.get("step") == 10
+                                           for m in mism),
+        "leaves_named": all("leaves:" in m.get("error", "")
+                            and "bfloat16" in m.get("error", "")
+                            for m in mism),
+        "divergent_rank_1": all(m.get("divergent") == [1] for m in mism),
+        # the buckets before the bfloat16 one match and move; the refused
+        # collective #seq moves nothing: one payload leg a passed check
+        "no_payload_moved": all(
+            m.get("payload_calls_after", -1) - m.get("payload_calls_before",
+                                                     0)
+            == m.get("passed_in_step") for m in mism),
+        "launches_per_step": _steps_launch_ok(logs)}
+    per_coll = [s["san_ms"] / s["san_calls"] for s in steps
+                if s["san_calls"]]
+    armed = [s for r in range(OBS_WORLD) for s in logs[r]["steps"]
+             if s["obs"] and 0 < s["step"] < 8]
+    emit("sanitize", world=OBS_WORLD, launcher_rc=run["rc"],
+         launcher_wall_s=run["wall_s"],
+         ms_per_collective=_med(per_coll),
+         collectives_per_step=_med([s["san_calls"] for s in steps]),
+         sync_ms=_med([s["sync_ms"] for s in steps]),
+         sync_ms_unsanitized=_med([s["sync_ms"] for s in armed]),
+         mismatch={r: {k: v for k, v in mism[r].items() if k != "error"}
+                   for r in range(OBS_WORLD)},
+         error=mism[0].get("error", "")[:600], checks=checks,
+         stderr_tail=None if all(checks.values())
+         else run["stderr"][-3000:])
+    return all(checks.values())
+
+
+ROLES_TIMEOUT = 420
+ROLES_KILL = "kill:rank=2,step=3"
+ROLES_ACTOR_THROTTLE = 0.5      # seconds an actor sleeps between batches
+
+
+def _roles_run(roles: str, module: str, extra: list, obs: bool) -> dict:
+    import tempfile
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="roles_", dir=os.environ.get("TMPDIR"))
+    env = {"TPU_DIST_CHAOS": ROLES_KILL}
+    if obs:
+        env.update(TPU_DIST_OBS="1",
+                   TPU_DIST_OBS_DIR=os.path.join(out, "obs"))
+    rc, so, se, wall = _ctrl_launch(
+        out, ["--standalone", "--roles", roles, "--solo_restarts", "2",
+              "-m", module, *extra, "--device", "cuda", "--out", out], env)
+    return {"rc": rc, "stdout": so, "stderr": se, "wall_s": wall,
+            "out": out}
+
+
+def _role_checks(run, head_key, json_name, n, steps, margin, stats_key):
+    out = run["out"]
+    try:
+        with open(os.path.join(out, json_name)) as f:
+            main = json.load(f)
+    except OSError:
+        main = {}
+    try:
+        with open(os.path.join(out, f"{head_key}1_i1.json")) as f:
+            i1 = json.load(f)
+    except OSError:
+        i1 = {}
+    losses = main.get("losses") or [0.0]
+    head = sum(losses[:10]) / max(len(losses[:10]), 1)
+    tail = sum(losses[-10:]) / max(len(losses[-10:]), 1)
+    checks = {
+        "rc_0": run["rc"] == 0,
+        "solo_restart_rank_2": "role-solo-restart rank=2" in run["stderr"],
+        "no_gang_restart": "gang restart" not in run["stderr"],
+        "generation_0": main.get("generation") == 0,
+        "all_steps": main.get("steps") == steps,
+        "on_card": str(main.get("device", "")).startswith("cuda"),
+        "respawn_produced": i1.get("incarnation") == 1,
+        "respawn_reached": 1 in main.get("seen_incarnations", {}).get(
+            "1", []),
+        "loss_falls": tail < head - margin,
+        "dp_msgs": main.get(stats_key, {}).get("dp_msgs", 0) > 0,
+        "no_kernel_launch": not any(main.get("kernel_launches",
+                                             {"?": 1}).values()),
+        "no_nccl": main.get("torch_distributed") is False}
+    return main, checks, {"head_loss": head, "tail_loss": tail}
+
+
+def check_roles(results):
+    """The role-graph twins on this card.  ``actor_learner`` under
+    ``--roles learner:1,actor:4:solo --solo_restarts 2`` (100 steps, the
+    recorder armed) with actor[1] (rank 2) killed at its 3rd batch: the
+    launcher exits 0, one solo restart of rank 2 and no gang restart, the
+    learner (on the card, cuDNN, no hand-written kernel launched, no NCCL)
+    stays in generation 0 for 100 steps with its loss falling by the JAX
+    test's margin (1.0), the respawned actor's batches reach it, ``traj``
+    carried data-plane frames, and the dumps hold channel put, claim and
+    ack events.  ``param_server`` likewise (``server:1,worker:4:solo``, 48
+    rounds, margin 0.8, all four workers contributing).  Then the
+    ``bench_roles`` twin's channel cells (store and data plane, depth 1 and
+    8, 64 KiB to 8 MiB, CUDA payloads), every payload equal.  The two
+    graphs run at once.  The actors sleep ``ROLES_ACTOR_THROTTLE`` seconds
+    a batch: the learner on the card takes 100 batches faster than a
+    killed actor's respawn starts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu_dist_torch import obs
+    from tpu_dist_torch.benchmarks.bench_roles import bench_channels
+    # the two graphs run at once (ten processes on this machine's cores)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        al_f = pool.submit(_roles_run, "learner:1,actor:4:solo",
+                           "tpu_dist_torch.examples.actor_learner",
+                           ["--actors", "4", "--max-steps", "100",
+                            "--actor-throttle", str(ROLES_ACTOR_THROTTLE)],
+                           True)
+        ps_f = pool.submit(_roles_run, "server:1,worker:4:solo",
+                           "tpu_dist_torch.examples.param_server",
+                           ["--workers", "4", "--max-steps", "48"], False)
+        al, ps = al_f.result(), ps_f.result()
+    learner, al_checks, al_loss = _role_checks(
+        al, "actor", "learner.json", 4, 100, 1.0, "traj_stats")
+    dumps = obs.read_dumps(os.path.join(al["out"], "obs"))
+    ops = {e.get("op") for d in dumps for e in d["events"]
+           if e.get("kind") == "channel"}
+    al_checks["channel_events"] = {"put", "claim", "ack"} <= ops
+    server, ps_checks, ps_loss = _role_checks(
+        ps, "worker", "server.json", 4, 48, 0.8, "grads_stats")
+    ps_checks["all_workers"] = set(server.get("seen_incarnations", {})) \
+        == {"0", "1", "2", "3"}
+    rows = bench_channels(False, "cuda", check=True)
+    cells = [r for r in rows if r["metric"] == "roles_channel_mb_s"]
+    ch_ok = bool(cells) and all(r["payload_equal"] for r in cells)
+    emit("roles", actor_learner={
+        "launcher_wall_s": al["wall_s"], "checks": al_checks, **al_loss,
+        "steps_per_sec": learner.get("steps_per_sec"),
+        "traj_stats": learner.get("traj_stats"),
+        "dumps": len(dumps),
+        "stderr_tail": None if all(al_checks.values())
+        else al["stderr"][-3000:]},
+        param_server={
+            "launcher_wall_s": ps["wall_s"], "checks": ps_checks, **ps_loss,
+            "steps_per_sec": server.get("steps_per_sec"),
+            "grads_stats": server.get("grads_stats"),
+            "stderr_tail": None if all(ps_checks.values())
+            else ps["stderr"][-3000:]},
+        channels={f"{r['path']}/{r['payload_bytes']}/d{r['depth']}":
+                  r["value"] for r in cells},
+        channels_payload_equal=ch_ok)
+    return all(al_checks.values()) and all(ps_checks.values()) and ch_ok
+
+
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("gmm", check_gmm), ("slice", check_slice),
           ("composition", check_composition), ("moe_slice", check_moe_slice),
@@ -4902,7 +5414,9 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("long_32k", check_long_32k), ("serve_rope", check_serve_rope),
           ("zero_ddp", check_zero_ddp), ("zero_opt", check_zero_opt),
           ("elastic", check_elastic), ("host_ring", check_host_ring),
-          ("host_zero", check_host_zero), ("quant_gate", check_quant_gate))
+          ("host_zero", check_host_zero), ("quant_gate", check_quant_gate),
+          ("obs", check_obs), ("sanitize", check_sanitize),
+          ("roles", check_roles))
 
 
 def main() -> int:

@@ -3,10 +3,12 @@ package's (``python -m tpu_dist.launch``): the same argv and the same
 worker give the same env contract (ports aside) and the same exit codes —
 the env contract itself, ``--pass_local_rank``, fail-fast, the refused
 flag combinations, ``--max_restarts`` recovered and exhausted, a worker's
-130, ``--standalone`` and ``--module`` — and two of the port's launchers
-with ``--nnodes=2`` agree on a restart, or on giving up.  Flags whose
-machinery is a later ROADMAP item exit 2 before anything is spawned,
-naming the item; ``spawn(max_restarts=)`` restarts its world.
+130, ``--standalone`` and ``--module``, the control plane's flags
+(``--sanitize``, ``--flight-recorder``, ``--roles``, ``--role_script``,
+``--solo_restarts``) — and two of the port's launchers with ``--nnodes=2``
+agree on a restart, or on giving up.  Flags whose machinery is a later
+ROADMAP item exit 2 before anything is spawned, naming the item;
+``spawn(max_restarts=)`` restarts its world.
 
 The worker uses the standard library only: it writes its env, argv and
 exit code to a JSON file per rank and generation.  Every launch and every
@@ -163,13 +165,10 @@ def test_coll_timeout_reaches_the_child_as_under_the_jax_launcher(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--nnodes=2 --elastic_world=1:2", "A9.2"),
-    ("--nnodes=2 --elastic_timeout=60 --elastic_world=2:2", "A9.2"),
-    ("--sanitize", "A9.2"),
-    ("--flight-recorder", "A9.2"), ("--roles=learner:1", "A9.2"),
-    ("--role_script=a=b.py", "A9.2"), ("--solo_restarts=1", "A9.2"),
-    ("--verify_graph", "A9.2"), ("--no_verify_graph", "A9.2"),
-    ("--store_endpoints=/x", "A9.2"), ("--store_replica", "A9.2"),
+    ("--nnodes=2 --elastic_world=1:2", "A9.2b"),
+    ("--nnodes=2 --elastic_timeout=60 --elastic_world=2:2", "A9.2b"),
+    ("--verify_graph", "A9.7"), ("--no_verify_graph", "A9.7"),
+    ("--store_endpoints=/x", "A9.2b"), ("--store_replica", "A9.2b"),
     ("--netchaos=delay:surface=tcp", "A9.4")])
 def test_unported_flag_exits_2_naming_its_item(tmp_path, worker, capfd,
                                                flag, item):
@@ -181,10 +180,77 @@ def test_unported_flag_exits_2_naming_its_item(tmp_path, worker, capfd,
     assert os.listdir(tmp_path) == ["probe.py"]   # nothing was spawned
 
 
-def test_flight_recorder_env_refused(tmp_path, worker, capfd, monkeypatch):
+# what a child of either launcher sees of the control plane's flags
+CTRL_ENV = ("RANK", "WORLD_SIZE", "TPU_DIST_SANITIZE", "TPU_DIST_OBS",
+            "TPU_DIST_OBS_DIR", "TPU_DIST_ROLES", "TPU_DIST_ROLE",
+            "TPU_DIST_ROLE_RANK", "TPU_DIST_ROLE_WORLD",
+            "TPU_DIST_ROLE_INCARNATION", "TPU_DIST_RESTART_COUNT")
+# argv: OUT; a first incarnation under TPU_DIST_PROBE_DIE exits 3 (the solo
+# respawn's incarnation 1 then writes the record)
+CTRL_PROBE = textwrap.dedent("""
+    import json, os, sys
+    if (os.environ.get("TPU_DIST_PROBE_DIE")
+            and os.environ.get("TPU_DIST_ROLE_INCARNATION") == "0"):
+        sys.exit(3)
+    with open(sys.argv[1], "w") as f:
+        json.dump({k: os.environ.get(k) for k in %r}, f)
+""" % (CTRL_ENV,))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--sanitize"], ["--flight-recorder"], ["--roles=learner:1"],
+    ["--roles=learner:1", "--role_script=learner={probe}"],
+    ["--roles=learner:1:solo", "--solo_restarts=1"]],
+    ids=["sanitize", "flight-recorder", "roles", "role_script",
+         "solo_restarts"])
+def test_control_plane_flag_launches(tmp_path, monkeypatch, flags):
+    """The flags that came with the control plane launch, and the child
+    sees under the port's launcher what it sees under the JAX one."""
+    probe = tmp_path / "ctrl.py"
+    probe.write_text(CTRL_PROBE)
+    monkeypatch.setenv("TPU_DIST_OBS_DIR", str(tmp_path / "obs"))
+    if "--solo_restarts=1" in flags:
+        monkeypatch.setenv("TPU_DIST_PROBE_DIE", "1")
+    seen = {}
+    for name, cli in (("jax", jcli), ("port", tcli)):
+        out = tmp_path / f"{name}.json"
+        argv = [f.format(probe=probe) for f in flags]
+        assert cli.main(argv + [str(probe), str(out)]) == 0
+        seen[name] = json.loads(out.read_text())
+    assert seen["port"] == seen["jax"]
+    env = seen["port"]
+    if "--sanitize" in flags:
+        assert env["TPU_DIST_SANITIZE"] == "1"
+    if "--flight-recorder" in flags:
+        assert env["TPU_DIST_OBS"] == "1"
+        assert env["TPU_DIST_OBS_DIR"] == str(tmp_path / "obs")
+    if flags[0].startswith("--roles"):
+        assert env["TPU_DIST_ROLE"] == "learner"
+        assert env["TPU_DIST_ROLES"] == flags[0].split("=")[1]
+        assert env["TPU_DIST_ROLE_RANK"] == "0"
+        assert env["TPU_DIST_ROLE_INCARNATION"] == (
+            "1" if "--solo_restarts=1" in flags else "0")
+
+
+def test_flight_recorder_env_refused(tmp_path, monkeypatch):
+    """An armed run (``TPU_DIST_OBS=1`` in the launcher's env, which it
+    once refused) leaves the worker's dump, which the trace tools read."""
+    probe = tmp_path / "armed.py"
+    probe.write_text(textwrap.dedent("""
+        from tpu_dist_torch.obs import hooks
+        rec = hooks.install_from_env()
+        rec.record("user", "probe", step=1)
+    """))
     monkeypatch.setenv("TPU_DIST_OBS", "1")
-    assert tcli.main([str(worker), str(tmp_path), "ok"]) == 2
-    assert "A9.2" in capfd.readouterr().err
+    monkeypatch.setenv("TPU_DIST_OBS_DIR", str(tmp_path / "obs"))
+    monkeypatch.setenv("PYTHONPATH", REPO + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+    assert tcli.main([str(probe)]) == 0
+    from tpu_dist_torch.obs import trace
+    dumps = trace.read_dumps(str(tmp_path / "obs"))
+    assert [d["rank"] for d in dumps] == [0]
+    assert dumps[0]["reason"] == "exit"
+    assert [e["op"] for e in dumps[0]["events"]] == ["probe"]
 
 
 def _env():

@@ -95,6 +95,19 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch.benchmarks.accuracy_run
         import tpu_dist_torch.benchmarks.host_sync
         import tpu_dist_torch.benchmarks.elastic_ring
+        import tpu_dist_torch.obs
+        import tpu_dist_torch.obs.__main__
+        import tpu_dist_torch.analysis
+        import tpu_dist_torch.analysis.sanitizer
+        import tpu_dist_torch.roles
+        import tpu_dist_torch.roles.channel
+        import tpu_dist_torch.roles.launcher
+        import tpu_dist_torch.roles.runtime
+        import tpu_dist_torch.examples.actor_learner
+        import tpu_dist_torch.examples.param_server
+        import tpu_dist_torch.benchmarks.bench_roles
+        import tpu_dist_torch.benchmarks.bench_obs_overhead
+        import tpu_dist_torch.benchmarks.obs_stall
         # the native store is built and served with jax and tpu_dist blocked
         from tpu_dist_torch.dist import TCPStore
         s = TCPStore(is_master=True, timeout=10)
@@ -175,8 +188,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                            bench_host_collectives,
                                            bench_overlap, elastic_ring,
                                            host_sync)
+    from tpu_dist_torch.benchmarks import (bench_obs_overhead, bench_roles,
+                                           obs_stall)
     for bench in (bench_host_collectives, bench_overlap, host_sync,
-                  elastic_ring):
+                  elastic_ring, bench_roles, bench_obs_overhead, obs_stall):
         assert bench.main([]) == 2
     assert accuracy_run.main(["--quant-gate-only"]) == 2
     loader = data.DataLoader(data.TensorDataset(np.zeros(4), np.zeros(4)))

@@ -141,16 +141,36 @@ class TestStoreAPI:
         client.close()
 
     def test_refuses_later_items_by_name(self, monkeypatch):
-        for var, item in (("TPU_DIST_STORE_ENDPOINTS", "A9.2"),
-                          ("TPU_DIST_STORE_REPLICATE", "A9.2"),
-                          ("TPU_DIST_OBS", "A9.2"),
+        for var, item in (("TPU_DIST_STORE_ENDPOINTS", "A9.2b"),
+                          ("TPU_DIST_STORE_REPLICATE", "A9.2b"),
                           ("TPU_DIST_NETCHAOS", "A9.4")):
             monkeypatch.setenv(var, "1")
             with pytest.raises(NotImplementedError, match=item):
                 tstore.TCPStore(is_master=True)
             monkeypatch.delenv(var)
-        with pytest.raises(NotImplementedError, match="A9.2"):
+        with pytest.raises(NotImplementedError, match="A9.2b"):
             tstore.PyTCPStoreServer(replicate=True)
+        # TPU_DIST_OBS, once refused, arms the client's op events: one
+        # kind="store" event a request, none for the polling CHECK
+        from tpu_dist_torch.obs import recorder
+        monkeypatch.setenv("TPU_DIST_OBS", "1")
+        recorder.reset()
+        try:
+            s = tstore.TCPStore(is_master=True)
+            s.set("k", b"vv")
+            assert s.get("k") == b"vv" and s.check("k")
+            assert s.add("n", 3) == 3
+            s.delete_key("k")
+            s.close()
+            evs = [e for e in recorder.get_recorder().snapshot()
+                   if e["kind"] == "store"]
+            assert [(e["op"], e["key"], e["outcome"]) for e in evs] == [
+                ("set", "k", "ok"), ("get", "k", "ok"), ("add", "n", "ok"),
+                ("delete", "k", "ok")]
+            assert evs[0]["bytes"] == 2 and evs[2]["bytes"] == 8
+        finally:
+            monkeypatch.delenv("TPU_DIST_OBS")
+            recorder.reset()
 
 
 class TestReconnect:

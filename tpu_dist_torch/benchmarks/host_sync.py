@@ -17,6 +17,11 @@ own (the Bucketer, the eager routing, the ring).  One JSON line a mode::
      "value": ..., "unit": "ms", "bytes": 547973120, ...}
 
     python -m tpu_dist_torch.benchmarks.host_sync [--world 4] [--iters 5]
+
+With ``TPU_DIST_OBS=1`` (and ``TPU_DIST_OBS_DIR``) or ``TPU_DIST_SANITIZE=1``
+in its environment the workers run with the flight recorder or the
+sanitizer armed; each row says which (``obs``, ``sanitize``) and counts the
+recorder's collective spans so far by path (``spans_by_path``).
 """
 
 from __future__ import annotations
@@ -60,7 +65,9 @@ def rank_grads(ddp, state, rank: int, batch: int = 2) -> dict:
 def _worker() -> int:
     from .. import collectives as C
     from .. import dist
+    from ..analysis import sanitizer
     from ..collectives.quant import ErrorFeedback
+    from ..obs import recorder
 
     spec = json.loads(os.environ["BENCH_SPEC"])
     pg = dist.init_process_group(init_method="env://")
@@ -90,6 +97,9 @@ def _worker() -> int:
                     times.append((time.perf_counter() - t0) * 1e3)
             del out
             rows.append({"metric": "grad_sync_ms", "mode": mode,
+                         "obs": recorder.enabled(),
+                         "sanitize": sanitizer.enabled(),
+                         "spans_by_path": _spans_by_path(),
                          "world": pg.size(), "value": statistics.median(
                              times), "unit": "ms", "samples_ms": times,
                          "bytes": nbytes, "leaves": len(grads),
@@ -104,6 +114,19 @@ def _worker() -> int:
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def _spans_by_path() -> dict:
+    """The armed recorder's collective spans so far, counted by transport
+    path (empty when disarmed)."""
+    from ..obs import recorder
+    rec = recorder.get_recorder()
+    out: dict = {}
+    for e in rec.snapshot() if rec is not None else ():
+        if e["kind"] == "collective":
+            key = str(e.get("path"))
+            out[key] = out.get(key, 0) + 1
+    return out
 
 
 def _free_port() -> int:

@@ -52,3 +52,28 @@ def unflatten(treedef, leaves) -> Any:
 def tree_map(fn, tree):
     leaves, treedef = flatten(tree)
     return unflatten(treedef, [fn(v) for v in leaves])
+
+
+def treedef_str(treedef) -> str:
+    """``str(treedef)`` as JAX renders it (``PyTreeDef({'a': [*, None]})``),
+    for a treedef of :func:`flatten`: the sanitizer hashes this string, so
+    a mixed gang signs the same trees alike."""
+
+    def show(d):
+        kind = d[0]
+        if kind == "none":
+            return "None"
+        if kind == "leaf":
+            return "*"
+        if kind == "dict":
+            return "{" + ", ".join(f"{k!r}: {show(c)}" for k, c in d[1]) + "}"
+        if kind == "ntuple":
+            return (f"CustomNode(namedtuple[{d[1].__name__}], ["
+                    + ", ".join(show(c) for c in d[2]) + "])")
+        items = [show(c) for c in d[2]]
+        if issubclass(d[1], tuple):
+            return "(" + ", ".join(items) + ("," if len(items) == 1 else "") \
+                + ")"
+        return "[" + ", ".join(items) + "]"
+
+    return f"PyTreeDef({show(treedef)})"

@@ -275,7 +275,9 @@ class Bucketer:
                                     error_feedback)
         kind = "bucket_reduce_scatter" if scatter else "bucket_all_reduce"
         leaves, treedef = _tree.flatten(tree)
-        dev = group.device
+        # a data-plane SubGroup (a role's group) has no device: numpy
+        # leaves stay on the host there
+        dev = getattr(group, "device", None)
         ts = [t if isinstance(t, torch.Tensor) else torch.as_tensor(
             np.asarray(t), device=dev) for t in leaves]
         label = f"{kind}[{op}]x{len(ts)}"
@@ -321,7 +323,7 @@ class Bucketer:
                         out[i] = v if scatter else v.reshape(ts[i].shape)
                     continue
                 for i, v in zip(idxs, res):
-                    v = torch.as_tensor(np.asarray(v), device=dev)
+                    v = torch.as_tensor(np.asarray(v), device=ts[i].device)
                     if scatter:
                         lo, hi = chunk_bounds(v.numel(), n)[r]
                         v = v.reshape(-1)[lo:hi].clone()
@@ -530,6 +532,8 @@ class Bucketer:
                 seq = _eager._next_seq("bucket_rs" if scatter
                                        else "bucket_ar", 0)
                 tag = f"{_eager._ns()}/coll/bkt/{seq}"
+                _eager._sanitize(op_name, group, store,
+                                 value=buf, reduce_op=op)
                 dp = _eager._maybe_data_plane(group, store)
             residual = leaf_res = None
             if residuals is not None:
@@ -541,17 +545,18 @@ class Bucketer:
                     residual = (payload[0] if len(payload) == 1
                                 else np.concatenate(
                                     [np.asarray(a) for a in payload]))
-            t0 = time.perf_counter()
-            stats: dict = {}
-            fn = _ring.ring_reduce_scatter if scatter else \
-                _ring.ring_all_reduce
-            reduced = fn(dp, buf, op=op, tag=tag, comm_dtype=comm_spec,
-                         bounds=bucket_bounds, quant_residual=residual,
-                         stats=stats)
-            _eager.record_transport(
-                op_name, "dataplane", buf.nbytes, t0,
-                wire_bytes=stats.get("wire_bytes"),
-                raw_wire_bytes=stats.get("raw_wire_bytes"))
+            with _eager._obs_span(op_name, value=buf, reduce_op=op):
+                t0 = time.perf_counter()
+                stats: dict = {}
+                fn = _ring.ring_reduce_scatter if scatter else \
+                    _ring.ring_all_reduce
+                reduced = fn(dp, buf, op=op, tag=tag, comm_dtype=comm_spec,
+                             bounds=bucket_bounds, quant_residual=residual,
+                             stats=stats)
+                _eager._record(
+                    op_name, "dataplane", buf.nbytes, t0,
+                    wire_bytes=stats.get("wire_bytes"),
+                    raw_wire_bytes=stats.get("raw_wire_bytes"))
             if leaf_res is not None and len(leaf_res) > 1:
                 # scatter the updated concatenation back into the per-leaf
                 # residual arrays

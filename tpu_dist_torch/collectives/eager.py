@@ -36,9 +36,12 @@ A group without the control-plane store (a ``tcp://`` rendezvous without
 the store pre-flight) keeps the backend — where the JAX package refuses
 (``eager.py`` ``_p2p_store``) or falls back to its mesh; a sub-group made
 by ``dist.new_group`` also keeps its backend (the data plane's own groups
-are :func:`.topology.new_group`).  The collective sanitizer and the flight
-recorder are the control plane's (ROADMAP A9.2).  Objects are pickled:
-send only what this job made.
+are :func:`.topology.new_group`).  Every collective opens a flight-recorder
+span (:mod:`tpu_dist_torch.obs`; the backend route notes the path
+``"mesh"``, the JAX package's word) and, under ``TPU_DIST_SANITIZE=1``, has
+its signature checked across ranks before any payload moves
+(:mod:`tpu_dist_torch.analysis.sanitizer`).  Objects are pickled: send
+only what this job made.
 
 ``async_op=True`` (``all_reduce_host``, ``all_gather_host``,
 ``broadcast_host``, ``send``, ``recv``) returns a
@@ -52,13 +55,14 @@ import io
 import os
 import pickle
 import struct
-import threading
 import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..obs import recorder as _obs_rec
+from ..obs.recorder import reset_transport_counters, transport_counters
 from . import _lowp, _tree
 from .work import completed_work, drain_pending, engine
 
@@ -272,12 +276,17 @@ def all_reduce_host(x, group=None, op: str = ReduceOp.SUM,
 
 
 def _all_reduce_body(x, group, op, fn):
-    store = _coll_store()
-    if not _use_backend(group, store):
-        return _routed_all_reduce(x, group, store, op, fn)
-    rows, treedef = _leaves_of_all(x, group)
-    return _tree.unflatten(treedef, [
-        fn(np.stack([row[i] for row in rows])) for i in range(len(rows[0]))])
+    with _obs_span("all_reduce", value=x, reduce_op=op,
+                   group=_group_id(group)):
+        store = _coll_store()
+        _sanitize("all_reduce", group, store, value=x, reduce_op=op)
+        if not _use_backend(group, store):
+            return _routed_all_reduce(x, group, store, op, fn)
+        _obs_mesh()
+        rows, treedef = _leaves_of_all(x, group)
+        return _tree.unflatten(treedef, [
+            fn(np.stack([row[i] for row in rows]))
+            for i in range(len(rows[0]))])
 
 
 def _routed_all_reduce(x, group, store, op, fn):
@@ -299,7 +308,7 @@ def _routed_all_reduce(x, group, store, op, fn):
         for pos, i in enumerate(small):
             out[i] = fn(np.stack([np.asarray(rows[r][pos])
                                   for r in range(n)]))
-        record_transport("all_reduce", "store",
+        _record("all_reduce", "store",
                          sum(arrs[i].nbytes for i in small), t0)
         _topo.record_algo("all_reduce", "store")
     comm = _comm_dtype()
@@ -320,7 +329,7 @@ def _routed_all_reduce(x, group, store, op, fn):
                   else _ring.ring_all_reduce)
         out[i] = reduce(dp, arrs[i], op=opl, tag=f"{base}/{j}",
                         comm_dtype=leaf_comm, stats=stats)
-        record_transport("all_reduce", "dataplane", arrs[i].nbytes, t0,
+        _record("all_reduce", "dataplane", arrs[i].nbytes, t0,
                          wire_bytes=stats.get("wire_bytes"),
                          raw_wire_bytes=stats.get("raw_wire_bytes"))
     return _tree.unflatten(treedef, out)
@@ -341,12 +350,15 @@ def all_gather_host(x, group=None, async_op: bool = False):
 
 
 def _all_gather_body(x, group):
-    store = _coll_store()
-    if not _use_backend(group, store):
-        return _routed_all_gather(x, group, store)
-    rows, treedef = _leaves_of_all(x, group)
-    return _tree.unflatten(treedef, [
-        np.stack([row[i] for row in rows]) for i in range(len(rows[0]))])
+    with _obs_span("all_gather", value=x, group=_group_id(group)):
+        store = _coll_store()
+        _sanitize("all_gather", group, store, value=x)
+        if not _use_backend(group, store):
+            return _routed_all_gather(x, group, store)
+        _obs_mesh()
+        rows, treedef = _leaves_of_all(x, group)
+        return _tree.unflatten(treedef, [
+            np.stack([row[i] for row in rows]) for i in range(len(rows[0]))])
 
 
 def _routed_all_gather(x, group, store):
@@ -365,7 +377,7 @@ def _routed_all_gather(x, group, store):
                                          store, base + "/sm")
         for pos, i in enumerate(small):
             out[i] = np.stack([np.asarray(rows[r][pos]) for r in range(n)])
-        record_transport("all_gather", "store",
+        _record("all_gather", "store",
                          sum(arrs[i].nbytes for i in small), t0)
     comm = _gather_comm_dtype()  # its own knob: gathers are often exact
     for j, i in enumerate(ring_idx):
@@ -373,7 +385,7 @@ def _routed_all_gather(x, group, store):
         stats: dict = {}
         out[i] = _ring.ring_all_gather(dp, arrs[i], tag=f"{base}/{j}",
                                        comm_dtype=comm, stats=stats)
-        record_transport("all_gather", "dataplane", arrs[i].nbytes, t0,
+        _record("all_gather", "dataplane", arrs[i].nbytes, t0,
                          wire_bytes=stats.get("wire_bytes"),
                          raw_wire_bytes=stats.get("raw_wire_bytes"))
     return _tree.unflatten(treedef, out)
@@ -397,15 +409,18 @@ def broadcast_host(x, group=None, src: int = 0, async_op: bool = False):
 
 
 def _broadcast_body(x, group, src):
-    _check_peer(src, group, "src")
-    store = _coll_store()
-    if not _use_backend(group, store):
-        return _routed_broadcast(x, group, store, src)
-    leaves, treedef = _tree.flatten(x)
-    raw = (_dumps([np.array(_host(v)) for v in leaves])
-           if group.rank == src else None)
-    vals = pickle.loads(_broadcast_bytes(raw, src, group))
-    return _tree.unflatten(treedef, [np.asarray(v) for v in vals])
+    with _obs_span("broadcast", value=x, src=src, group=_group_id(group)):
+        store = _coll_store()
+        _sanitize("broadcast", group, store, value=x, src=src)
+        _check_peer(src, group, "src")
+        if not _use_backend(group, store):
+            return _routed_broadcast(x, group, store, src)
+        _obs_mesh()
+        leaves, treedef = _tree.flatten(x)
+        raw = (_dumps([np.array(_host(v)) for v in leaves])
+               if group.rank == src else None)
+        vals = pickle.loads(_broadcast_bytes(raw, src, group))
+        return _tree.unflatten(treedef, [np.asarray(v) for v in vals])
 
 
 def _routed_broadcast(x, group, store, src):
@@ -433,13 +448,13 @@ def _routed_broadcast(x, group, store, src):
             store.delete_key(f"{key}/ack")
         for pos, i in enumerate(small):
             out[i] = np.asarray(vals[pos])
-        record_transport("broadcast", "store",
+        _record("broadcast", "store",
                          sum(arrs[i].nbytes for i in small), t0)
     for j, i in enumerate(tree_idx):
         t0 = time.perf_counter()
         out[i] = _ring.tree_broadcast(dp, arrs[i], src=src,
                                       tag=f"{base}/{j}")
-        record_transport("broadcast", "dataplane", arrs[i].nbytes, t0)
+        _record("broadcast", "dataplane", arrs[i].nbytes, t0)
     return _tree.unflatten(treedef, out)
 
 
@@ -451,14 +466,21 @@ def reduce_host(x, dst: int = 0, group=None, op: str = ReduceOp.SUM):
     _check_peer(dst, group, "dst")
     if group.num_processes <= 1:
         return _tree.tree_map(_host, x)
-    gathered = gather_host(x, dst=dst, group=group)
-    if gathered is None:
-        return None
-    leaves = [_tree.flatten(g)[0] for g in gathered]
-    treedef = _tree.flatten(gathered[0])[1]
-    return _tree.unflatten(treedef, [
-        fn(np.stack([row[i] for row in leaves]))
-        for i in range(len(leaves[0]))])
+    drain_pending()
+    with _obs_span("reduce", value=x, reduce_op=op, dst=dst,
+                   group=_group_id(group)):
+        store = _coll_store()
+        _sanitize("reduce", group, store, value=x, reduce_op=op, dst=dst)
+        if _use_backend(group, store):
+            _obs_mesh()
+        gathered = gather_host(x, dst=dst, group=group)
+        if gathered is None:
+            return None
+        leaves = [_tree.flatten(g)[0] for g in gathered]
+        treedef = _tree.flatten(gathered[0])[1]
+        return _tree.unflatten(treedef, [
+            fn(np.stack([row[i] for row in leaves]))
+            for i in range(len(leaves[0]))])
 
 
 def gather_host(x, dst: int = 0, group=None) -> Optional[List]:
@@ -472,13 +494,17 @@ def gather_host(x, dst: int = 0, group=None) -> Optional[List]:
     if n <= 1:
         return [_tree.tree_map(_host, x)]
     drain_pending()
-    store = _coll_store()
-    if not _use_backend(group, store):
-        return _routed_gather(x, dst, group, store, n)
-    rows = _all_gather_bytes(_dumps(_tree.tree_map(_host, x)), group)
-    if group.rank != dst:
-        return None
-    return [pickle.loads(r) for r in rows]
+    with _obs_span("gather", value=x, dst=dst, group=_group_id(group)):
+        store = _coll_store()
+        # no leaf signature: a gather moves per-rank shapes
+        _sanitize("gather", group, store, dst=dst)
+        if not _use_backend(group, store):
+            return _routed_gather(x, dst, group, store, n)
+        _obs_mesh()
+        rows = _all_gather_bytes(_dumps(_tree.tree_map(_host, x)), group)
+        if group.rank != dst:
+            return None
+        return [pickle.loads(r) for r in rows]
 
 
 def _routed_gather(x, dst, group, store, n):
@@ -501,7 +527,7 @@ def _routed_gather(x, dst, group, store, n):
         nbytes += len(raw)
         out.append(_tree_from_bytes(raw))
         store.delete_key(key)
-    record_transport("gather", "store", nbytes, t0)
+    _record("gather", "store", nbytes, t0)
     return out
 
 
@@ -532,12 +558,16 @@ def scatter_host(output_template, scatter_list: Optional[List] = None,
         if n <= 1:
             return payload[0]
     drain_pending()
-    store = _coll_store()
-    if not _use_backend(group, store):
-        return _routed_scatter(payload, src, group, store, n)
-    full = pickle.loads(_broadcast_bytes(
-        _dumps(payload) if group.rank == src else None, src, group))
-    return full[group.rank]
+    with _obs_span("scatter", value=output_template, src=src,
+                   group=_group_id(group)):
+        store = _coll_store()
+        _sanitize("scatter", group, store, value=output_template, src=src)
+        if not _use_backend(group, store):
+            return _routed_scatter(payload, src, group, store, n)
+        _obs_mesh()
+        full = pickle.loads(_broadcast_bytes(
+            _dumps(payload) if group.rank == src else None, src, group))
+        return full[group.rank]
 
 
 def _routed_scatter(payload, src, group, store, n):
@@ -551,12 +581,12 @@ def _routed_scatter(payload, src, group, store, n):
                 raw = _tree_to_bytes(payload[dst])
                 nbytes += len(raw)
                 store.set(_coll_key("scatter", src, seq, dst, group), raw)
-        record_transport("scatter", "store", nbytes, t0)
+        _record("scatter", "store", nbytes, t0)
         return payload[src]
     key = _coll_key("scatter", src, seq, group.rank, group)
     raw = store.get(key)       # blocks until src posts it
     store.delete_key(key)
-    record_transport("scatter", "store", len(raw), t0)
+    _record("scatter", "store", len(raw), t0)
     return _tree_from_bytes(raw)
 
 
@@ -680,12 +710,14 @@ def all_to_all_host(input_list: List[Any], group=None) -> List[Any]:
                          f"(num_processes={n}), got {len(input_list)}")
     if n <= 1:
         return list(input_list)
-    store = _coll_store()
-    if not _use_backend(group, store):
-        drain_pending()
-        return _routed_all_to_all(input_list, group, store, n)
-    rows = all_gather_object(list(input_list), group)
-    return [rows[r][group.rank] for r in range(n)]
+    drain_pending()
+    with _obs_span("all_to_all", value=input_list, group=_group_id(group)):
+        store = _coll_store()
+        _sanitize("all_to_all", group, store)
+        if not _use_backend(group, store):
+            return _routed_all_to_all(input_list, group, store, n)
+        rows = all_gather_object(list(input_list), group)
+        return [rows[r][group.rank] for r in range(n)]
 
 
 def _routed_all_to_all(input_list, group, store, n):
@@ -708,7 +740,7 @@ def _routed_all_to_all(input_list, group, store, n):
         nbytes += len(raw)
         out.append(pickle.loads(raw))
         store.delete_key(key)
-    record_transport("all_to_all", "store", nbytes, t0)
+    _record("all_to_all", "store", nbytes, t0)
     return out
 
 
@@ -890,49 +922,72 @@ def _partition_and_dp(arrs, group, store, reduce_op=None):
     return sorted(big), [i for i in range(len(arrs)) if i not in big], dp
 
 
-# -- transport counters -------------------------------------------------------
+# -- transport counters and the flight recorder ------------------------------
 
-_agg: Dict[str, Dict[str, float]] = {}
-_agg_mu = threading.Lock()
-
-
-def record_transport(op: str, path: str, nbytes: int, t0: float,
-                     wire_bytes=None, raw_wire_bytes=None) -> None:
-    """Count one transport leg of ``op`` over ``path`` (``dataplane`` |
-    ``store``): logical bytes, wire bytes and the uncompressed wire bytes
-    of the same traffic (the JAX recorder's ``record_transport``)."""
-    seconds = time.perf_counter() - t0
-    with _agg_mu:
-        c = _agg.setdefault(f"{op}/{path}", {
-            "calls": 0, "bytes": 0, "wire_bytes": 0, "raw_wire_bytes": 0,
-            "seconds": 0.0})
-        c["calls"] += 1
-        c["bytes"] += int(nbytes)
-        c["wire_bytes"] += int(nbytes if wire_bytes is None else wire_bytes)
-        c["raw_wire_bytes"] += int(nbytes if raw_wire_bytes is None
-                                   else raw_wire_bytes)
-        c["seconds"] += float(seconds)
+def _record(op: str, path: str, nbytes: int, t0: float,
+            wire_bytes=None, raw_wire_bytes=None) -> None:
+    """Account one transport leg of ``op`` over ``path`` begun at ``t0``
+    (``perf_counter``): the single ingestion point of the per-(op, path)
+    counters and of the enclosing flight-recorder span.  ``wire_bytes`` is
+    what crossed the wire, ``raw_wire_bytes`` the same traffic
+    uncompressed."""
+    _obs_rec.record_transport(op, path, nbytes, time.perf_counter() - t0,
+                              wire_bytes=wire_bytes,
+                              raw_wire_bytes=raw_wire_bytes)
 
 
-def transport_counters(reset: bool = False) -> Dict[str, Dict[str, float]]:
-    """Per ``op/path``: calls, bytes, wire_bytes, raw_wire_bytes, seconds,
-    ``mb_per_s`` (logical bytes over wall time) and ``compression`` (raw
-    over wire bytes)."""
-    with _agg_mu:
-        out = {k: dict(v) for k, v in _agg.items()}
-        if reset:
-            _agg.clear()
-    for v in out.values():
-        v["mb_per_s"] = (v["bytes"] / v["seconds"] / 1e6
-                         if v["seconds"] > 0 else 0.0)
-        v["compression"] = (v["raw_wire_bytes"] / v["wire_bytes"]
-                            if v["wire_bytes"] > 0 else 1.0)
-    return out
+def _obs_span(op: str, value=None, reduce_op=None, src=None, dst=None,
+              peer=None, kind: str = "collective", group=None):
+    """Flight-recorder span around one eager collective; disarmed, a shared
+    no-op context after one env lookup.  ``group`` is a SubGroup's id
+    (None for the flat world)."""
+    from ..obs import hooks as _hooks
+    return _hooks.collective_span(op, value=value, reduce_op=reduce_op,
+                                  src=src, dst=dst, peer=peer, kind=kind,
+                                  group=group)
 
 
-def reset_transport_counters() -> None:
-    with _agg_mu:
-        _agg.clear()
+def _obs_mesh() -> None:
+    """Mark the enclosing span as having ridden the group's backend: the
+    path ``"mesh"``, the JAX package's word for its device collectives."""
+    from ..obs import hooks as _hooks
+    _hooks.note_path("mesh")
+
+
+# the armed values sanitizer.enabled() recognizes: the gate here parses
+# identically, or TPU_DIST_SANITIZE=0 would arm the check one-sidedly
+_SANITIZE_ON = ("1", "true", "yes", "on")
+
+
+def _sanitize(op: str, group, store=None, **fields) -> None:
+    """Cross-rank signature check before a collective moves any payload
+    (:mod:`tpu_dist_torch.analysis.sanitizer`), under
+    ``TPU_DIST_SANITIZE=1``; off, one env lookup.  The signatures ride the
+    control-plane store whatever the payload's route, so a job without
+    the store skips the check."""
+    if (os.environ.get("TPU_DIST_SANITIZE", "").strip().lower()
+            not in _SANITIZE_ON):
+        return
+    if store is None:
+        store = _coll_store()
+    if store is None or group.num_processes <= 1:
+        return
+    from ..analysis import sanitizer
+    # the wire format is signed: ranks that disagree on it would exchange
+    # frames they cannot read
+    fields.setdefault("comm", _comm_name())
+    sanitizer.check_collective(group, store, op, **fields)
+
+
+def _comm_name() -> Optional[str]:
+    """The configured wire formats as one spec string (the JAX
+    package's), which the sanitizer signs; the gather knob is in it too."""
+    from . import quant as _quant
+    reduce_spec = _quant.wire_name(_comm_dtype())
+    gather_spec = _quant.wire_name(_gather_comm_dtype())
+    if gather_spec is None:
+        return reduce_spec
+    return f"{reduce_spec or 'f32'}+gather:{gather_spec}"
 
 
 # -- point to point -----------------------------------------------------------
@@ -976,18 +1031,20 @@ def send(x, dst: int, group=None, tag: int = 0, async_op: bool = False):
 
 
 def _send_body(arr: np.ndarray, dst: int, group, tag: int) -> None:
-    store = _coll_store()
-    if not _use_backend(group, store):
-        return _routed_send(arr, dst, group, tag, store)
-    buf = io.BytesIO()
-    np.save(buf, arr, allow_pickle=False)
-    raw = np.frombuffer(buf.getvalue(), np.uint8).copy()
-    dev, peer = _stage(group), group.ranks[dst]
-    torch.distributed.send(torch.tensor([raw.size], dtype=torch.int64,
-                                        device=dev), dst=peer,
-                           group=group.torch_group, tag=tag)
-    torch.distributed.send(torch.from_numpy(raw).to(dev), dst=peer,
-                           group=group.torch_group, tag=tag)
+    with _obs_span("send", value=arr, dst=dst, kind="p2p"):
+        store = _coll_store()
+        if not _use_backend(group, store):
+            return _routed_send(arr, dst, group, tag, store)
+        _obs_mesh()
+        buf = io.BytesIO()
+        np.save(buf, arr, allow_pickle=False)
+        raw = np.frombuffer(buf.getvalue(), np.uint8).copy()
+        dev, peer = _stage(group), group.ranks[dst]
+        torch.distributed.send(torch.tensor([raw.size], dtype=torch.int64,
+                                            device=dev), dst=peer,
+                               group=group.torch_group, tag=tag)
+        torch.distributed.send(torch.from_numpy(raw).to(dev), dst=peer,
+                               group=group.torch_group, tag=tag)
 
 
 def _routed_send(arr, dst: int, group, tag: int, store) -> None:
@@ -1002,13 +1059,13 @@ def _routed_send(arr, dst: int, group, tag: int, store) -> None:
         if dp is not None:
             dp.send_array(dst, _p2p_wire_tag(tag, seq), arr)
             _p2p_send_seq[key] = seq + 1
-            record_transport("send", "dataplane", arr.nbytes, t0)
+            _record("send", "dataplane", arr.nbytes, t0)
             return
     buf = io.BytesIO()
     np.save(buf, arr, allow_pickle=False)
     store.set(_p2p_key(me, dst, tag, seq, group), buf.getvalue())
     _p2p_send_seq[key] = seq + 1
-    record_transport("send", "store", arr.nbytes, t0)
+    _record("send", "store", arr.nbytes, t0)
 
 
 def recv(src: int, group=None, tag: int = 0, async_op: bool = False):
@@ -1026,16 +1083,20 @@ def recv(src: int, group=None, tag: int = 0, async_op: bool = False):
 
 
 def _recv_body(src: int, group, tag: int) -> np.ndarray:
-    store = _coll_store()
-    if not _use_backend(group, store):
-        return _routed_recv(src, group, tag, store)
-    dev, peer = _stage(group), group.ranks[src]
-    size = torch.empty(1, dtype=torch.int64, device=dev)
-    torch.distributed.recv(size, src=peer, group=group.torch_group, tag=tag)
-    buf = torch.empty(int(size.item()), dtype=torch.uint8, device=dev)
-    torch.distributed.recv(buf, src=peer, group=group.torch_group, tag=tag)
-    return np.load(io.BytesIO(buf.cpu().numpy().tobytes()),
-                   allow_pickle=False)
+    with _obs_span("recv", src=src, kind="p2p"):
+        store = _coll_store()
+        if not _use_backend(group, store):
+            return _routed_recv(src, group, tag, store)
+        _obs_mesh()
+        dev, peer = _stage(group), group.ranks[src]
+        size = torch.empty(1, dtype=torch.int64, device=dev)
+        torch.distributed.recv(size, src=peer, group=group.torch_group,
+                               tag=tag)
+        buf = torch.empty(int(size.item()), dtype=torch.uint8, device=dev)
+        torch.distributed.recv(buf, src=peer, group=group.torch_group,
+                               tag=tag)
+        return np.load(io.BytesIO(buf.cpu().numpy().tobytes()),
+                       allow_pickle=False)
 
 
 def _routed_recv(src: int, group, tag: int, store) -> np.ndarray:
@@ -1048,7 +1109,7 @@ def _routed_recv(src: int, group, tag: int, store) -> np.ndarray:
 
     def delivered(out, path):
         _p2p_recv_seq[skey] = seq + 1
-        record_transport("recv", path, out.nbytes, t0)
+        _record("recv", path, out.nbytes, t0)
         return out
 
     def from_store():

@@ -24,13 +24,13 @@ collective to ``TPU_DIST_COLL_TIMEOUT`` and raises
 
 The functions take a :class:`~.transport.DataPlane` (or a group view of
 one, :mod:`.topology`) and numpy arrays; low-precision floats are
-:mod:`._lowp` arrays.  Obs spans and wire notes belong to the flight
-recorder (ROADMAP A9.2); ``stats`` dicts carry the wire quantities.
+:mod:`._lowp` arrays.  Each collective opens a flight-recorder span
+(:mod:`tpu_dist_torch.obs`, no-op while disarmed) and stamps it with the
+wire quantities that the ``stats`` dicts carry.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 from typing import Optional, Tuple
@@ -131,7 +131,24 @@ class _Watchdog:
             f"from rank {src} (tag {tag!r}, waiting for span "
             f"[{pos}:{hi})) within TPU_DIST_COLL_TIMEOUT="
             f"{self.budget:.0f}s — stalled hop {src}->{dp.rank}"
-            ) from cause
+            f"{_obs_position()}") from cause
+
+
+def _obs_position() -> str:
+    """This rank's last flight-recorder position (armed runs), stamped
+    into watchdog errors so they name where the collective stood when it
+    wedged."""
+    try:
+        from ..obs import hooks as _hooks
+        from ..obs import recorder as _rec
+        rec = _rec.get_recorder()
+        if rec is not None:
+            pos = rec.last_position()
+            if pos is not None:
+                return f"; flight recorder: {_hooks.render_tail(pos)}"
+    except Exception:
+        pass
+    return ""
 
 
 def _astype(a: np.ndarray, dt) -> np.ndarray:
@@ -322,9 +339,12 @@ def _exchange(dp, right: int, left: int, tag: str, flat: np.ndarray,
 
 
 def _obs_span(op: str, value):
-    """The flight recorder's span for one ring collective: a no-op until
-    the control plane's obs (ROADMAP A9.2)."""
-    return contextlib.nullcontext()
+    """Flight-recorder span for one host ring collective: ring phases are
+    where a dead or slow peer shows, so they get their own lockstep span,
+    nested under the eager caller's (or standalone, for direct DataPlane
+    users)."""
+    from ..obs import hooks as _hooks
+    return _hooks.collective_span(op, value=value, path="dataplane")
 
 
 def _prepare(dp, x, op: str):
@@ -493,10 +513,13 @@ def _note_stats(stats, wire, wire_bytes: int, raw_bytes: int) -> None:
     have cost uncompressed — their ratio is the wire-format compression
     factor, independent of the ring's 2(N-1)/N amplification over the
     logical payload (which the span's ``bytes`` field still shows)."""
+    name = _Q.wire_name(wire)
     if stats is not None:
         stats["wire_bytes"] = int(wire_bytes)
         stats["raw_wire_bytes"] = int(raw_bytes)
-        stats["comm"] = _Q.wire_name(wire)
+        stats["comm"] = name
+    from ..obs import hooks as _hooks
+    _hooks.note_wire(int(wire_bytes), name, raw_bytes=int(raw_bytes))
 
 
 def ring_all_reduce(dp, x, op: str = "sum", tag: str = "ar",

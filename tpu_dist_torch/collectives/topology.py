@@ -497,11 +497,15 @@ def select_algo(nbytes: int, dp=None,
 
 
 def record_algo(op: str, algo: str) -> None:
-    """Count one algorithm choice (the JAX package also stamps it on the
-    flight recorder's span, ROADMAP A9.2)."""
+    """Count one algorithm choice and stamp it on the enclosing obs span."""
     with _algo_mu:
         key = f"{op}/{algo}"
         _algo_counts[key] = _algo_counts.get(key, 0) + 1
+    try:
+        from ..obs import hooks as _hooks
+        _hooks.note_algo(algo)
+    except Exception:
+        pass
 
 
 def algo_counters(reset: bool = False) -> Dict[str, int]:

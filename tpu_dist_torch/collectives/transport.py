@@ -32,9 +32,9 @@ Env knobs: ``TPU_DIST_DP_HOST`` (advertised address), ``TPU_DIST_SHM`` /
 (per-frame recv deadline, 300 s), ``TPU_DIST_COLL_TIMEOUT`` (the
 collective watchdog, 0 = off), ``TPU_DIST_FRAME_CRC``,
 ``TPU_DIST_DIAL_TIMEOUT`` (60 s), ``TPU_DIST_SOCK_BUF`` (socket buffer
-bytes, 0 = the OS default) and ``TPU_DIST_NO_DATAPLANE=1`` (off).  The
-flight recorder's transport events are the control plane's (ROADMAP A9.2)
-and network fault injection is ROADMAP A9.4: here both are no-ops.
+bytes, 0 = the OS default) and ``TPU_DIST_NO_DATAPLANE=1`` (off).  Lifecycle events (peer connect,
+peer gone, SHM lanes) go to the flight recorder (:mod:`tpu_dist_torch.obs`)
+when it is armed; network fault injection is ROADMAP A9.4 and a no-op here.
 """
 
 from __future__ import annotations
@@ -933,13 +933,40 @@ class DataPlane:
     # -- receive -------------------------------------------------------------
 
     def _obs(self, op: str, peer: int, **fields) -> None:
-        """A transport lifecycle event for the flight recorder: a no-op
-        until the control plane's obs (ROADMAP A9.2)."""
+        """Record a transport lifecycle event on the flight recorder
+        (no-op when disarmed; must never raise into the reader threads)."""
+        try:
+            from ..obs.recorder import safe_record
+        except Exception:
+            return
+        safe_record("transport", op, peer=peer, **fields)
 
     def gone_error(self, peer: int, detail: str = "") -> PeerGoneError:
-        """A :class:`PeerGoneError` for ``peer`` (the JAX package adds the
-        peer's role and flight-recorder tail, which come with ROADMAP
-        A9.2)."""
+        """A :class:`PeerGoneError` for ``peer``, enriched (when the flight
+        recorder is armed) with the peer's last posted position from the
+        store: the dead rank cannot speak for itself, but its obs tail can.
+        Call outside any transport lock: the lookup is a store round trip.
+        Under a role graph (:mod:`tpu_dist_torch.roles`) the peer is also
+        named by role."""
+        try:
+            from ..roles.graph import role_label
+            label = role_label(peer)
+            if label:
+                detail = (f"{detail}; role {label}" if detail
+                          else f"role {label}")
+        except Exception:
+            pass
+        try:
+            from ..obs import hooks as _obs_hooks
+            from ..obs import recorder as _obs_rec
+            if _obs_rec.enabled():
+                tail = _obs_hooks.fetch_tail(self._store, self.generation,
+                                             peer)
+                if tail is not None:
+                    extra = f"peer's last obs: {_obs_hooks.render_tail(tail)}"
+                    detail = f"{detail}; {extra}" if detail else extra
+        except Exception:
+            pass
         return PeerGoneError(peer, detail)
 
     def try_recv_array(self, src: int, tag: str):

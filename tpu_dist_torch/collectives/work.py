@@ -45,7 +45,7 @@ class Work:
     (None while pending or on success); ``result`` is ``wait``."""
 
     __slots__ = ("_done", "_result", "_exc", "_label", "_handles", "_then",
-                 "_on_stream", "issued_ns")
+                 "_on_stream", "issued_ns", "started_ns", "site")
 
     def __init__(self, label: str = "work", handles: Sequence = (),
                  then: Optional[Callable[[], object]] = None,
@@ -58,6 +58,8 @@ class Work:
         self._then = then
         self._on_stream = on_stream
         self.issued_ns = time.monotonic_ns()
+        self.started_ns: Optional[int] = None
+        self.site: Optional[str] = None
 
     def _finish(self, result=None, exc: Optional[BaseException] = None):
         self._result = result
@@ -130,7 +132,38 @@ def completed_work(result, label: str = "work") -> Work:
     return w
 
 
+# set while an executor worker runs a body: drain_pending from inside the
+# body must not wait on its own queue, and the obs span the body opens
+# picks up its queue wait and its issue call-site
 _tls = threading.local()
+
+
+def take_pending_queue_ns() -> Optional[int]:
+    """Pop the queue wait (ns) of the body executing on this thread: the
+    first flight-recorder span the body opens takes it, splitting time
+    behind earlier collectives from wire time."""
+    ns = getattr(_tls, "queue_ns", None)
+    _tls.queue_ns = None
+    return ns
+
+
+def pending_site() -> Optional[str]:
+    """The issue call-site of the body executing on this thread (not
+    consumed: every span the body opens is attributed to it; the engine
+    thread's own stack holds no user frame)."""
+    return getattr(_tls, "site", None)
+
+
+def _issue_site() -> Optional[str]:
+    """The submitting caller's call-site, taken only while the flight
+    recorder is armed (a stack walk is not free)."""
+    try:
+        from ..obs import recorder as _rec
+        if _rec.enabled():
+            return _rec.call_site()
+    except Exception:
+        pass
+    return None
 
 
 class _OrderedExecutor:
@@ -148,6 +181,7 @@ class _OrderedExecutor:
 
     def submit(self, fn: Callable[[], object], label: str = "work") -> Work:
         w = Work(label)
+        w.site = _issue_site()
         with self._mu:
             self._q.append((fn, w))
             self._pending += 1
@@ -168,12 +202,17 @@ class _OrderedExecutor:
                 batch = list(self._q)
                 self._q.clear()
             for fn, w in batch:
+                w.started_ns = time.monotonic_ns()
+                _tls.queue_ns = w.started_ns - w.issued_ns
+                _tls.site = w.site
                 _tls.on_engine = True
                 try:
                     w._finish(result=fn())
                 except BaseException as e:  # stored, re-raised by wait()
                     w._finish(exc=e)
                 finally:
+                    _tls.queue_ns = None
+                    _tls.site = None
                     _tls.on_engine = False
                     with self._mu:
                         self._pending -= 1

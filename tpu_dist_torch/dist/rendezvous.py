@@ -199,12 +199,23 @@ def rendezvous(init_method: Optional[str], world_size: int = -1,
         # code changes needed (tpu_dist_torch/resilience/chaos.py)
         from ..resilience import chaos as _chaos
         chaos_active = _chaos.install_from_env()
+    # the flight recorder (TPU_DIST_OBS, launcher --flight-recorder): the
+    # crash-dump paths (unhandled exception, SIGTERM, SIGUSR1, exit) go in
+    # before anything distributed can hang; off the main thread (thread
+    # ranks) the signal handlers are skipped
+    from ..obs import hooks as _obs_hooks
+    obs_rec = _obs_hooks.install_from_env()
     coordinator, num_processes, process_id = parse_init_method(
         init_method, world_size, rank)
     if chaos_active is not None:
         # install_from_env could only guess from RANK; the resolved
         # process id is authoritative (explicit tcp:// ranks set no RANK)
         chaos_active.rank = process_id
+    if obs_rec is not None:
+        # the same correction: the rank keys the store tail and the dump's
+        # file name
+        obs_rec.rank = process_id
+        obs_rec.world = num_processes
     if coordinator is None or num_processes <= 1:
         return coordinator, num_processes, process_id
     try:

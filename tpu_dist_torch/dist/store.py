@@ -15,10 +15,12 @@ API (torch Store parity): ``set/get/add/wait/check/delete_key/num_keys``,
 built on ``add`` and a server-side blocking WAIT_GE.  ``get`` blocks until
 the key exists, the property rendezvous relies on.
 
-Not in the port yet, each refused by name: the replication log and leader
-failover (ops 9-10, ``TPU_DIST_STORE_ENDPOINTS``/``TPU_DIST_STORE_REPLICATE``:
-ROADMAP A9.2), the flight recorder's store events (``TPU_DIST_OBS``: A9.2)
-and network fault injection (``TPU_DIST_NETCHAOS``: A9.4).
+With the flight recorder armed (``TPU_DIST_OBS``), every client request
+but the polling ones (``check``, ``num_keys``) leaves one ``kind="store"``
+event.  Not in the port yet, each refused by name: the replication log and
+leader failover (ops 9-10, ``TPU_DIST_STORE_ENDPOINTS``/
+``TPU_DIST_STORE_REPLICATE``: ROADMAP A9.2b) and network fault injection
+(``TPU_DIST_NETCHAOS``: A9.4).
 """
 
 from __future__ import annotations
@@ -49,11 +51,7 @@ def _refuse_later_items() -> None:
         raise NotImplementedError(
             "store replication and leader failover (TPU_DIST_STORE_ENDPOINTS"
             ", TPU_DIST_STORE_REPLICATE, wire ops 9-10) come with the "
-            "control plane, ROADMAP A9.2")
-    if _armed("TPU_DIST_OBS"):
-        raise NotImplementedError(
-            "the flight recorder's store events (TPU_DIST_OBS) come with "
-            "the control plane's obs, ROADMAP A9.2")
+            "control plane's cluster half, ROADMAP A9.2b")
     if _armed("TPU_DIST_NETCHAOS"):
         raise NotImplementedError(
             "network fault injection on the store (TPU_DIST_NETCHAOS) "
@@ -141,7 +139,7 @@ class PyTCPStoreServer:
         if replicate or _armed("TPU_DIST_STORE_REPLICATE"):
             raise NotImplementedError(
                 "the store's replication log (wire ops 9-10) comes with the "
-                "control plane, ROADMAP A9.2")
+                "control plane's cluster half, ROADMAP A9.2b")
         self._kv = {}
         self._mu = threading.Condition()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -459,6 +457,49 @@ def _load_native():
 _load_native.reset = _NATIVE.clear
 
 
+# the ops the flight recorder records; CHECK and NUMKEYS are polling
+# primitives (a blocked rank fires them at 10 ms cadence) and would only
+# flood the ring buffer with what the pending collective span already says
+_OBS_OP_NAMES = {_OP_SET: "set", _OP_GET: "get", _OP_ADD: "add",
+                 _OP_DELETE: "delete", _OP_WAIT_GE: "wait_ge",
+                 _OP_DELETE_PREFIX: "delete_prefix"}
+
+
+class _ObservedClient:
+    """Flight-recorder shim around a store client: one ``kind="store"``
+    event per completed request (op name, key, payload bytes, outcome).
+    Installed at :class:`TCPStore` construction only when the recorder is
+    armed, so a disarmed store keeps the raw client."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def request(self, op: int, key: str, payload: bytes = b"") -> bytes:
+        t0 = time.monotonic_ns()
+        try:
+            out = self._inner.request(op, key, payload)
+        except BaseException as e:
+            self._rec(op, key, payload, t0, f"error:{type(e).__name__}")
+            raise
+        self._rec(op, key, payload, t0, "ok")
+        return out
+
+    @staticmethod
+    def _rec(op, key, payload, t0, outcome):
+        name = _OBS_OP_NAMES.get(op)
+        if name is None:
+            return
+        try:  # diagnostics must never break a store op
+            from ..obs.recorder import safe_record
+        except Exception:
+            return
+        safe_record("store", name, t0=t0, key=key, bytes=len(payload),
+                    outcome=outcome)
+
+    def close(self):
+        self._inner.close()
+
+
 class TCPStore(Store):
     """TCP key-value store (c10d TCPStore parity).
 
@@ -488,12 +529,15 @@ class TCPStore(Store):
         self.native = lib is not None
         self._lib = lib  # close() stops the server through the same library
         try:
-            self._client = (_NativeClient(lib, host, port, timeout)
-                            if lib is not None
-                            else _PyClient(host, port, timeout))
+            client = (_NativeClient(lib, host, port, timeout)
+                      if lib is not None else _PyClient(host, port, timeout))
         except BaseException:
             self._stop_server()
             raise
+        from ..obs import recorder as _obs_recorder
+        if _obs_recorder.enabled():
+            client = _ObservedClient(client)
+        self._client = client
 
     # -- Store API -----------------------------------------------------------
     def set(self, key: str, value) -> None:

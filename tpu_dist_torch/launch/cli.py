@@ -40,6 +40,14 @@ which rank 0 hosts on ``MASTER_PORT``; it carries:
   workers' reshard plan printed beside the restart log;
 - the **serving gateway**'s backend registry (``--serve``).
 
+- the **flight recorder**'s store tails (``--flight-recorder``): on a failed
+  round the launcher asks the live workers for their dumps (SIGUSR1) before
+  the teardown, and prints each rank's last known position;
+- the **collective sanitizer**'s signatures (``--sanitize``);
+- **role graphs** (``--roles``, ``--role_script``, ``--solo_restarts``):
+  :func:`tpu_dist_torch.roles.spawn_graph` supervises the graph instead of
+  one SPMD world.
+
 The names are the JAX package's, so either package's launcher starts either
 package's workers.  Flags whose machinery is a later ROADMAP item exit 2
 before anything is spawned, naming the item.
@@ -56,7 +64,9 @@ import socket
 import subprocess
 import sys
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
+
+from ..roles.launcher import reap_process
 
 __all__ = ["main", "build_parser", "reap_process"]
 
@@ -64,24 +74,14 @@ __all__ = ["main", "build_parser", "reap_process"]
 # blocked inside a collective (NCCL or gloo) cannot run a Python TERM handler
 # until the call returns, which it never does once a peer is gone
 _KILL_GRACE = 15.0
-# after SIGKILL, only the kernel's reaping of the zombie is left to wait for
-_REAP_GRACE = 5.0
 
 # flags whose machinery is a later item: (dest, flag, default, what)
-_ROLES = "role graphs, with the control plane, ROADMAP A9.2"
-_FAILOVER = "store replication and leader failover, ROADMAP A9.2"
+_FAILOVER = ("store replication and leader failover, the control plane's "
+             "cluster half, ROADMAP A9.2b")
+_VERIFIER = "the role-graph protocol verifier, ROADMAP A9.7"
 _LATER = (
-    ("sanitize", "--sanitize", False,
-     "the collective sanitizer, with the control plane, ROADMAP A9.2"),
-    ("flight_recorder", "--flight-recorder", False,
-     "the flight recorder, with the control plane, ROADMAP A9.2"),
-    ("roles", "--roles", None, _ROLES),
-    ("role_script", "--role_script", [], _ROLES),
-    ("solo_restarts", "--solo_restarts", 2, _ROLES),
-    ("verify_graph", "--verify_graph", False,
-     "the role-graph verifier, with the control plane, ROADMAP A9.2"),
-    ("no_verify_graph", "--no_verify_graph", False,
-     "the role-graph verifier, with the control plane, ROADMAP A9.2"),
+    ("verify_graph", "--verify_graph", False, _VERIFIER),
+    ("no_verify_graph", "--no_verify_graph", False, _VERIFIER),
     ("store_endpoints", "--store_endpoints", None, _FAILOVER),
     ("store_replica", "--store_replica", False, _FAILOVER),
     ("netchaos", "--netchaos", None, "network fault injection, ROADMAP "
@@ -141,7 +141,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "World-size changes don't count against "
                         "--max_restarts. Workers resume from sharded "
                         "checkpoints via elastic resharding "
-                        "(resilience.TrainState). Multi-node: ROADMAP A9.2")
+                        "(resilience.TrainState). Multi-node: ROADMAP "
+                        "A9.2b")
     p.add_argument("--elastic_timeout", type=float, default=120.0,
                    help="seconds to wait for every launcher to join the "
                         "restart agreement before giving up (multi-node "
@@ -157,7 +158,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "publish heartbeats (resilience.Heartbeat; exported "
                         "to them as TPU_DIST_HEARTBEAT_TIMEOUT). 0 disables")
     p.add_argument("--sanitize", action="store_true",
-                   help="cross-rank collective sanitizer" + later)
+                   help="cross-rank collective sanitizer: every eager host "
+                        "collective checks a per-call signature (op, tree, "
+                        "dtypes/shapes, root, wire format) across ranks "
+                        "through the store before any payload moves, and "
+                        "raises CollectiveMismatchError naming the "
+                        "divergent rank and call-site instead of hanging "
+                        "(TPU_DIST_SANITIZE=1 in every worker). Needs the "
+                        "store")
     p.add_argument("--coll_timeout", type=float, default=0.0,
                    help="end-to-end collective watchdog in every worker "
                         "(TPU_DIST_COLL_TIMEOUT, seconds): a host ring, "
@@ -170,7 +178,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="network fault injection" + later)
     p.add_argument("--flight-recorder", "--flight_recorder",
                    dest="flight_recorder", action="store_true",
-                   help="per-rank flight recorder" + later)
+                   help="per-rank flight recorder (tpu_dist_torch.obs, "
+                        "TPU_DIST_OBS=1 in every worker): a ring buffer of "
+                        "collective/p2p/store events dumped on crash, hang "
+                        "(SIGUSR1 from this launcher on a failed round) and "
+                        "exit to TPU_DIST_OBS_DIR (default ./tpu_dist_obs); "
+                        "a failed round prints every rank's last known "
+                        "position from its store tail. Read the dumps with "
+                        "python -m tpu_dist_torch.obs diagnose")
     p.add_argument("--serve", action="store_true",
                    help="start the serving gateway role alongside the "
                         "workers (python -m tpu_dist_torch.serve gateway): "
@@ -186,11 +201,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "tpu_dist/serve/gateway)")
     p.add_argument("--roles", type=str, default=None,
                    metavar="NAME:WORLD[:POLICY],...",
-                   help="heterogeneous role graph" + later)
+                   help="launch a heterogeneous role graph "
+                        "(tpu_dist_torch.roles) instead of one SPMD world, "
+                        "e.g. learner:1,actor:4:solo. Roles own contiguous "
+                        "global-rank spans in order; POLICY is gang "
+                        "(default: a death restarts the whole graph, "
+                        "budgeted by --max_restarts) or solo (the dead rank "
+                        "is respawned alone in the same generation). "
+                        "Workers call init_role_graph(). Needs the store")
     p.add_argument("--role_script", action="append", default=[],
-                   metavar="ROLE=SCRIPT", help="per-role script" + later)
+                   metavar="ROLE=SCRIPT",
+                   help="per-role entrypoint override for --roles "
+                        "(repeatable); other roles run the main script")
     p.add_argument("--solo_restarts", type=int, default=2,
-                   help="per-rank respawn budget of solo roles" + later)
+                   help="per-rank respawn budget of solo-policy roles within "
+                        "one generation (--roles)")
     p.add_argument("--verify_graph", "--verify-graph", action="store_true",
                    help="role-graph model check" + later)
     p.add_argument("--no_verify_graph", "--no-verify-graph",
@@ -205,19 +230,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("script", type=str)
     p.add_argument("script_args", nargs=argparse.REMAINDER)
     return p
-
-
-def reap_process(proc: subprocess.Popen, grace: float = _REAP_GRACE) -> None:
-    """SIGKILL ``proc`` (if still alive) and reap it with a bounded wait:
-    an unkillable (``D``-state) child must not hang the supervisor on
-    ``wait()``; the worst case is a leaked zombie and a log line."""
-    try:
-        if proc.poll() is None:
-            proc.kill()
-        proc.wait(timeout=grace)
-    except Exception:
-        _log(f"reap_process: pid {proc.pid} did not reap within {grace}s "
-             f"of SIGKILL (unkillable child?); abandoning")
 
 
 def _log(msg: str) -> None:
@@ -328,8 +340,10 @@ def _spawn_world(args, world_size: int, master_port: int,
             if args.heartbeat_timeout > 0:
                 env["TPU_DIST_HEARTBEAT_TIMEOUT"] = str(
                     args.heartbeat_timeout)
-            if args.coll_timeout > 0:
-                env["TPU_DIST_COLL_TIMEOUT"] = str(args.coll_timeout)
+            env.update(_diagnostic_env(args))
+            if getattr(args, "obs_dir", None):
+                env["TPU_DIST_OBS"] = "1"
+                env["TPU_DIST_OBS_DIR"] = args.obs_dir
             cmd = [sys.executable]
             cmd += ["-m", args.script] if args.module else [args.script]
             cmd += args.script_args
@@ -342,6 +356,69 @@ def _spawn_world(args, world_size: int, master_port: int,
                 reap_process(p)
         raise
     return procs
+
+
+def _diagnostic_env(args) -> Dict[str, str]:
+    """The worker env of the opt-in diagnostic layers (sanitizer, collective
+    watchdog): one assembly shared by the SPMD spawn path and the --roles
+    path, so a new knob cannot apply to only one of them."""
+    env: Dict[str, str] = {}
+    if getattr(args, "sanitize", False):
+        env["TPU_DIST_SANITIZE"] = "1"
+    if getattr(args, "coll_timeout", 0) > 0:
+        env["TPU_DIST_COLL_TIMEOUT"] = str(args.coll_timeout)
+    return env
+
+
+def _request_obs_dumps(args, procs: List[subprocess.Popen], remaining,
+                       rnd: int = 0) -> None:
+    """Ask the still-alive workers to flush their flight recorders (SIGUSR1)
+    before the TERM/KILL teardown, then wait (settle-bounded) for the dump
+    files.  Armed runs only: a worker that never installed the handler
+    would die on USR1."""
+    if getattr(args, "obs_dir", None) is None:
+        return
+    from ..obs.hooks import request_dumps
+    from ..obs.recorder import dump_path
+    base_rank = args.node_rank * args.nproc_per_node
+    request_dumps((procs[j], dump_path(args.obs_dir, rnd, base_rank + j))
+                  for j in remaining)
+
+
+def _report_obs(args, store, world_size: int, rnd: int) -> None:
+    """The per-rank "last known position" table from the flight-recorder
+    tails under ``tpu_dist/g{rnd}/obs/{rank}``, printed on a failed round
+    before the generation's keyspace is reaped."""
+    if args.obs_dir is not None:
+        _log(f"flight-recorder dumps in {args.obs_dir} (merge/diagnose: "
+             f"python -m tpu_dist_torch.obs diagnose --dir {args.obs_dir})")
+    if store is None:
+        return
+    from ..obs.hooks import fetch_tail, render_tail
+    rows = [(r, fetch_tail(store, rnd, r)) for r in range(world_size)]
+    if all(t is None for _, t in rows):
+        return  # recorder disarmed (or no tail made it): stay quiet
+    # role names from the published role map, when there is one
+    labels = {}
+    try:
+        from ..roles.graph import RoleGraph, map_key
+        key = map_key(rnd)
+        if store.check(key):
+            g = RoleGraph.from_json(store.get(key))
+            labels = {r: g.label(r) for r in range(min(world_size, g.world))}
+    except Exception:
+        labels = {}
+    _log(f"last known positions (generation {rnd}):")
+    for r, tail in rows:
+        if tail is None:
+            desc = "no obs tail posted"
+        else:
+            try:
+                desc = render_tail(tail)
+            except Exception:
+                desc = str(tail)
+        who = f"rank {r} ({labels[r]})" if r in labels else f"rank {r}"
+        sys.stderr.write(f"  {who}: {desc}\n")
 
 
 def _watch_world(args, procs: List[subprocess.Popen], store,
@@ -405,6 +482,7 @@ def _watch_world(args, procs: List[subprocess.Popen], store,
     def teardown(remaining):
         nonlocal kill_deadline, teardown_done
         teardown_done = True
+        _request_obs_dumps(args, procs, remaining, rnd)
         for j in remaining:
             procs[j].terminate()
         kill_deadline = time.monotonic() + _KILL_GRACE
@@ -641,7 +719,7 @@ def _cluster_agree(args, store, rnd: int, local_rc: int,
        respawn only after reading it.
 
     The JAX launcher's cluster re-form verdict (a world of another size
-    across nodes) rides its cluster membership, ROADMAP A9.2."""
+    across nodes) rides its cluster membership, ROADMAP A9.2b."""
     prefix = "tpu_dist/elastic"
     try:
         if local_rc != 0:
@@ -672,7 +750,7 @@ def _cluster_agree(args, store, rnd: int, local_rc: int,
             go = json.loads(store.get(f"{prefix}/go/{rnd}").decode())
             if go.get("plan"):
                 raise RuntimeError("node 0 published an elastic re-form "
-                                   "plan (ROADMAP A9.2)")
+                                   "plan (ROADMAP A9.2b)")
             rc_port = int(go["port"])
     except Exception as e:
         _log(f"cluster restart handshake failed ({e!r}); giving up")
@@ -686,9 +764,10 @@ def _refuse_later_flags(args) -> Optional[str]:
     for dest, flag, default, what in _LATER:
         if getattr(args, dest) != default:
             return f"{flag}: {what} is not in tpu_dist_torch yet"
-    if os.environ.get("TPU_DIST_OBS", "") not in ("", "0"):
-        return ("TPU_DIST_OBS: the flight recorder, with the control plane, "
-                "ROADMAP A9.2, is not in tpu_dist_torch yet")
+    if args.nnodes > 1 and args.roles:
+        return ("--roles with --nnodes>1: a role graph across nodes comes "
+                "with the control plane's cluster half, ROADMAP A9.2b, which "
+                "is not in tpu_dist_torch yet")
     return None
 
 
@@ -699,6 +778,85 @@ def _stop_gateway(proc: Optional[subprocess.Popen]) -> None:
             proc.wait(timeout=10)
         except subprocess.TimeoutExpired:
             reap_process(proc)
+
+
+def _run_role_graph(args) -> int:
+    """``--roles``: launch a heterogeneous role graph instead of one SPMD
+    world.  The graph supervisor (:func:`tpu_dist_torch.roles.spawn_graph`)
+    owns the store, the role-map publication and per-role restart routing;
+    this wrapper validates the CLI surface and assembles the worker env
+    and argv.  With ``--serve`` the gateway rides outside the graph's
+    restart loop, on the same store."""
+    from ..roles import RoleGraphError, parse_roles_spec, spawn_graph
+
+    if args.no_store:
+        sys.stderr.write("--roles needs the control-plane store (role map, "
+                         "channels, liveness); drop --no_store\n")
+        return 2
+    if args.elastic_world:
+        sys.stderr.write("--roles and --elastic_world are mutually "
+                         "exclusive: per-role restart policy IS the "
+                         "elastic story for role graphs\n")
+        return 2
+    if args.max_restarts < 0 or args.solo_restarts < 0:
+        sys.stderr.write("restart budgets must be >= 0\n")
+        return 2
+    try:
+        graph = parse_roles_spec(args.roles)
+    except RoleGraphError as e:
+        sys.stderr.write(f"--roles: {e}\n")
+        return 2
+    argv = [sys.executable]
+    argv += ["-m", args.script] if args.module else [args.script]
+    argv += args.script_args
+    role_argv = {}
+    for spec in args.role_script:
+        name, _, script = spec.partition("=")
+        if not script:
+            sys.stderr.write(f"--role_script must be ROLE=SCRIPT, got "
+                             f"{spec!r}\n")
+            return 2
+        try:
+            graph.role(name)
+        except RoleGraphError as e:
+            sys.stderr.write(f"--role_script: {e}\n")
+            return 2
+        role_argv[name] = [sys.executable, script] + list(args.script_args)
+    store = None
+    store_addr = None
+    gateway_proc = None
+    if args.serve:
+        # host the store here so the gateway and spawn_graph share it
+        from ..dist.store import TCPStore
+        try:
+            store = TCPStore(args.master_addr, args.store_port,
+                             is_master=True)
+        except Exception as e:
+            sys.stderr.write(f"--roles --serve: store setup failed ({e})\n")
+            return 2
+        store_addr = f"{args.master_addr}:{store.port}"
+        gateway_proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_dist_torch.serve", "gateway",
+             "--port", str(args.serve_port)],
+            env=dict(os.environ, TPU_DIST_STORE_ADDR=store_addr))
+    try:
+        return spawn_graph(graph, argv, role_argv or None,
+                           max_restarts=args.max_restarts,
+                           solo_restarts=args.solo_restarts,
+                           heartbeat_timeout=args.heartbeat_timeout,
+                           restart_backoff=args.restart_backoff,
+                           master_addr=args.master_addr,
+                           store_port=args.store_port,
+                           store=store, store_addr=store_addr,
+                           extra_env=_diagnostic_env(args),
+                           obs_dir=args.obs_dir)
+    finally:
+        _stop_gateway(gateway_proc)
+        if store is not None:
+            try:
+                store.close()
+            except Exception:
+                pass
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -736,9 +894,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.elastic_world:
         if args.nnodes > 1:
             sys.stderr.write("--elastic_world with --nnodes>1: the cluster "
-                             "re-form rides the cluster membership, with "
-                             "the control plane, ROADMAP A9.2, which is not "
-                             "in tpu_dist_torch yet\n")
+                             "re-form rides the cluster membership, the "
+                             "control plane's cluster half, ROADMAP A9.2b, "
+                             "which is not in tpu_dist_torch yet\n")
             return 2
         try:
             lo, hi = (int(v) for v in args.elastic_world.split(":"))
@@ -761,6 +919,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                              f"outside --elastic_world={lo}:{hi}\n")
             return 2
         elastic_range = (lo, hi)
+    # flight-recorder wiring: --flight-recorder (or an already armed env)
+    # resolves one dump directory shared by the supervisor's messages and
+    # every worker.  The env test is the recorder's own parser: a bare
+    # truthiness check would arm an explicit TPU_DIST_OBS=0
+    from ..obs.recorder import enabled as _obs_enabled
+    args.obs_dir = None
+    if args.flight_recorder or _obs_enabled():
+        args.obs_dir = (os.environ.get("TPU_DIST_OBS_DIR")
+                        or os.path.join(os.getcwd(), "tpu_dist_obs"))
+    if args.roles:
+        return _run_role_graph(args)
 
     store, master_port, store_addr = _setup_store(args)
     if master_port is None:
@@ -803,6 +972,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                                                        cur_world, rnd=rnd)
             if interrupted:
                 return exit_code
+            if exit_code != 0 and args.node_rank == 0:
+                # before any reaping: the tails live under the failed
+                # generation's keyspace
+                _report_obs(args, store, cur_world, rnd)
             if multi_node:
                 verdict, val = _cluster_agree(args, store, rnd,
                                               exit_code, negotiated_port,
@@ -843,7 +1016,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             restarts += 1
             rnd += 1
             _log(f"worker failed (rc={exit_code}); restart "
-                 f"{restarts}/{args.max_restarts} — relaunching the world")
+                 f"{restarts}/{args.max_restarts} — relaunching the world"
+                 + (f" (obs dumps: {args.obs_dir})" if args.obs_dir else ""))
             if store is not None:
                 _reset_round_state(store, finished_round=rnd - 1)
             _restart_backoff(args, restarts)

@@ -476,16 +476,21 @@ class ZeroOptimizer:
                 store = _eager._coll_store()
                 seq = _eager._next_seq("zero_ag", 0)
                 t = f"{_eager._ns()}/coll/zag/{seq}"
+                _eager._sanitize("zero_param_gather", group, store,
+                                 value=buf)
                 dp = _eager._maybe_data_plane(group, store)
-            t0 = _time.perf_counter()
-            stats: dict = {}
-            out = _ring.ring_chunk_all_gather(
-                dp, buf, bucket_bounds, tag=t,
-                comm_dtype=self.gather_comm_dtype, stats=stats)
-            _eager.record_transport(
-                "zero_param_gather", "dataplane", buf.nbytes, t0,
-                wire_bytes=stats.get("wire_bytes"),
-                raw_wire_bytes=stats.get("raw_wire_bytes"))
+            # on the engine: the span carries queue_ns, the time the gather
+            # sat behind earlier collectives
+            with _eager._obs_span("zero_param_gather", value=buf):
+                t0 = _time.perf_counter()
+                stats: dict = {}
+                out = _ring.ring_chunk_all_gather(
+                    dp, buf, bucket_bounds, tag=t,
+                    comm_dtype=self.gather_comm_dtype, stats=stats)
+                _eager._record(
+                    "zero_param_gather", "dataplane", buf.nbytes, t0,
+                    wire_bytes=stats.get("wire_bytes"),
+                    raw_wire_bytes=stats.get("raw_wire_bytes"))
             return out
 
         return body

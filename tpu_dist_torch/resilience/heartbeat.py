@@ -68,11 +68,13 @@ class RankLostError(RuntimeError):
 
     def __init__(self, rank: int, silent_for: float, timeout: float,
                  last_payload: Optional[bytes] = None,
-                 kind: str = "heartbeat silent"):
+                 kind: str = "heartbeat silent",
+                 obs_tail: Optional[dict] = None):
         self.rank = rank
         self.silent_for = silent_for
         self.timeout = timeout
         self.kind = kind
+        self.obs_tail = obs_tail
         self.last_step: Optional[int] = None
         self.pid: Optional[int] = None
         last = ""
@@ -85,9 +87,18 @@ class RankLostError(RuntimeError):
                 last = f"; last beat: {last_payload!r}"
         else:
             last = "; never published a beat"
+        obs = ""
+        if obs_tail:
+            # the lost rank's last posted flight-recorder position: which
+            # collective it last reached, and where
+            try:
+                from ..obs.hooks import render_tail
+                obs = f"; last obs: {render_tail(obs_tail)}"
+            except Exception:
+                obs = ""
         super().__init__(
             f"rank {rank} lost: {kind} for {silent_for:.1f}s "
-            f"(deadline {timeout:.1f}s){last}")
+            f"(deadline {timeout:.1f}s){last}{obs}")
 
 
 class Heartbeat:
@@ -152,6 +163,15 @@ class Heartbeat:
         step = -1 if self._step is None else self._step
         try:
             self.store.set(self.key, f"{os.getpid()}:{step}:{seq}")
+        except Exception:
+            pass
+        # the flight recorder (armed only): record the beat and re-post this
+        # rank's tail, so a SIGKILLed rank still leaves its last position
+        # in the store.  After the chaos stall check: a stalled rank's tail
+        # freezes too
+        try:
+            from ..obs import hooks as _obs_hooks
+            _obs_hooks.heartbeat_tick(self.store, step=self._step)
         except Exception:
             pass
 
@@ -254,6 +274,15 @@ class HeartbeatMonitor:
         self._step_state[rank] = (None, now)
         self._done.discard(rank)
 
+    def _obs_tail(self, rank: int) -> Optional[dict]:
+        """The lost rank's last posted flight-recorder position (or None),
+        fetched only on the loss path, never in the steady-state poll."""
+        try:
+            from ..obs import hooks as _obs_hooks
+            return _obs_hooks.fetch_tail(self.store, self.generation, rank)
+        except Exception:
+            return None
+
     def poll(self) -> List[RankLostError]:
         """One poll pass; returns the currently-lost ranks (possibly [])."""
         lost = []
@@ -280,7 +309,8 @@ class HeartbeatMonitor:
                         and now - step_since > self.progress_timeout):
                     lost.append(RankLostError(
                         r, now - step_since, self.progress_timeout,
-                        last_payload=payload, kind="no step progress"))
+                        last_payload=payload, kind="no step progress",
+                        obs_tail=self._obs_tail(r)))
                     continue
             if payload is not None and payload != prev:
                 self._state[r] = (payload, now)
@@ -288,7 +318,8 @@ class HeartbeatMonitor:
             deadline = self.timeout if prev is not None else self.startup_grace
             if now - since > deadline:
                 lost.append(RankLostError(r, now - since, deadline,
-                                          last_payload=prev))
+                                          last_payload=prev,
+                                          obs_tail=self._obs_tail(r)))
         return lost
 
     def check(self) -> None:

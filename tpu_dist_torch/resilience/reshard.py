@@ -631,6 +631,15 @@ def resumable_steps(vis_list: Sequence[dict]) -> Dict[int, int]:
 # execution
 # ---------------------------------------------------------------------------
 
+def _obs_fetch_span(src: int, path_kind: str):
+    """A flight-recorder span per fragment or replicated-array fetch (disk
+    or data plane): what makes a slow reshard readable in ``obs
+    diagnose``."""
+    from ..obs import hooks as _hooks
+    return _hooks.collective_span(
+        "reshard_fetch", kind="p2p", peer=src, path=path_kind)
+
+
 def _read_fragment(reader: _ShardReader, frag: _Frag,
                    verify: bool, stats: ReshardStats) -> np.ndarray:
     """One fragment off disk.  With ``verify``, the whole containing old
@@ -766,7 +775,9 @@ def execute_plan(plan: ReshardPlan, *, rank: int, root: str, step: int,
         for f in plan.frags_for(rank):
             src = sources[f.fid]
             if src == rank:
-                a = _read_fragment(reader_for(f.old_rank), f, verify, stats)
+                with _obs_fetch_span(rank, "disk"):
+                    a = _read_fragment(reader_for(f.old_rank), f, verify,
+                                       stats)
                 stats.frags_disk += 1
             else:
                 a = _recv_fragment(dp, src, _frag_tag(step, f.fid), f,
@@ -785,8 +796,9 @@ def execute_plan(plan: ReshardPlan, *, rank: int, root: str, step: int,
         for rp in plan.repl:
             n = int(np.prod(rp.shape, dtype=np.int64))
             if repl_src_old in my_old:
-                a = reader_for(repl_src_old).read_range(rp.path, 0, n,
-                                                        rp.dtype)
+                with _obs_fetch_span(rank, "disk"):
+                    a = reader_for(repl_src_old).read_range(rp.path, 0, n,
+                                                            rp.dtype)
                 if verify and rp.sha256:
                     actual = hashlib.sha256(
                         np.ascontiguousarray(a).tobytes()).hexdigest()
@@ -823,7 +835,8 @@ def _recv_fragment(dp, src: int, tag: str, f: _Frag, deadline: float):
             f"no data plane is available for the peer fetch")
     left = max(0.1, deadline - _time.monotonic())
     try:
-        return dp.recv_array(src, tag, timeout=left)
+        with _obs_fetch_span(src, "dataplane"):
+            return dp.recv_array(src, tag, timeout=left)
     except TimeoutError as e:
         raise ReshardError(
             f"peer rank {src} did not deliver fragment {f.describe()} "
@@ -843,7 +856,8 @@ def _recv_repl(dp, src: int, tag: str, rp: _Repl, deadline: float):
             f"disk and no data plane is available for the peer fetch")
     left = max(0.1, deadline - _time.monotonic())
     try:
-        return dp.recv_array(src, tag, timeout=left)
+        with _obs_fetch_span(src, "dataplane"):
+            return dp.recv_array(src, tag, timeout=left)
     except TimeoutError as e:
         raise ReshardError(
             f"peer rank {src} did not deliver replicated array "
@@ -936,9 +950,12 @@ def reshard_restore(root: str, template: Any, step: int,
                 f"{new_world} plan owns {lens[rank]} elements — template "
                 f"built at the wrong world or from different parameters")
 
-    arrays, stats = execute_plan(plan, rank=rank, root=root, step=step,
-                                 visibility=visibility, dp=dp,
-                                 verify=verify, timeout=timeout)
+    from ..obs import hooks as _hooks
+    with _hooks.collective_span("reshard", path="dataplane"
+                                if dp is not None else "disk"):
+        arrays, stats = execute_plan(plan, rank=rank, root=root, step=step,
+                                     visibility=visibility, dp=dp,
+                                     verify=verify, timeout=timeout)
 
     out = {}
     for path, tleaf in flat_t.items():

@@ -235,7 +235,7 @@ class Request:
         self.t_first: Optional[float] = None
         self.emitted = 0
         self.staged = None          # the bucket-padded prompt on the device
-        self.obs_span = None        # flight-recorder span (later slice)
+        self.obs_span = None        # flight-recorder span
 
     def cancel(self) -> None:
         self.cancelled = True
@@ -528,19 +528,45 @@ class SlotEngine:
         self.slot_req[slot] = None
 
     # -- per-request obs spans ----------------------------------------------
-    # The JAX engine records each request as a flight-recorder span
-    # (tpu_dist.obs).  The recorder comes with a later slice (ROADMAP A9);
-    # until then these hooks record nothing, and their call sites stay.
 
     @staticmethod
     def obs_open(req: Request) -> None:
-        """Open the request's span at submit time (no-op: later slice)."""
+        """Open the request's flight-recorder span (armed runs only), at
+        submit time so queue time is on the span from the start: a request
+        stuck in the queue is still a named pending span."""
+        from ..obs.recorder import call_site, get_recorder
+        rec = get_recorder()
+        if rec is None:
+            return
+        req.obs_span = rec.begin("serve", "request", req=req.id,
+                                 prompt_len=int(len(req.prompt)),
+                                 max_new_tokens=req.max_new_tokens,
+                                 site=call_site())
 
     def _obs_admit(self, req: Request, slot: int, t_prefill_done) -> None:
-        """Stamp queue and prefill time on the span (no-op: later slice)."""
+        if req.obs_span is None:
+            return
+        from ..obs.recorder import get_recorder
+        rec = get_recorder()
+        if rec is None:
+            return
+        rec.update_event(
+            req.obs_span, slot=slot,
+            queue_ns=int((req.t_admit - req.t_submit) * 1e9),
+            prefill_ns=int((t_prefill_done - req.t_admit) * 1e9))
 
     def _obs_end(self, req: Request, outcome: str, **fields) -> None:
-        """Close the span with its outcome (no-op: later slice)."""
+        if req.obs_span is None:
+            return
+        from ..obs.recorder import get_recorder
+        rec = get_recorder()
+        if rec is None:
+            return
+        decode_ns = 0
+        if req.t_first is not None:
+            decode_ns = int((_now() - req.t_first) * 1e9)
+        rec.end(req.obs_span, outcome=outcome, tokens=req.emitted,
+                decode_ns=decode_ns, **fields)
 
     # -- aggregate stats -----------------------------------------------------
 
