@@ -244,7 +244,26 @@ Phases, each printed as one JSON line:
    queue, no kernel launch and no NCCL; the dumps' channel put, claim and
    ack events; then the ``bench_roles`` twin's channel cells, every
    payload equal.
-17. ``kernels``: one line over all kernels; the card's name and power limit
+17. ``cluster_failover``: two ``python -m tpu_dist_torch.cluster.agent``
+   processes host the replicated store; the train_lm twin at full width
+   (200 steps, the dense cell's fused loss) under ``--store_endpoints``
+   with heartbeats; the leader's agent SIGKILLed after the first step:
+   epoch 1 names node 1's replica, generation 0 throughout, the parameters
+   of an unkilled launch, K1 1 and K2 12 a step, the recorder's
+   ``store``/``failover`` event read by ``obs.diagnose``; seconds to epoch
+   1, the longest step across the failover beside the median.
+   ``cluster_elastic``: two launchers, a rank each on this card
+   (``--nnodes=2 --store_replica --elastic_world=1:2``), the
+   ``elastic_train`` twin with ``--zero`` over the host data plane, 2 → 1
+   → 2 across the node boundary: JAX's plans, each world's phase bit for
+   bit a single launcher resumed from a copy of the tree.  ``netchaos``:
+   the dense cell's 548 MB at world 2 (two rank processes, a Bucketer on
+   the float32 host ring) under ``corrupt`` (named ``FrameCorruptError``,
+   the launch fails, no result), ``delay`` and an SHM ``conn-reset``
+   (byte-identical), ``partition`` (``CollectiveTimeoutError`` within
+   ``--coll_timeout`` + 5 s); the served model under ``corrupt:surface=
+   serve`` (8 requests, each a named error).
+18. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
@@ -255,8 +274,9 @@ named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``augment``, ``imagenet``, ``vit``, ``launch``, ``launch_restart``,
 ``gateway``, ``store``, ``moe_dispatch``, ``llama``, ``long_32k``,
 ``serve_rope``, ``zero_ddp``, ``zero_opt``, ``elastic``, ``host_ring``,
-``host_zero``, ``quant_gate``, ``obs``, ``sanitize``, ``roles``) and
-never prints the result line.
+``host_zero``, ``quant_gate``, ``obs``, ``sanitize``, ``roles``,
+``cluster_failover``, ``cluster_elastic``, ``netchaos``) and never prints
+the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -3148,7 +3168,7 @@ GATEWAY_ARGV = ["--dim", "768", "--depth", "12", "--heads", "12", "--vocab",
 LAUNCH_TIMEOUT = 240     # seconds a launched world may take
 GATEWAY_WAIT = 300       # seconds for a request through the gateway
 SUSTAIN_RAMP = 2.0       # seconds from the submits to a window's start
-SUSTAIN_WINDOW = 10.0    # seconds a window of sustained traffic is counted
+SUSTAIN_WINDOW = 6.0     # seconds a window of sustained traffic is counted
 # the order of the sustained windows: each path first and last in turn
 SUSTAIN_ORDER = ("direct", "gateway", "gateway", "direct", "direct",
                  "gateway")
@@ -5396,6 +5416,596 @@ def check_roles(results):
     return all(al_checks.values()) and all(ps_checks.values()) and ch_ok
 
 
+# ---------------------------------------------------------------------------
+# The control plane's cluster half and the network chaos layer (slice 15)
+# ---------------------------------------------------------------------------
+
+# the JAX e2e's fast failover knobs: leases every 0.2 s, the leader
+# condemned after 1 s of dead probes, the follower tailing at 20 ms
+CLUSTER_KNOBS = {"TPU_DIST_CLUSTER_LEASE_INTERVAL": "0.2",
+                 "TPU_DIST_CLUSTER_LEASE_TTL": "1.0",
+                 "TPU_DIST_STORE_REPL_POLL": "0.02",
+                 "TPU_DIST_STORE_DOWN_AFTER": "1.0"}
+CLUSTER_TIMEOUT = 300        # seconds a launched cluster run may take
+# the failover run: the launched path's twin at full width, enough steps
+# that well over 5 s of training follow a kill after the first step
+FAILOVER_ARGV = LAUNCH_ARGV[:-4] + ["--steps", "200", "--log-every", "1"]
+FAILOVER_AFTER_KILL_S = 5.0
+# the plans JAX's elastic_plan gives for that run's counts (one host, so
+# ties go by node id): the shrink, then the grow
+CLUSTER_PLANS = ({0: (0, 1), 1: (1, 0)}, {0: (0, 1), 1: (1, 1)})
+NETCHAOS_COLL_TIMEOUT = 10
+
+# the failover run's worker, under ``python -m tpu_dist_torch.launch
+# --nproc_per_node=1 --store_endpoints=FILE --heartbeat_timeout ...
+# --flight-recorder``: the train_lm twin (argv: OUT STEPS_ARGV...) with the
+# dense cell's fused loss (K1, as transformer_lm trains it; the twin's own
+# is unfused), a heartbeat every 0.2 s (store requests across the kill),
+# each step's wall clock and kernel launches, a marker file after the
+# first step, and at the end its losses and the parameters' sha256.
+# Writes OUT/g{gen}.json.
+FAILOVER_WORKER = """
+import importlib, json, os, sys, time
+import torch
+from tpu_dist_torch import nn, resilience
+from tpu_dist_torch.examples import train_lm
+from tpu_dist_torch.obs import hooks
+from tpu_dist_torch.ops import KERNELS
+from tpu_dist_torch.parallel import DistributedDataParallel as DDP
+from chip_smoke import _digest
+fa = importlib.import_module("tpu_dist_torch.ops.flash_attention")
+out, argv = sys.argv[1], sys.argv[2:]
+gen = os.environ["TPU_DIST_RESTART_COUNT"]
+hooks.install_from_env()
+
+class FusedCrossEntropyLoss(nn.CrossEntropyLoss):
+    def __init__(self, *a, **k):
+        super().__init__(*a, fused=True, **k)
+
+nn.CrossEntropyLoss = FusedCrossEntropyLoss
+rec = {"pid": os.getpid(), "steps": [], "gen": gen}
+hb = resilience.Heartbeat(interval=0.2).start()
+step = DDP.train_step
+
+def timed_step(self, *a, **k):
+    for kern in KERNELS:
+        kern.launches = 0
+    fa.flash_fwd.launches_by_design.update(
+        dict.fromkeys(fa.flash_fwd.launches_by_design, 0))
+    fa.flash_bwd.launches_by_design.update(
+        dict.fromkeys(fa.flash_bwd.launches_by_design, 0))
+    t0 = time.time()
+    res = step(self, *a, **k)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    rec["steps"].append({
+        "t0": t0, "t": t1, "ms": (t1 - t0) * 1e3,
+        "launches": {kern.__name__: kern.launches for kern in KERNELS},
+        "wgmma": all(set(d) <= {"wgmma"} for d in (
+            {k: n for k, n in fa.flash_fwd.launches_by_design.items() if n},
+            {k: n for k, n in fa.flash_bwd.launches_by_design.items() if n}))})
+    if len(rec["steps"]) == 1:
+        with open(os.path.join(out, "first_step"), "w") as f:
+            f.write(str(t1))
+    return res
+
+DDP.train_step = timed_step
+res = train_lm.train(train_lm.parse_args(argv))
+hb.stop()
+rec.update(losses=res["losses"], params_sha256=_digest(res["state"].params))
+with open(os.path.join(out, f"g{gen}.json"), "w") as f:
+    json.dump(rec, f)
+"""
+
+
+def _cluster_env(extra=None) -> dict:
+    env = dict(os.environ, PYTHONPATH=_repo() + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), PYTHONWARNINGS="ignore",
+               OMP_NUM_THREADS="1", **CLUSTER_KNOBS)
+    for var in ("TPU_DIST_CHAOS", "TPU_DIST_OBS", "TPU_DIST_OBS_DIR",
+                "TPU_DIST_SANITIZE", "TPU_DIST_NETCHAOS", "MASTER_ADDR",
+                "MASTER_PORT", "RANK", "WORLD_SIZE", "TPU_DIST_STORE_ADDR",
+                "TPU_DIST_STORE_ENDPOINTS", "TPU_DIST_STORE_REPLICATE",
+                "TPU_DIST_HOST_TRANSPORT", "TPU_DIST_SHM"):
+        env.pop(var, None)
+    env.update(extra or {})
+    return env
+
+
+def _popen(args, cwd, env, **kw):
+    """A process of its own session (stopped with :func:`_stop`)."""
+    return subprocess.Popen([sys.executable, *args], cwd=cwd, env=env,
+                            start_new_session=True, text=True, **kw)
+
+
+def _agent(node_id: int, out: str, lead: bool):
+    """``python -m tpu_dist_torch.cluster.agent`` for ``node_id``; waits
+    for its readiness file and returns ``(proc, {"port": ...})``."""
+    ready = os.path.join(out, f"agent{node_id}.json")
+    proc = _popen(["-m", "tpu_dist_torch.cluster.agent", "--node_id",
+                   str(node_id), "--endpoints", os.path.join(out, "ep.json"),
+                   "--ready_file", ready] + (["--lead"] if lead else []),
+                  out, _cluster_env(), stdout=subprocess.PIPE,
+                  stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + 120
+    while not os.path.exists(ready):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise RuntimeError(f"agent {node_id} never became ready")
+        time.sleep(0.05)
+    time.sleep(0.05)  # the file is written in one call; let it land
+    with open(ready) as f:
+        return proc, json.load(f)
+
+
+def _failover_launch(out: str, extra: list, name: str):
+    """The failover worker under the launcher with ``extra`` flags; its
+    standard error goes to ``OUT/NAME/launcher.log``."""
+    os.makedirs(os.path.join(out, name), exist_ok=True)
+    with open(os.path.join(out, name, "launcher.log"), "w") as log:
+        return _popen(["-m", "tpu_dist_torch.launch", "--nproc_per_node=1",
+                       "--master_port=0", "--max_restarts=1",
+                       "--restart_backoff=0", *extra,
+                       os.path.join(out, "worker.py"),
+                       os.path.join(out, name), *FAILOVER_ARGV], out,
+                      _cluster_env({"TPU_DIST_OBS_DIR":
+                                    os.path.join(out, name, "obs")}),
+                      stdout=subprocess.DEVNULL, stderr=log)
+
+
+def _read(path: str) -> str:
+    try:
+        with open(path) as f:
+            return f.read()
+    except OSError:
+        return ""
+
+
+def _json(path, default=None):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return default
+
+
+def check_cluster_failover(results):
+    """The store leader SIGKILLed under training: two
+    ``python -m tpu_dist_torch.cluster.agent`` processes host the
+    replicated store (node 0 ``--lead``, node 1 a follower; the JAX e2e's
+    fast knobs), the launched train_lm twin at GPT-2-small width (T = 2048,
+    batch 8, bf16, 200 steps) runs under ``--nproc_per_node=1
+    --store_endpoints=FILE --max_restarts=1 --flight-recorder
+    --heartbeat_timeout=10`` with a heartbeat every 0.2 s, and node 0's
+    agent is SIGKILLed after the child's first step.  Checks: the endpoints
+    file at epoch 1 naming node 1's replica; the launcher exits 0 with the
+    child in generation 0 throughout; at least 5 s of training after the
+    kill; the parameters' sha256 equal to an unkilled launch of the same
+    seed, run at the same time on this card (so every step shares it);
+    every step K1 once (the worker trains with the dense cell's fused loss)
+    and K2 12 times, all wgmma; the child's
+    recorder holds a ``store``/``failover`` event at epoch 1 and
+    ``obs.diagnose`` lists it under ``store_failovers``.  Printed: seconds
+    from the SIGKILL to epoch 1, the longest step across the failover
+    against the median step."""
+    import signal
+    import tempfile
+
+    from tpu_dist_torch import obs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="failover_", dir=os.environ.get("TMPDIR"))
+    with open(os.path.join(out, "worker.py"), "w") as f:
+        f.write(FAILOVER_WORKER)
+    ep = os.path.join(out, "ep.json")
+    procs = []
+    try:
+        leader, _ = _agent(0, out, lead=True)
+        procs.append(leader)
+        follower, foll = _agent(1, out, lead=False)
+        procs.append(follower)
+        t0 = time.time()
+        run = _failover_launch(out, [f"--store_endpoints={ep}",
+                                     "--heartbeat_timeout=10",
+                                     "--flight-recorder"], "killed")
+        procs.append(run)
+        # the unkilled launch of the same seed, at once (its own store)
+        ref = _failover_launch(out, ["--standalone"], "plain")
+        procs.append(ref)
+        deadline = time.monotonic() + CLUSTER_TIMEOUT
+        marker = os.path.join(out, "killed", "first_step")
+        while not os.path.exists(marker):
+            if run.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError("the launched child never took a step")
+            time.sleep(0.02)
+        os.kill(leader.pid, signal.SIGKILL)
+        t_kill = time.time()
+        epoch1_s = None
+        while run.poll() is None and time.monotonic() < deadline:
+            doc = _json(ep, {})
+            if epoch1_s is None and doc.get("epoch") == 1:
+                epoch1_s = time.time() - t_kill
+            time.sleep(0.02)
+        run.wait(timeout=max(1, deadline - time.monotonic()))
+        if epoch1_s is None and _json(ep, {}).get("epoch") == 1:
+            epoch1_s = time.time() - t_kill   # after the run: an upper bound
+        ref.wait(timeout=CLUSTER_TIMEOUT)
+        follower.send_signal(signal.SIGTERM)
+        agent_out = follower.communicate(timeout=60)[0]
+        wall = time.time() - t0
+    finally:
+        for p in procs:
+            _stop(p, grace=5)
+    err = _read(os.path.join(out, "killed", "launcher.log"))
+    ref_err = _read(os.path.join(out, "plain", "launcher.log"))
+    rec = _json(os.path.join(out, "killed", "g0.json"), {})
+    plain = _json(os.path.join(out, "plain", "g0.json"), {})
+    doc = _json(ep, {})
+    steps = rec.get("steps", [])
+    ms = [s["ms"] for s in steps[1:]]
+    across = [s for s in steps if s["t"] >= t_kill and s["t0"] <= t_kill
+              + (epoch1_s or 0) + 2.0]
+    dumps = obs.read_dumps(os.path.join(out, "killed", "obs"))
+    fo_events = [e for d in dumps for e in d["events"]
+                 if e.get("kind") == "store" and e.get("op") == "failover"]
+    diag = obs.diagnose(dumps) if dumps else {}
+    checks = {
+        "epoch_1_names_node1": (doc.get("epoch") == 1 and doc.get("leader")
+                                == f"127.0.0.1:{foll['port']}"),
+        "launcher_exit_0": run.returncode == 0 and ref.returncode == 0,
+        "generation_0_only": (not os.path.exists(
+            os.path.join(out, "killed", "g1.json")) and rec.get("gen") == "0"
+            and "relaunching" not in err),
+        "steps_done": len(steps) == 200 and len(rec.get("losses", [])) == 200,
+        "training_after_kill": bool(steps) and steps[-1]["t"] - t_kill
+        >= FAILOVER_AFTER_KILL_S,
+        "params_sha256_equal_unkilled": bool(rec) and rec.get(
+            "params_sha256") == plain.get("params_sha256")
+        and rec.get("losses") == plain.get("losses"),
+        "launches_per_step": bool(steps) and all(
+            s["launches"] == OBS_PER_STEP and s["wgmma"] for s in steps),
+        "recorder_failover_epoch_1": any(e.get("epoch") == 1
+                                         for e in fo_events),
+        "diagnose_lists_failover": bool(diag.get("store_failovers")),
+        "a_client_rode_it": "store-failover old=" in err,
+        "agent_promoted": "store-failover-promoted" in agent_out}
+    for name in ("cross_entropy_fwd", "cross_entropy_bwd", "flash_fwd",
+                 "flash_bwd"):
+        results.setdefault(name, {}).setdefault(
+            "launches", OBS_PER_STEP[name] * len(steps))
+    emit("cluster_failover", argv=FAILOVER_ARGV, knobs=CLUSTER_KNOBS,
+         kill_to_epoch1_s=epoch1_s, endpoints=doc,
+         step_ms_median=_med(ms), step_ms_max_across_failover=max(
+             (s["ms"] for s in across), default=None),
+         step_ms_max=max(ms, default=None),
+         steps_after_kill=sum(1 for s in steps if s["t0"] >= t_kill),
+         launches_seen=sorted({json.dumps(s["launches"], sort_keys=True)
+                               for s in steps}),
+         train_s_after_kill=(steps[-1]["t"] - t_kill) if steps else None,
+         recorder_failovers=fo_events[:4],
+         diagnose_store_failovers=diag.get("store_failovers"),
+         launcher_wall_s=wall, checks=checks,
+         stderr_tail=None if all(checks.values()) else
+         (err[-2500:] + "\n--- unkilled ---\n" + ref_err[-1500:]))
+    return all(checks.values())
+
+
+def check_cluster_elastic(results):
+    """Two launchers, one rank each on this card (``--nnodes=2
+    --nproc_per_node=1 --store_endpoints=FILE --store_replica
+    --elastic_world=1:2``), the ``elastic_train`` twin with ``--zero
+    --exit-on-preempt`` over the host data plane
+    (``TPU_DIST_HOST_TRANSPORT=dataplane``: no NCCL communicator, which
+    refuses two ranks on one card), ``TPU_DIST_CHAOS=shrink:rank=1,
+    step=20;grow:rank=0,step=35,world=2``: node 1 drops to zero ranks and
+    idles, then the gang grows back across the node boundary
+    (:mod:`tpu_dist_torch.benchmarks.cluster_elastic`).  Checks: both
+    launchers exit 0; the plans both launchers act on are JAX's
+    ``elastic_plan`` for those counts, ``{0: (0, 1), 1: (1, 0)}`` then
+    ``{0: (0, 1), 1: (1, 1)}``; the world-1 and world-2 phases each equal,
+    bit for bit, a single launcher at that world resumed from a copy of the
+    same tree.  Printed: seconds from the preemption to the first world-1
+    step, from the grow to the first world-2 step."""
+    from tpu_dist_torch.benchmarks import cluster_elastic
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    row = cluster_elastic.run(world=2, device="cuda")
+    row["plans_are_jax"] = row["plans_acted"] == [
+        {str(k): list(v) for k, v in p.items()} for p in CLUSTER_PLANS]
+    emit("cluster_elastic", **{k: v for k, v in row.items()
+                               if k != "metric"})
+    return row["ok"] and row["plans_are_jax"]
+
+
+# the netchaos phase's worker, under ``python -m tpu_dist_torch.launch
+# --standalone --nproc_per_node=2``: both ranks on cuda:0, the group the
+# store and the host data plane only (a rank shim, no NCCL).  The dense
+# cell's gradients on the rank's seeded row (K1 once, K2 12 times), then
+# the 548 MB tree averaged by a Bucketer over the float32 host ring.  argv:
+# OUT MODE.  MODE ``once``: one sync (the launch's --netchaos decides its
+# fate; under --flight-recorder a crash leaves each rank's dump).  ``cells``: an unfaulted sync twice (the second timed), then each
+# cell with its fault installed in-process — delay on TCP, a lane broken by
+# conn-reset on SHM, then a partition on TCP (the --coll_timeout watchdog
+# ends it) — and exits.  Each rank writes OUT/r{rank}.json as it goes: per
+# cell the outcome, the named error, the seconds to it, the ms and the
+# result's sha256.
+NETCHAOS_WORKER = """
+import hashlib, json, os, sys, time
+import torch
+from tpu_dist_torch import dist
+from tpu_dist_torch.benchmarks.bench_host_collectives import (
+    _Group, attach_store)
+from tpu_dist_torch.benchmarks.host_sync import dense_cell, rank_grads
+from tpu_dist_torch.collectives import Bucketer
+from tpu_dist_torch.collectives import transport as T
+from tpu_dist_torch.obs import hooks
+from tpu_dist_torch.ops import KERNELS
+from tpu_dist_torch.resilience import netchaos
+
+out, mode = sys.argv[1], sys.argv[2]
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+rec = hooks.install_from_env()     # --flight-recorder: dumps on a crash
+if rec is not None:
+    rec.rank, rec.world = rank, world
+torch.cuda.set_device(0)
+dist.init_process_group(device="cuda:0")    # world 1: the model's group
+store = attach_store(os.environ["TPU_DIST_STORE_ADDR"])
+group = _Group(rank, world)
+ddp, state = dense_cell(device="cuda:0", batch=1)
+for k in KERNELS:
+    k.launches = 0
+grads = rank_grads(ddp, state, rank, batch=1)
+torch.cuda.synchronize()
+log = {"rank": rank, "launches": {k.__name__: k.launches for k in KERNELS},
+       "bytes": sum(v.numel() * v.element_size() for v in grads.values()),
+       "cells": {}}
+bucketer = Bucketer()
+
+def flush():
+    with open(os.path.join(out, f"r{rank}.json"), "w") as f:
+        json.dump(log, f)
+
+def cell(name, spec=None, shm=False):
+    os.environ["TPU_DIST_SHM"] = "auto" if shm else "0"
+    if spec:
+        netchaos.install(spec, rank=rank)
+    else:
+        netchaos.uninstall()
+    store.barrier(world, tag=f"cell/{name}", timeout=300)
+    row = {"spec": spec, "shm": shm}
+    t0 = time.perf_counter()
+    try:
+        res = bucketer.all_reduce(grads, op="avg", group=group).wait_all(600)
+        torch.cuda.synchronize()
+        row["ms"] = (time.perf_counter() - t0) * 1e3
+        h = hashlib.sha256()
+        for k in sorted(res):
+            h.update(res[k].detach().cpu().contiguous().view(
+                torch.uint8).numpy())
+        row.update(outcome="completed", sha256=h.hexdigest())
+        if shm:
+            dp = T.get_data_plane(store, rank, world)
+            row["shm_active_after"] = bool(dp.shm_active((rank + 1) % world))
+    except Exception as e:
+        row.update(outcome="error", error=type(e).__name__,
+                   detail=str(e)[:1500], seconds=time.perf_counter() - t0)
+        for f in ("peer", "tag", "offset", "expected", "got"):
+            if hasattr(e, f):
+                row[f] = getattr(e, f)
+        log["cells"][name] = row
+        flush()
+        raise
+    finally:
+        netchaos.uninstall()
+    log["cells"][name] = row
+    flush()
+
+if mode == "once":
+    cell("once", spec=os.environ.get("TPU_DIST_NETCHAOS"))
+    log["result"] = log["cells"]["once"]["sha256"]
+    flush()
+    store.barrier(world, tag="nc-exit", timeout=120)
+    os._exit(0)
+cell("warm")
+cell("unfaulted")
+cell("delay", "delay:surface=tcp,delay=0.01")
+cell("shm_conn_reset", "conn-reset:surface=shm,rank=0,frame=1", shm=True)
+try:
+    cell("partition", "partition:surface=tcp,rank=1,peer=0")
+except Exception:
+    pass
+os._exit(0)
+"""
+
+
+def _netchaos_launch(out: str, name: str, mode: str, flags: list):
+    os.makedirs(os.path.join(out, name), exist_ok=True)
+    return _popen(["-m", "tpu_dist_torch.launch", "--standalone",
+                   "--nproc_per_node=2", "--master_port=0", *flags,
+                   os.path.join(out, "worker.py"), os.path.join(out, name),
+                   mode], out, _cluster_env({"TPU_DIST_OBS_DIR": os.path.join(
+                       out, name, "obs")}), stderr=subprocess.PIPE)
+
+
+def _corrupt_frames(obs_dir: str) -> list:
+    """The corrupt frames the ranks' readers named, from their dumps: the
+    reader that refuses a frame marks its peer gone with the
+    ``FrameCorruptError`` (a ``transport``/``peer-gone`` event, outcome
+    ``error:FrameCorrupt``), whatever error the rank's own thread then
+    meets first (in a two-rank ring, usually its next send's reset)."""
+    import re
+    from tpu_dist_torch import obs
+    named = []
+    for d in obs.read_dumps(obs_dir):
+        for e in d["events"]:
+            if (e.get("kind") == "transport" and e.get("op") == "peer-gone"
+                    and e.get("outcome") == "error:FrameCorrupt"):
+                detail = e.get("detail", "")
+                m = re.search(r"corrupt frame from rank (\d+) tag '([^']*)'"
+                              r".*stream offset (\d+)", detail)
+                if "FrameCorruptError" not in detail:
+                    m = None
+                named.append({"rank": d["rank"], "src": int(m.group(1))
+                              if m else None, "tag": m and m.group(2),
+                              "offset": int(m.group(3)) if m else None})
+    return named
+
+
+def _serve_corrupt_cell() -> dict:
+    """``corrupt:surface=serve`` on the full-width served model: 8 of
+    :func:`smoke_requests` submitted at once through ServeClient → socket →
+    Frontend, the first frame (the first submit) flipped on the wire.
+    Every request must end in a named error, at its submit or on its
+    handle, within the bound; none may be silently dropped."""
+    from tpu_dist_torch import serve
+    from tpu_dist_torch.resilience import netchaos
+    model = _serve_model()
+    engine = serve.SlotEngine(model, num_slots=8, max_len=2048,
+                              device=model.device)
+    sched = serve.Scheduler(engine, batch_window=0.002)
+    fe = serve.Frontend(sched, port=0)
+    rows = []
+    try:
+        cli = serve.ServeClient("127.0.0.1", fe.port, connect_retry=10,
+                                timeout=60)
+        try:
+            netchaos.install("corrupt:surface=serve,frame=1")
+            t0 = time.perf_counter()
+            handles = []
+            for r in smoke_requests()[:8]:
+                try:
+                    handles.append(cli.submit(
+                        r["prompt"].tolist(),
+                        max_new_tokens=r["max_new_tokens"],
+                        temperature=r["temperature"], seed=r["seed"]))
+                except Exception as e:
+                    handles.append(e)
+            for h in handles:
+                if isinstance(h, Exception):
+                    rows.append({"at": "submit", "error": type(h).__name__,
+                                 "s": time.perf_counter() - t0})
+                    continue
+                try:
+                    h.wait_done(30.0)
+                    rows.append({"at": "done", "error": None,
+                                 "s": time.perf_counter() - t0})
+                except Exception as e:
+                    rows.append({"at": "handle", "error": type(e).__name__,
+                                 "detail": str(e)[:200],
+                                 "s": time.perf_counter() - t0})
+        finally:
+            netchaos.uninstall()
+            cli.close()
+    finally:
+        fe.close()
+        sched.close()
+    return {"requests": rows}
+
+
+def check_netchaos(results):
+    """The network chaos layer on the dense cell's 548 MB of float32
+    gradients (K1 once, K2 12 times a step) at world 2, two rank processes
+    on this card averaged by a Bucketer on the float32 host ring, and on
+    the serve wire.  Cells and their required outcomes:
+
+    - ``corrupt:surface=tcp,rank=1,frame=2`` (``--netchaos``, SHM off): a
+      ``FrameCorruptError`` naming src 1, the tag and the offset; the
+      launcher exits non-zero and no rank returns a result;
+    - in one ``--coll_timeout=10`` launch, after an unfaulted sync (SHM
+      off): ``delay:surface=tcp,delay=0.01`` byte-identical;
+      ``conn-reset:surface=shm,rank=0,frame=1`` (lanes on) breaks the lane
+      and is byte-identical; ``partition:surface=tcp,rank=1,peer=0`` a
+      ``CollectiveTimeoutError`` naming the stalled hop within the timeout
+      plus 5 s;
+    - ``corrupt:surface=serve`` on the full-width served model with 8 of
+      :func:`smoke_requests`: every request ends in a named error.
+
+    Printed: each cell's outcome, the named error and the seconds to it,
+    and the completed syncs' ms beside the unfaulted one."""
+    import tempfile
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="netchaos_", dir=os.environ.get("TMPDIR"))
+    with open(os.path.join(out, "worker.py"), "w") as f:
+        f.write(NETCHAOS_WORKER)
+    t0 = time.time()
+    corrupt = _netchaos_launch(
+        out, "corrupt", "once",
+        ["--netchaos=corrupt:surface=tcp,rank=1,frame=2",
+         "--flight-recorder"])
+    try:
+        serve_cell = _serve_corrupt_cell()   # beside the corrupt launch
+        _, corrupt_err = corrupt.communicate(timeout=CLUSTER_TIMEOUT)
+    finally:
+        _stop(corrupt, grace=5)
+    torch.cuda.empty_cache()
+    cells = _netchaos_launch(
+        out, "cells", "cells", [f"--coll_timeout={NETCHAOS_COLL_TIMEOUT}"])
+    try:
+        _, cells_err = cells.communicate(timeout=CLUSTER_TIMEOUT)
+    finally:
+        _stop(cells, grace=5)
+    wall = time.time() - t0
+    cr = [_json(os.path.join(out, "corrupt", f"r{r}.json"), {})
+          for r in range(2)]
+    cl = [_json(os.path.join(out, "cells", f"r{r}.json"), {})
+          for r in range(2)]
+    named = [c["cells"].get("once", {}) for c in cr if c]
+    fce = _corrupt_frames(os.path.join(out, "corrupt", "obs"))
+    cells_of = [c.get("cells", {}) for c in cl]
+
+    def cell(name):
+        return [c.get(name, {}) for c in cells_of]
+
+    base = cell("unfaulted")
+    want = {r.get("sha256") for r in base}
+
+    def identical(name):
+        rows = cell(name)
+        return (all(r.get("outcome") == "completed" for r in rows)
+                and {r.get("sha256") for r in rows} == want
+                and len(want) == 1 and None not in want)
+
+    part = cell("partition")
+    checks = {
+        "corrupt_named": bool(fce) and all(
+            r["rank"] == 0 and r["src"] == 1 and r["tag"]
+            and r["offset"] is not None and r["offset"] >= 0 for r in fce),
+        "corrupt_launcher_failed": corrupt.returncode not in (0, None),
+        "corrupt_no_result": not any("result" in c for c in cr),
+        "unfaulted_ranks_agree": len(want) == 1 and None not in want,
+        "delay_byte_identical": identical("delay"),
+        "shm_reset_byte_identical": identical("shm_conn_reset"),
+        "shm_lane_broken": cell("shm_conn_reset")[0].get(
+            "shm_active_after") is False,
+        "partition_named": all(
+            r.get("error") == "CollectiveTimeoutError"
+            and "stalled hop" in r.get("detail", "") for r in part),
+        "partition_bounded": all(
+            r.get("seconds", 1e9) <= NETCHAOS_COLL_TIMEOUT + 5
+            for r in part),
+        "serve_every_request_named": len(serve_cell["requests"]) == 8
+        and all(r["error"] in ("ServerGoneError", "RequestFailedError")
+                and r["s"] <= 60 for r in serve_cell["requests"]),
+        "launches_per_rank": all(c.get("launches") == OBS_PER_STEP
+                                 for c in cl + cr if c)}
+    emit("netchaos", world=2, bytes_per_rank=(cl[0] or {}).get("bytes"),
+         corrupt={"launcher_rc": corrupt.returncode, "named": fce,
+                  "ranks": [{k: r.get(k) for k in ("outcome", "error",
+                                                   "detail", "seconds")}
+                            for r in named]},
+         cells={name: [{k: r.get(k) for k in (
+             "spec", "outcome", "error", "seconds", "ms",
+             "shm_active_after", "detail")} for r in cell(name)]
+             for name in ("unfaulted", "delay", "shm_conn_reset",
+                          "partition")},
+         sync_ms={name: [r.get("ms") for r in cell(name)]
+                  for name in ("unfaulted", "delay", "shm_conn_reset")},
+         serve=serve_cell, wall_s=wall, checks=checks,
+         stderr_tail=None if all(checks.values()) else
+         [corrupt_err[-2000:], cells_err[-2500:]])
+    return all(checks.values())
+
+
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("gmm", check_gmm), ("slice", check_slice),
           ("composition", check_composition), ("moe_slice", check_moe_slice),
@@ -5416,7 +6026,9 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("elastic", check_elastic), ("host_ring", check_host_ring),
           ("host_zero", check_host_zero), ("quant_gate", check_quant_gate),
           ("obs", check_obs), ("sanitize", check_sanitize),
-          ("roles", check_roles))
+          ("roles", check_roles), ("cluster_failover", check_cluster_failover),
+          ("cluster_elastic", check_cluster_elastic),
+          ("netchaos", check_netchaos))
 
 
 def main() -> int:

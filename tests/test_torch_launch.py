@@ -5,7 +5,8 @@ the env contract itself, ``--pass_local_rank``, fail-fast, the refused
 flag combinations, ``--max_restarts`` recovered and exhausted, a worker's
 130, ``--standalone`` and ``--module``, the control plane's flags
 (``--sanitize``, ``--flight-recorder``, ``--roles``, ``--role_script``,
-``--solo_restarts``) — and two of the port's launchers with ``--nnodes=2``
+``--solo_restarts``, ``--store_endpoints``, ``--store_replica``,
+``--netchaos``) — and two of the port's launchers with ``--nnodes=2``
 agree on a restart, or on giving up.  Flags whose machinery is a later
 ROADMAP item exit 2 before anything is spawned, naming the item;
 ``spawn(max_restarts=)`` restarts its world.
@@ -165,19 +166,104 @@ def test_coll_timeout_reaches_the_child_as_under_the_jax_launcher(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--nnodes=2 --elastic_world=1:2", "A9.2b"),
-    ("--nnodes=2 --elastic_timeout=60 --elastic_world=2:2", "A9.2b"),
-    ("--verify_graph", "A9.7"), ("--no_verify_graph", "A9.7"),
-    ("--store_endpoints=/x", "A9.2b"), ("--store_replica", "A9.2b"),
-    ("--netchaos=delay:surface=tcp", "A9.4")])
+    ("--verify_graph", "A9.7"), ("--no_verify_graph", "A9.7")])
 def test_unported_flag_exits_2_naming_its_item(tmp_path, worker, capfd,
                                                flag, item):
-    # the refused flag is the last one given (a multi-node --elastic_world
-    # comes with the cluster membership of the control plane)
     assert tcli.main([*flag.split(), str(worker), str(tmp_path), "ok"]) == 2
     err = capfd.readouterr().err
     assert flag.split()[-1].split("=")[0] in err and item in err
     assert os.listdir(tmp_path) == ["probe.py"]   # nothing was spawned
+
+
+@pytest.mark.parametrize("flags", [
+    "--store_replica", "--store_endpoints=EP --no_store",
+    "--nnodes=2 --elastic_world=1:3", "--nnodes=2 --elastic_world=1:2 "
+    "--no_store", "--nnodes=2 --node_rank=0 --elastic_world=0:2"])
+def test_cluster_flag_misuse_exits_2_like_jax(tmp_path, worker, capfd,
+                                              flags):
+    """The cluster flags' refusals: --store_replica without an endpoints
+    file, either flag without the store, a multi-node --elastic_world MAX
+    other than the full world: both launchers exit 2 with the same
+    message and spawn nothing."""
+    argv = flags.replace("EP", str(tmp_path / "ep.json")).split()
+    errs = {}
+    for name, cli in (("jax", jcli), ("port", tcli)):
+        assert cli.main([*argv, str(worker), str(tmp_path), "ok"]) == 2
+        errs[name] = capfd.readouterr().err
+    assert errs["port"] == errs["jax"] and errs["port"]
+    assert os.listdir(tmp_path) == ["probe.py"]
+
+
+# argv: OUT; the child's view of the cluster flags
+CLUSTER_ENV = ("TPU_DIST_STORE_ENDPOINTS", "TPU_DIST_STORE_REPLICATE",
+               "TPU_DIST_NETCHAOS")
+CLUSTER_PROBE = textwrap.dedent("""
+    import json, os, sys
+    from tpu_dist_torch.dist import TCPStore
+    rec = {k: os.environ.get(k) for k in %r}
+    host, _, port = os.environ["TPU_DIST_STORE_ADDR"].rpartition(":")
+    s = TCPStore(host, int(port), timeout=30)
+    rec["store_addr"] = os.environ["TPU_DIST_STORE_ADDR"]
+    rec["native"] = s.native
+    rec["master_port_published"] = s.check("tpu_dist/master_port")
+    s.close()
+    with open(sys.argv[1], "w") as f:
+        json.dump(rec, f)
+""" % (CLUSTER_ENV,))
+
+
+@pytest.mark.parametrize("mode", ["endpoints", "replica", "netchaos"])
+def test_cluster_flags_launch_like_jax(tmp_path, monkeypatch, mode):
+    """``--store_endpoints`` (client of an external leader named by the
+    file), ``--store_replica`` (node 0 hosts the replicating store and
+    writes the file at epoch 0) and ``--netchaos`` (exported to every
+    worker): the child of either launcher sees the same."""
+    from tpu_dist_torch.cluster import read_endpoints, write_endpoints
+    from tpu_dist_torch.dist.store import PyTCPStoreServer
+    probe = tmp_path / "cluster.py"
+    probe.write_text(CLUSTER_PROBE)
+    monkeypatch.setenv("PYTHONPATH", REPO + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+    for var in ("TPU_DIST_STORE_ENDPOINTS", "TPU_DIST_STORE_REPLICATE"):
+        monkeypatch.setenv(var, "x")   # the launcher sets them in-process:
+        monkeypatch.delenv(var)        # undone after the test
+    seen = {}
+    for name, cli in (("jax", jcli), ("port", tcli)):
+        ep = tmp_path / f"{name}_ep.json"
+        srv = None
+        argv = []
+        if mode == "endpoints":
+            srv = PyTCPStoreServer(0, replicate=True)
+            write_endpoints(str(ep), f"127.0.0.1:{srv.port}", 0)
+            argv = [f"--store_endpoints={ep}"]
+        elif mode == "replica":
+            argv = [f"--store_endpoints={ep}", "--store_replica"]
+        else:
+            argv = ["--netchaos=delay:surface=tcp,delay=0.01"]
+        out = tmp_path / f"{name}.json"
+        try:
+            assert cli.main(argv + [str(probe), str(out)]) == 0
+        finally:
+            if srv is not None:
+                srv.stop()
+        rec = json.loads(out.read_text())
+        if mode != "netchaos":
+            doc = read_endpoints(str(ep))
+            assert doc["epoch"] == 0 and rec["store_addr"] == doc["leader"]
+            assert rec["TPU_DIST_STORE_ENDPOINTS"] == str(ep)
+            assert rec["native"] is False      # the Python wire
+            rec["TPU_DIST_STORE_ENDPOINTS"] = "EP"
+        assert rec["master_port_published"]
+        rec.pop("store_addr")
+        seen[name] = rec
+        for var in ("TPU_DIST_STORE_ENDPOINTS", "TPU_DIST_STORE_REPLICATE"):
+            os.environ.pop(var, None)
+    assert seen["port"] == seen["jax"]
+    if mode == "replica":
+        assert seen["port"]["TPU_DIST_STORE_REPLICATE"] == "1"
+    if mode == "netchaos":
+        assert seen["port"]["TPU_DIST_NETCHAOS"] == \
+            "delay:surface=tcp,delay=0.01"
 
 
 # what a child of either launcher sees of the control plane's flags

@@ -108,12 +108,26 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch.benchmarks.bench_roles
         import tpu_dist_torch.benchmarks.bench_obs_overhead
         import tpu_dist_torch.benchmarks.obs_stall
+        import tpu_dist_torch.cluster
+        import tpu_dist_torch.cluster.agent
+        import tpu_dist_torch.cluster.endpoints
+        import tpu_dist_torch.cluster.membership
+        import tpu_dist_torch.cluster.replica
+        import tpu_dist_torch.resilience.netchaos
+        import tpu_dist_torch.benchmarks.cluster_elastic
         # the native store is built and served with jax and tpu_dist blocked
         from tpu_dist_torch.dist import TCPStore
         s = TCPStore(is_master=True, timeout=10)
         s.set("k", b"v")
         assert s.get("k") == b"v" and s.native
         s.close()
+        # and the cluster's replicating Python wire, with a follower
+        from tpu_dist_torch.cluster import StoreFollower
+        from tpu_dist_torch.dist.store import PyTCPStoreServer
+        leader = PyTCPStoreServer(replicate=True)
+        with StoreFollower("127.0.0.1", leader.port) as fo:
+            assert fo.wait_caught_up(leader.replication_seq())
+        leader.stop()
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist",
                                                "ml_dtypes")
@@ -189,9 +203,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                            bench_overlap, elastic_ring,
                                            host_sync)
     from tpu_dist_torch.benchmarks import (bench_obs_overhead, bench_roles,
-                                           obs_stall)
+                                           cluster_elastic, obs_stall)
     for bench in (bench_host_collectives, bench_overlap, host_sync,
-                  elastic_ring, bench_roles, bench_obs_overhead, obs_stall):
+                  elastic_ring, bench_roles, bench_obs_overhead, obs_stall,
+                  cluster_elastic):
         assert bench.main([]) == 2
     assert accuracy_run.main(["--quant-gate-only"]) == 2
     loader = data.DataLoader(data.TensorDataset(np.zeros(4), np.zeros(4)))

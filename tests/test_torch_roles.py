@@ -19,6 +19,7 @@ Payload comparisons are exact."""
 
 import json
 import os
+import socket
 import subprocess
 import sys
 import textwrap
@@ -405,8 +406,6 @@ def test_spawn_graph_restart_routing(tmp_path, mode, kw, want_rc):
         # every rank ran in both generations
         assert set(runs) == {f"r{i}_g{gen}_i0" for i in range(3)
                              for gen in (0, 1)}
-    with pytest.raises(NotImplementedError, match="A9.2b"):
-        spawn_graph(g, [sys.executable, str(script)], nnodes=2)
 
 
 # -- the example twins with a worker kill, and the bench twin ------------------
@@ -458,6 +457,69 @@ def test_actor_learner_twin_solo_restart_and_loss_decrease(tmp_path):
            if e.get("kind") == "channel"}
     assert {"put", "claim", "ack"} <= ops, ops
     assert all(d["role"] in ("learner", "actor") for d in dumps)
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.multiprocess
+def test_actor_learner_across_two_launchers(tmp_path):
+    """``--roles learner:1,actor:4:solo@1`` under two launchers
+    (``--nnodes=2``, one store hosted by node 0): node 0 supervises the
+    learner, node 1 the four actors.  Chaos kills actor[1] (rank 2) at its
+    3rd batch; node 1's launcher respawns it alone in generation 0, and the
+    learner — on the other node — takes its batches through the same
+    queue.  A pin past the cluster is refused by ``validate_placement`` on
+    every launcher, as the JAX launcher refuses it."""
+    master, store_port = _free_port(), _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               TPU_DIST_CHAOS="kill:rank=2,step=3")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    for var in ("TPU_DIST_STORE_ADDR", "MASTER_PORT", "RANK"):
+        env.pop(var, None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tpu_dist_torch.launch", "--nnodes=2",
+         f"--node_rank={n}", f"--master_port={master}",
+         f"--store_port={store_port}", "--roles",
+         "learner:1,actor:4:solo@1", "--solo_restarts", "2", "-m",
+         "tpu_dist_torch.examples.actor_learner", "--actors", "4",
+         "--max-steps", "100", "--actor-throttle", "0.4", "--device", "cpu",
+         "--out", str(tmp_path)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for n in (0, 1)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=300)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    assert [p.returncode for p in procs] == [0, 0], errs
+    # the actors' launcher respawned the killed actor; node 0 did not
+    assert "role-solo-restart rank=2" in errs[1], errs[1]
+    assert "role-solo-restart" not in errs[0], errs[0]
+    assert "gang restart" not in errs[0] + errs[1]
+    learner = json.load(open(tmp_path / "learner.json"))
+    assert learner["generation"] == 0 and learner["steps"] == 100
+    assert 1 in learner["seen_incarnations"]["1"], learner
+    assert set(learner["seen_incarnations"]) == {"0", "1", "2", "3"}
+    assert json.load(open(tmp_path / "actor1_i1.json"))["incarnation"] == 1
+    losses = learner["losses"]
+    assert sum(losses[-10:]) / 10 < sum(losses[:10]) / 10 - 1.0
+    # a pin past the cluster: both launchers of both packages refuse it
+    from tpu_dist.launch import cli as jcli
+    from tpu_dist_torch.launch import cli as tcli
+    for cli in (tcli, jcli):
+        for node in (0, 1):
+            rc = cli.main(["--nnodes=2", f"--node_rank={node}",
+                           f"--master_port={master}", "--roles",
+                           "learner:1,actor:2:solo@2", "worker.py"])
+            assert rc == 2
 
 
 @pytest.mark.multiprocess

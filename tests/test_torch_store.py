@@ -140,16 +140,54 @@ class TestStoreAPI:
             client.get("never-set")
         client.close()
 
-    def test_refuses_later_items_by_name(self, monkeypatch):
-        for var, item in (("TPU_DIST_STORE_ENDPOINTS", "A9.2b"),
-                          ("TPU_DIST_STORE_REPLICATE", "A9.2b"),
-                          ("TPU_DIST_NETCHAOS", "A9.4")):
-            monkeypatch.setenv(var, "1")
-            with pytest.raises(NotImplementedError, match=item):
-                tstore.TCPStore(is_master=True)
+    def test_refuses_later_items_by_name(self, monkeypatch, tmp_path):
+        # the variables once refused: the replication log and the endpoints
+        # file take the Python wire on both sides, whose server answers
+        # ops 9-10, and TPU_DIST_NETCHAOS arms the client's store surface
+        from tpu_dist_torch.cluster import replica, write_endpoints
+        from tpu_dist_torch.resilience import netchaos
+        ep = str(tmp_path / "ep.json")
+        for var, val in (("TPU_DIST_STORE_REPLICATE", "1"),
+                         ("TPU_DIST_STORE_ENDPOINTS", ep)):
+            monkeypatch.setenv(var, val)
+            s = tstore.TCPStore(is_master=True)
+            write_endpoints(ep, f"127.0.0.1:{s.port}", 0)
+            assert not s.native and s._server._replicate == (
+                var == "TPU_DIST_STORE_REPLICATE")
+            c = tstore.TCPStore("127.0.0.1", s.port, timeout=10)
+            assert not c.native
+            c.set("k", b"v")
+            assert c.add("n", 2) == 2
+            seq, kv = replica.parse_snapshot(
+                c._client.request(tstore._OP_SNAPSHOT, ""))
+            assert kv == {"k": b"v", "n": struct.pack("<q", 2)}
+            assert seq == 2
+            c.close()
+            s.close()
             monkeypatch.delenv(var)
-        with pytest.raises(NotImplementedError, match="A9.2b"):
-            tstore.PyTCPStoreServer(replicate=True)
+        srv = tstore.PyTCPStoreServer(replicate=True)
+        c = tstore._PyClient("127.0.0.1", srv.port, 10.0)
+        c.request(tstore._OP_DELETE_PREFIX, "none/")
+        log = replica.parse_log(c.request(tstore._OP_LOG_SINCE, "",
+                                          struct.pack("<q", 0)))
+        assert log == (1, [(1, tstore._OP_DELETE_PREFIX, "none/", b"")])
+        c.close()
+        srv.stop()
+        monkeypatch.setenv("TPU_DIST_NETCHAOS",
+                           "delay:surface=store,delay=0.01")
+        monkeypatch.setenv("TPU_DIST_PURE_PYTHON_STORE", "1")
+        tstore._load_native.reset()
+        try:
+            s = tstore.TCPStore(is_master=True)
+            t0 = time.monotonic()
+            s.set("slow", b"1")
+            assert time.monotonic() - t0 >= 0.01 and s.get("slow") == b"1"
+            s.close()
+        finally:
+            netchaos.uninstall()
+            monkeypatch.delenv("TPU_DIST_NETCHAOS")
+            monkeypatch.delenv("TPU_DIST_PURE_PYTHON_STORE")
+            tstore._load_native.reset()
         # TPU_DIST_OBS, once refused, arms the client's op events: one
         # kind="store" event a request, none for the polling CHECK
         from tpu_dist_torch.obs import recorder

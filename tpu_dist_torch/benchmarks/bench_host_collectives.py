@@ -18,9 +18,11 @@ over the lanes; ``hier``, the two-level ring).  Workers get simulated host
 fingerprints (``TPU_DIST_HOST_ID``): world >= 4 splits into two "hosts",
 smaller worlds share one.  Rows carry ``shm_active`` (whether a lane to the
 next rank was up), so a ``flat_shm``/``hier`` row that ran on TCP says so.
-A paired CRC row times checksums on and off back to back (the JAX
-benchmark paces both arms with its network chaos layer, ROADMAP A9.4; here
-the arms run unpaced, and the overhead is reported, never gated).
+A paired CRC row times checksums on and off back to back, both arms paced
+to one emulated wire rate (150 MB/s) by a ``slow-drip`` fault of the
+network chaos layer, as the JAX benchmark paces them: on a wire-bound link
+the checksum overlaps the transfer, where an unpaced loopback measures
+memory-bus contention.  The overhead is reported, not gated.
 
 MB/s is algorithmic: input payload bytes per second of collective wall
 time.  Payloads are tensors on ``--device`` (``cuda``: each rank's own card
@@ -97,6 +99,7 @@ def _worker() -> int:
     from .. import collectives as C
     from ..collectives import eager as E
     from ..collectives import transport as T
+    from ..resilience import netchaos
 
     rank = int(os.environ["RANK"])
     world = int(os.environ["WORLD_SIZE"])
@@ -123,6 +126,12 @@ def _worker() -> int:
             os.environ["TPU_DIST_FRAME_CRC"] = case["crc"]
         else:
             os.environ.pop("TPU_DIST_FRAME_CRC", None)
+        # the CRC rows' wire emulation: both arms paced to one rate
+        rate = case.get("wire_rate")
+        if rate:
+            netchaos.install(f"slow-drip:surface=tcp,rate={int(rate)}")
+        else:
+            netchaos.uninstall()
         algo = case.get("algo", "flat")
         os.environ["TPU_DIST_ALGO"] = "hier" if algo == "hier" else "flat"
         os.environ["TPU_DIST_SHM"] = (
@@ -163,7 +172,8 @@ def _worker() -> int:
             rows.append({
                 "metric": "crc_paired", "op": op, "world": world,
                 "bytes": nbytes, "iters": iters, "pairs": reps,
-                "wire_mb_s": 0, "value": max(0.0, med), "unit": "%",
+                "wire_mb_s": case.get("wire_rate", 0) // 1_000_000,
+                "value": max(0.0, med), "unit": "%",
                 "pair_pcts": pair_pcts, "crc": T.crc_impl(),
                 "on_mb_s": nbytes * iters / min(arm_t["1"]) / 1e6,
                 "off_mb_s": nbytes * iters / min(arm_t["0"]) / 1e6})
@@ -229,6 +239,7 @@ def _worker() -> int:
     for key in ("TPU_DIST_COMM_DTYPE", "TPU_DIST_ALGO", "TPU_DIST_SHM",
                 "TPU_DIST_FRAME_CRC"):
         os.environ.pop(key, None)
+    netchaos.uninstall()
     if rank == 0:
         with open(os.environ["BENCH_OUT"], "w") as f:
             json.dump(rows, f)
@@ -267,6 +278,7 @@ def cases_for(sizes, iters_override: int, smoke: bool):
               for nbytes in sizes for algo in ("flat_shm", "hier")]
     cases += [{"op": "all_reduce", "path": "dataplane", "bytes": 8 << 20,
                "comm": None, "crc_paired": True, "reps": 3 if smoke else 7,
+               "wire_rate": 150_000_000,
                "iters": iters_override or (1 if smoke else 2)}]
     return cases
 
@@ -332,7 +344,8 @@ def summaries(rows, worlds) -> list:
             out.append({"metric": f"crc_overhead_8MiB_w{world}",
                         "value": r["value"], "unit": "%",
                         "threshold": 5.0, "pairs": r["pairs"],
-                        "estimator": "paired-median, unpaced",
+                        "estimator": "paired-median, paced",
+                        "wire_mb_s": r["wire_mb_s"],
                         "crc": r["crc"]})
     ring = by_key.get(("all_reduce", "dataplane", "f32", "flat", 4,
                        8 << 20))

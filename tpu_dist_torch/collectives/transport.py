@@ -34,7 +34,10 @@ collective watchdog, 0 = off), ``TPU_DIST_FRAME_CRC``,
 ``TPU_DIST_DIAL_TIMEOUT`` (60 s), ``TPU_DIST_SOCK_BUF`` (socket buffer
 bytes, 0 = the OS default) and ``TPU_DIST_NO_DATAPLANE=1`` (off).  Lifecycle events (peer connect,
 peer gone, SHM lanes) go to the flight recorder (:mod:`tpu_dist_torch.obs`)
-when it is armed; network fault injection is ROADMAP A9.4 and a no-op here.
+when it is armed.  ``TPU_DIST_NETCHAOS`` (deterministic network fault
+injection, :mod:`tpu_dist_torch.resilience.netchaos`) acts at the frame
+boundary (``tcp``) and on the SHM lanes (``shm``); a collective on a
+group's NCCL backend never reaches this module, so it has no surface.
 """
 
 from __future__ import annotations
@@ -242,6 +245,19 @@ def frame_crc_enabled() -> bool:
         not in ("0", "off", "false", "no")
 
 
+def _net_chaos():
+    """The active network-fault injector, or None.  Guarded by
+    ``sys.modules`` and the env var, so a process that never arms the
+    network chaos layer never imports it: the disarmed per-frame cost is
+    two dict lookups."""
+    import sys
+    if "tpu_dist_torch.resilience.netchaos" not in sys.modules \
+            and not os.environ.get("TPU_DIST_NETCHAOS"):
+        return None
+    from ..resilience import netchaos
+    return netchaos.install_from_env()
+
+
 def _default_timeout() -> float:
     try:
         return float(os.environ.get("TPU_DIST_DP_TIMEOUT", "300"))
@@ -324,6 +340,51 @@ def _sendv(sock, header: bytes, *payloads) -> None:
             parts.pop(0)
         if n and parts:
             parts[0] = parts[0][n:]
+
+
+def _sendv_paced(sock, header: bytes, parts, rate: float) -> None:
+    """Throttled send (netchaos ``slow-drip``): the header goes out whole
+    (the receiver's framing must progress), the payload drips at ``rate``
+    bytes/s in ~10 ms slices.  A degradation, not an error: the frame
+    completes, slowly, bounded by the caller's deadlines."""
+    sock.sendall(header)
+    rate = max(1.0, float(rate))
+    chunk = max(1, int(rate * 0.01))
+    for p in parts:
+        view = memoryview(p).cast("B")
+        for off in range(0, len(view), chunk):
+            piece = view[off:off + chunk]
+            sock.sendall(piece)
+            time.sleep(len(piece) / rate)
+
+
+def _inject_break(sock, header: bytes, parts, plan) -> None:
+    """netchaos ``conn-reset`` / ``truncate``: break the connection
+    mid-frame and raise — the sender's error path names it a
+    ``PeerGoneError``; the receiver's framing sees a reset or a truncated
+    frame and marks the peer gone the same way."""
+    if plan.kind == "truncate":
+        # the header promises the whole payload; deliver half of the first
+        # part, then FIN: the receiver raises at that byte
+        sock.sendall(header)
+        first = memoryview(parts[0]).cast("B") if parts else b""
+        if len(first):
+            sock.sendall(first[:max(1, len(first) // 2)])
+        try:
+            sock.shutdown(socket.SHUT_WR)
+        except OSError:
+            pass
+    else:
+        # RST mid-header: closing with SO_LINGER(0) drops the send queue
+        # and resets (ECONNRESET at the peer)
+        try:
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                            struct.pack("ii", 1, 0))
+        except OSError:
+            pass
+        sock.sendall(header[:max(1, len(header) // 2)])
+    sock.close()
+    raise ConnectionResetError(f"netchaos: injected {plan.kind} mid-frame")
 
 
 def _recv_exact(conn, n: int) -> Optional[bytearray]:
@@ -805,13 +866,21 @@ class DataPlane:
             dst, tag, f"q8b{chunk.scheme.block}", (q.size,),
             (memoryview(scales).cast("B"), memoryview(q).cast("B")))
 
-    def _lane_stage(self, lane, parts):
+    def _lane_stage(self, lane, parts, plan=None):
         """Pre-header SHM staging: copy whatever fits into the lane
         without blocking; returns the not-yet-staged remainders (sent
         after the header).  Everything that can fail here fails BEFORE the
         frame header leaves on TCP, which is what makes mid-stream lane
         failure recoverable — the caller degrades the frame (and the
         destination) to inline TCP instead of wedging the ring."""
+        if plan is not None and plan.kind in ("conn-reset", "truncate"):
+            # an injected lane breakage (netchaos shm surface): the
+            # recovery under test is the TCP fallback, not an error
+            raise ConnectionError(f"netchaos: injected shm lane {plan.kind}")
+        if plan is not None and plan.kind == "slow-drip":
+            # the lane transfer is a memcpy: a slow medium is the
+            # equivalent stall up front
+            time.sleep(sum(len(p) for p in parts) / max(1.0, plan.rate))
         rest = []
         for p in parts:
             if rest:
@@ -853,8 +922,8 @@ class DataPlane:
         """Shared outbound path for plain and quantized frames: one
         connection per destination, vectored send (or an SHM-lane payload
         with a TCP header, for co-located peers), optional payload
-        checksum, peer death diagnosed outside the send lock (network
-        fault injection at this boundary is ROADMAP A9.4)."""
+        checksum, deterministic network-fault injection, peer death
+        diagnosed outside the send lock."""
         if dst == self.rank:
             raise ValueError("data plane does not deliver to self")
         parts = [memoryview(p).cast("B") for p in parts]
@@ -867,17 +936,37 @@ class DataPlane:
                     sock = self._connect(dst)
                     self._out[dst] = sock
                 lane = self._maybe_lane(dst, sock) if plen else None
+                # the checksum BEFORE the fault injection: netchaos
+                # `corrupt` flips bits ON THE WIRE, which is what the
+                # receiver's verification must catch
                 wire_dtype = dtype_name
                 trailer = b""
                 if frame_crc_enabled():
                     wire_dtype = _CRC_MARK + dtype_name
                     trailer = _U32.pack(frame_checksum(parts))
+                plan = None
+                nc = _net_chaos()
+                if nc is not None:
+                    plan = nc.plan("shm" if lane is not None else "tcp",
+                                   src=self.rank, dst=dst)
+                if plan is not None:
+                    if plan.kind == "partition":
+                        # a rank-pair blackhole: the frame never leaves;
+                        # the receiver's watchdog names the stalled hop
+                        return plen
+                    if plan.kind == "delay":
+                        time.sleep(plan.delay)
+                    elif plan.kind == "corrupt":
+                        parts = [memoryview(p).cast("B") for p in
+                                 nc.corrupt_parts(plan, parts)]
                 if lane is not None:
                     try:
-                        rest = self._lane_stage(lane, parts)
+                        rest = self._lane_stage(lane, parts, plan)
                     except (OSError, TimeoutError) as lane_err:
                         self._degrade_lane(dst, lane_err)
                         lane = None
+                        plan = None  # the fault WAS the lane's breakage:
+                        # it must not fire again on the TCP fallback
                     else:
                         # payload FIRST (whatever fit without blocking),
                         # then header + checksum: by the time the
@@ -901,7 +990,13 @@ class DataPlane:
                     header = _encode_frame_header(
                         tag.encode(), wire_dtype.encode(), shape,
                         plen) + trailer
-                    _sendv(sock, header, *parts)
+                    if plan is not None and plan.kind in ("conn-reset",
+                                                          "truncate"):
+                        _inject_break(sock, header, parts, plan)
+                    elif plan is not None and plan.kind == "slow-drip":
+                        _sendv_paced(sock, header, parts, plan.rate)
+                    else:
+                        _sendv(sock, header, *parts)
             except PeerGoneError as e:
                 send_err = e  # _connect diagnosed the peer; the obs-tail
                 # enrichment still happens below, outside the lock

@@ -199,6 +199,13 @@ def rendezvous(init_method: Optional[str], world_size: int = -1,
         # code changes needed (tpu_dist_torch/resilience/chaos.py)
         from ..resilience import chaos as _chaos
         chaos_active = _chaos.install_from_env()
+    netchaos_active = None
+    if os.environ.get("TPU_DIST_NETCHAOS"):
+        # network fault injection (tpu_dist_torch/resilience/netchaos.py):
+        # partitions, delays, resets and bit flips at the transport, store
+        # and serve wire boundaries
+        from ..resilience import netchaos as _netchaos
+        netchaos_active = _netchaos.install_from_env()
     # the flight recorder (TPU_DIST_OBS, launcher --flight-recorder): the
     # crash-dump paths (unhandled exception, SIGTERM, SIGUSR1, exit) go in
     # before anything distributed can hang; off the main thread (thread
@@ -211,6 +218,9 @@ def rendezvous(init_method: Optional[str], world_size: int = -1,
         # install_from_env could only guess from RANK; the resolved
         # process id is authoritative (explicit tcp:// ranks set no RANK)
         chaos_active.rank = process_id
+    if netchaos_active is not None:
+        netchaos_active.rank = process_id  # the same correction: rank-
+        # scoped faults of the store and serve surfaces key on it
     if obs_rec is not None:
         # the same correction: the rank keys the store tail and the dump's
         # file name

@@ -17,15 +17,27 @@ the key exists, the property rendezvous relies on.
 
 With the flight recorder armed (``TPU_DIST_OBS``), every client request
 but the polling ones (``check``, ``num_keys``) leaves one ``kind="store"``
-event.  Not in the port yet, each refused by name: the replication log and
-leader failover (ops 9-10, ``TPU_DIST_STORE_ENDPOINTS``/
-``TPU_DIST_STORE_REPLICATE``: ROADMAP A9.2b) and network fault injection
-(``TPU_DIST_NETCHAOS``: A9.4).
+event.
+
+**The cluster half** (:mod:`tpu_dist_torch.cluster`): a Python server with
+``replicate=True`` (or ``TPU_DIST_STORE_REPLICATE=1``) keeps a bounded
+mutation log that follower replicas tail through wire ops 9-10
+(``_OP_SNAPSHOT``, ``_OP_LOG_SINCE``, byte for byte the JAX package's
+replies); a Python client under ``TPU_DIST_STORE_ENDPOINTS`` re-resolves
+the leader from the endpoints file on every reconnect, so a leader
+failover re-arms its blocked waiters on the promoted follower and turns an
+at-most-once op caught across it into :class:`StoreFailoverError`.  Either
+variable takes the Python wire on both sides: the native library has no
+ops 9-10, and a process split across the two would split the brain.  The
+Python client is also the ``store`` surface of the network chaos layer
+(``TPU_DIST_NETCHAOS``, :mod:`tpu_dist_torch.resilience.netchaos`).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import json
 import os
 import socket
 import struct
@@ -33,29 +45,36 @@ import threading
 import time
 from typing import List, Optional
 
-__all__ = ["Store", "TCPStore", "FileStore", "PyTCPStoreServer"]
+__all__ = ["Store", "TCPStore", "FileStore", "PyTCPStoreServer",
+           "StoreFailoverError"]
 
 # Wire protocol op codes (must match csrc/tcpstore.cpp)
 (_OP_SET, _OP_GET, _OP_ADD, _OP_CHECK, _OP_DELETE, _OP_NUMKEYS, _OP_WAIT_GE,
  _OP_DELETE_PREFIX) = range(1, 9)
+# replication ops: Python servers only (csrc/tcpstore.cpp has neither, so a
+# cluster-armed process takes the Python wire: TCPStore.__init__)
+(_OP_SNAPSHOT, _OP_LOG_SINCE) = (9, 10)
 
 
-def _armed(name: str) -> bool:
-    return os.environ.get(name, "") not in ("", "0")
+def _replicate_env() -> bool:
+    return os.environ.get("TPU_DIST_STORE_REPLICATE", "") not in ("", "0")
 
 
-def _refuse_later_items() -> None:
-    """Raise for an environment that asks for store machinery the port does
-    not have yet, naming the ROADMAP item that brings it."""
-    if _armed("TPU_DIST_STORE_ENDPOINTS") or _armed("TPU_DIST_STORE_REPLICATE"):
-        raise NotImplementedError(
-            "store replication and leader failover (TPU_DIST_STORE_ENDPOINTS"
-            ", TPU_DIST_STORE_REPLICATE, wire ops 9-10) come with the "
-            "control plane's cluster half, ROADMAP A9.2b")
-    if _armed("TPU_DIST_NETCHAOS"):
-        raise NotImplementedError(
-            "network fault injection on the store (TPU_DIST_NETCHAOS) "
-            "comes with ROADMAP A9.4")
+class StoreFailoverError(ConnectionError):
+    """An at-most-once store op (SET/ADD/DELETE) was in flight while the
+    control-plane leader changed.  It is NOT replayed against the new
+    leader: the old one may have applied it before dying, and a blind
+    resend would double-apply (fatal for ADD-based barrier generations).
+    Names both leaders and the new epoch, so the caller can decide whether
+    its op is safe to re-issue (an idempotent re-publish: yes; a counter
+    bump: read first)."""
+
+    def __init__(self, msg: str, old: Optional[str] = None,
+                 new: Optional[str] = None, epoch: Optional[int] = None):
+        super().__init__(msg)
+        self.old_leader = old
+        self.new_leader = new
+        self.epoch = epoch
 
 
 class Store:
@@ -130,18 +149,39 @@ def _recv_all(conn, n: int) -> Optional[bytes]:
 
 
 class PyTCPStoreServer:
-    """The pure-Python server of the wire (ops 1-8), one thread a
-    connection.  Taken when the native library cannot be built or
-    ``TPU_DIST_PURE_PYTHON_STORE=1``; serves the native and Python clients
-    of either package alike."""
+    """The pure-Python server of the wire, one thread a connection.  Taken
+    when the native library cannot be built, ``TPU_DIST_PURE_PYTHON_STORE=1``
+    or the cluster layer is armed; serves the native and Python clients of
+    either package alike.
+
+    With ``replicate=True`` (or ``TPU_DIST_STORE_REPLICATE=1``) it also
+    keeps a bounded in-memory mutation log that follower replicas
+    (:class:`tpu_dist_torch.cluster.StoreFollower`) tail through
+    ``_OP_SNAPSHOT``/``_OP_LOG_SINCE``:
+
+    - every applied mutation gets the next sequence number; only
+      SET/DELETE/DELETE_PREFIX are logged, ADD as a SET of its *result*,
+      so replaying the log is idempotent (a replayed ADD would double
+      count);
+    - the log is bounded by entries (``TPU_DIST_STORE_LOG_MAX``, 65536) and
+      bytes (``TPU_DIST_STORE_LOG_BYTES``, 64 MiB); a follower asking for a
+      sequence older than the retained base is told to re-snapshot;
+    - :meth:`install_snapshot` and :meth:`apply_mutation`, the follower's
+      entry points, apply under the same condition variable and notify
+      it, so a GET/WAIT_GE blocked on a *promoted* follower wakes as on
+      the original leader: the waiter re-arm guarantee."""
 
     def __init__(self, port: int = 0, replicate: bool = False):
-        if replicate or _armed("TPU_DIST_STORE_REPLICATE"):
-            raise NotImplementedError(
-                "the store's replication log (wire ops 9-10) comes with the "
-                "control plane's cluster half, ROADMAP A9.2b")
         self._kv = {}
         self._mu = threading.Condition()
+        self._replicate = bool(replicate) or _replicate_env()
+        self._seq = 0  # newest applied mutation's sequence number
+        self._log = collections.deque()  # (seq, op, key, payload)
+        self._log_bytes = 0
+        self._log_max = int(os.environ.get("TPU_DIST_STORE_LOG_MAX",
+                                           "65536"))
+        self._log_max_bytes = int(os.environ.get("TPU_DIST_STORE_LOG_BYTES",
+                                                 str(64 << 20)))
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind(("0.0.0.0", port))
@@ -187,10 +227,73 @@ class PyTCPStoreServer:
     def _reply(conn, status: int, data: bytes = b""):
         conn.sendall(struct.pack("<II", status, len(data)) + data)
 
+    # -- the replication log (the helpers run under self._mu) ---------------
+
+    def _log_base(self) -> int:
+        return self._log[0][0] if self._log else self._seq + 1
+
+    def _log_append(self, seq: int, op: int, key: str,
+                    payload: bytes) -> None:
+        self._seq = seq
+        if not self._replicate:
+            return
+        self._log.append((seq, op, key, payload))
+        self._log_bytes += len(key) + len(payload) + 16
+        while self._log and (len(self._log) > self._log_max
+                             or self._log_bytes > self._log_max_bytes):
+            old = self._log.popleft()
+            self._log_bytes -= len(old[2]) + len(old[3]) + 16
+
+    def _log_mut(self, op: int, key: str, payload: bytes) -> None:
+        self._log_append(self._seq + 1, op, key, payload)
+
+    # -- the follower's side (tpu_dist_torch/cluster/replica.py) ------------
+
+    def replication_seq(self) -> int:
+        with self._mu:
+            return self._seq
+
+    def snapshot_items(self, prefix: str = "") -> dict:
+        """Copy of the kv map (keys starting with ``prefix``): the election
+        reads the lease and candidate tables from its local replica through
+        this, never over the (dead) wire."""
+        with self._mu:
+            return {k: v for k, v in self._kv.items()
+                    if k.startswith(prefix)}
+
+    def install_snapshot(self, seq: int, items) -> None:
+        with self._mu:
+            self._kv = dict(items)
+            self._log.clear()
+            self._log_bytes = 0
+            self._seq = seq
+            self._mu.notify_all()
+
+    def apply_mutation(self, seq: int, op: int, key: str,
+                       payload: bytes) -> None:
+        with self._mu:
+            if seq <= self._seq:
+                return  # a duplicate tail poll: already applied
+            if op == _OP_SET:
+                self._kv[key] = payload
+            elif op == _OP_DELETE:
+                self._kv.pop(key, None)
+            elif op == _OP_DELETE_PREFIX:
+                for k in [k for k in self._kv if k.startswith(key)]:
+                    del self._kv[k]
+            else:
+                raise ValueError(f"bad replicated op {op}")
+            # the follower keeps its own log under the LEADER's sequence
+            # numbers: after a promotion new mutations continue the same
+            # sequence, and a later follower can tail this server in turn
+            self._log_append(seq, op, key, payload)
+            self._mu.notify_all()
+
     def _dispatch(self, conn, op, key, payload):
         if op == _OP_SET:
             with self._mu:
                 self._kv[key] = payload
+                self._log_mut(_OP_SET, key, payload)
                 self._mu.notify_all()
             self._reply(conn, 0)
         elif op == _OP_GET:
@@ -206,6 +309,8 @@ class PyTCPStoreServer:
             with self._mu:
                 nv = _i64(self._kv.get(key, b"")) + _i64(payload)
                 self._kv[key] = struct.pack("<q", nv)
+                # logged as a SET of the RESULT: replay stays idempotent
+                self._log_mut(_OP_SET, key, self._kv[key])
                 self._mu.notify_all()
             self._reply(conn, 0, struct.pack("<q", nv))
         elif op == _OP_CHECK:
@@ -215,12 +320,14 @@ class PyTCPStoreServer:
         elif op == _OP_DELETE:
             with self._mu:
                 existed = self._kv.pop(key, None) is not None
+                self._log_mut(_OP_DELETE, key, b"")
             self._reply(conn, 0, b"1" if existed else b"0")
         elif op == _OP_DELETE_PREFIX:
             with self._mu:
                 doomed = [k for k in self._kv if k.startswith(key)]
                 for k in doomed:
                     del self._kv[k]
+                self._log_mut(_OP_DELETE_PREFIX, key, b"")
             self._reply(conn, 0, struct.pack("<q", len(doomed)))
         elif op == _OP_NUMKEYS:
             with self._mu:
@@ -233,6 +340,35 @@ class PyTCPStoreServer:
                        and not self._stopping):
                     self._mu.wait(0.1)
             self._reply(conn, 1 if self._stopping else 0)
+        elif op == _OP_SNAPSHOT:
+            # an atomic kv image: <q seq> <I count>, then per entry
+            # <I klen> key <I vlen> value
+            with self._mu:
+                parts = [struct.pack("<qI", self._seq, len(self._kv))]
+                for k, v in self._kv.items():
+                    kb = k.encode()
+                    parts.append(struct.pack("<I", len(kb)) + kb
+                                 + struct.pack("<I", len(v)) + v)
+            self._reply(conn, 0, b"".join(parts))
+        elif op == _OP_LOG_SINCE:
+            # payload <q since> (the follower's applied seq).  Reply <B
+            # flag>: 1 = the log was truncated past `since` (re-snapshot);
+            # 0, then <q leader_seq> <I count> and per entry <q seq> <B op>
+            # <I klen> key <I plen> payload
+            since = _i64(payload)
+            with self._mu:
+                if since + 1 < self._log_base():
+                    body = struct.pack("<B", 1)
+                else:
+                    ents = [e for e in self._log if e[0] > since]
+                    parts = [struct.pack("<BqI", 0, self._seq, len(ents))]
+                    for s, eop, ekey, epay in ents:
+                        kb = ekey.encode()
+                        parts.append(struct.pack("<qBI", s, eop, len(kb))
+                                     + kb + struct.pack("<I", len(epay))
+                                     + epay)
+                    body = b"".join(parts)
+            self._reply(conn, 0, body)
         else:
             self._reply(conn, 2)
 
@@ -263,6 +399,69 @@ FAULT_HOOK = None
 _RECONNECT_BACKOFF = 0.05  # doubles per attempt
 
 
+def _net_active():
+    """The active network-fault injector, or None.  Guarded by
+    ``sys.modules`` and the env var, so a process that never arms the
+    network chaos layer never imports it: one global read a request.  A
+    copy of the transport's probe (``collectives.transport._net_chaos``)
+    rather than an import of it, so that a bare store client does not pull
+    numpy in; keep the two in step."""
+    import sys
+    if "tpu_dist_torch.resilience.netchaos" not in sys.modules \
+            and not os.environ.get("TPU_DIST_NETCHAOS"):
+        return None
+    from ..resilience import netchaos
+    return netchaos.install_from_env()
+
+
+def _net_store_fault(client, op: int, key: str, payload: bytes) -> bytes:
+    """The ``store`` surface of the network chaos layer, consulted once a
+    request (Python client only, like :data:`FAULT_HOOK`).  May sleep
+    (``delay``, ``slow-drip``), close the socket (``conn-reset``,
+    ``truncate``: the reconnect and at-most-once rules own the recovery),
+    raise a named ``ConnectionError`` (``partition``: the server is
+    unreachable) or return a bit-flipped payload (``corrupt``: the
+    consumer's sealed-payload checksum catches it)."""
+    nc = _net_active()
+    if nc is None:
+        return payload
+    f = nc.plan("store")
+    if f is None:
+        return payload
+    if f.kind in ("partition", "conn-reset", "truncate"):
+        try:
+            client._sock.close()
+        except OSError:
+            pass
+    if f.kind == "partition":
+        raise ConnectionError(
+            f"netchaos: injected store partition — control-plane server "
+            f"unreachable (op={op} key={key!r})")
+    if f.kind == "delay":
+        time.sleep(f.delay)
+    elif f.kind == "slow-drip":
+        time.sleep(len(payload) / max(1.0, f.rate))
+    elif f.kind == "corrupt" and payload:
+        return bytes(nc.corrupt_parts(f, (payload,))[0])
+    return payload
+
+
+def _read_endpoints(path: str):
+    """Parse a cluster endpoints file into ``(host, port, epoch)``, or None.
+    The file (written atomically by tpu_dist_torch/cluster/endpoints.py)
+    names the store's current leader; a missing or torn file reads as
+    None and the client keeps its address until the next attempt."""
+    try:
+        with open(path, encoding="utf-8") as f:
+            d = json.load(f)
+        host, _, port = str(d.get("leader") or "").rpartition(":")
+        if not host:
+            return None
+        return host, int(port), int(d.get("epoch", 0))
+    except (OSError, ValueError, TypeError, AttributeError):
+        return None
+
+
 def _connect(host: str, port: int, timeout: float):
     """Dial the store with bounded exponential backoff under an overall
     deadline: a store still coming up is a retry, one that never comes a
@@ -282,16 +481,62 @@ def _connect(host: str, port: int, timeout: float):
 
 class _PyClient:
     """Pure-Python client of the wire.  A connection dropped mid-request
-    (ECONNRESET, a server restart) is retried with bounded reconnect and
-    backoff for the idempotent ops and surfaces as ``ConnectionError`` for
-    the at-most-once ones (SET/ADD/DELETE, never replayed)."""
+    (ECONNRESET, a server restart, an injected fault) is retried with
+    bounded reconnect and backoff for the idempotent ops and surfaces as
+    ``ConnectionError`` for the at-most-once ones (SET/ADD/DELETE, never
+    replayed).
 
-    def __init__(self, host: str, port: int, timeout: float):
+    Under ``TPU_DIST_STORE_ENDPOINTS`` (and ``follow_endpoints`` left on)
+    every reconnect first re-resolves the leader from the endpoints file,
+    so the same bounded machinery that rides out a server restart rides
+    out a leader *failover*: blocked GET/WAIT_GE re-arm on the promoted
+    follower, and a failed at-most-once op that crossed a leader change
+    raises :class:`StoreFailoverError` (still never replayed).  The
+    reconnect budget (``TPU_DIST_STORE_RECONNECT_ATTEMPTS``) is then 8 by
+    default, to cover an election."""
+
+    def __init__(self, host: str, port: int, timeout: float,
+                 follow_endpoints: bool = True):
+        self._endpoints = (os.environ.get("TPU_DIST_STORE_ENDPOINTS") or None
+                           if follow_endpoints else None)
+        self._epoch = -1
+        if self._endpoints:
+            ep = _read_endpoints(self._endpoints)
+            if ep is not None:
+                host, port, self._epoch = ep
+        env_attempts = os.environ.get("TPU_DIST_STORE_RECONNECT_ATTEMPTS")
+        self._attempts = (int(env_attempts) if env_attempts
+                          else 8 if self._endpoints else _RECONNECT_ATTEMPTS)
         self._host, self._port = host, port
         self._sock = _connect(host, port, timeout)
         self._mu = threading.Lock()
 
+    def _refresh_endpoints(self) -> bool:
+        """Re-resolve the leader from the endpoints file (if there is one);
+        True when the address changed: a failover happened."""
+        if not self._endpoints:
+            return False
+        ep = _read_endpoints(self._endpoints)
+        if ep is None:
+            return False
+        host, port, epoch = ep
+        if (host, port) == (self._host, self._port):
+            self._epoch = max(self._epoch, epoch)
+            return False
+        old, new = f"{self._host}:{self._port}", f"{host}:{port}"
+        self._host, self._port, self._epoch = host, port, epoch
+        try:  # diagnostics must never break a store op
+            from ..utils.logging import log_event
+            log_event("store-failover", old=old, new=new, epoch=epoch)
+            from ..obs.recorder import safe_record
+            safe_record("store", "failover", key=new, old=old, epoch=epoch)
+        except Exception:
+            pass
+        return True
+
     def _reconnect(self) -> None:
+        """A fresh socket to the (re-resolved) leader."""
+        self._refresh_endpoints()
         try:
             self._sock.close()
         except OSError:
@@ -304,11 +549,14 @@ class _PyClient:
     def request(self, op: int, key: str, payload: bytes = b"") -> bytes:
         if FAULT_HOOK is not None:
             FAULT_HOOK(self, op, key)  # once per logical request, not retry
+        payload = _net_store_fault(self, op, key, payload)
         kb = key.encode()
         msg = (struct.pack("<BI", op, len(kb)) + kb
                + struct.pack("<I", len(payload)) + payload)
         with self._mu:
             attempt = 0
+            epoch0 = self._epoch  # the leader's epoch when this op started
+            old_addr = f"{self._host}:{self._port}"
             while True:
                 try:
                     self._sock.sendall(msg)
@@ -319,14 +567,31 @@ class _PyClient:
                     data = _recv_all(self._sock, dlen) if dlen else b""
                     if data is None:
                         raise ConnectionError("store connection closed")
+                    if (status == 1 and self._endpoints
+                            and op in (_OP_GET, _OP_WAIT_GE)):
+                        # "server stopping" on a blocked op: under an
+                        # endpoints file that is a leader going away, not
+                        # an answer — retry, so the waiter re-arms on the
+                        # promoted follower
+                        raise ConnectionError(
+                            "store stopping while blocked (leader "
+                            "shutdown) — re-arming")
                     break
                 except OSError as e:  # ConnectionError/TimeoutError included
                     if op not in _IDEMPOTENT_OPS or attempt >= \
-                            _RECONNECT_ATTEMPTS:
-                        # a fresh socket, so that the NEXT request is not
-                        # doomed by this one's dead connection (this op is
-                        # not replayed: at-most-once)
+                            self._attempts:
+                        # a fresh socket (re-resolving the leader), so that
+                        # the NEXT request is not doomed by this one's dead
+                        # connection; this op is not replayed
                         self._reconnect()
+                        if self._epoch != epoch0:
+                            new = f"{self._host}:{self._port}"
+                            raise StoreFailoverError(
+                                f"store request op={op} was in flight "
+                                f"across a leader failover ({old_addr} -> "
+                                f"{new}, epoch {self._epoch}) and is not "
+                                f"replayed: {e}", old=old_addr, new=new,
+                                epoch=self._epoch) from e
                         raise ConnectionError(
                             f"store request op={op} failed after {attempt} "
                             f"reconnect attempt(s): {e}") from e
@@ -510,8 +775,12 @@ class TCPStore(Store):
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  is_master: bool = False, timeout: float = 300.0):
-        _refuse_later_items()
         lib = _load_native()
+        if os.environ.get("TPU_DIST_STORE_ENDPOINTS") or _replicate_env():
+            # the failover re-resolution and the replication log live in
+            # the Python wire only: a cluster-armed process must not split
+            # its brain across the two
+            lib = None
         self._server = None
         self._native_server = None
         if is_master:
@@ -529,8 +798,12 @@ class TCPStore(Store):
         self.native = lib is not None
         self._lib = lib  # close() stops the server through the same library
         try:
+            # a hosting instance IS the leader: it never chases the
+            # endpoints file away from its own server
             client = (_NativeClient(lib, host, port, timeout)
-                      if lib is not None else _PyClient(host, port, timeout))
+                      if lib is not None
+                      else _PyClient(host, port, timeout,
+                                     follow_endpoints=not is_master))
         except BaseException:
             self._stop_server()
             raise

@@ -34,10 +34,12 @@ which rank 0 hosts on ``MASTER_PORT``; it carries:
 - **supervised restarts** (``--max_restarts``): the generation under
   ``tpu_dist/generation``, and across nodes the launchers' agreement on
   each restart round;
-- the **elastic world** (``--elastic_world MIN:MAX``, one node): a rank
-  exiting ``PREEMPTED_EXIT_CODE`` re-forms the gang at the survivors, one
-  exiting ``GROW_EXIT_CODE`` at MAX, outside the restart budget, with the
-  workers' reshard plan printed beside the restart log;
+- the **elastic world** (``--elastic_world MIN:MAX``): a rank exiting
+  ``PREEMPTED_EXIT_CODE`` re-forms the gang at the survivors, one exiting
+  ``GROW_EXIT_CODE`` at MAX, outside the restart budget, with the workers'
+  reshard plan printed beside the restart log; across nodes the re-form is
+  a cluster decision (:func:`tpu_dist_torch.cluster.membership.elastic_plan`
+  over every node's counts), and a node may idle at zero ranks;
 - the **serving gateway**'s backend registry (``--serve``).
 
 - the **flight recorder**'s store tails (``--flight-recorder``): on a failed
@@ -46,7 +48,16 @@ which rank 0 hosts on ``MASTER_PORT``; it carries:
 - the **collective sanitizer**'s signatures (``--sanitize``);
 - **role graphs** (``--roles``, ``--role_script``, ``--solo_restarts``):
   :func:`tpu_dist_torch.roles.spawn_graph` supervises the graph instead of
-  one SPMD world.
+  one SPMD world; across nodes each launcher runs its node's ``@node``
+  pins.
+
+**The cluster** (:mod:`tpu_dist_torch.cluster`): ``--store_endpoints=FILE``
+makes every launcher and worker a client of the store leader named by the
+endpoints file, re-resolved on every reconnect, so a failover between node
+agents (``python -m tpu_dist_torch.cluster.agent``) is transparent;
+``--store_replica`` runs that control plane inside the launchers (node 0
+hosts the replicating store, the others a follower and an agent).
+``--netchaos`` exports ``TPU_DIST_NETCHAOS`` to every worker.
 
 The names are the JAX package's, so either package's launcher starts either
 package's workers.  Flags whose machinery is a later ROADMAP item exit 2
@@ -76,16 +87,10 @@ __all__ = ["main", "build_parser", "reap_process"]
 _KILL_GRACE = 15.0
 
 # flags whose machinery is a later item: (dest, flag, default, what)
-_FAILOVER = ("store replication and leader failover, the control plane's "
-             "cluster half, ROADMAP A9.2b")
 _VERIFIER = "the role-graph protocol verifier, ROADMAP A9.7"
 _LATER = (
     ("verify_graph", "--verify_graph", False, _VERIFIER),
-    ("no_verify_graph", "--no_verify_graph", False, _VERIFIER),
-    ("store_endpoints", "--store_endpoints", None, _FAILOVER),
-    ("store_replica", "--store_replica", False, _FAILOVER),
-    ("netchaos", "--netchaos", None, "network fault injection, ROADMAP "
-                                     "A9.4"))
+    ("no_verify_graph", "--no_verify_graph", False, _VERIFIER))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -112,9 +117,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disable the control-plane store (no port "
                         "negotiation, liveness, or pre-flight)")
     p.add_argument("--store_endpoints", type=str, default=None,
-                   metavar="PATH", help="cluster endpoints file" + later)
+                   metavar="PATH",
+                   help="cluster endpoints file (tpu_dist_torch.cluster): "
+                        "the launcher and every worker resolve the store "
+                        "LEADER from this file and re-resolve it on "
+                        "reconnect, so a leader failover (node agents and "
+                        "follower replicas, python -m "
+                        "tpu_dist_torch.cluster.agent) is transparent. With "
+                        "this flag the launcher never hosts the store "
+                        "itself unless --store_replica makes node 0 the "
+                        "initial leader")
     p.add_argument("--store_replica", action="store_true",
-                   help="control-plane replica sidecar" + later)
+                   help="run the cluster control plane inside the launcher "
+                        "(needs --store_endpoints): node 0 hosts the store "
+                        "with the replication log armed and writes the "
+                        "endpoints file; every other node runs a follower "
+                        "replica and a node agent and can be elected "
+                        "leader if node 0's store dies")
     p.add_argument("--liveness_warn", type=float, default=60.0,
                    help="seconds before the node-0 launcher reports ranks "
                         "that have not checked in to the store")
@@ -141,8 +160,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "World-size changes don't count against "
                         "--max_restarts. Workers resume from sharded "
                         "checkpoints via elastic resharding "
-                        "(resilience.TrainState). Multi-node: ROADMAP "
-                        "A9.2b")
+                        "(resilience.TrainState). Multi-node: every "
+                        "launcher publishes its node's counts and all run "
+                        "the same cluster plan (a node may idle at 0 "
+                        "ranks); MAX must be nproc_per_node*nnodes")
     p.add_argument("--elastic_timeout", type=float, default=120.0,
                    help="seconds to wait for every launcher to join the "
                         "restart agreement before giving up (multi-node "
@@ -175,7 +196,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of waiting out the per-frame "
                         "TPU_DIST_DP_TIMEOUT. 0 disables")
     p.add_argument("--netchaos", type=str, default=None,
-                   help="network fault injection" + later)
+                   help="deterministic network fault injection in every "
+                        "worker (TPU_DIST_NETCHAOS, tpu_dist_torch/"
+                        "resilience/netchaos.py): partition/delay/"
+                        "conn-reset/truncate/corrupt/slow-drip faults "
+                        "scoped by rank/peer/node/surface/frame, e.g. "
+                        "'corrupt:surface=tcp,rank=1,frame=3'. The NCCL "
+                        "route has no surface")
     p.add_argument("--flight-recorder", "--flight_recorder",
                    dest="flight_recorder", action="store_true",
                    help="per-rank flight recorder (tpu_dist_torch.obs, "
@@ -208,7 +235,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default: a death restarts the whole graph, "
                         "budgeted by --max_restarts) or solo (the dead rank "
                         "is respawned alone in the same generation). "
-                        "Workers call init_role_graph(). Needs the store")
+                        "Workers call init_role_graph(). Needs the store. "
+                        "Across nodes, ROLE:WORLD@NODE pins a role to a "
+                        "node; every launcher runs the same spec")
     p.add_argument("--role_script", action="append", default=[],
                    metavar="ROLE=SCRIPT",
                    help="per-role entrypoint override for --roles "
@@ -260,6 +289,39 @@ def _setup_store(args):
 
     from ..dist.store import TCPStore
 
+    if args.store_endpoints and (args.node_rank > 0
+                                 or not args.store_replica):
+        # cluster mode: the leader is the endpoints file's (node agents',
+        # or node 0's launcher under --store_replica).  Every launcher is
+        # a client; the workers inherit the endpoints env and re-resolve
+        # on reconnect — that is the failover
+        from ..cluster import endpoints as _cep
+        os.environ[_cep.ENDPOINTS_ENV] = args.store_endpoints
+        deadline = time.monotonic() + 60.0
+        addr = _cep.leader_addr(args.store_endpoints)
+        while addr is None and time.monotonic() < deadline:
+            time.sleep(0.2)
+            addr = _cep.leader_addr(args.store_endpoints)
+        if addr is None:
+            sys.stderr.write(f"no store leader appeared in "
+                             f"{args.store_endpoints!r}\n")
+            return None, None, None
+        try:
+            store = TCPStore(addr[0], addr[1], timeout=120.0)
+            if args.node_rank == 0:
+                master_port = (_free_port() if args.master_port == 0
+                               else args.master_port)
+                store.set("tpu_dist/master_port", str(master_port))
+            elif args.master_port == 0:
+                master_port = int(store.get("tpu_dist/master_port"))
+            else:
+                master_port = args.master_port
+            return store, master_port, f"{addr[0]}:{addr[1]}"
+        except Exception as e:
+            sys.stderr.write(f"store setup failed ({e!r}) against cluster "
+                             f"leader {addr[0]}:{addr[1]}\n")
+            return None, None, None
+
     try:
         if args.node_rank == 0:
             port = args.store_port or (args.master_port + 1
@@ -286,8 +348,10 @@ def _setup_store(args):
             # negotiated port (node 0 may start later: a generous timeout)
             store = TCPStore(args.master_addr, port, timeout=120.0)
             master_port = int(store.get("tpu_dist/master_port"))
-        elif args.max_restarts > 0 and args.nnodes > 1:
-            # the restart agreement rides the store from EVERY launcher
+        elif ((args.max_restarts > 0 or args.elastic_world or args.roles)
+              and args.nnodes > 1):
+            # the restart or world agreement (or the gang rounds) rides the
+            # store from EVERY launcher
             store = TCPStore(args.master_addr, port, timeout=120.0)
             master_port = args.master_port
         else:
@@ -316,14 +380,13 @@ def _check_liveness(store, world_size: int) -> List[int]:
 
 def _spawn_world(args, world_size: int, master_port: int,
                  store_addr: Optional[str], restart_count: int,
-                 nproc: Optional[int] = None) -> List[subprocess.Popen]:
+                 nproc: int, base_rank: int) -> List[subprocess.Popen]:
     """Spawn this node's ranks (``nproc`` of them: an elastic world may run
-    fewer than ``--nproc_per_node``); on a partial failure kill the ranks
+    fewer than ``--nproc_per_node``, from ``base_rank``, where the cluster's
+    elastic plan put this node's span); on a partial failure kill the ranks
     already spawned (never leave them waiting in the rendezvous) and
     re-raise."""
     procs: List[subprocess.Popen] = []
-    base_rank = args.node_rank * args.nproc_per_node
-    nproc = args.nproc_per_node if nproc is None else nproc
     try:
         for local_rank in range(nproc):
             env = dict(os.environ,
@@ -360,18 +423,20 @@ def _spawn_world(args, world_size: int, master_port: int,
 
 def _diagnostic_env(args) -> Dict[str, str]:
     """The worker env of the opt-in diagnostic layers (sanitizer, collective
-    watchdog): one assembly shared by the SPMD spawn path and the --roles
-    path, so a new knob cannot apply to only one of them."""
+    watchdog, network chaos): one assembly shared by the SPMD spawn path
+    and the --roles path, so a new knob cannot apply to only one of them."""
     env: Dict[str, str] = {}
     if getattr(args, "sanitize", False):
         env["TPU_DIST_SANITIZE"] = "1"
     if getattr(args, "coll_timeout", 0) > 0:
         env["TPU_DIST_COLL_TIMEOUT"] = str(args.coll_timeout)
+    if getattr(args, "netchaos", None):
+        env["TPU_DIST_NETCHAOS"] = args.netchaos
     return env
 
 
 def _request_obs_dumps(args, procs: List[subprocess.Popen], remaining,
-                       rnd: int = 0) -> None:
+                       rnd: int, base_rank: int) -> None:
     """Ask the still-alive workers to flush their flight recorders (SIGUSR1)
     before the TERM/KILL teardown, then wait (settle-bounded) for the dump
     files.  Armed runs only: a worker that never installed the handler
@@ -380,7 +445,6 @@ def _request_obs_dumps(args, procs: List[subprocess.Popen], remaining,
         return
     from ..obs.hooks import request_dumps
     from ..obs.recorder import dump_path
-    base_rank = args.node_rank * args.nproc_per_node
     request_dumps((procs[j], dump_path(args.obs_dir, rnd, base_rank + j))
                   for j in remaining)
 
@@ -422,7 +486,7 @@ def _report_obs(args, store, world_size: int, rnd: int) -> None:
 
 
 def _watch_world(args, procs: List[subprocess.Popen], store,
-                 world_size: int, rnd: int = 0):
+                 world_size: int, rnd: int, base_rank: int):
     """Watch one round until every rank exits → ``(exit_code,
     interrupted, rcs)``; ``interrupted`` tells a Ctrl-C of the launcher
     (never restarted) from a worker that exited 130, and ``rcs`` holds each
@@ -434,9 +498,11 @@ def _watch_world(args, procs: List[subprocess.Popen], store,
     Fail fast: the first non-zero exit tears the rest down, SIGTERM and
     then, after ``_KILL_GRACE`` seconds, SIGKILL — a rank blocked in a
     collective whose peer is gone ignores TERM until the call returns.
-    Multi-node with ``--max_restarts``: a launcher that sees a local worker
-    die publishes the round's failure key; every launcher polls it and
-    tears its own workers down, so the world stops together.  With
+    Multi-node with ``--max_restarts`` or ``--elastic_world``: a launcher
+    that sees a local worker die publishes the round's failure key; every
+    launcher polls it and tears its own workers down, so the world stops
+    together (a preemption on one node must stop every node, so that the
+    world re-forms as one).  With
     ``--heartbeat_timeout``, a rank that is alive but silent is lost
     (``RankLostError``) and fails the round the same way.
 
@@ -457,11 +523,10 @@ def _watch_world(args, procs: List[subprocess.Popen], store,
     interrupted = False
     t0 = time.monotonic()
     kill_deadline = None
-    base_rank = args.node_rank * args.nproc_per_node
     liveness_reported = (world_size <= 1 or store is None
                          or args.node_rank != 0)
-    multi_node = args.max_restarts > 0 and args.nnodes > 1 \
-        and store is not None
+    multi_node = ((args.max_restarts > 0 or args.elastic_world)
+                  and args.nnodes > 1 and store is not None)
     fail_key = f"tpu_dist/elastic/fail/{rnd}"
     last_remote_check = 0.0
     remote_failed = False
@@ -482,7 +547,7 @@ def _watch_world(args, procs: List[subprocess.Popen], store,
     def teardown(remaining):
         nonlocal kill_deadline, teardown_done
         teardown_done = True
-        _request_obs_dumps(args, procs, remaining, rnd)
+        _request_obs_dumps(args, procs, remaining, rnd, base_rank)
         for j in remaining:
             procs[j].terminate()
         kill_deadline = time.monotonic() + _KILL_GRACE
@@ -703,38 +768,62 @@ def _exit_sync(args, store, rnd: int) -> None:
 
 
 def _cluster_agree(args, store, rnd: int, local_rc: int,
-                   negotiated_port: bool, master_port: int):
-    """The launchers' end-of-round agreement (multi-node
-    ``--max_restarts``) → ``("done", 0)``, ``("giveup", rc)`` or
-    ``("restart", new_master_port)``, on the JAX launcher's round-scoped
-    keys:
+                   rcs: List[Optional[int]], cur_nproc: int, restarts: int,
+                   negotiated_port: bool, master_port: int, elastic_range):
+    """The launchers' end-of-round agreement (multi-node ``--max_restarts``
+    or ``--elastic_world``) → ``("done", 0)``, ``("giveup", rc)``,
+    ``("restart", new_master_port)`` or ``("reform", (port, world,
+    base_rank, nproc))``, on the JAX launcher's round-scoped keys:
 
-    1. a failed node publishes ``fail/{rnd}``; every launcher adds itself
-       to ``done/{rnd}`` once its workers have exited;
+    1. with ``--elastic_world`` every launcher publishes its node's round
+       counts (preempted 117s, grow 118s, ranks run); a failed node
+       publishes ``fail/{rnd}``; every launcher adds itself to
+       ``done/{rnd}`` once its workers have exited;
     2. and waits for all ``--nnodes`` (bounded: a vanished machine must
-       not hang the rest);
-    3. the round failed iff anyone published ``fail/{rnd}``;
-    4. to restart, node 0 picks a fresh port when it was negotiated,
-       resets the round's keys, then publishes ``go/{rnd}``; the others
-       respawn only after reading it.
+       not hang the rest; an idle node, 0 ranks this round, waits out the
+       whole phase unbounded);
+    3. the round failed iff anyone published ``fail/{rnd}``; then every
+       launcher runs the same pure plan
+       (:func:`tpu_dist_torch.cluster.membership.elastic_plan`) over the
+       same store-agreed counts and membership records, so all agree which
+       node's ranks drop and where each span starts;
+    4. to go on, node 0 picks a fresh port when it was negotiated, resets
+       the round's keys, then publishes ``go/{rnd}`` with the port and the
+       plan; the others respawn only after reading it.
 
-    The JAX launcher's cluster re-form verdict (a world of another size
-    across nodes) rides its cluster membership, ROADMAP A9.2b."""
+    A re-form does NOT charge the restart budget."""
+    from ..cluster import membership as _cm
+    from ..resilience.chaos import GROW_EXIT_CODE, PREEMPTED_EXIT_CODE
+
     prefix = "tpu_dist/elastic"
+    idle = cur_nproc == 0
     try:
+        if elastic_range is not None:
+            _cm.publish_elastic_counts(
+                store, rnd, args.node_rank, nproc=cur_nproc,
+                full_nproc=args.nproc_per_node,
+                preempted=sum(1 for rc in rcs if rc == PREEMPTED_EXIT_CODE),
+                grow=any(rc == GROW_EXIT_CODE for rc in rcs))
         if local_rc != 0:
             store.set(f"{prefix}/fail/{rnd}", str(args.node_rank).encode())
         store.add(f"{prefix}/done/{rnd}", 1)
         store.wait_value_ge(f"{prefix}/done/{rnd}", args.nnodes,
-                            timeout=args.elastic_timeout)
+                            timeout=None if idle else args.elastic_timeout)
         failed = local_rc != 0 or store.check(f"{prefix}/fail/{rnd}")
+        plan = None
+        if failed and elastic_range is not None:
+            counts = _cm.gather_elastic_counts(store, rnd, args.nnodes,
+                                               timeout=args.elastic_timeout)
+            plan = _cm.elastic_plan(counts,
+                                    _cm.read_nodes(store, args.nnodes),
+                                    elastic_range[0], elastic_range[1])
     except Exception as e:
         _log(f"cluster agreement failed ({e!r}); giving up")
         return ("giveup", local_rc or 1)
     if not failed:
         _exit_sync(args, store, rnd)
         return ("done", 0)
-    if rnd >= args.max_restarts:
+    if plan is None and restarts >= args.max_restarts:
         _exit_sync(args, store, rnd)
         return ("giveup", local_rc or 1)
     rc_port = master_port
@@ -744,17 +833,26 @@ def _cluster_agree(args, store, rnd: int, local_rc: int,
                 rc_port = _free_port()
             _reset_round_state(store, finished_round=rnd)
             store.set(f"{prefix}/go/{rnd}",
-                      json.dumps({"port": rc_port, "plan": None}).encode())
+                      json.dumps({"port": rc_port,
+                                  "plan": ({str(n): list(v)
+                                            for n, v in plan.items()}
+                                           if plan else None)}).encode())
         else:
-            store.wait([f"{prefix}/go/{rnd}"], timeout=args.elastic_timeout)
+            store.wait([f"{prefix}/go/{rnd}"],
+                       timeout=None if idle else args.elastic_timeout)
             go = json.loads(store.get(f"{prefix}/go/{rnd}").decode())
-            if go.get("plan"):
-                raise RuntimeError("node 0 published an elastic re-form "
-                                   "plan (ROADMAP A9.2b)")
             rc_port = int(go["port"])
+            # every launcher computed the same plan from the same inputs;
+            # node 0's published copy rules out a read racing a late count
+            plan = ({int(n): tuple(v) for n, v in go["plan"].items()}
+                    if go.get("plan") else None)
     except Exception as e:
         _log(f"cluster restart handshake failed ({e!r}); giving up")
         return ("giveup", local_rc or 1)
+    if plan is not None:
+        base, nproc = plan.get(args.node_rank, (0, 0))
+        return ("reform", (rc_port, sum(n for _, n in plan.values()), base,
+                           nproc))
     return ("restart", rc_port)
 
 
@@ -764,11 +862,34 @@ def _refuse_later_flags(args) -> Optional[str]:
     for dest, flag, default, what in _LATER:
         if getattr(args, dest) != default:
             return f"{flag}: {what} is not in tpu_dist_torch yet"
-    if args.nnodes > 1 and args.roles:
-        return ("--roles with --nnodes>1: a role graph across nodes comes "
-                "with the control plane's cluster half, ROADMAP A9.2b, which "
-                "is not in tpu_dist_torch yet")
     return None
+
+
+def _start_sidecar(args, store_addr: str) -> list:
+    """The ``--store_replica`` control plane inside the launcher: node 0's
+    store is the initial leader (it writes the endpoints file at epoch 0
+    and runs a leader's agent); every other node runs a follower replica
+    and an agent that can be elected.  Returns what to stop at exit, the
+    agent first."""
+    from ..cluster import NodeAgent, StoreFollower
+    from ..cluster import endpoints as _cep
+    if args.node_rank == 0:
+        _cep.write_endpoints(args.store_endpoints, store_addr, 0)
+        os.environ[_cep.ENDPOINTS_ENV] = args.store_endpoints
+        agent = NodeAgent(0, args.store_endpoints,
+                          nproc=args.nproc_per_node)
+        agent.is_leader.set()
+        return [agent.start()]
+    addr = _cep.leader_addr(args.store_endpoints)
+    follower = StoreFollower(addr[0], addr[1]).start()
+    try:
+        agent = NodeAgent(args.node_rank, args.store_endpoints,
+                          follower=follower,
+                          nproc=args.nproc_per_node).start()
+    except BaseException:
+        follower.stop()
+        raise
+    return [agent, follower]
 
 
 def _stop_gateway(proc: Optional[subprocess.Popen]) -> None:
@@ -825,16 +946,43 @@ def _run_role_graph(args) -> int:
     store = None
     store_addr = None
     gateway_proc = None
-    if args.serve:
-        # host the store here so the gateway and spawn_graph share it
-        from ..dist.store import TCPStore
+    if args.nnodes > 1:
+        # multi-node placement: @node pins decide which launcher supervises
+        # which span (unpinned roles are node 0's), and every launcher
+        # validates the same pins against the same cluster size
+        from ..cluster.membership import validate_placement
         try:
-            store = TCPStore(args.master_addr, args.store_port,
-                             is_master=True)
-        except Exception as e:
-            sys.stderr.write(f"--roles --serve: store setup failed ({e})\n")
+            validate_placement(graph, args.nnodes)
+        except ValueError as e:
+            sys.stderr.write(f"--roles: {e}\n")
             return 2
-        store_addr = f"{args.master_addr}:{store.port}"
+        # one store across the launchers: node 0 hosts it (or the cluster
+        # leader of --store_endpoints serves); the gang rounds ride it
+        if args.store_replica:
+            os.environ["TPU_DIST_STORE_REPLICATE"] = "1"
+        store, _, store_addr = _setup_store(args)
+        if store is None or store_addr is None:
+            sys.stderr.write("--roles with --nnodes>1 needs a working "
+                             "control-plane store; fix the store setup "
+                             "error above\n")
+            return 2
+        if args.store_replica and args.node_rank == 0:
+            from ..cluster import endpoints as _cep
+            _cep.write_endpoints(args.store_endpoints, store_addr, 0)
+            os.environ[_cep.ENDPOINTS_ENV] = args.store_endpoints
+    if args.serve and args.node_rank == 0:
+        # host the store here so the gateway and spawn_graph share it
+        # (a multi-node launch holds the shared one already)
+        if store is None:
+            from ..dist.store import TCPStore
+            try:
+                store = TCPStore(args.master_addr, args.store_port,
+                                 is_master=True)
+            except Exception as e:
+                sys.stderr.write(f"--roles --serve: store setup failed "
+                                 f"({e})\n")
+                return 2
+            store_addr = f"{args.master_addr}:{store.port}"
         gateway_proc = subprocess.Popen(
             [sys.executable, "-m", "tpu_dist_torch.serve", "gateway",
              "--port", str(args.serve_port)],
@@ -849,7 +997,8 @@ def _run_role_graph(args) -> int:
                            store_port=args.store_port,
                            store=store, store_addr=store_addr,
                            extra_env=_diagnostic_env(args),
-                           obs_dir=args.obs_dir)
+                           obs_dir=args.obs_dir, node_id=args.node_rank,
+                           nnodes=args.nnodes)
     finally:
         _stop_gateway(gateway_proc)
         if store is not None:
@@ -889,15 +1038,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         sys.stderr.write("--max_restarts with --nnodes>1 needs the "
                          "control-plane store; drop --no_store\n")
         return 2
+    if args.store_replica and not args.store_endpoints:
+        sys.stderr.write("--store_replica needs --store_endpoints (the "
+                         "shared file clients re-resolve the leader "
+                         "from)\n")
+        return 2
+    if (args.store_endpoints or args.store_replica) and args.no_store:
+        sys.stderr.write("--store_endpoints/--store_replica need the "
+                         "control-plane store; drop --no_store\n")
+        return 2
     world_size = args.nproc_per_node * args.nnodes
     elastic_range = None
     if args.elastic_world:
-        if args.nnodes > 1:
-            sys.stderr.write("--elastic_world with --nnodes>1: the cluster "
-                             "re-form rides the cluster membership, the "
-                             "control plane's cluster half, ROADMAP A9.2b, "
-                             "which is not in tpu_dist_torch yet\n")
-            return 2
         try:
             lo, hi = (int(v) for v in args.elastic_world.split(":"))
         except ValueError:
@@ -907,6 +1059,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not 1 <= lo <= hi:
             sys.stderr.write(f"--elastic_world needs 1 <= MIN <= MAX, got "
                              f"{lo}:{hi}\n")
+            return 2
+        if args.nnodes > 1 and hi != world_size:
+            # the cluster's grow restores each node to its capacity, so MAX
+            # must be the full static world: anything else would cap growth
+            # below what the flags promise
+            sys.stderr.write(f"--elastic_world MAX must equal "
+                             f"nproc_per_node*nnodes ({world_size}) with "
+                             f"--nnodes>1, got {hi}\n")
             return 2
         if args.no_store:
             # generation fencing and the reshard visibility exchange ride
@@ -931,15 +1091,39 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.roles:
         return _run_role_graph(args)
 
+    if args.store_replica:
+        # replication is armed BEFORE the store is hosted (node 0's server
+        # owns the mutation log), and takes the Python wire in every
+        # process of this tree
+        os.environ["TPU_DIST_STORE_REPLICATE"] = "1"
     store, master_port, store_addr = _setup_store(args)
     if master_port is None:
         return 2
     negotiated_port = args.master_port == 0
-    multi_node = args.nnodes > 1 and args.max_restarts > 0
+    cluster = []   # the --store_replica sidecar: agent (and follower)
+    if args.store_replica and store is not None:
+        try:
+            cluster = _start_sidecar(args, store_addr)
+        except Exception as e:
+            sys.stderr.write(f"--store_replica: cluster sidecar setup "
+                             f"failed ({e!r})\n")
+            store.close()
+            return 2
+    elif (args.nnodes > 1 and store is not None
+          and (elastic_range or args.max_restarts > 0)):
+        # a membership record for the cluster's elastic plan (the
+        # host-fingerprint order of nodes), even without the sidecar
+        try:
+            from ..cluster.membership import register_node
+            register_node(store, args.node_rank, args.nproc_per_node)
+        except Exception:
+            pass
+    multi_node = (args.nnodes > 1
+                  and (args.max_restarts > 0 or elastic_range is not None))
     if multi_node and store is None:
-        sys.stderr.write("--max_restarts with --nnodes>1 needs a working "
-                         "control-plane store; fix the store setup error "
-                         "above or drop the flag\n")
+        sys.stderr.write("--max_restarts/--elastic_world with --nnodes>1 "
+                         "needs a working control-plane store; fix the "
+                         "store setup error above or drop the flag\n")
         return 2
     # --serve: the gateway is spawned ONCE, outside the restart loop — its
     # whole point is surviving worker relaunches (it re-resolves the
@@ -961,15 +1145,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     #                change) advances it, so a re-formed gang never meets a
     #                stale rank's keyspace
     cur_world = world_size
+    cur_nproc = args.nproc_per_node
+    base_rank = args.node_rank * args.nproc_per_node
     try:
         while True:
             if store is not None and args.node_rank == 0:
                 _publish_generation(store, rnd)
             procs = _spawn_world(args, cur_world, master_port, store_addr,
-                                 rnd, nproc=(cur_world if elastic_range
-                                             else None))
-            exit_code, interrupted, rcs = _watch_world(args, procs, store,
-                                                       cur_world, rnd=rnd)
+                                 rnd, nproc=cur_nproc, base_rank=base_rank)
+            exit_code, interrupted, rcs = _watch_world(
+                args, procs, store, cur_world, rnd=rnd, base_rank=base_rank)
             if interrupted:
                 return exit_code
             if exit_code != 0 and args.node_rank == 0:
@@ -977,13 +1162,33 @@ def main(argv: Optional[List[str]] = None) -> int:
                 # generation's keyspace
                 _report_obs(args, store, cur_world, rnd)
             if multi_node:
-                verdict, val = _cluster_agree(args, store, rnd,
-                                              exit_code, negotiated_port,
-                                              master_port)
+                # a group decision: a node whose workers all exited 0 (or
+                # an idle node running none) waits too — a peer's failure
+                # restarts everyone, a peer's preemption or grow re-forms
+                # the world for everyone
+                verdict, val = _cluster_agree(
+                    args, store, rnd, exit_code, rcs, cur_nproc, restarts,
+                    negotiated_port, master_port, elastic_range)
                 if verdict == "done":
                     return 0
                 if verdict == "giveup":
                     return val
+                if verdict == "reform":
+                    # the world size and/or the rank placement changed (the
+                    # plan may drop THIS node to 0 ranks: it idles in the
+                    # agreement until a grow); not a failure restart
+                    master_port, new_world, base_rank, cur_nproc = val
+                    rnd += 1
+                    _log(f"cluster elastic re-form: world {cur_world} -> "
+                         f"{new_world}, node {args.node_rank} runs "
+                         f"{cur_nproc} rank(s) from base {base_rank} "
+                         f"(generation {rnd}; restart budget untouched at "
+                         f"{restarts}/{args.max_restarts})")
+                    if args.node_rank == 0:
+                        _report_reshard_plan(store, new_world)
+                    cur_world = new_world
+                    _restart_backoff(args, 1)
+                    continue
                 master_port = val
                 restarts += 1
                 rnd += 1
@@ -1004,7 +1209,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                      f"(generation {rnd}; restart budget untouched at "
                      f"{restarts}/{args.max_restarts}) — re-forming")
                 _report_reshard_plan(store, new_world)
-                cur_world = new_world
+                cur_world = cur_nproc = new_world  # one node: all local
                 if store is not None:
                     _reset_round_state(store, finished_round=rnd - 1)
                 _restart_backoff(args, 1)
@@ -1027,6 +1232,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                 master_port = _free_port()
     finally:
         _stop_gateway(gateway_proc)
+        for part in cluster:
+            try:
+                part.stop()
+            except Exception:
+                pass
         if store is not None:
             try:
                 store.close()

@@ -12,10 +12,14 @@ elastic fault tolerance for long-running gangs.
 - :mod:`.chaos` — deterministic fault injection (``TPU_DIST_CHAOS``: kill
   rank r at step k, shrink/grow the elastic world, stall a heartbeat,
   drop or delay store requests).
+- :mod:`.netchaos` — the network counterpart (``TPU_DIST_NETCHAOS``):
+  rank/peer/node/surface-scoped partitions, delays, connection resets,
+  truncations, bit flips and throttles at the data plane's frames, its SHM
+  lanes, the store client and the serve wire; every fault ends in a named
+  bounded error or a degraded path that completes bit for bit.
 - :mod:`.reshard` — elastic world-size resharding of sharded checkpoints,
   from disk or pushed by a peer over the host data plane.
 
-The network chaos layer (``TPU_DIST_NETCHAOS``) is ROADMAP A9.4.
 ``PREEMPTED_EXIT_CODE`` (117) and ``GROW_EXIT_CODE`` (118) are the JAX
 package's, so either package's supervisor reads either package's workers.
 """
@@ -26,6 +30,10 @@ from .chaos import (GROW_EXIT_CODE, PREEMPTED_EXIT_CODE, Chaos, ChaosError,
                     install_from_env as install_chaos_from_env,
                     uninstall as uninstall_chaos)
 from .heartbeat import Heartbeat, HeartbeatMonitor, RankLostError, hb_key
+from .netchaos import (NetChaos, NetFault, active as active_netchaos,
+                       install as install_netchaos,
+                       install_from_env as install_netchaos_from_env,
+                       uninstall as uninstall_netchaos)
 from .state import TrainState
 
 __all__ = [
@@ -33,5 +41,7 @@ __all__ = [
     "TrainState",
     "Chaos", "ChaosError", "Fault", "active_chaos", "install_chaos",
     "install_chaos_from_env", "uninstall_chaos",
+    "NetChaos", "NetFault", "active_netchaos", "install_netchaos",
+    "install_netchaos_from_env", "uninstall_netchaos",
     "PREEMPTED_EXIT_CODE", "GROW_EXIT_CODE",
 ]

@@ -87,9 +87,11 @@ class Role:
     ``node`` is the optional placement pin (``actor:4@1`` in the launcher
     grammar): all of the role's ranks run on that node of a multi-launcher
     cluster.  ``None`` means node 0 — placement must be deterministic
-    across launchers, so an unpinned role cannot float.  The port parses
-    and publishes the pin; launching a graph across nodes is ROADMAP
-    A9.2b.
+    across launchers, so an unpinned role cannot float.  Each node's
+    launcher supervises the ranks pinned to it
+    (:func:`tpu_dist_torch.roles.launcher.local_ranks_of`), and every
+    launcher refuses a pin outside the cluster
+    (:func:`tpu_dist_torch.cluster.validate_placement`).
     """
     name: str
     world: int

@@ -1,5 +1,5 @@
 """Role-graph process supervisor — per-role spawn and restart policy
-(counterpart of ``tpu_dist/roles/launcher.py``, one node).
+(counterpart of ``tpu_dist/roles/launcher.py``).
 
 :func:`spawn_graph` is the launcher half of :mod:`tpu_dist_torch.roles`: it
 hosts (or borrows) the control-plane store, publishes the generation and
@@ -22,8 +22,10 @@ armed, and a failing round asks the live ranks for their dumps (SIGUSR1)
 before the teardown.
 
 ``python -m tpu_dist_torch.launch --roles learner:1,actor:4:solo
-script.py`` is the CLI spelling; this module is the API.  A graph across
-several nodes (``@node`` pins on more than node 0) is ROADMAP A9.2b.
+script.py`` is the CLI spelling; this module is the API.  Across nodes
+(``@node`` pins, one launcher a node on one shared store) each launcher
+supervises its node's ranks, and the launchers agree on every gang round
+through the store.
 
 Env contract each worker receives (consumed by
 :func:`~tpu_dist_torch.roles.init_role_graph`):
@@ -41,9 +43,9 @@ Env contract each worker receives (consumed by
                              lets channels resume)
 ===========================  ===============================================
 
-Every process of the graph runs on this node; none maps itself to a card
-by its rank (one card may hold every rank's context), and no role-graph
-path creates an NCCL communicator.
+No process of the graph maps itself to a card by its rank (one card may
+hold every rank's context of a node), and no role-graph path creates an
+NCCL communicator.
 """
 
 from __future__ import annotations
@@ -75,6 +77,15 @@ def reap_process(proc: subprocess.Popen, grace: float = _REAP_GRACE) -> None:
     except Exception:
         _log(f"reap_process: pid {proc.pid} did not reap within {grace}s "
              f"of SIGKILL (unkillable child?); abandoning")
+
+
+# bound on the launchers' round agreement when THIS node already failed
+# (peers tear down within about one poll and the kill grace, so a peer
+# missing past it is a vanished machine, not a slow one)
+_AGREE_TIMEOUT = 120.0
+# the launchers' gang keys: cluster-scoped, round-suffixed, so rounds never
+# race (the JAX package's)
+_ROLES_PREFIX = "tpu_dist/cluster/roles"
 
 
 def local_ranks_of(graph: RoleGraph, node_id: int) -> List[int]:
@@ -128,6 +139,42 @@ def _settle_obs_dumps(obs_dir: Optional[str], rnd: int,
     request_dumps((procs[r], dump_path(obs_dir, rnd, r)) for r in ranks)
 
 
+def _exit_sync(store, rnd: int, node_id: int, nnodes: int) -> None:
+    """Final ack before the launchers leave the multi-node protocol: node 0
+    usually hosts the store, so it must not return (tearing the server
+    down) while a peer still polls the round's verdict."""
+    try:
+        key = f"{_ROLES_PREFIX}/exit/{rnd}"
+        store.add(key, 1)
+        if node_id == 0:
+            store.wait_value_ge(key, nnodes, timeout=15.0)
+    except Exception:
+        pass  # best effort: at worst the peer takes its noisier error path
+
+
+def _agree_round(store, rnd: int, node_id: int, nnodes: int,
+                 exit_code: int) -> Optional[bool]:
+    """The launchers' end-of-round agreement: every node arrives at the
+    done barrier (a clean one too: a peer's gang failure restarts it) →
+    whether the round failed anywhere, None when the agreement itself
+    failed.  A node whose span finished clean waits unbounded (its peers
+    may train for hours); a failed round converges within the teardown
+    grace, so those waits are bounded."""
+    fail_key = f"{_ROLES_PREFIX}/fail/{rnd}"
+    try:
+        if exit_code != 0:
+            store.set(fail_key, str(node_id).encode())
+        done_k = f"{_ROLES_PREFIX}/done/{rnd}"
+        store.add(done_k, 1)
+        store.wait_value_ge(done_k, nnodes,
+                            timeout=None if exit_code == 0
+                            else _AGREE_TIMEOUT)
+        return exit_code != 0 or store.check(fail_key)
+    except Exception as e:
+        _log(f"cross-launcher round agreement failed ({e!r}); giving up")
+        return None
+
+
 def _teardown(procs: Dict[int, subprocess.Popen]) -> None:
     """TERM everything still running, escalate to KILL after the grace."""
     for p in procs.values():
@@ -170,24 +217,34 @@ def spawn_graph(graph: RoleGraph, argv: Sequence[str],
     ``max_restarts`` budgets GANG restarts (generation advances);
     ``solo_restarts`` budgets per-rank solo respawns of ``restart="solo"``
     roles within one generation.  See the module docstring for the env
-    contract and policy semantics.  ``nnodes > 1`` (one launcher a node,
-    sharing the store) is ROADMAP A9.2b and raises."""
+    contract and policy semantics.
+
+    Multi-node (``nnodes > 1``): every node's launcher calls this with its
+    ``node_id``, a SHARED ``store``/``store_addr`` and the same graph; each
+    supervises only :func:`local_ranks_of` its node (the ``@node`` pins).
+    Gang semantics stay global: a gang-policy death anywhere posts
+    ``tpu_dist/cluster/roles/fail/{rnd}``, every launcher tears its span
+    down, and the round's outcome (give up, or the next generation) is
+    agreed at a cross-launcher barrier before anyone moves on.  Solo
+    respawns stay on their node.  Every launcher runs the same budgets."""
     if max_restarts < 0 or solo_restarts < 0:
         raise ValueError("restart budgets must be >= 0")
-    if nnodes != 1 or node_id != 0:
-        raise NotImplementedError(
-            "a role graph across nodes (nnodes > 1) comes with the control "
-            "plane's cluster half, ROADMAP A9.2b, and is not in "
-            "tpu_dist_torch yet")
+    if not 0 <= node_id < nnodes:
+        raise ValueError(f"node_id {node_id} out of range for nnodes "
+                         f"{nnodes}")
     owns_store = store is None
     if owns_store:
+        if nnodes > 1 and node_id > 0:
+            raise ValueError("multi-node spawn_graph needs the shared "
+                             "store= / store_addr= on every non-zero node")
         from ..dist.store import TCPStore
         store = TCPStore(master_addr, store_port, is_master=True)
         store_addr = f"{master_addr}:{store.port}"
     elif store_addr is None:
         raise ValueError("spawn_graph(store=...) needs store_addr= too "
                          "(the address workers dial)")
-    my_ranks = list(range(graph.world))
+    my_ranks = (list(range(graph.world)) if nnodes == 1
+                else local_ranks_of(graph, node_id))
 
     spec = graph.spec_string()
     role_argv = dict(role_argv or {})
@@ -219,8 +276,9 @@ def spawn_graph(graph: RoleGraph, argv: Sequence[str],
     gang_restarts = 0
     try:
         while True:
-            store.set("tpu_dist/generation", str(rnd))
-            store.set(map_key(rnd), graph.to_json())
+            if node_id == 0:
+                store.set("tpu_dist/generation", str(rnd))
+                store.set(map_key(rnd), graph.to_json())
             procs: Dict[int, subprocess.Popen] = {}
             incarnation = {r: 0 for r in my_ranks}
             solo_budget = {r: solo_restarts for r in my_ranks}
@@ -231,14 +289,26 @@ def spawn_graph(graph: RoleGraph, argv: Sequence[str],
                 _teardown(procs)
                 raise
             monitor = None
-            if heartbeat_timeout > 0:
+            if heartbeat_timeout > 0 and my_ranks:
                 from ..resilience.heartbeat import HeartbeatMonitor
                 monitor = HeartbeatMonitor(store, graph.world,
                                            timeout=heartbeat_timeout,
-                                           generation=rnd)
+                                           generation=rnd,
+                                           ranks=(my_ranks if nnodes > 1
+                                                  else None))
             exit_code = 0
             done: set = set()
             last_hb = 0.0
+            last_remote = 0.0
+            fail_key = f"{_ROLES_PREFIX}/fail/{rnd}"
+
+            def fail_round(r):
+                try:
+                    store.set(down_key(rnd, r), b"1")
+                    if nnodes > 1:
+                        store.set(fail_key, str(node_id).encode())
+                except Exception:
+                    pass
             try:
                 while len(done) < len(my_ranks) and exit_code == 0:
                     for r, p in procs.items():
@@ -271,10 +341,7 @@ def spawn_graph(graph: RoleGraph, argv: Sequence[str],
                              + (" (solo budget spent)" if policy == "solo"
                                 else "")
                              + " — failing the gang round")
-                        try:
-                            store.set(down_key(rnd, r), b"1")
-                        except Exception:
-                            pass
+                        fail_round(r)
                         break
                     if (monitor is not None and exit_code == 0
                             and time.monotonic() - last_hb
@@ -299,11 +366,22 @@ def spawn_graph(graph: RoleGraph, argv: Sequence[str],
                                                        incarnation[r])
                             else:
                                 exit_code = 1
-                                try:
-                                    store.set(down_key(rnd, r), b"1")
-                                except Exception:
-                                    pass
+                                fail_round(r)
                             break
+                    if (nnodes > 1 and exit_code == 0
+                            and time.monotonic() - last_remote > 0.5):
+                        # a gang-policy death on ANY node fails the round
+                        # everywhere: poll the round's fail key and tear
+                        # this node's span down on sight
+                        last_remote = time.monotonic()
+                        try:
+                            if store.check(fail_key):
+                                exit_code = 1
+                                _log(f"gang failure reported by another "
+                                     f"node (round {rnd}); stopping node "
+                                     f"{node_id}'s ranks")
+                        except Exception:
+                            pass
                     if len(done) < len(my_ranks) and exit_code == 0:
                         time.sleep(0.05)
             except BaseException:
@@ -311,17 +389,49 @@ def spawn_graph(graph: RoleGraph, argv: Sequence[str],
                 # orphan the rest of the graph
                 _teardown(procs)
                 raise
-            if exit_code == 0:
+            if exit_code == 0 and nnodes == 1:
                 return 0
-            _settle_obs_dumps(obs_dir, rnd, procs,
-                              [r for r in procs if r not in done])
-            _teardown(procs)
-            if gang_restarts >= max_restarts:
-                return exit_code
-            gang_restarts += 1
-            _log(f"gang round {rnd} failed (rc={exit_code}); gang restart "
-                 f"{gang_restarts}/{max_restarts} — generation advances")
-            _reset_round_state(store, rnd)
+            if exit_code != 0:
+                _settle_obs_dumps(obs_dir, rnd, procs,
+                                  [r for r in procs if r not in done])
+                _teardown(procs)
+            if nnodes > 1:
+                failed = _agree_round(store, rnd, node_id, nnodes, exit_code)
+                if failed is None:
+                    return exit_code or 1
+                if not failed:
+                    _exit_sync(store, rnd, node_id, nnodes)
+                    return 0
+                # our span may have finished clean while a peer's gang
+                # failed after our arrival: the round failed here too
+                exit_code = exit_code or 1
+                if gang_restarts >= max_restarts:
+                    _exit_sync(store, rnd, node_id, nnodes)
+                    return exit_code
+                gang_restarts += 1
+                _log(f"gang round {rnd} failed (rc={exit_code}); gang "
+                     f"restart {gang_restarts}/{max_restarts} agreed across "
+                     f"{nnodes} nodes — generation advances")
+                try:
+                    go_k = f"{_ROLES_PREFIX}/go/{rnd}"
+                    if node_id == 0:
+                        _reset_round_state(store, rnd)
+                        store.set(go_k, b"1")
+                    else:
+                        # spawn only after node 0's control-plane reset
+                        store.wait([go_k], timeout=_AGREE_TIMEOUT)
+                except Exception as e:
+                    _log(f"cross-launcher restart handshake failed ({e!r}); "
+                         f"giving up")
+                    return exit_code
+            else:
+                if gang_restarts >= max_restarts:
+                    return exit_code
+                gang_restarts += 1
+                _log(f"gang round {rnd} failed (rc={exit_code}); gang "
+                     f"restart {gang_restarts}/{max_restarts} — generation "
+                     f"advances")
+                _reset_round_state(store, rnd)
             rnd += 1
             if restart_backoff > 0:
                 time.sleep(min(restart_backoff * 2 ** (gang_restarts - 1),

@@ -15,10 +15,9 @@ which every eager collective and the
 
 What it does, in order (mirroring ``rendezvous.rendezvous``):
 
-1. installs the chaos and obs crash-dump hooks from env (workers in a
-   role graph never call ``rendezvous``, so the injection and diagnostics
-   layers are armed here instead), correcting their rank; network fault
-   injection (``TPU_DIST_NETCHAOS``) is ROADMAP A9.4 and refused;
+1. installs the chaos, network chaos and obs crash-dump hooks from env
+   (workers in a role graph never call ``rendezvous``, so the injection
+   and diagnostics layers are armed here instead), correcting their rank;
 2. resolves the graph: the given literal, else ``TPU_DIST_ROLES``; when
    the launcher published a role map (:func:`~tpu_dist_torch.roles.graph
    .map_key`), validates the local graph against it — drift is a named
@@ -152,13 +151,13 @@ def init_role_graph(graph: Optional[RoleGraph] = None,
     # fault-injection + obs arming, exactly like rendezvous.rendezvous —
     # role workers never call it, so this is their install point
     chaos_active = None
-    if os.environ.get("TPU_DIST_NETCHAOS", "") not in ("", "0"):
-        raise NotImplementedError(
-            "network fault injection (TPU_DIST_NETCHAOS) comes with ROADMAP "
-            "A9.4 and is not in tpu_dist_torch yet")
+    netchaos_active = None
     if os.environ.get("TPU_DIST_CHAOS"):
         from ..resilience import chaos as _chaos
         chaos_active = _chaos.install_from_env()
+    if os.environ.get("TPU_DIST_NETCHAOS"):
+        from ..resilience import netchaos as _netchaos
+        netchaos_active = _netchaos.install_from_env()
     from ..obs import hooks as _obs_hooks
     obs_rec = _obs_hooks.install_from_env()
 
@@ -167,6 +166,9 @@ def init_role_graph(graph: Optional[RoleGraph] = None,
     rank = int(rank)
     if chaos_active is not None:
         chaos_active.rank = rank
+    if netchaos_active is not None:
+        netchaos_active.rank = rank  # the same correction as rendezvous:
+        # rank-scoped surface faults key on the resolved rank
     if graph is None:
         spec = os.environ.get("TPU_DIST_ROLES")
         if not spec:

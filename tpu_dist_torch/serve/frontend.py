@@ -43,8 +43,9 @@ Two roles live here, as in the JAX package:
   reaches the restarted backend, on the client's same connection.
 
 The keys and the registry's layout are the JAX package's, so either
-package's gateway fronts either package's frontends.  The serve wire's
-network fault injection comes with ROADMAP A9.4.
+package's gateway fronts either package's frontends.  Every outgoing frame
+is the ``serve`` surface of the network chaos layer (``TPU_DIST_NETCHAOS``,
+:mod:`tpu_dist_torch.resilience.netchaos`).
 """
 
 from __future__ import annotations
@@ -125,17 +126,66 @@ def list_backends(store) -> Dict[str, str]:
     return out
 
 
+def _net_serve_fault(sock, payload: bytes) -> Optional[bytes]:
+    """The ``serve`` surface of the network chaos layer
+    (:mod:`tpu_dist_torch.resilience.netchaos`), consulted once an outgoing
+    frame.  May sleep (``delay``), pace (``slow-drip``), return a
+    bit-flipped payload (``corrupt``: the receiver's frame checksum catches
+    it), break the socket mid-frame (``conn-reset``/``truncate``) or
+    blackhole the frame (``partition``: the caller's bounded waits own the
+    rest).  Returns the payload to send, or None for a blackholed frame.
+    Called under the connection's send lock (:func:`send_frame`), so the
+    raw truncate/reset writes never interleave with another writer's
+    frame."""
+    from ..collectives.transport import _net_chaos
+    nc = _net_chaos()  # the shared sys.modules- and env-guarded probe
+    if nc is None:
+        return payload
+    f = nc.plan("serve")
+    if f is None:
+        return payload
+    if f.kind == "partition":
+        return None
+    if f.kind == "delay":
+        time.sleep(f.delay)
+    elif f.kind == "slow-drip":
+        time.sleep(len(payload) / max(1.0, f.rate))
+    elif f.kind == "corrupt":
+        return bytes(nc.corrupt_parts(f, (payload,))[0])
+    elif f.kind in ("conn-reset", "truncate"):
+        try:
+            if f.kind == "truncate":
+                sock.sendall(_U32.pack(len(payload) + 1000))  # lies, then
+                sock.shutdown(socket.SHUT_WR)                 # FIN
+            sock.close()
+        except OSError:
+            pass
+        raise ConnectionResetError(
+            f"netchaos: injected serve-wire {f.kind}")
+    return payload
+
+
 def send_frame(sock, obj: dict, lock: Optional[threading.Lock] = None) -> None:
     """One checksummed length-prefixed JSON frame, vectored send (header +
     payload in one syscall).  ``lock`` serializes concurrent writers on a
-    shared connection (token frames for different requests interleave)."""
+    shared connection (token frames for different requests interleave);
+    the fault injection runs under it too."""
     payload = json.dumps(obj).encode()
+    # the checksum BEFORE the fault injection: netchaos `corrupt` flips
+    # bits on the wire, which is what the receiver must catch
     header = _U32.pack(len(payload)) + _U32.pack(frame_checksum((payload,)))
     if lock is None:
-        _sendv(sock, header, payload)
+        _send_frame_faulted(sock, header, payload)
     else:
         with lock:
-            _sendv(sock, header, payload)
+            _send_frame_faulted(sock, header, payload)
+
+
+def _send_frame_faulted(sock, header: bytes, payload: bytes) -> None:
+    faulted = _net_serve_fault(sock, payload)
+    if faulted is None:
+        return  # netchaos partition: the frame never leaves
+    _sendv(sock, header, faulted)
 
 
 def read_frame(sock) -> Optional[dict]:
