@@ -188,8 +188,9 @@ Phases, each printed as one JSON line:
    kill to the first resumed step; the twin's step with cuDNN's
    deterministic algorithms and without.  No kernel on the elastic path.
 15. ``host_ring``: the dense cell's gradients (four seeded batches of 2
-   rows: K1f/K1b 4 and K2f/K2b 48 launches, wgmma; 548 MB of CUDA leaves a
-   rank) reduced by four thread ranks on the host data plane (one port
+   rows: K1f/K1b 4 and K2f/K2b 48 launches, wgmma; of the 548 MB of CUDA
+   leaves a rank, blocks 0-3 and every other leaf but the two vocabulary
+   tables: 120 MB) reduced by four thread ranks on the host data plane (one port
    TCPStore, a DataPlane and a ``Bucketer(dp=, comm_dtype=)`` a rank), op
    ``avg``: float32, bfloat16 and ``int8_block256`` with an ErrorFeedback
    over the flat TCP ring; float32 and int8 over SHM lanes and over the
@@ -201,9 +202,9 @@ Phases, each printed as one JSON line:
    of the gradients; int8 within 0.05 x max(|exact|, 1).  MB/s per wire and
    algorithm, the wire compression off the byte counters, which lanes were
    live, the D2H, pack and H2D staging ms, the checksum that resolved and
-   its cost (the float32 ring with checksums off).  ``host_zero``:
+   its cost (the float32 ring at world 2 with checksums off).  ``host_zero``:
    ``ZeroOptimizer(AdamW, dp=, comm_dtype="int8_block256",
-   error_feedback=True)`` on four thread ranks for three steps of those
+   error_feedback=True)`` on four thread ranks for two steps of those
    gradients: parameters byte-identical across ranks, ``zstate["ef"]``
    shard-shaped on the host, the exact gather equal to the master shards;
    a sharded save (ranks 2 and 3 share a root, the others each their own)
@@ -246,7 +247,7 @@ Phases, each printed as one JSON line:
    payload equal.
 17. ``cluster_failover``: two ``python -m tpu_dist_torch.cluster.agent``
    processes host the replicated store; the train_lm twin at full width
-   (200 steps, the dense cell's fused loss) under ``--store_endpoints``
+   (120 steps, the dense cell's fused loss) under ``--store_endpoints``
    with heartbeats; the leader's agent SIGKILLed after the first step:
    epoch 1 names node 1's replica, generation 0 throughout, the parameters
    of an unkilled launch, K1 1 and K2 12 a step, the recorder's
@@ -263,7 +264,38 @@ Phases, each printed as one JSON line:
    (byte-identical), ``partition`` (``CollectiveTimeoutError`` within
    ``--coll_timeout`` + 5 s); the served model under ``corrupt:surface=
    serve`` (8 requests, each a named error).
-18. ``kernels``: one line over all kernels; the card's name and power limit
+18. ``serve_sharded``: the served model (GPT-2-small, float32, 8 slots,
+   2048 positions, seed 0) as a tensor-parallel group of two rank
+   processes on this card over the store and the host data plane
+   (``ShardedDecoder``/``ShardedSlotEngine``/``ShardFollower``), each rank's
+   shard range-read from a full checkpoint of the model
+   (``ShardedParams.from_checkpoint``: bit for bit ``shard_params``, no
+   more bytes read than the shard's own and the replicated leaves plus
+   ``SHARD_READ_SLACK``): 16 of bench_serve's ``_mixed_requests`` and the
+   benchmark's two long prompts (1536 and 768 tokens: their prefill
+   partials take the float32 ring, which must have run), greedy, each equal
+   to ``generate()`` alone but for ties; two sampled requests
+   against the single-rank engine's streams; every follower's token stream
+   the leader's, slot by slot; with ``comm_dtype="int8_block256"`` the
+   group in lockstep (full budgets, tokens in the vocabulary); then the
+   follower SIGKILLed under 4 in-flight requests, each failing on the
+   leader with the named ``PeerGoneError`` within ``SHARD_KILL_BOUND_S``.
+   No kernel launch on either rank.  The decode step's p50/p99 beside the
+   single-rank engine's on the same requests, tokens/s, and the combines
+   taken by exchange and by ring.  ``serve_disagg``: ``--serve --roles
+   prefill:1:solo,decode:1`` on the serve_lm twin with ``--disagg`` at that
+   model, through the gateway client: greedy requests, three sharing a
+   36-token prefix, equal to ``generate()`` but for ties, with the KV
+   transfers counted, at least 2 prefix hits and fewer prefilled tokens
+   than prompt tokens; the prefill rank SIGKILLed, then a request that
+   re-dispatches once and fails with a ``KVTransferError`` naming it; no
+   kernel launched by either role up to the served requests (each rank's
+   counts, zeroed when it starts serving, beside ``--pid-file``).  Then
+   the ``serve_lm --disagg`` benchmark's rows in this process (the bursty
+   workload unified against disaggregated: tokens/s and p99 TTFT; the KV
+   send's ms and MB/s; the prefix-heavy row), no kernel launch there
+   either.
+19. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
@@ -275,8 +307,8 @@ named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``gateway``, ``store``, ``moe_dispatch``, ``llama``, ``long_32k``,
 ``serve_rope``, ``zero_ddp``, ``zero_opt``, ``elastic``, ``host_ring``,
 ``host_zero``, ``quant_gate``, ``obs``, ``sanitize``, ``roles``,
-``cluster_failover``, ``cluster_elastic``, ``netchaos``) and never prints
-the result line.
+``cluster_failover``, ``cluster_elastic``, ``netchaos``,
+``serve_sharded``, ``serve_disagg``) and never prints the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -3168,10 +3200,9 @@ GATEWAY_ARGV = ["--dim", "768", "--depth", "12", "--heads", "12", "--vocab",
 LAUNCH_TIMEOUT = 240     # seconds a launched world may take
 GATEWAY_WAIT = 300       # seconds for a request through the gateway
 SUSTAIN_RAMP = 2.0       # seconds from the submits to a window's start
-SUSTAIN_WINDOW = 6.0     # seconds a window of sustained traffic is counted
+SUSTAIN_WINDOW = 4.0     # seconds a window of sustained traffic is counted
 # the order of the sustained windows: each path first and last in turn
-SUSTAIN_ORDER = ("direct", "gateway", "gateway", "direct", "direct",
-                 "gateway")
+SUSTAIN_ORDER = ("direct", "gateway", "gateway", "direct")
 
 # the launched worker: the train_lm twin's train(), with the env contract,
 # every step's loss, the flash launch counts of the run and the wall clock
@@ -3690,9 +3721,9 @@ for _ in range(n):
     request(3, f"arrived/{world}", struct.pack("<q", 1))   # ADD
 print("done", flush=True)
 """
-STORE_OPS = 2000         # round trips of each op through one client
+STORE_OPS = 1000         # round trips of each op through one client
 STORE_CLIENTS = (8, 64)  # concurrent ranks, one process and connection each
-STORE_CLIENT_OPS = 500   # rounds of set, get and add of each rank
+STORE_CLIENT_OPS = 250   # rounds of set, get and add of each rank
 
 
 def _store_server(python: bool):
@@ -4576,6 +4607,13 @@ HOST_LAYOUT = ("h0", "h0", "h1", "h1")      # 2 hosts x 2 ranks, per rank
 # tests/test_quant_collectives.py's int8 bound, a share of max(|exact|, 1)
 HOST_INT8_BOUND = 0.05
 HOST_RESHARD_TO = 3
+HOST_ZERO_STEPS = 2      # ZeroOptimizer steps of the host_zero phase
+# host_ring reduces the gradients of blocks 0..HOST_RING_BLOCKS-1 and every
+# leaf outside the blocks but the two 100 MB vocabulary tables: 120 MB a
+# rank of the 548, every kind of leaf (matrices, biases, norms, the odd
+# 32768-long head bias), so its eleven ring runs fit the script's time
+HOST_RING_BLOCKS = 4
+HOST_RING_SKIP = ("tok.weight", "head.weight")
 
 
 def _host_env(shm: bool, crc: bool = True) -> None:
@@ -4685,8 +4723,9 @@ def _dense_rank_grads(n: int):
 
 
 def check_host_ring(results):
-    """The dense cell's gradients (548 MB of CUDA leaves a rank) reduced
-    by four thread ranks on the host ring: float32, bfloat16 and
+    """The dense cell's gradients (the 120 MB of CUDA leaves a rank that
+    :data:`HOST_RING_BLOCKS` keeps) reduced by four thread ranks on the
+    host ring: float32, bfloat16 and
     ``int8_block256`` with an ErrorFeedback over the flat TCP ring; float32
     and int8 over SHM lanes and over the hierarchical ring (2 hosts x 2);
     every result byte-identical across ranks and back on the card; hier
@@ -4701,6 +4740,13 @@ def check_host_ring(results):
     store = TCPStore(is_master=True, timeout=120)
     _, _, grads, counts, by_design, ok_launch = _dense_rank_grads(
         HOST_WORLD)
+
+    def kept(name):
+        if name in HOST_RING_SKIP:
+            return False
+        return not name.startswith("block") or int(
+            name[5:].split(".")[0]) < HOST_RING_BLOCKS
+    grads = [{k: v for k, v in g.items() if kept(k)} for g in grads]
     nbytes = sum(v.numel() * v.element_size() for v in grads[0].values())
     exact = {k: sum(g[k] for g in grads) / HOST_WORLD for k in grads[0]}
     rows, checks = {}, {}
@@ -4754,12 +4800,6 @@ def check_host_ring(results):
             b._snapshot(list(grads[0].values()))
         steady_d2h_ms = b.staging["d2h_s"] * 1e3
         del b
-        # the checksum's cost: the float32 TCP ring with checksums off
-        _host_env(False, crc=False)
-        _, sec_off, _, _, _, _ = _ring_sync(store, grads)
-        crc = {"impl": T.crc_impl(), "mb_s_on": rows["f32_flat"]["mb_s"],
-               "mb_s_off": nbytes / sec_off / 1e6,
-               "overhead": rows["f32_flat"]["seconds"] / sec_off - 1.0}
         # world 2: two addends have one order
         _host_env(False)
         res2, sec2, _, _, _, _ = _ring_sync(store, grads[:2])
@@ -4767,6 +4807,14 @@ def check_host_ring(results):
         checks["f32_w2_equals_card_mean"] = _trees_equal(res2[0], want2)
         rows["f32_flat_w2"] = {"mb_s": nbytes / sec2 / 1e6, "seconds": sec2}
         del res2, want2
+        # the checksum's cost: the float32 TCP ring at world 2 with
+        # checksums off, against the world-2 run above
+        _host_env(False, crc=False)
+        _, sec_off, _, _, _, _ = _ring_sync(store, grads[:2])
+        crc = {"impl": T.crc_impl(), "world": 2,
+               "mb_s_on": rows["f32_flat_w2"]["mb_s"],
+               "mb_s_off": nbytes / sec_off / 1e6,
+               "overhead": sec2 / sec_off - 1.0}
         # the same rings over CPU copies: the arithmetic is the host's
         # either way, so this holds the staging, dtypes and leaf order
         cpu = [{k: v.cpu() for k, v in g.items()} for g in grads]
@@ -4809,8 +4857,8 @@ def _owned_shards_equal(z, zs, params) -> bool:
 
 def check_host_zero(results):
     """``ZeroOptimizer(dp=, comm_dtype="int8_block256", error_feedback=True)``
-    over AdamW on four thread ranks, three steps of the dense cell's
-    gradients: parameters byte-identical across ranks, ``zstate["ef"]``
+    over AdamW on four thread ranks, :data:`HOST_ZERO_STEPS` steps of the
+    dense cell's gradients: parameters byte-identical across ranks, ``zstate["ef"]``
     shard-shaped on the host, the exact gather equal to the master shards;
     then a sharded save with the residuals (ranks 2 and 3 share a root, the
     others each their own) and a reshard 4 -> 3 in which every fragment a
@@ -4840,7 +4888,7 @@ def check_host_zero(results):
             params = {k: v.clone() for k, v in params0.items()}
             zs = z.init(params)
             step_s = []
-            for _ in range(3):
+            for _ in range(HOST_ZERO_STEPS):
                 t0 = time.perf_counter()
                 h, zs = z.update(grads[r], zs, timeout=600)
                 params = h.wait(600)
@@ -4852,7 +4900,7 @@ def check_host_zero(results):
                          and zs["ef"][k].device.type == "cpu"
                          for k in zs["shards"])
             t0 = time.perf_counter()
-            checkpoint.save(roots[r], {"zero": zs}, step=3,
+            checkpoint.save(roots[r], {"zero": zs}, step=HOST_ZERO_STEPS,
                             shard=(r, HOST_WORLD))
             save_s = time.perf_counter() - t0
             saved = {p: v.cpu().numpy().copy() if isinstance(
@@ -4868,8 +4916,9 @@ def check_host_zero(results):
                      res[0][0].values())
         saved = [x[5] for x in res]
         res = [x[1:5] + x[6:] for x in res]    # the parameters go
-        plan = reshard.ReshardPlan(reshard.load_manifest(roots[0], 3, 0),
-                                   HOST_RESHARD_TO)
+        plan = reshard.ReshardPlan(
+            reshard.load_manifest(roots[0], HOST_ZERO_STEPS, 0),
+            HOST_RESHARD_TO)
         vis = {0: {0}, 1: {1}, 2: {2, 3}}
         new_roots = [os.path.join(out, f"root{r}")
                      for r in range(HOST_RESHARD_TO)]
@@ -4877,8 +4926,8 @@ def check_host_zero(results):
         def restore(dp, r):
             t0 = time.perf_counter()
             arrays, stats = reshard.execute_plan(
-                plan, rank=r, root=new_roots[r], step=3, visibility=vis,
-                dp=dp, verify=True, timeout=300)
+                plan, rank=r, root=new_roots[r], step=HOST_ZERO_STEPS,
+                visibility=vis, dp=dp, verify=True, timeout=300)
             return arrays, stats, time.perf_counter() - t0
 
         back = _host_ranks(store, HOST_RESHARD_TO, restore)
@@ -5429,7 +5478,9 @@ CLUSTER_KNOBS = {"TPU_DIST_CLUSTER_LEASE_INTERVAL": "0.2",
 CLUSTER_TIMEOUT = 300        # seconds a launched cluster run may take
 # the failover run: the launched path's twin at full width, enough steps
 # that well over 5 s of training follow a kill after the first step
-FAILOVER_ARGV = LAUNCH_ARGV[:-4] + ["--steps", "200", "--log-every", "1"]
+FAILOVER_STEPS = 120
+FAILOVER_ARGV = LAUNCH_ARGV[:-4] + ["--steps", str(FAILOVER_STEPS),
+                                    "--log-every", "1"]
 FAILOVER_AFTER_KILL_S = 5.0
 # the plans JAX's elastic_plan gives for that run's counts (one host, so
 # ties go by node id): the shrink, then the grow
@@ -5573,7 +5624,7 @@ def check_cluster_failover(results):
     ``python -m tpu_dist_torch.cluster.agent`` processes host the
     replicated store (node 0 ``--lead``, node 1 a follower; the JAX e2e's
     fast knobs), the launched train_lm twin at GPT-2-small width (T = 2048,
-    batch 8, bf16, 200 steps) runs under ``--nproc_per_node=1
+    batch 8, bf16, 120 steps) runs under ``--nproc_per_node=1
     --store_endpoints=FILE --max_restarts=1 --flight-recorder
     --heartbeat_timeout=10`` with a heartbeat every 0.2 s, and node 0's
     agent is SIGKILLed after the child's first step.  Checks: the endpoints
@@ -5655,7 +5706,8 @@ def check_cluster_failover(results):
         "generation_0_only": (not os.path.exists(
             os.path.join(out, "killed", "g1.json")) and rec.get("gen") == "0"
             and "relaunching" not in err),
-        "steps_done": len(steps) == 200 and len(rec.get("losses", [])) == 200,
+        "steps_done": len(steps) == FAILOVER_STEPS
+        and len(rec.get("losses", [])) == FAILOVER_STEPS,
         "training_after_kill": bool(steps) and steps[-1]["t"] - t_kill
         >= FAILOVER_AFTER_KILL_S,
         "params_sha256_equal_unkilled": bool(rec) and rec.get(
@@ -5807,7 +5859,7 @@ if mode == "once":
     os._exit(0)
 cell("warm")
 cell("unfaulted")
-cell("delay", "delay:surface=tcp,delay=0.01")
+cell("delay", "delay:surface=tcp,delay=0.002")
 cell("shm_conn_reset", "conn-reset:surface=shm,rank=0,frame=1", shm=True)
 try:
     cell("partition", "partition:surface=tcp,rank=1,peer=0")
@@ -5911,7 +5963,7 @@ def check_netchaos(results):
       ``FrameCorruptError`` naming src 1, the tag and the offset; the
       launcher exits non-zero and no rank returns a result;
     - in one ``--coll_timeout=10`` launch, after an unfaulted sync (SHM
-      off): ``delay:surface=tcp,delay=0.01`` byte-identical;
+      off): ``delay:surface=tcp,delay=0.002`` byte-identical;
       ``conn-reset:surface=shm,rank=0,frame=1`` (lanes on) breaks the lane
       and is byte-identical; ``partition:surface=tcp,rank=1,peer=0`` a
       ``CollectiveTimeoutError`` naming the stalled hop within the timeout
@@ -6006,6 +6058,337 @@ def check_netchaos(results):
     return all(checks.values())
 
 
+# ---------------------------------------------------------------------------
+# multi-rank serving: the tensor-parallel group and disaggregated serving
+# ---------------------------------------------------------------------------
+
+SHARD_WORLD = 2              # rank processes of the serve_sharded group
+SHARD_REQUESTS = 16          # bench_serve's _mixed_requests
+SHARD_TIMEOUT = 600          # seconds a shard group's job may take
+SHARD_KILL_BOUND_S = 5.0     # follower SIGKILL -> every request failed
+SHARD_READ_SLACK = 1 << 20   # bytes a range-read may read beyond its data
+DISAGG_KV_TIMEOUT = "1.5"    # TPU_DIST_KV_TIMEOUT of the serve_disagg launch
+DISAGG_PREFIX = 36           # tokens the prefix-sharing requests share
+
+
+def _shard_group(job: dict, kill: bool = False):
+    """``job`` (``benchmarks/serve_lm.py``'s shard worker) on
+    :data:`SHARD_WORLD` rank processes sharing this card; with ``kill`` the
+    follower is SIGKILLed once the leader marks its requests streaming.
+    Returns the ranks' records, exit codes, the kill's wall-clock time and
+    the job's seconds."""
+    from tpu_dist_torch.benchmarks.serve_lm import (_wait_all,
+                                                    spawn_shard_world)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the ranks share the card with this process
+    t0 = time.time()
+    store, procs = spawn_shard_world(job, SHARD_WORLD, job["out"])
+    t_kill = None
+    try:
+        if kill:
+            ready = os.path.join(job["out"], "ready.json")
+            deadline = time.monotonic() + SHARD_TIMEOUT
+            while (not os.path.exists(ready) and procs[0].poll() is None
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            t_kill = time.time()
+            procs[1].kill()
+        rcs = _wait_all(procs, SHARD_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        store.close()
+    recs = {}
+    for r in range(SHARD_WORLD):
+        try:
+            with open(os.path.join(job["out"], f"r{r}.json")) as f:
+                recs[r] = json.load(f)
+        except (OSError, ValueError):
+            recs[r] = {}
+    return recs, rcs, t_kill, time.time() - t0
+
+
+def _shard_requests():
+    """16 greedy ``_mixed_requests`` and the benchmark's two greedy
+    ``long_requests`` (1536- and 768-token prompts, whose prefill partials
+    take the ring), and two sampled requests (the first two mixed prompts
+    at temperature 0.8, seeds 1 and 2)."""
+    from tpu_dist_torch.benchmarks.serve_lm import (CONFIG, long_requests,
+                                                    mixed_requests)
+    mixed = mixed_requests(SHARD_REQUESTS)
+    greedy = mixed + long_requests(CONFIG["max_seq_len"],
+                                   CONFIG["vocab_size"])
+    sampled = [dict(r, temperature=0.8, seed=i + 1)
+               for i, r in enumerate(mixed[:2])]
+    return greedy, sampled
+
+
+def check_serve_sharded(results):
+    """The served model as a world-2 tensor-parallel group on this card;
+    see the module docstring, item 18."""
+    import tempfile
+
+    from tpu_dist_torch import checkpoint, interop, serve
+    from tpu_dist_torch.benchmarks.serve_lm import (CONFIG, _requests_json,
+                                                    drive_engine)
+
+    model = _serve_model()
+    greedy, sampled = _shard_requests()
+    out = tempfile.mkdtemp(prefix="serve_sharded_",
+                           dir=os.environ.get("TMPDIR"))
+    # the single-rank engine on the same requests: its decode step and the
+    # sampled requests' streams
+    engine = serve.SlotEngine(model, num_slots=8, max_len=2048,
+                              device=model.device)
+    zero_launch_counts()
+    drive_engine(engine, greedy[:2])
+    single = drive_engine(engine, greedy)
+    single_sampled = drive_engine(engine, sampled)["outputs"]
+    del engine
+    t0 = time.perf_counter()
+    ckpt = os.path.join(out, "ckpt")
+    checkpoint.save(ckpt, interop.jax_params(model), step=0)
+    save_s = time.perf_counter() - t0
+    job = dict(config=CONFIG, device="cuda", slots=8, max_len=2048)
+    a, rc_a, _, wall_a = _shard_group(dict(
+        job, out=os.path.join(out, "exact"), ckpt=ckpt,
+        runs={"greedy": _requests_json(greedy),
+              "sampled": _requests_json(sampled)}))
+    b, rc_b, t_kill, wall_b = _shard_group(dict(
+        job, out=os.path.join(out, "int8"), comm_dtype="int8_block256",
+        runs={"int8": _requests_json(greedy[:4])},
+        kill=_requests_json([dict(r, max_new_tokens=512)
+                             for r in greedy[4:8]])), kill=True)
+    lead = a[0].get("runs", {})
+    got = lead.get("greedy", {}).get("outputs", [])
+    want = [_generate(model, r, torch.float32) for r in greedy]
+    vs_gen = _tie_rule(model, greedy, got, want, torch.float32,
+                       "sharded_generate") if got else []
+    got_s = lead.get("sampled", {}).get("outputs", [])
+    vs_single = _tie_rule(model, sampled, got_s, single_sampled,
+                          torch.float32, "sharded_single_engine") \
+        if got_s else []
+    int8 = b[0].get("runs", {}).get("int8", {}).get("outputs", [])
+    ends = b[0].get("ends", [])
+    end_s = [e["t"] - t_kill for e in ends] if t_kill else []
+    checks = {
+        "exact_job_exit_codes": rc_a == [0] * SHARD_WORLD,
+        "kill_job_exit_codes": rc_b[0] == 0 and rc_b[1] == -9,
+        "checkpoint_shards_bit_for_bit": all(
+            a[r].get("ckpt_equal") is True for r in range(SHARD_WORLD)),
+        "checkpoint_reads_own_bytes": all(
+            0 <= a[r].get("ckpt_read_bytes", -1)
+            <= a[r].get("shard_bytes", 0) + SHARD_READ_SLACK
+            for r in range(SHARD_WORLD)),
+        "greedy_equals_generate": len(vs_gen) == len(greedy) and all(
+            ok for _, ok, _ in vs_gen),
+        "sampled_equals_single_engine": len(vs_single) == len(sampled)
+        and all(ok for _, ok, _ in vs_single),
+        "follower_streams_equal_leader": bool(a[0].get("finished_all"))
+        and a[1].get("streams") == a[0].get("finished_all"),
+        # the long prompts' prefill partials (> 128 KiB) took the ring
+        "ring_combines_taken": a[0].get("algo_counts", {}).get("ring", 0)
+        > 0,
+        "int8_full_budgets_in_vocab": [len(t) for t in int8] == [
+            r["max_new_tokens"] for r in greedy[:4]] and all(
+            0 <= x < CONFIG["vocab_size"] for t in int8 for x in t),
+        "int8_follower_streams_equal_leader": bool(
+            b[0].get("finished_all"))
+        and b[1].get("streams") == b[0].get("finished_all"),
+        "kill_named_peer_gone": b[0].get("fatal") == "PeerGoneError"
+        and len(ends) == 4 and all(
+            "PeerGoneError" in (e["outcome"] + e.get("message", ""))
+            for e in ends),
+        "kill_within_bound": bool(end_s)
+        and max(end_s) <= SHARD_KILL_BOUND_S,
+        "no_kernel_launch": all(
+            not any(rec.get("kernel_launches", {"x": 1}).values())
+            for rec in (a[0], a[1], b[0])),
+    }
+    g = lead.get("greedy", {})
+    algo = a[0].get("algo_counts", {})
+    emit("serve_sharded", world=SHARD_WORLD, requests=len(greedy),
+         prompt_lens=[len(r["prompt"]) for r in greedy],
+         max_new_tokens=[r["max_new_tokens"] for r in greedy],
+         checkpoint_save_s=save_s,
+         checkpoint={r: {k: a[r].get(k) for k in (
+             "ckpt_s", "ckpt_read_bytes", "shard_bytes", "ckpt_leaves")}
+             for r in range(SHARD_WORLD)},
+         tokens_per_s=g.get("tokens_per_s"),
+         decode_step_p50_ms=g.get("decode_step_p50_ms"),
+         decode_step_p99_ms=g.get("decode_step_p99_ms"),
+         e2e_p50_ms=g.get("e2e_p50_ms"), e2e_p99_ms=g.get("e2e_p99_ms"),
+         single_rank=dict(tokens_per_s=single["tokens_per_s"],
+                          decode_step_p50_ms=single["decode_step_p50_ms"],
+                          decode_step_p99_ms=single["decode_step_p99_ms"]),
+         combines=algo, exchange_share=(
+             algo.get("exchange", 0) / max(1, sum(algo.values()))),
+         int8_combines=b[0].get("algo_counts"),
+         divergent_vs_generate=[i for i, _, d in vs_gen if d],
+         divergent_sampled=[i for i, _, d in vs_single if d],
+         kill_ends=[{k: e.get(k) for k in ("outcome", "message")}
+                    for e in ends], kill_to_ended_s=end_s,
+         kill_bound_s=SHARD_KILL_BOUND_S,
+         kernel_launches={r: a[r].get("kernel_launches")
+                          for r in range(SHARD_WORLD)},
+         job_seconds=[wall_a, wall_b], exit_codes=[rc_a, rc_b],
+         checks=checks)
+    return all(checks.values())
+
+
+def _disagg_requests():
+    """Three requests sharing a :data:`DISAGG_PREFIX`-token prefix (12-token
+    suffixes) and three of :func:`_gateway_requests`, 32 new tokens each,
+    greedy, from ``np.random.default_rng(2)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, 32768, DISAGG_PREFIX)
+    reqs = [{"prompt": np.concatenate([shared, rng.integers(0, 32768, 12)])
+             .astype(np.int32), "max_new_tokens": 32, "temperature": 0.0,
+             "seed": 0} for _ in range(3)]
+    reqs += [dict(r, max_new_tokens=32) for r in _gateway_requests()[:3]]
+    return reqs
+
+
+def check_serve_disagg(results):
+    """``--roles prefill:1:solo,decode:1`` of the serve_lm twin with
+    ``--disagg`` on this card, through the gateway; then the disagg
+    benchmark's rows in this process; see the module docstring, item
+    18."""
+    import signal
+    import socket
+    import tempfile
+
+    from tpu_dist_torch import serve
+    from tpu_dist_torch.benchmarks.serve_lm import run_disagg
+    from tpu_dist_torch.ops import KERNELS
+
+    model = _serve_model()
+    reqs = _disagg_requests()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="serve_disagg_",
+                           dir=os.environ.get("TMPDIR"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pid_file = os.path.join(out, "worker.pid")
+    log = open(os.path.join(out, "launcher.log"), "w")
+    os.environ["TPU_DIST_KV_TIMEOUT"] = DISAGG_KV_TIMEOUT
+    try:
+        proc = _launcher(["--standalone", "--max_restarts=0", "--serve",
+                          f"--serve_port={port}", "--roles",
+                          "prefill:1:solo,decode:1", "-m",
+                          "tpu_dist_torch.examples.serve_lm", *GATEWAY_ARGV,
+                          "--disagg", "--pid-file", pid_file,
+                          "--run-seconds", "900"],
+                         out, stdout=log, stderr=subprocess.STDOUT)
+    finally:
+        os.environ.pop("TPU_DIST_KV_TIMEOUT", None)
+    cli = None
+    got, stats, fail, fail_s, after = [], {}, None, None, {}
+    role_counts, t_served = {}, None
+    warm, ready_s, served_s = [], None, None
+    try:
+        t0 = time.perf_counter()
+        cli = serve.ServeClient("127.0.0.1", port, connect_retry=120,
+                                timeout=60)
+        warm = cli.submit(reqs[3]["prompt"][:16].tolist(),
+                          max_new_tokens=4).wait_done(GATEWAY_WAIT)
+        ready_s = time.perf_counter() - t0
+        # one at a time: the prefix-sharing requests hit what the first
+        # of them cached
+        t1 = time.perf_counter()
+        got = [cli.submit(r["prompt"].tolist(),
+                          max_new_tokens=r["max_new_tokens"])
+               .wait_done(GATEWAY_WAIT) for r in reqs]
+        served_s = time.perf_counter() - t1
+        stats = cli.stats(timeout=60)["backends"]["default"]
+        # both roles' launch counts, written after the served requests
+        t_served = time.time()
+        time.sleep(0.6)
+        for role, path in (("prefill", pid_file),
+                           ("decode", pid_file + ".r1")):
+            with open(path + ".kernels") as f:
+                role_counts[role] = json.load(f)
+        # SIGKILL the prefill rank (rank 0: its solo restart takes longer
+        # than the two deadlines), then a request that needs it
+        with open(pid_file) as f:
+            os.kill(int(f.read()), signal.SIGKILL)
+        t_kill = time.perf_counter()
+        try:
+            cli.submit(reqs[0]["prompt"][::-1].tolist(),
+                       max_new_tokens=8).wait_done(GATEWAY_WAIT)
+        except serve.RequestFailedError as e:
+            fail = {"error": e.error, "message": str(e)[:400]}
+        fail_s = time.perf_counter() - t_kill
+        after = cli.stats(timeout=60)["backends"].get("default", {})
+    except Exception:   # reported with the launcher's log below
+        traceback.print_exc()
+    finally:
+        if cli is not None:
+            cli.close()
+        _stop(proc)
+        log.close()
+    with open(os.path.join(out, "launcher.log")) as f:
+        log_tail = f.read()[-3000:]
+    want = [_generate(model, r, torch.float32) for r in reqs]
+    vs_gen = _tie_rule(model, reqs, got, want, torch.float32,
+                       "disagg_generate") if got else []
+    prompt_tokens = 16 + sum(len(r["prompt"]) for r in reqs)
+    kv, pc = stats.get("kv", {}), stats.get("prefix_cache", {})
+    # the benchmark's rows on this card, in this process
+    zero_launch_counts()
+    bench = run_disagg(device="cuda", repeats=1, model=model)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    rows = {r["metric"] + ("_" + r["mode"] if "mode" in r else ""): r
+            for r in bench["rows"]}
+    dis = rows.get("serve_disagg_bursty_disagg", {})
+    checks = {
+        "greedy_equals_generate": len(vs_gen) == len(reqs) and all(
+            ok for _, ok, _ in vs_gen),
+        "transfers_counted": kv.get("transfers") == len(reqs) + 1,
+        "prefix_hits": pc.get("hits", 0) >= 2,
+        "fewer_prefilled_than_prompt": 0 < prompt_tokens
+        - pc.get("tokens_saved", 0) < prompt_tokens,
+        "kill_redispatched_once": after.get("kv", {}).get(
+            "redispatches", 0) - kv.get("redispatches", 0) == 1,
+        "kill_named_kv_transfer_error": fail is not None
+        and fail["error"] == "KVTransferError"
+        and "after one re-dispatch" in fail["message"]
+        and "request " in fail["message"],
+        "no_kernel_launch_roles": len(role_counts) == 2 and all(
+            c["t"] >= t_served and c["kernel_launches"]
+            and not any(c["kernel_launches"].values())
+            for c in role_counts.values()),
+        "no_kernel_launch_bench": not any(launches.values()),
+    }
+    emit("serve_disagg", requests=len(reqs),
+         prompt_lens=[len(r["prompt"]) for r in reqs], ready_s=ready_s,
+         warm_tokens=len(warm), served_s=served_s,
+         kv=kv, prefix_cache=pc, prompt_tokens=prompt_tokens,
+         transfer_p50_ms=stats.get("transfer", {}).get("p50", 0) * 1e3,
+         divergent_vs_generate=[i for i, _, d in vs_gen if d],
+         kill_failure=fail, kill_to_failed_s=fail_s,
+         redispatches_after_kill=after.get("kv", {}).get("redispatches"),
+         kv_timeout_s=float(DISAGG_KV_TIMEOUT), launcher_rc=proc.returncode,
+         bursty_unified=rows.get("serve_disagg_bursty_unified"),
+         bursty_disagg=dis,
+         bursty_ratio=rows.get("serve_disagg_bursty_vs_unified"),
+         send_ms_p50=dis.get("send_ms_p50"),
+         send_mb_per_s=dis.get("send_mb_per_s"),
+         prefix_heavy=rows.get("serve_disagg_prefix_heavy"),
+         role_kernel_launches={k: c["kernel_launches"]
+                               for k, c in role_counts.items()},
+         kernel_launches=launches, checks=checks,
+         launcher_log_tail=None if all(checks.values()) else log_tail)
+    return all(checks.values())
+
+
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("gmm", check_gmm), ("slice", check_slice),
           ("composition", check_composition), ("moe_slice", check_moe_slice),
@@ -6028,7 +6411,9 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("obs", check_obs), ("sanitize", check_sanitize),
           ("roles", check_roles), ("cluster_failover", check_cluster_failover),
           ("cluster_elastic", check_cluster_elastic),
-          ("netchaos", check_netchaos))
+          ("netchaos", check_netchaos),
+          ("serve_sharded", check_serve_sharded),
+          ("serve_disagg", check_serve_disagg))
 
 
 def main() -> int:

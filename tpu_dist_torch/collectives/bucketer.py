@@ -58,6 +58,8 @@ import numpy as np
 import torch
 
 from . import _lowp, _tree
+# the ring's flat chunk contract (``parallel.rules.chunk_bounds``)
+from .ring import _bounds as chunk_bounds
 from .work import Work, completed_work, drain_pending, engine_for, wait_all
 
 __all__ = ["Bucketer", "BucketWork", "bucketed_all_reduce",
@@ -68,19 +70,6 @@ DEFAULT_BUCKET_BYTES = 25 * 1024 * 1024  # torch DDP bucket_cap_mb parity
 _RING_OPS = ("sum", "avg", "mean", "max", "min")
 _TORCH_OP = {"sum": "SUM", "avg": "SUM", "mean": "SUM", "max": "MAX",
              "min": "MIN"}
-
-
-def chunk_bounds(n_elems: int, n: int) -> List[Tuple[int, int]]:
-    """Chunk boundaries ``[(lo, hi)] * n`` covering ``n_elems`` elements;
-    the first ``n_elems % n`` chunks get one extra element (the JAX ring's
-    ``_bounds``: ZeRO shards and reshard manifests cut the same spans)."""
-    q, rem = divmod(int(n_elems), int(n))
-    out, lo = [], 0
-    for i in range(n):
-        hi = lo + q + (1 if i < rem else 0)
-        out.append((lo, hi))
-        lo = hi
-    return out
 
 
 def _bucket_bytes_env() -> int:

@@ -76,10 +76,12 @@ def _chunk_bytes(dp=None, dst: Optional[int] = None) -> int:
 def _bounds(n_elems: int, n: int):
     """Chunk boundaries [(lo, hi)] * n covering ``n_elems`` elements; the
     first ``n_elems % n`` chunks get one extra element, so payloads that do
-    not divide evenly are handled without padding."""
-    q, rem = divmod(n_elems, n)
+    not divide evenly are handled without padding.  The one flat chunk
+    contract: ``parallel.rules.chunk_bounds`` is this function, and ZeRO
+    shards, the bucketed reduce-scatter and reshard manifests cut by it."""
+    q, rem = divmod(int(n_elems), int(n))
     out, lo = [], 0
-    for i in range(n):
+    for i in range(int(n)):
         hi = lo + q + (1 if i < rem else 0)
         out.append((lo, hi))
         lo = hi

@@ -24,9 +24,37 @@ wedged decode loop into a named ``RankLostError`` and a restart.
 
 ``--exit-on-preempt`` is the serving half of the preemption protocol: on
 SIGTERM the worker stops admitting, finishes every in-flight decode, and
-exits ``PREEMPTED_EXIT_CODE`` (117).  ``--sharded``, ``--disagg``,
-``--kv-wire``, ``--comm-dtype`` and the prefix-cache flags raise and name
-ROADMAP A9.3 (multi-rank serving).
+exits ``PREEMPTED_EXIT_CODE`` (117).
+
+Two multi-rank shapes, as in the JAX example:
+
+- ``--sharded`` — **tensor-parallel decode**: every rank the launcher
+  spawned is one shard of a ``model-shard`` group
+  (:mod:`tpu_dist_torch.serve.sharded`); rank 0 leads (engine, frontend,
+  tokens to the gateway), ranks 1..W-1 run the
+  :class:`~tpu_dist_torch.serve.ShardFollower` loop.  The combines ride the
+  p2p data plane (``--comm-dtype int8_block256`` compresses them); no
+  process group is created.  A dead shard fails the gang round, so the
+  launcher's world restart IS the gang restart::
+
+      python -m tpu_dist_torch.launch --standalone --nproc_per_node=2 \
+          --max_restarts=3 --serve -m tpu_dist_torch.examples.serve_lm \
+          --tiny --sharded
+
+- ``--disagg`` — **disaggregated prefill/decode**
+  (:mod:`tpu_dist_torch.serve.disagg`) under ``--roles prefill:P,decode:D``
+  (prefill first): prefill ranks claim prompts off the shared channel,
+  prefill them (through the prefix cache: ``--prefix-block``,
+  ``--prefix-cache-mb``, ``--prefix-spill``) and ship the KV rows to the
+  owning decode rank over the data plane (``--kv-wire int8_blockN``
+  compresses them); decode ranks serve the gateway, one backend each::
+
+      python -m tpu_dist_torch.launch --standalone --max_restarts=3 \
+          --serve --roles prefill:1,decode:1 \
+          -m tpu_dist_torch.examples.serve_lm --tiny --disagg
+
+A rank runs on card ``LOCAL_RANK`` (role workers: ``RANK``) modulo the
+card count.
 """
 
 from __future__ import annotations
@@ -65,25 +93,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="toy model preset for tests (vocab 503, dim 64, "
                         "depth 2, heads 2, max_seq_len 192)")
     p.add_argument("--sharded", action="store_true",
-                   help="tensor-parallel decode (ROADMAP A9.3: raises)")
+                   help="tensor-parallel decode across the launcher's "
+                        "whole world: rank 0 leads and serves, the others "
+                        "follow; needs the control-plane store and "
+                        "num_heads %% world == 0")
     p.add_argument("--disagg", action="store_true",
-                   help="disaggregated prefill/decode (ROADMAP A9.3: "
-                        "raises)")
+                   help="disaggregated prefill/decode under python -m "
+                        "tpu_dist_torch.launch --serve --roles "
+                        "prefill:P,decode:D")
     p.add_argument("--kv-wire", default=None,
-                   help="disagg KV-transfer compression (ROADMAP A9.3: "
-                        "raises)")
+                   help="disagg KV-transfer wire compression opt-in (e.g. "
+                        "int8_block256) — lossy; default exact")
     p.add_argument("--prefix-block", type=int, default=16,
-                   help="prefix-cache granularity (ROADMAP A9.3: raises "
-                        "unless left at 16)")
+                   help="prefix-cache chain granularity in tokens")
     p.add_argument("--prefix-cache-mb", type=int, default=64,
-                   help="prefix-cache cap (ROADMAP A9.3: raises unless "
-                        "left at 64)")
+                   help="prefix-cache resident byte cap, MiB (0 disables "
+                        "the cache)")
     p.add_argument("--prefix-spill", default=None,
-                   help="prefix-cache spill directory (ROADMAP A9.3: "
-                        "raises)")
+                   help="page cold prefix entries to this directory "
+                        "instead of evicting them (the index persists "
+                        "across restarts)")
     p.add_argument("--comm-dtype", default=None,
-                   help="sharded partial-sum compression (ROADMAP A9.3: "
-                        "raises)")
+                   help="sharded partial-sum wire compression opt-in (e.g. "
+                        "int8_block256); default exact float32")
     p.add_argument("--backend-name", default="default",
                    help="this backend's name in the gateway's registry "
                         "(replicas register distinct names; a restarted "
@@ -99,21 +131,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "and test knob)")
     p.add_argument("--pid-file", default=None,
                    help="write this process's pid here once serving (rank "
-                        "r > 0 appends '.r{r}')")
+                        "r > 0 appends '.r{r}'); --disagg ranks also keep "
+                        "their kernel launch counts beside it ('.kernels')")
     return p
-
-
-def _refuse_multirank(args) -> None:
-    for flag, on in (("--sharded", args.sharded), ("--disagg", args.disagg),
-                     ("--kv-wire", args.kv_wire is not None),
-                     ("--comm-dtype", args.comm_dtype is not None),
-                     ("--prefix-block", args.prefix_block != 16),
-                     ("--prefix-cache-mb", args.prefix_cache_mb != 64),
-                     ("--prefix-spill", args.prefix_spill is not None)):
-        if on:
-            raise NotImplementedError(
-                f"{flag}: multi-rank serving (sharded, disaggregated, the "
-                f"prefix cache) comes with ROADMAP A9.3")
 
 
 def build_model(args, device):
@@ -132,11 +152,43 @@ def build_model(args, device):
     return model
 
 
+def _pid_path(args, rank: int) -> str:
+    return args.pid_file if rank == 0 else f"{args.pid_file}.r{rank}"
+
+
 def _write_pid(args, rank: int) -> None:
     if args.pid_file:
-        path = args.pid_file if rank == 0 else f"{args.pid_file}.r{rank}"
-        with open(path, "w") as f:
+        with open(_pid_path(args, rank), "w") as f:
             f.write(str(os.getpid()))
+
+
+def _publish_launch_counts(args, rank: int) -> None:
+    """With ``--pid-file``: zero every kernel's launch count, then keep
+    ``{"t": wall-clock time, "kernel_launches": {name: count}}`` in the pid
+    file's path plus ``.kernels``, rewritten every 0.25 s by a daemon
+    thread — so a caller reads the launches this rank made up to any
+    moment it served, even after the rank is killed."""
+    if not args.pid_file:
+        return
+    import json
+    import threading
+
+    from ..ops import KERNELS
+
+    for k in KERNELS:
+        k.launches = 0
+    path = _pid_path(args, rank) + ".kernels"
+
+    def loop():
+        while True:
+            rec = {"t": time.time(), "kernel_launches": {
+                k.__name__: k.launches for k in KERNELS}}
+            with open(path + ".tmp", "w") as f:
+                json.dump(rec, f)
+            os.replace(path + ".tmp", path)
+            time.sleep(0.25)
+    threading.Thread(target=loop, daemon=True,
+                     name="tpu_dist_torch-launch-counts").start()
 
 
 def _step_hook(args, hb):
@@ -150,10 +202,11 @@ def _step_hook(args, hb):
     return hook
 
 
-def _serve_loop(args, sched, frontend, hb, stop) -> int:
+def _serve_loop(args, sched, frontend, hb, stop, engine=None) -> int:
     """Rank 0's supervision loop: a clean exit at the deadline, the
-    preemption drain, and the watch for a fatal engine error (exit nonzero
-    for a supervised restart)."""
+    preemption drain, and the watch for a fatal engine error (a shard
+    peer's death surfaces as the scheduler's fatal PeerGoneError; exit
+    nonzero for a supervised restart)."""
     from ..resilience import PREEMPTED_EXIT_CODE
 
     deadline = (time.monotonic() + args.run_seconds
@@ -171,6 +224,11 @@ def _serve_loop(args, sched, frontend, hb, stop) -> int:
             # preemption exit code; os._exit skips a teardown that could
             # wait on peers
             drained = sched.drain(timeout=60.0)
+            if engine is not None:
+                # a sharded leader releases its followers with the close
+                # plan BEFORE exiting, so they turn their own SIGTERM into
+                # 117 instead of dying on PeerGoneError
+                engine.close()
             print(f"[serve_lm] preempted: drained={drained}; exiting "
                   f"{PREEMPTED_EXIT_CODE}", flush=True)
             hb.stop()
@@ -180,9 +238,253 @@ def _serve_loop(args, sched, frontend, hb, stop) -> int:
     return 0
 
 
+def _card(device_arg: str, index: int):
+    """This rank's device: the CPU when asked, else card ``index`` modulo
+    the card count (set as the current one)."""
+    import torch
+
+    from ..ops._build import resolve_device
+
+    if device_arg == "cpu":
+        return torch.device("cpu")
+    resolve_device(None)            # raises by name without a card
+    device = torch.device("cuda", index % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    return device
+
+
+def _run_sharded(args, store, rank: int, world: int, cache_dtype,
+                 device) -> int:
+    """The tensor-parallel worker body: shard this rank's slice, join the
+    shard group's data plane, and play leader (rank 0) or follower."""
+    import importlib
+
+    from .. import checkpoint, resilience, serve
+    from ..collectives.transport import DataPlane, PeerGoneError
+    from ..interop import jax_params
+    from ..obs.recorder import get_recorder
+    from ..roles.graph import Role, RoleGraph, map_key, set_current
+
+    # the module, not the same-named function the package re-exports
+    rendezvous = importlib.import_module("tpu_dist_torch.dist.rendezvous")
+
+    if store is None:
+        print("[serve_lm] --sharded needs the control-plane store (launch "
+              "via python -m tpu_dist_torch.launch, or set "
+              "TPU_DIST_STORE_ADDR)", file=sys.stderr, flush=True)
+        return 2
+    gen = rendezvous.generation()
+    # role identity for diagnostics: obs dumps and the launcher's positions
+    # table read "model-shard[r]" instead of a bare flat rank
+    graph = RoleGraph([Role(serve.ROLE_MODEL_SHARD, world)])
+    set_current(graph, serve.ROLE_MODEL_SHARD, rank)
+    rec = get_recorder()
+    if rec is not None:
+        rec.rank, rec.world = rank, world
+        rec.role, rec.role_rank = serve.ROLE_MODEL_SHARD, rank
+    if rank == 0:
+        try:
+            store.set(map_key(gen), graph.to_json())
+        except Exception:
+            pass
+
+    model = build_model(args, device)
+    params = serve.shard_params(model, jax_params(model), rank, world)
+    dp = DataPlane(store, rank, world, generation=gen)
+    decoder = serve.ShardedDecoder(model, params, dp, rank, world,
+                                   comm_dtype=args.comm_dtype)
+    heads = model.block0.attn.num_heads
+    del model, params           # the shard holds its own weights
+
+    hb = resilience.Heartbeat(rank=rank)
+    hb.start()
+    stop = checkpoint.GracefulShutdown().__enter__() \
+        if args.exit_on_preempt else None
+    _write_pid(args, rank)
+    try:
+        if rank != 0:
+            follower = serve.ShardFollower(decoder, num_slots=args.slots,
+                                           max_len=args.max_seq_len,
+                                           cache_dtype=cache_dtype)
+            hb.set_step(0)
+            budget = args.run_seconds if args.run_seconds > 0 else None
+            try:
+                cause = follower.run(deadline=budget, plan_timeout=20.0)
+            except PeerGoneError as e:
+                from ..utils.logging import log_event
+                log_event("serve-shard-leader-gone", rank=rank,
+                          error=repr(e))
+                print(f"[serve_lm] shard follower {rank}: leader gone ({e})"
+                      f" — exiting for a gang restart", flush=True)
+                return 1
+            print(f"[serve_lm] shard follower {rank} done ({cause}, "
+                  f"{follower.decode_steps} decode steps)", flush=True)
+            if stop is not None and stop.requested:
+                # the group closed under a preemption notice: report the
+                # preemption protocol's exit code, as the leader does
+                hb.stop()
+                sys.stdout.flush()
+                os._exit(resilience.PREEMPTED_EXIT_CODE)
+            return 0
+
+        engine = serve.ShardedSlotEngine(decoder, num_slots=args.slots,
+                                         max_len=args.max_seq_len,
+                                         cache_dtype=cache_dtype)
+        sched = serve.Scheduler(engine, batch_window=args.batch_window,
+                                step_hook=_step_hook(args, hb))
+        frontend = serve.Frontend(sched, port=args.port, store=store,
+                                  backend_name=args.backend_name)
+        print(f"[serve_lm] shard leader serving on {frontend.addr} (world "
+              f"{world}, {args.slots} slots, heads/shard {heads // world}, "
+              f"{device})", flush=True)
+        try:
+            return _serve_loop(args, sched, frontend, hb, stop,
+                               engine=engine)
+        finally:
+            frontend.close()
+            sched.close()
+            engine.close()
+    finally:
+        hb.stop()
+        dp.close()
+
+
+def _run_disagg(args, cache_dtype, device) -> int:
+    """The disaggregated worker body, run by every rank of ``--roles
+    prefill:P,decode:D``: prefill ranks claim descriptors off ``prefill-q``,
+    prefill (through the prefix cache when it hits) and ship KV rows and the
+    first token to the owning decode rank; decode ranks run the
+    :class:`~tpu_dist_torch.serve.DisaggSlotEngine` pool and serve the
+    gateway, each under its own backend name."""
+    import threading
+
+    import torch
+
+    from .. import checkpoint, resilience, serve
+    from ..collectives.transport import DataPlane
+    from ..roles.graph import parse_roles_spec
+    from ..roles.runtime import init_role_graph
+
+    if args.cache_dtype == "int8":
+        print("[serve_lm] --disagg does not support --cache-dtype int8 (as "
+              "in the JAX example); use --kv-wire int8_blockN to compress "
+              "the WIRE instead", file=sys.stderr, flush=True)
+        return 2
+    spec = os.environ.get("TPU_DIST_ROLES")
+    if not spec or not os.environ.get("TPU_DIST_STORE_ADDR"):
+        print("[serve_lm] --disagg needs the role-graph launcher: python -m "
+              "tpu_dist_torch.launch --standalone --serve --roles "
+              "prefill:P,decode:D -m tpu_dist_torch.examples.serve_lm "
+              "--disagg", file=sys.stderr, flush=True)
+        return 2
+    parsed = parse_roles_spec(spec)
+    if [r.name for r in parsed.roles] != [serve.ROLE_PREFILL,
+                                          serve.ROLE_DECODE]:
+        print(f"[serve_lm] --disagg expects --roles prefill:P,decode:D "
+              f"(prefill first, the canonical disagg_graph order), got "
+              f"{spec!r}", file=sys.stderr, flush=True)
+        return 2
+    n_prefill, n_decode = (r.world for r in parsed.roles)
+    graph = serve.disagg_graph(n_prefill, n_decode)
+    ctx = init_role_graph(graph)          # checked against the published map
+    rr = ctx.role_rank
+    model = build_model(args, device)
+    dp = DataPlane(ctx.store, ctx.rank, ctx.world, generation=ctx.generation)
+    # both endpoints derive the shape contract from their OWN model, so a
+    # drifted geometry is a named KVTransferError, not a silent reshape
+    with torch.inference_mode():
+        template = serve.kv_template(
+            model.init_slot_cache(1, args.max_seq_len, dtype=cache_dtype))
+    kv = serve.KVTransfer(dp, template, wire=args.kv_wire)
+
+    hb = resilience.Heartbeat(rank=ctx.rank)
+    hb.start()
+    stop = checkpoint.GracefulShutdown().__enter__() \
+        if args.exit_on_preempt else None
+    _publish_launch_counts(args, ctx.rank)
+    _write_pid(args, ctx.rank)
+    try:
+        if ctx.role == serve.ROLE_PREFILL:
+            prefix = None
+            if args.prefix_cache_mb > 0:
+                prefix = serve.PrefixCache(
+                    block_tokens=args.prefix_block,
+                    capacity_bytes=args.prefix_cache_mb << 20,
+                    spill_dir=args.prefix_spill, device=device)
+            worker = serve.PrefillWorker(
+                model, kv, claim_ch=ctx.channel(serve.PREFILL_QUEUE, dp=False),
+                env_chans={d: ctx.channel(serve.kv_channel(d), dp=False)
+                           for d in range(n_decode)},
+                rank=ctx.rank, max_len=args.max_seq_len, dtype=cache_dtype,
+                prefix=prefix)
+            cache_mb = ("off" if prefix is None
+                        else f"{args.prefix_cache_mb}MiB")
+            print(f"[serve_lm] prefill[{rr}] up (rank {ctx.rank}, prefix "
+                  f"cache {cache_mb}, {device})", flush=True)
+            wstop = threading.Event()
+            t = threading.Thread(target=worker.run, args=(wstop,),
+                                 daemon=True,
+                                 name="tpu_dist_torch-prefill-worker")
+            t.start()
+            deadline = (time.monotonic() + args.run_seconds
+                        if args.run_seconds > 0 else None)
+            while deadline is None or time.monotonic() < deadline:
+                if stop is not None and stop.requested:
+                    # finish the claim in hand, then the preemption exit
+                    # code — unclaimed descriptors stay on the queue
+                    wstop.set()
+                    t.join(30.0)
+                    if prefix is not None:
+                        prefix.close()
+                    hb.stop()
+                    sys.stdout.flush()
+                    os._exit(resilience.PREEMPTED_EXIT_CODE)
+                if not t.is_alive():
+                    break               # the decode side closed the queue
+                hb.set_step(worker.claims)
+                time.sleep(0.25)
+            wstop.set()
+            t.join(10.0)
+            if prefix is not None:
+                prefix.close()
+            print(f"[serve_lm] prefill[{rr}] done: {worker.stats()}",
+                  flush=True)
+            return 0
+
+        # decode rank: owns requests end to end, serves the gateway
+        backend = (args.backend_name if rr == 0
+                   else f"{args.backend_name}-d{rr}")
+        engine = serve.DisaggSlotEngine(
+            model, kv,
+            dispatch_ch=ctx.channel(serve.PREFILL_QUEUE, dp=False),
+            arrive_ch=ctx.channel(serve.kv_channel(rr), dp=False),
+            num_slots=args.slots, max_len=args.max_seq_len,
+            cache_dtype=cache_dtype, rank=ctx.rank, role_rank=rr,
+            device=device)
+        sched = serve.DisaggScheduler(engine, batch_window=args.batch_window,
+                                      step_hook=_step_hook(args, hb))
+        frontend = serve.Frontend(sched, port=args.port, store=ctx.store,
+                                  backend_name=backend)
+        print(f"[serve_lm] decode[{rr}] serving on {frontend.addr} as "
+              f"{backend!r} ({args.slots} slots, prefill pool {n_prefill}, "
+              f"{device})", flush=True)
+        try:
+            return _serve_loop(args, sched, frontend, hb, stop)
+        finally:
+            frontend.close()
+            sched.close()
+            engine.close()
+    finally:
+        hb.stop()
+        try:
+            dp.close()
+        except Exception:
+            pass
+        ctx.close()
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_multirank(args)
     if args.tiny:
         args.dim, args.depth, args.heads = (TINY["dim"], TINY["depth"],
                                             TINY["heads"])
@@ -191,9 +493,24 @@ def main(argv=None) -> int:
     import torch
 
     from .. import checkpoint, dist, resilience, serve
-    from ..ops._build import resolve_device
 
+    cache_dtype = getattr(torch, args.cache_dtype)
     world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    rank = int(os.environ.get("RANK", "0") or 0)
+    local = int(os.environ.get("LOCAL_RANK", rank) or 0)
+
+    if args.disagg:
+        # init_role_graph arms the chaos and obs hooks and connects the
+        # store itself (role workers never rendezvous)
+        return _run_disagg(args, cache_dtype, _card(args.device, local))
+    if args.sharded:
+        # a shard group creates no process group: its combines ride the
+        # host data plane.  Arm the obs dump hooks (rendezvous would)
+        from ..obs.hooks import install_from_env
+        install_from_env()
+        return _run_sharded(args, serve.store_from_env(), rank, world,
+                            cache_dtype, _card(args.device, local))
+
     # world 1 (the common serving shape) skips the process group: the store
     # the frontend registers in is all it needs
     has_dist = world > 1 and "MASTER_ADDR" in os.environ
@@ -203,12 +520,7 @@ def main(argv=None) -> int:
         rank, device = dist.get_rank(), pg.device
     else:
         rank = 0
-        device = resolve_device(device)
-        if device.type == "cuda":
-            device = torch.device(
-                "cuda", int(os.environ.get("LOCAL_RANK", 0))
-                % torch.cuda.device_count())
-            torch.cuda.set_device(device)
+        device = _card(args.device, local)
     store = serve.store_from_env()
 
     hb = resilience.Heartbeat(rank=rank)
@@ -229,7 +541,6 @@ def main(argv=None) -> int:
         dist.destroy_process_group()
         return 0
 
-    cache_dtype = getattr(torch, args.cache_dtype)
     model = build_model(args, device)
     engine = serve.SlotEngine(model, num_slots=args.slots,
                               max_len=args.max_seq_len,

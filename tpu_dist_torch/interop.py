@@ -2,8 +2,9 @@
 
 :func:`load_jax_params` loads a ``tpu_dist`` parameter tree
 ``{module_path: {leaf: array}}`` (numpy arrays, or anything ``np.asarray``
-takes) into a port module.  Module paths are the same in both packages; the
-layouts differ by module class:
+takes) into a port module; :func:`jax_params` gives a port module's
+parameters back in that tree and those layouts.  Module paths are the same
+in both packages; the layouts differ by module class:
 
 ====================  ======================  ==========================
 module                tpu_dist layout         tpu_dist_torch layout
@@ -57,9 +58,9 @@ import torch
 
 from . import nn
 
-__all__ = ["load_jax_params", "load_jax_opt_state", "load_jax_state",
-           "jax_state", "jax_leaf_order", "flatten_linear_from_torch",
-           "flatten_linear_to_torch"]
+__all__ = ["load_jax_params", "jax_params", "load_jax_opt_state",
+           "load_jax_state", "jax_state", "jax_leaf_order",
+           "flatten_linear_from_torch", "flatten_linear_to_torch"]
 
 _TRANSPOSED = {nn.Linear: ("weight",),
                nn.MultiheadSelfAttention: ("qkv_weight", "out_weight"),
@@ -156,6 +157,35 @@ def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
     or a non-int8 leaf for an int8 parameter."""
     _copy_tree(model, dict(model.named_parameters()), params)
     return model
+
+
+@torch.no_grad()
+def jax_params(model: torch.nn.Module) -> dict:
+    """``model``'s parameters as a JAX package tree ``{module_path: {leaf:
+    array}}`` in the JAX layouts — the inverse of :func:`load_jax_params`,
+    as host numpy (int8 leaves int8, every other leaf float32)."""
+    inverse, flattened = {}, {}
+    for path, mod in model.named_modules():
+        for cls, leaves in _TRANSPOSED.items():
+            if isinstance(mod, cls):
+                for leaf in leaves:
+                    inverse[_join(path, leaf)] = np.transpose
+        if isinstance(mod, nn.Conv2d):
+            inverse[_join(path, "weight")] = lambda a: a.transpose(2, 3, 1, 0)
+        for sub, chw in getattr(mod, "flattened_inputs", {}).items():
+            flattened[_join(_join(path, sub), "weight")] = \
+                flatten_linear_from_torch(*chw)
+    inverse.update(flattened)
+    out: dict = {}
+    for key, p in model.named_parameters():
+        path, _, leaf = key.rpartition(".")
+        t = p.detach().cpu()
+        a = (t.numpy() if t.dtype == torch.int8
+             else t.to(torch.float32).numpy())
+        if key in inverse:
+            a = inverse[key](a)
+        out.setdefault(path, {})[leaf] = np.ascontiguousarray(a)
+    return out
 
 
 @torch.no_grad()

@@ -33,13 +33,16 @@ __all__ = ["TransformerLM", "TransformerBlock", "write_slot_rows"]
 def write_slot_rows(cache: dict, rows: dict, slot: int) -> dict:
     """Copy ONE request's per-layer batch-1 cache rows into slot ``slot`` of
     a slot-cache pool, in place, leaving every other slot untouched — the
-    write half of :meth:`TransformerLM.prefill_into_slot`.  ``rows`` holds
-    one ``{"k": (1, Tmax, ...), ...}`` entry per layer path; only keys
-    present in the pool entry are written (a row's ``index`` is ignored).
-    Returns ``cache``."""
+    write half of :meth:`TransformerLM.prefill_into_slot` and of a
+    disaggregated decode rank's admission.  ``rows`` holds one ``{"k": (1,
+    T, ...), ...}`` entry per layer path, ``T`` up to the pool's width: the
+    slot's first ``T`` positions are written (the JAX package's
+    ``dynamic_update_slice`` at offset 0); only keys present in the pool
+    entry are written (a row's ``index`` is ignored).  Returns ``cache``."""
     for path, pool in cache.items():
         for name, buf in pool.items():
-            buf[slot] = rows[path][name][0].to(buf.dtype)
+            row = rows[path][name][0]
+            buf[slot, :row.shape[0]] = row.to(buf.device, buf.dtype)
     return cache
 
 
@@ -290,6 +293,46 @@ class TransformerLM(torch.nn.Module):
         logits = self(prompt[None], cache=rows)
         write_slot_rows(cache, rows, slot)
         return logits[0, int(length) - 1], cache
+
+    @torch.inference_mode()
+    def prefill_rows(self, prompt, length: int, max_len: int,
+                     dtype=torch.float32, prefix_rows: Optional[dict] = None,
+                     prefix_len: int = 0):
+        """Prefill ONE request into fresh batch-1 cache rows with no slot
+        pool in sight — the disaggregated-prefill primitive: a prefill rank
+        computes these rows and ships them to a decode rank, where
+        :func:`write_slot_rows` lands them in a free slot.
+
+        ``prompt``: (S,) ints, the suffix tokens, padded past the true
+        suffix with any valid id (their K/V lands at positions ``>=
+        length``, masked or overwritten as in :meth:`prefill_into_slot`).
+        ``length``: the TOTAL true token count, any cached prefix included.
+        With ``prefix_rows`` (batch-1 rows, ``(1, max_len, ...)`` per layer,
+        holding the first ``prefix_len`` tokens' K/V — a prefix-cache hit)
+        only the suffix runs the forward: its positions start at
+        ``prefix_len`` (learned table through ``pos_offset``, rope through
+        the cache's write index) and its K/V appends at ``[prefix_len,
+        prefix_len + S)`` of those rows, in place.  Returns ``(logits of
+        the last real token (vocab,), rows)``, ``rows`` full-width ``(1,
+        max_len)`` per-layer entries without ``index``.  With no prefix
+        the forward is :meth:`prefill_into_slot`'s."""
+        prompt = torch.as_tensor(prompt, device=self.device).long()
+        plen = int(prefix_len)
+        if not 0 <= plen < int(length) <= plen + prompt.shape[0] <= max_len:
+            raise ValueError(
+                f"prefill_rows: need 0 <= prefix_len ({plen}) < length "
+                f"({length}) <= prefix_len + suffix ({prompt.shape[0]}) <= "
+                f"max_len ({max_len})")
+        if prefix_rows is None:
+            state = self.init_cache(1, max_len, dtype)
+            logits = self(prompt[None], cache=state)
+        else:
+            state = {path: dict(entry, index=plen)
+                     for path, entry in prefix_rows.items()}
+            logits = self(prompt[None], pos_offset=plen, cache=state)
+        rows = {path: {k: v for k, v in entry.items() if k != "index"}
+                for path, entry in state.items()}
+        return logits[0, int(length) - plen - 1], rows
 
     @torch.inference_mode()
     def generate(self, prompt, max_new_tokens: int, temperature: float = 0.0,

@@ -51,7 +51,8 @@ import numpy as np
 import torch
 
 from ..collectives import _lowp, _tree
-from ..collectives.bucketer import BucketWork, Bucketer, chunk_bounds
+from ..collectives.bucketer import BucketWork, Bucketer
+from .rules import chunk_bounds
 from ..collectives.work import (Work, completed_work, drain_pending,
                                 engine_for, wait_all)
 

@@ -55,6 +55,9 @@ from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+# the flat chunk contract ZeRO shards and the bucketed reduce-scatter cut by
+from ..parallel.rules import chunk_bounds
+
 __all__ = ["ReshardError", "ReshardPlan", "ReshardStats",
            "manifest_from_arrays", "local_visibility", "resumable_steps",
            "reshard_restore", "plan_summary"]
@@ -87,15 +90,8 @@ def _groups(leaf_dtypes: Sequence[str]) -> List[Tuple[str, List[int]]]:
     return groups
 
 
-def _bounds(n_elems: int, n: int):
-    # the ring's flat chunk contract: ZeRO shards, the bucketed
-    # reduce-scatter and these manifests all cut the same spans
-    from ..collectives.bucketer import chunk_bounds
-    return chunk_bounds(int(n_elems), int(n))
-
-
 def _span_len(size: int, world: int, rank: int) -> int:
-    lo, hi = _bounds(size, world)[rank]
+    lo, hi = chunk_bounds(size, world)[rank]
     return hi - lo
 
 
@@ -292,8 +288,8 @@ class ReshardPlan:
                     for d in range(M)]
                 self.new_dtype[path] = np.dtype(gkey)
                 for j, i in enumerate(idxs):
-                    ob = _bounds(sizes[i], N)
-                    nb = _bounds(sizes[i], M)
+                    ob = chunk_bounds(sizes[i], N)
+                    nb = chunk_bounds(sizes[i], M)
                     for d in range(M):
                         nlo, nhi = nb[d]
                         if nhi <= nlo:
@@ -456,7 +452,11 @@ class _ShardReader:
 
     def _open(self):
         if self._zf is None:
-            self._raw = open(self.path, "rb")
+            # unbuffered: every fragment read is one read of exactly its
+            # bytes (a buffered file would read ahead 8 KiB after each
+            # seek — a strided shard's thousands of small fragments would
+            # read several times their size)
+            self._raw = open(self.path, "rb", buffering=0)
             self._zf = zipfile.ZipFile(self._raw)
         return self._zf
 

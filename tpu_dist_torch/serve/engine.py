@@ -41,7 +41,8 @@ from ..utils.metrics import LatencyHistogram
 __all__ = ["SlotEngine", "Request", "RequestHandle", "ServeError",
            "QueueFullError", "SchedulerDrainingError",
            "SchedulerClosedError", "DeadlineExceededError",
-           "RequestCancelledError", "error_outcome", "sample_tokens"]
+           "RequestCancelledError", "error_outcome", "sample_tokens",
+           "sample_host"]
 
 
 class ServeError(RuntimeError):
@@ -276,6 +277,19 @@ def sample_tokens(logits, temps, keys, steps, sampling: bool):
     return torch.where(temps > 0, sampled, greedy)
 
 
+def sample_host(logits, temps, keys, steps) -> np.ndarray:
+    """:func:`sample_tokens` over host arrays (``temps`` (B,) float32,
+    ``keys`` (B, 2), ``steps`` (B,)), on the logits' device; the tokens on
+    the host.  Every engine samples through this one function — a sharded
+    group's ranks each sample their own tokens from identical logits."""
+    sampling = bool(np.any(temps > 0))
+    if sampling:
+        temps, keys, steps = (torch.from_numpy(np.asarray(a)).to(
+            logits.device) for a in (temps, keys, steps))
+    return sample_tokens(logits, temps, keys, steps,
+                         sampling).cpu().numpy()
+
+
 def _bucket_lengths(max_prompt: int, min_bucket: int = 16) -> List[int]:
     """Power-of-two padded-prompt lengths up to ``max_prompt`` (always
     includes ``max_prompt`` itself)."""
@@ -330,17 +344,28 @@ class SlotEngine:
         self.active = np.zeros(self.num_slots, bool)
         self.slot_req: List[Optional[Request]] = [None] * self.num_slots
         self.reset_stats()
+        self._build_programs()
 
-    def _sample(self, logits, temps, keys, steps) -> np.ndarray:
-        """:func:`sample_tokens` over host arrays; the tokens on the host."""
-        sampling = bool(np.any(temps > 0))
-        if sampling:
-            temps, keys, steps = (torch.from_numpy(a).to(self.device)
-                                  for a in (temps, keys, steps))
-        return sample_tokens(logits, temps, keys, steps,
-                             sampling).cpu().numpy()
+    def _build_programs(self) -> None:
+        """Bind the two pool operations: ``self._decode(tokens, lengths,
+        cache)`` and ``self._prefill(prompt, length, slot, cache)``, each
+        returning ``(logits, cache)``.  The tensor-parallel engine
+        (:class:`~tpu_dist_torch.serve.sharded.ShardedSlotEngine`) overrides
+        this ONE hook with its shard pipeline — every other line of slot
+        bookkeeping is shared, so the engines cannot drift on admission or
+        finish semantics."""
+        self._decode = self.model.decode_step
+        self._prefill = self.model.prefill_into_slot
 
     # -- introspection -------------------------------------------------------
+
+    @property
+    def fatal_error(self):
+        """Non-None when the engine is unusable as a whole (not just one
+        request): the scheduler checks it after a failed admit and shuts
+        down with this cause instead of serving a dead pool.  The sharded
+        engine reports its poisoned lockstep here."""
+        return None
 
     def free_slots(self) -> int:
         return int(self.num_slots - self.active.sum())
@@ -394,6 +419,15 @@ class SlotEngine:
         token.  Returns the slot index; raises ``RuntimeError`` when no
         slot is free (callers check :meth:`free_slots` first).  Cancelled or
         past-deadline requests are refused by name BEFORE the prefill."""
+        slot = self._admission_slot(req)
+        self._pre_admit(req, slot)
+        return self._admit(req, slot)
+
+    def _admission_slot(self, req: Request) -> int:
+        """Every admission check and the slot choice (the lowest free one).
+        Split from :meth:`_admit` so the sharded engine broadcasts its
+        admission plan only after every refusal has passed: a follower must
+        never prefill a slot the leader then refuses."""
         if req.cancelled:
             raise RequestCancelledError(
                 f"request {req.id} was cancelled before admission")
@@ -405,17 +439,25 @@ class SlotEngine:
         if len(free) == 0:
             raise RuntimeError("no free slot (check free_slots() first)")
         self.validate(len(req.prompt), req.max_new_tokens)
-        slot = int(free[0])
+        return int(free[0])
 
+    def _pre_admit(self, req: Request, slot: int) -> None:
+        """Hook between the passed admission checks and the prefill — the
+        sharded engine's plan broadcast point."""
+
+    def _admit(self, req: Request, slot: int) -> int:
+        """The unconditional half of admission: prefill and slot
+        bookkeeping (every refusal already ruled out by
+        :meth:`_admission_slot`)."""
         req.t_admit = _now()
         self.hist_queue.observe(req.t_admit - req.t_submit)
         staged = req.staged if req.staged is not None else self.stage(req)
         key = random.key(req.seed).numpy()
-        logits, self.cache = self.model.prefill_into_slot(
+        logits, self.cache = self._prefill(
             staged, len(req.prompt), slot, self.cache)
-        tok = int(self._sample(logits[None],
-                               np.array([req.temperature], np.float32),
-                               key[None], np.zeros(1, np.int64))[0])
+        tok = int(sample_host(logits[None],
+                              np.array([req.temperature], np.float32),
+                              key[None], np.zeros(1, np.int64))[0])
         t_pf = _now()
         self.hist_prefill.observe(t_pf - req.t_admit)
 
@@ -440,9 +482,9 @@ class SlotEngine:
         if not self.active.any():
             return 0
         t0 = _now()
-        logits, self.cache = self.model.decode_step(
-            self.tokens, self.lengths, self.cache)
-        nxt = self._sample(logits, self.temps, self.keys, self.steps)
+        logits, self.cache = self._decode(self.tokens, self.lengths,
+                                          self.cache)
+        nxt = sample_host(logits, self.temps, self.keys, self.steps)
         dt = _now() - t0
         n_active = int(self.active.sum())
         self._decode_steps += 1
@@ -499,6 +541,19 @@ class SlotEngine:
         scheduler loop at EVERY iteration boundary, so a cancelled request
         stops occupying a slot after at most one decode step.  The request
         terminates with the named error.  Returns the slots freed."""
+        expired = self._sweep_candidates()
+        if expired:
+            self._pre_free([slot for slot, _ in expired])
+        for slot, exc in expired:
+            self.fail_slot(slot, exc)
+        return len(expired)
+
+    def _sweep_candidates(self) -> List[tuple]:
+        """``(slot, named error)`` for every active slot whose request was
+        cancelled or ran past its deadline — the decision half of
+        :meth:`sweep_expired`, taken on this engine's clock only (the
+        sharded leader broadcasts the slot list, so followers free the same
+        slots without consulting their own clocks)."""
         expired = []
         now = _now()
         for slot in np.flatnonzero(self.active):
@@ -516,9 +571,11 @@ class SlotEngine:
                     f"request {req.id} exceeded its deadline_ms after "
                     f"{req.emitted} token(s); slot {slot} freed at the "
                     f"iteration boundary")))
-        for slot, exc in expired:
-            self.fail_slot(slot, exc)
-        return len(expired)
+        return expired
+
+    def _pre_free(self, slots: List[int]) -> None:
+        """Hook before a sweep frees ``slots`` — the sharded engine's
+        free-plan broadcast point."""
 
     def _free(self, slot: int) -> None:
         self.active[slot] = False

@@ -64,7 +64,7 @@ from .scheduler import Scheduler
 
 __all__ = ["Frontend", "Gateway", "BackendGoneError", "BACKEND_KEY",
            "GATEWAY_KEY", "BACKENDS_SEQ_KEY", "BACKENDS_REG_PREFIX",
-           "register_backend", "list_backends", "store_from_env",
+           "ROLE_FRONTEND", "ROLE_MODEL_SHARD", "register_backend", "list_backends", "store_from_env",
            "connect_hello", "read_frame", "send_frame"]
 
 _MAGIC = b"TPSV"
@@ -90,6 +90,12 @@ GATEWAY_KEY = "tpu_dist/serve/gateway"
 # read-modify-write races); stale ones are pruned by dial failure.
 BACKENDS_SEQ_KEY = "tpu_dist/serve/backends/seq"
 BACKENDS_REG_PREFIX = "tpu_dist/serve/backends/reg"
+
+# the role names of the multi-rank serving split under a role graph: a
+# tensor-parallel group's ranks are ``model-shard[r]`` in the role map, the
+# obs dumps and the launcher's positions table (the JAX package's names)
+ROLE_FRONTEND = "frontend"
+ROLE_MODEL_SHARD = "model-shard"
 
 
 def register_backend(store, name: str, addr: str) -> None:

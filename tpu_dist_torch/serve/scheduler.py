@@ -324,6 +324,14 @@ class Scheduler:
         except Exception as e:   # a bad request must not kill the loop
             self.engine._obs_end(req, error_outcome(e))
             req.fail(e)
+            fatal = getattr(self.engine, "fatal_error", None)
+            if fatal is not None:
+                # the failure poisoned the ENGINE, not just the request (a
+                # sharded leader whose admit plan went out before its
+                # prefill died): shut down with the cause — the loop's
+                # epilogue fails everything by name, as after a fatal step
+                self._fatal = fatal
+                self._stop.set()
         finally:
             self._staged.task_done()
 
