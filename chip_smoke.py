@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``tpu_dist_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--only PHASE,...]
+    python3 chip_smoke.py [--only PHASE,...] [--ep-world 4]
 
 Phases, each printed as one JSON line:
 
@@ -219,8 +219,9 @@ Phases, each printed as one JSON line:
    --nproc_per_node=2 --flight-recorder --heartbeat_timeout=5`` on a worker
    this script writes (both ranks on this card, the store and the host data
    plane only, no NCCL: a step is the gradients of one seeded row, K1 once
-   and K2 12 times, then the 548 MB tree averaged by a ``Bucketer`` over
-   the float32 host ring inside ``resilience.TrainState``), rank 1
+   and K2 12 times, then the ``host_ring`` subset with the head's weight,
+   221 MB, averaged by a ``Bucketer`` over the float32 host ring inside
+   ``resilience.TrainState``), rank 1
    chaos-stalled at step 3: the launcher names ``RankLostError`` for rank
    1 with its last obs position, prints the positions table and the dump
    directory; both dumps read; every collective number up to the stall has
@@ -258,8 +259,9 @@ Phases, each printed as one JSON line:
    ``elastic_train`` twin with ``--zero`` over the host data plane, 2 → 1
    → 2 across the node boundary: JAX's plans, each world's phase bit for
    bit a single launcher resumed from a copy of the tree.  ``netchaos``:
-   the dense cell's 548 MB at world 2 (two rank processes, a Bucketer on
-   the float32 host ring) under ``corrupt`` (named ``FrameCorruptError``,
+   the dense cell's gradients (the 120 MB ``host_ring`` subset) at world
+   2 (two rank processes, a Bucketer on the float32 host ring) under
+   ``corrupt`` (named ``FrameCorruptError``,
    the launch fails, no result), ``delay`` and an SHM ``conn-reset``
    (byte-identical), ``partition`` (``CollectiveTimeoutError`` within
    ``--coll_timeout`` + 5 s); the served model under ``corrupt:surface=
@@ -290,12 +292,33 @@ Phases, each printed as one JSON line:
    than prompt tokens; the prefill rank SIGKILLed, then a request that
    re-dispatches once and fails with a ``KVTransferError`` naming it; no
    kernel launched by either role up to the served requests (each rank's
-   counts, zeroed when it starts serving, beside ``--pid-file``).  Then
+   counts, zeroed when it starts serving, beside ``--pid-file``).  The
+   first request waits for both roles' pid files: the prefill rank writes
+   its own after one throwaway forward (``PrefillWorker.warm``), so no
+   request's 1.5 s transfer deadline pays its first-call costs.  Then
    the ``serve_lm --disagg`` benchmark's rows in this process (the bursty
    workload unified against disaggregated: tokens/s and p99 TTFT; the KV
    send's ms and MB/s; the prefix-heavy row), no kernel launch there
    either.
-19. ``kernels``: one line over all kernels; the card's name and power limit
+19. ``ep_train``: expert parallelism at full width — the JAX ``moe_lm``
+   configuration (gather dispatch, batch 8, bf16, SGD, aux 0.01) through
+   the library's GSPMD step (``benchmarks.moe_lm.ep_steps``), 3 steps at
+   world 1 in this process, then the same steps at ``data 1 × expert 2``:
+   two rank processes on this card over gloo (two ranks on one card cannot
+   share an NCCL communicator), after a probe that gloo takes each
+   collective the layer and the step use on CUDA tensors (``--ep-world
+   4``: at ``data 2 × expert 2``, four ranks on four cards over NCCL).
+   Float32 losses and updates within ``COMPOSITION_TOL`` of world 1's,
+   step 1's dropped choices per layer equal, each rank holding 4 of the 8
+   experts (half the banks' bytes), the replicated leaves bit for bit
+   across the ranks, and
+   per rank and step K1f/K1b 1 and K2f/K2b 12 launches (wgmma), K3/K4
+   none; step ms p50 and tokens/s at both worlds, the combine's collectives
+   (one more step with each ``ops.psum`` timed) and peak memory a rank.
+   ``ep_train_cli``: ``train_lm --parallel ep`` at world 1 at its defaults
+   on the card: finite losses, the last below half the first, the second
+   differing from the first (the JAX dry run's check).
+20. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
@@ -308,7 +331,8 @@ named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``serve_rope``, ``zero_ddp``, ``zero_opt``, ``elastic``, ``host_ring``,
 ``host_zero``, ``quant_gate``, ``obs``, ``sanitize``, ``roles``,
 ``cluster_failover``, ``cluster_elastic``, ``netchaos``,
-``serve_sharded``, ``serve_disagg``) and never prints the result line.
+``serve_sharded``, ``serve_disagg``, ``ep_train``) and never prints the
+result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -4608,10 +4632,11 @@ HOST_LAYOUT = ("h0", "h0", "h1", "h1")      # 2 hosts x 2 ranks, per rank
 HOST_INT8_BOUND = 0.05
 HOST_RESHARD_TO = 3
 HOST_ZERO_STEPS = 2      # ZeroOptimizer steps of the host_zero phase
-# host_ring reduces the gradients of blocks 0..HOST_RING_BLOCKS-1 and every
-# leaf outside the blocks but the two 100 MB vocabulary tables: 120 MB a
-# rank of the 548, every kind of leaf (matrices, biases, norms, the odd
-# 32768-long head bias), so its eleven ring runs fit the script's time
+# host_ring and netchaos (obs with the head's weight) reduce the gradients
+# of blocks 0..HOST_RING_BLOCKS-1 and every leaf outside the blocks but the
+# two 100 MB vocabulary tables (host_sync.ring_subset): 120 MB a rank of
+# the 548, every kind of leaf (matrices, biases, norms, the odd 32768-long
+# head bias), so their ring runs fit the script's time
 HOST_RING_BLOCKS = 4
 HOST_RING_SKIP = ("tok.weight", "head.weight")
 
@@ -4737,16 +4762,12 @@ def check_host_ring(results):
     from tpu_dist_torch.collectives import transport as T
     from tpu_dist_torch.dist.store import TCPStore
 
+    from tpu_dist_torch.benchmarks.host_sync import ring_subset
+
     store = TCPStore(is_master=True, timeout=120)
     _, _, grads, counts, by_design, ok_launch = _dense_rank_grads(
         HOST_WORLD)
-
-    def kept(name):
-        if name in HOST_RING_SKIP:
-            return False
-        return not name.startswith("block") or int(
-            name[5:].split(".")[0]) < HOST_RING_BLOCKS
-    grads = [{k: v for k, v in g.items() if kept(k)} for g in grads]
+    grads = [ring_subset(g, HOST_RING_BLOCKS, HOST_RING_SKIP) for g in grads]
     nbytes = sum(v.numel() * v.element_size() for v in grads[0].values())
     exact = {k: sum(g[k] for g in grads) / HOST_WORLD for k in grads[0]}
     rows, checks = {}, {}
@@ -5000,9 +5021,9 @@ OBS_PER_STEP = {"cross_entropy_fwd": 1, "cross_entropy_bwd": 1,
 # tpu_dist_torch.launch --standalone --nproc_per_node=2``: both ranks on
 # cuda:0, the group the store and the host data plane only (a rank shim,
 # no torch.distributed group, no NCCL).  A step: the dense cell's
-# gradients on the rank's own seeded row (K1 once, K2 12 times), then the
-# 548 MB tree averaged by a Bucketer over the float32 host ring, inside
-# resilience.TrainState.  argv: OUT MODE STEPS.  MODE ``stall``: every
+# gradients on the rank's own seeded row (K1 once, K2 12 times), then
+# their host_ring subset with the head's weight (221 MB) averaged by a
+# Bucketer over the float32 host ring, inside resilience.TrainState.  argv: OUT MODE STEPS.  MODE ``stall``: every
 # step as launched.  ``timing`` (launched with --flight-recorder and
 # --sanitize): steps 0-7 with the sanitizer off and the recorder armed on
 # even steps, disarmed on odd ones (both read their env var per call;
@@ -5017,7 +5038,8 @@ from tpu_dist_torch import dist, resilience
 from tpu_dist_torch.analysis import sanitizer
 from tpu_dist_torch.benchmarks.bench_host_collectives import (
     _Group, attach_store)
-from tpu_dist_torch.benchmarks.host_sync import dense_cell, rank_grads
+from tpu_dist_torch.benchmarks.host_sync import (
+    dense_cell, rank_grads, ring_subset)
 from tpu_dist_torch.collectives import Bucketer, eager
 from tpu_dist_torch.obs import hooks, recorder
 from tpu_dist_torch.ops import KERNELS
@@ -5072,7 +5094,11 @@ with resilience.TrainState(os.path.join(out, f"ck{rank}"), save_every=0,
             k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        grads = rank_grads(ddp, state, rank, batch=1)
+        # the head's weight stays: the Bucketer's first bucket is then
+        # head.bias alone, the leaf rank 1 casts at step 10, as in the
+        # whole tree
+        grads = ring_subset(rank_grads(ddp, state, rank, batch=1),
+                            skip=("tok.weight",))
         if mode == "timing" and step == 10 and rank == 1:
             last = list(grads)[-1]
             grads[last] = grads[last].to(torch.bfloat16)
@@ -5772,7 +5798,8 @@ def check_cluster_elastic(results):
 # --standalone --nproc_per_node=2``: both ranks on cuda:0, the group the
 # store and the host data plane only (a rank shim, no NCCL).  The dense
 # cell's gradients on the rank's seeded row (K1 once, K2 12 times), then
-# the 548 MB tree averaged by a Bucketer over the float32 host ring.  argv:
+# their 120 MB host_ring subset averaged by a Bucketer over the float32
+# host ring.  argv:
 # OUT MODE.  MODE ``once``: one sync (the launch's --netchaos decides its
 # fate; under --flight-recorder a crash leaves each rank's dump).  ``cells``: an unfaulted sync twice (the second timed), then each
 # cell with its fault installed in-process — delay on TCP, a lane broken by
@@ -5786,7 +5813,8 @@ import torch
 from tpu_dist_torch import dist
 from tpu_dist_torch.benchmarks.bench_host_collectives import (
     _Group, attach_store)
-from tpu_dist_torch.benchmarks.host_sync import dense_cell, rank_grads
+from tpu_dist_torch.benchmarks.host_sync import (
+    dense_cell, rank_grads, ring_subset)
 from tpu_dist_torch.collectives import Bucketer
 from tpu_dist_torch.collectives import transport as T
 from tpu_dist_torch.obs import hooks
@@ -5805,7 +5833,7 @@ group = _Group(rank, world)
 ddp, state = dense_cell(device="cuda:0", batch=1)
 for k in KERNELS:
     k.launches = 0
-grads = rank_grads(ddp, state, rank, batch=1)
+grads = ring_subset(rank_grads(ddp, state, rank, batch=1))
 torch.cuda.synchronize()
 log = {"rank": rank, "launches": {k.__name__: k.launches for k in KERNELS},
        "bytes": sum(v.numel() * v.element_size() for v in grads.values()),
@@ -5954,10 +5982,10 @@ def _serve_corrupt_cell() -> dict:
 
 
 def check_netchaos(results):
-    """The network chaos layer on the dense cell's 548 MB of float32
-    gradients (K1 once, K2 12 times a step) at world 2, two rank processes
-    on this card averaged by a Bucketer on the float32 host ring, and on
-    the serve wire.  Cells and their required outcomes:
+    """The network chaos layer on the dense cell's float32 gradients (K1
+    once, K2 12 times a step; their 120 MB host_ring subset) at world 2,
+    two rank processes on this card averaged by a Bucketer on the float32
+    host ring, and on the serve wire.  Cells and their required outcomes:
 
     - ``corrupt:surface=tcp,rank=1,frame=2`` (``--netchaos``, SHM off): a
       ``FrameCorruptError`` naming src 1, the tag and the offset; the
@@ -6295,6 +6323,15 @@ def check_serve_disagg(results):
     warm, ready_s, served_s = [], None, None
     try:
         t0 = time.perf_counter()
+        # each rank writes its pid file once it is up, the prefill rank
+        # after its first forward: before that, a request's 1.5 s transfer
+        # deadline would pay the process's one-time CUDA costs
+        deadline = time.monotonic() + LAUNCH_TIMEOUT
+        while not all(os.path.exists(p) for p in (pid_file,
+                                                   pid_file + ".r1")):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError("the disagg roles never came up")
+            time.sleep(0.05)
         cli = serve.ServeClient("127.0.0.1", port, connect_retry=120,
                                 timeout=60)
         warm = cli.submit(reqs[3]["prompt"][:16].tolist(),
@@ -6372,6 +6409,7 @@ def check_serve_disagg(results):
          warm_tokens=len(warm), served_s=served_s,
          kv=kv, prefix_cache=pc, prompt_tokens=prompt_tokens,
          transfer_p50_ms=stats.get("transfer", {}).get("p50", 0) * 1e3,
+         transfer_max_ms=stats.get("transfer", {}).get("max", 0) * 1e3,
          divergent_vs_generate=[i for i, _, d in vs_gen if d],
          kill_failure=fail, kill_to_failed_s=fail_s,
          redispatches_after_kill=after.get("kv", {}).get("redispatches"),
@@ -6387,6 +6425,363 @@ def check_serve_disagg(results):
          kernel_launches=launches, checks=checks,
          launcher_log_tail=None if all(checks.values()) else log_tail)
     return all(checks.values())
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism (slice 17)
+# ---------------------------------------------------------------------------
+
+# world: ((data, expert) mesh, backend): two rank processes on one card
+# over gloo (two ranks on one card cannot share an NCCL communicator), or
+# four on four cards over NCCL (--ep-world 4)
+EP_WORLDS = {2: ((1, 2), "gloo"), 4: ((2, 2), "nccl")}
+EP_WORLD = [2]               # set by --ep-world
+# the compute dtypes each world's ranks are held to world 1 in: bf16, the
+# configuration's, and on four cards also float32, where a rank's smaller
+# matmuls round alike and no near-tie of the router flips an expert choice
+EP_DTYPES = {2: ("bfloat16",), 4: ("bfloat16", "float32")}
+EP_F32_TOL = {
+    "loss_rtol": 1e-5, "update_rel": 1e-3, "attn_leaf_update_rel": 1e-3,
+    "leaf_update_rel": 1e-2,
+    "why": "float32 compute with TF32 off on both paths: a rank's matmuls "
+           "over half the rows may differ from world 1's in the last bits "
+           "(float32 epsilon 1.2e-7), and a LayerNorm gain's gradient "
+           "cancels over 16384 tokens"}
+EP_STEPS = 3
+EP_TIMEOUT = 600             # seconds the ranks may take
+EP_PER_STEP = {"cross_entropy_fwd": 1, "cross_entropy_bwd": 1,
+               "flash_fwd": 12, "flash_bwd": 12, "gmm": 0, "tgmm": 0}
+EP_BANKS = ("w1", "b1", "w2", "b2")
+
+# a rank of the ep_train phase (env:// under a control-plane store this
+# process hosts; RANK, WORLD_SIZE, LOCAL_RANK set): the JAX moe_lm
+# configuration through benchmarks.moe_lm.ep_steps (the library's
+# GSPMD step) on a (data, expert) mesh, gloo with both ranks on cuda:0 or
+# NCCL with a card a rank (gloo stages CUDA tensors through the host).
+# First the collectives the layer and the step take, each on CUDA tensors;
+# then the steps, with the launch counts zeroed just before; then one more
+# step with every ops.psum (the combine's collectives, forward and
+# backward) timed between card synchronizations.  argv: OUT [MESH, STEPS,
+# BANKS, BACKEND, DTYPE].  Writes OUT/r{rank}.json; the ranks of data
+# index 0 write the updates of the leaves they report (expert index 0: all
+# of its own; the others: their expert banks) to OUT/upd{rank}.pt, and the
+# ranks of expert index 0 their shard's step-1 expert choices to
+# OUT/gate{rank}.pt.
+EP_WORKER = """
+import hashlib, json, os, sys, time
+import numpy as np
+import torch
+from tpu_dist_torch import dist
+from tpu_dist_torch.benchmarks.moe_lm import ep_steps
+from tpu_dist_torch.collectives import ops
+from tpu_dist_torch.ops import KERNELS
+
+out = sys.argv[1]
+mesh, steps, banks, backend, compute = json.loads(sys.argv[2])
+pg = dist.init_process_group(
+    backend=backend, init_method="env://", device="cuda",
+    axis_names=("data", "expert"), mesh_shape=mesh)
+rank, world = pg.rank, pg.size()
+data_index = pg.axis_group("data").index
+expert_index = pg.axis_group("expert").index
+probe = {}
+for name, dtype, fn in (
+        ("all_reduce_bf16", torch.bfloat16, torch.distributed.all_reduce),
+        ("all_reduce_f32", torch.float32, torch.distributed.all_reduce),
+        ("all_reduce_i64", torch.int64, torch.distributed.all_reduce),
+        ("all_gather_into_tensor_i32", torch.int32, None)):
+    t = torch.full((6,), rank + 1, dtype=dtype, device=pg.device)
+    try:
+        if fn is None:
+            o = t.new_empty(6 * world)
+            torch.distributed.all_gather_into_tensor(o, t)
+            probe[name] = o.tolist() == [r + 1 for r in range(world)
+                                         for _ in range(6)]
+        else:
+            fn(t)
+            probe[name] = t.tolist() == [world * (world + 1) // 2] * 6
+    except Exception as e:       # recorded: the phase fails on a missing one
+        probe[name] = repr(e)[:300]
+for k in KERNELS:
+    k.launches = 0
+    for by in ("launches_by_design", "launches_by_mode"):
+        if hasattr(k, by):
+            getattr(k, by).update(dict.fromkeys(getattr(k, by), 0))
+res = ep_steps(steps=steps, compute_dtype=getattr(torch, compute))
+counts = {k.__name__: k.launches for k in KERNELS}
+by_design = {k.__name__: dict(k.launches_by_design)
+             for k in KERNELS if hasattr(k, "launches_by_design")}
+spent = [0.0, 0, 0]
+psum = ops.psum
+
+def timed_psum(x, group=None):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        return psum(x, group)
+    finally:
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        spent[1] += 1
+        spent[2] += x.numel() * x.element_size()
+
+ops.psum = timed_psum
+g = np.random.default_rng(1)
+per = 8 // mesh[0]
+x = torch.from_numpy(g.integers(0, 32768, (8, 2048))[
+    data_index * per:(data_index + 1) * per]).to(pg.device)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+res["advance"](res["state"], x, x)
+torch.cuda.synchronize()
+timed_ms = (time.perf_counter() - t0) * 1e3
+ops.psum = psum
+params = res["state"]["params"]
+h = hashlib.sha256()
+for k in sorted(params):
+    if k.rpartition(".")[2] not in banks:
+        h.update(params[k].detach().cpu().numpy().tobytes())
+if data_index == 0:
+    torch.save({k: v.float().cpu() for k, v in res["updates"].items()
+                if expert_index == 0 or k.rpartition(".")[2] in banks},
+               os.path.join(out, f"upd{rank}.pt"))
+if expert_index == 0:
+    torch.save(res["gate_idx_step1"], os.path.join(out, f"gate{rank}.pt"))
+model = res["model"]
+moe = [m for m in model.modules() if hasattr(m, "local_experts")]
+with open(os.path.join(out, f"r{rank}.json"), "w") as f:
+    json.dump({"probe": probe, "losses": res["losses"],
+               "step_ms": res["step_ms"],
+               "dropped_step1": res["dropped_step1"],
+               "expert_bytes": res["expert_bytes"],
+               "peak_mem_bytes": res["peak_mem_bytes"],
+               "aux_losses": res["aux_losses"], "launches": counts,
+               "launches_by_design": by_design,
+               "experts_held": [moe[0].first_expert, moe[0].local_experts],
+               "combine_ms": spent[0] * 1e3, "combine_calls": spent[1],
+               "combine_bytes": spent[2], "timed_step_ms": timed_ms,
+               "replicated_digest": h.hexdigest()}, f)
+dist.destroy_process_group()
+"""
+
+
+def _ep_ranks(out: str, world: int, dtype: str) -> tuple:
+    """Start the ep_train ranks and wait for them: ``(return codes,
+    seconds, stderr tails)``; every process they started is stopped.  This
+    process hosts their control-plane store (``TPU_DIST_STORE_ADDR``), so
+    rank 0 binds torch's store on a port the OS picks and publishes it
+    there (``dist/process_group._published_store``): no port is picked
+    here and bound later by a child."""
+    import signal
+
+    from tpu_dist_torch.dist.store import TCPStore
+
+    mesh, backend = EP_WORLDS[world]
+    store = TCPStore(is_master=True, timeout=EP_TIMEOUT)
+    env = dict(os.environ, OMP_NUM_THREADS="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(store.port), WORLD_SIZE=str(world),
+               TPU_DIST_STORE_ADDR=f"127.0.0.1:{store.port}",
+               PYTHONPATH=_repo() + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", EP_WORKER, out,
+         json.dumps([mesh, EP_STEPS, EP_BANKS, backend, dtype])],
+        cwd=out, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+        for r in range(world)]
+    errs = []
+    try:
+        for p in procs:
+            try:
+                errs.append(p.communicate(timeout=EP_TIMEOUT)[1][-3000:])
+            except subprocess.TimeoutExpired:
+                errs.append("timed out")
+    finally:
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            p.wait(timeout=30)
+        store.close()
+    return [p.returncode for p in procs], time.perf_counter() - t0, errs
+
+
+def _ep_compare(world: int, dtype: str) -> tuple:
+    """The ``ep_train`` comparison in ``dtype``: 3 steps at world 1 in
+    this process, then the same steps on the ranks of ``world``, held to
+    ``COMPOSITION_TOL`` (bfloat16) or ``EP_F32_TOL`` (float32); emits one
+    line (``ep_train``, or ``ep_train_float32``).  Returns ``(ok, world
+    1's updates, the ranks' updates or None)``, on the host."""
+    import gc
+    import tempfile
+
+    from tpu_dist_torch.benchmarks.moe_lm import ep_steps
+
+    (dp, ep), backend = EP_WORLDS[world]
+    cards = world if backend == "nccl" else 1
+    zero_launch_counts()
+    w1 = ep_steps(steps=EP_STEPS, compute_dtype=getattr(torch, dtype))
+    counts1, _, ok_counts1 = path_launches(EP_STEPS, EP_PER_STEP)
+    if dtype != "bfloat16":      # float32 attention takes the fma design
+        ok_counts1 = all(counts1[n] == EP_STEPS * c
+                         for n, c in EP_PER_STEP.items())
+    upd1 = {k: v.float().cpu() for k, v in w1.pop("updates").items()}
+    for k in ("model", "advance", "state"):
+        w1.pop(k)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="ep_train_", dir=os.environ.get("TMPDIR"))
+    rcs, ranks_s, errs = _ep_ranks(out, world, dtype)
+    checks = {"ranks_exit_0": rcs == [0] * world}
+    ranks = []
+    if checks["ranks_exit_0"]:
+        for r in range(world):
+            with open(os.path.join(out, f"r{r}.json")) as f:
+                ranks.append(json.load(f))
+    fields, upd2 = {}, None
+    if ranks:
+        # the ranks of data index 0 (0 .. ep-1) hold the experts in order
+        upd2 = torch.load(os.path.join(out, "upd0.pt"))
+        for r in range(1, ep):
+            for k, v in torch.load(os.path.join(out, f"upd{r}.pt")).items():
+                upd2[k] = torch.cat([upd2[k], v])
+        # the shards' step-1 expert choices, in data order, against world
+        # 1's: a diagnostic of near-ties that the split rounds otherwise
+        gates = [torch.load(os.path.join(out, f"gate{di * ep}.pt"))
+                 for di in range(dp)]
+        choices_differing = [
+            int((torch.cat([g[i] for g in gates]) != want).sum())
+            for i, want in enumerate(w1["gate_idx_step1"])]
+        rel, leaf, group_worst = _update_diff(dict.fromkeys(upd1, 0.0),
+                                              upd2, upd1)
+        worst = max(leaf, key=leaf.get)
+        attn = {k: e for k, e in leaf.items() if ".attn." in k}
+        worst_attn = max(attn, key=attn.get)
+        tol = COMPOSITION_TOL if dtype == "bfloat16" else EP_F32_TOL
+        loss_err = max(abs(a - b) / abs(b) for r in ranks
+                       for a, b in zip(r["losses"], w1["losses"]))
+        per_rank_counts = [{n: r["launches"][n] for n in EP_PER_STEP}
+                           for r in ranks]
+        checks.update(
+            collectives_on_cuda=all(v is True for r in ranks
+                                    for v in r["probe"].values()),
+            losses=loss_err <= tol["loss_rtol"],
+            updates=(rel <= tol["update_rel"]
+                     and attn[worst_attn] <= tol["attn_leaf_update_rel"]
+                     and leaf[worst] <= tol["leaf_update_rel"]),
+            second_loss_moved=all(r["losses"][1] != r["losses"][0]
+                                  for r in ranks),
+            dropped_step1_equal=all(r["dropped_step1"] == w1["dropped_step1"]
+                                    for r in ranks),
+            expert_bytes_halved=all(ep * r["expert_bytes"]
+                                    == w1["expert_bytes"] for r in ranks),
+            experts_split=[r["experts_held"] for r in ranks]
+            == [[(r % ep) * 8 // ep, 8 // ep] for r in range(world)],
+            replicated_equal=len({r["replicated_digest"]
+                                  for r in ranks}) == 1,
+            launches=ok_counts1 and all(
+                c == {n: EP_STEPS * v for n, v in EP_PER_STEP.items()}
+                for c in per_rank_counts),
+            wgmma=dtype != "bfloat16" or all(
+                r["launches_by_design"][n]["wgmma"] == r["launches"][n]
+                for r in ranks for n in ("flash_fwd", "flash_bwd")))
+        tokens = 8 * 2048
+        p50_n = [statistics.median(r["step_ms"][1:]) for r in ranks]
+        p50_1 = statistics.median(w1["step_ms"][1:])
+        fields = dict(
+            losses_ranks=[r["losses"] for r in ranks],
+            losses_world1=w1["losses"], loss_rel_err=loss_err,
+            update_rel_err=rel, worst_leaf=[worst, leaf[worst]],
+            worst_attn_leaf=[worst_attn, attn[worst_attn]],
+            worst_leaf_by_group=group_worst,
+            dropped_step1_ranks=[r["dropped_step1"] for r in ranks],
+            dropped_step1_world1=w1["dropped_step1"],
+            step1_choices_differing=choices_differing,
+            expert_bytes_ranks=[r["expert_bytes"] for r in ranks],
+            expert_bytes_world1=w1["expert_bytes"],
+            step_ms_ranks=[r["step_ms"] for r in ranks],
+            step_ms_world1=w1["step_ms"],
+            step_ms_p50_ranks=max(p50_n), step_ms_p50_world1=p50_1,
+            tokens_per_s_per_gpu_ranks=tokens / (max(p50_n) / 1e3)
+            / cards,
+            tokens_per_s_per_gpu_world1=tokens / (p50_1 / 1e3),
+            combine_ms_a_step=[r["combine_ms"] for r in ranks],
+            combine_calls_a_step=[r["combine_calls"] for r in ranks],
+            combine_mb_a_step=[r["combine_bytes"] / 1e6 for r in ranks],
+            timed_step_ms=[r["timed_step_ms"] for r in ranks],
+            peak_mem_bytes_ranks=[r["peak_mem_bytes"] for r in ranks],
+            peak_mem_bytes_world1=w1["peak_mem_bytes"],
+            aux_losses_ranks=ranks[0]["aux_losses"],
+            aux_losses_world1=w1["aux_losses"],
+            launches_ranks=per_rank_counts, launches_world1=counts1,
+            launches_by_design_ranks=[r["launches_by_design"]
+                                      for r in ranks],
+            collectives_probe=[r["probe"] for r in ranks])
+    emit("ep_train" if dtype == "bfloat16" else f"ep_train_{dtype}",
+         world=world, mesh=[dp, ep], cards=cards, dtype=dtype,
+         steps=EP_STEPS, backend=backend, ranks_seconds=ranks_s,
+         ranks_rc=rcs,
+         tolerance=COMPOSITION_TOL if dtype == "bfloat16" else EP_F32_TOL,
+         **fields, checks=checks,
+         rank_stderr_tails=None if all(checks.values()) else errs)
+    return all(checks.values()), upd1, upd2
+
+
+def check_ep_train(results):
+    """Expert parallelism at full width: the JAX moe_lm configuration
+    (gather dispatch) under the GSPMD step, 3 steps at world 1 in this
+    process, then the same steps at world 2 (data 1 x expert 2, two rank
+    processes on this card over gloo) or, with ``--ep-world 4``, at world
+    4 (data 2 x expert 2, a card a rank over NCCL; in bfloat16, then in
+    float32) from the same seed and batches: float32 losses and updates
+    within the dtype's limits, step 1's dropped choices per layer equal,
+    each rank's expert banks half the bytes, K1f/K1b 1 and K2f/K2b 12
+    launches a rank a step (wgmma in bfloat16), K3/K4 none; step ms,
+    tokens/s, the combine's collectives and peak memory.  Then
+    ``train_lm --parallel ep`` at world 1 at its defaults: the loss falls,
+    and the second step's loss differs from the first (the dry run's
+    check)."""
+    from tpu_dist_torch.examples import train_lm
+
+    world = EP_WORLD[0]
+    cards = world if EP_WORLDS[world][1] == "nccl" else 1
+    if torch.cuda.device_count() < cards:
+        raise RuntimeError(f"--ep-world {world} needs {cards} cards, this "
+                           f"machine has {torch.cuda.device_count()}")
+    ok, upd = True, {}
+    for dtype in EP_DTYPES[world]:
+        ok_d, *upd[dtype] = _ep_compare(world, dtype)
+        ok = ok_d and ok
+    if "float32" in upd and upd["bfloat16"][1] is not None:
+        # how far the bf16 step lies from the float32 one, unsplit and on
+        # the ranks: the ranks' bf16 error against world 1's is read
+        # beside the bf16 step's own distance from float32
+        ref = upd["float32"][0]
+        zero = dict.fromkeys(ref, 0.0)
+        w1_rel, _, w1_groups = _update_diff(zero, upd["bfloat16"][0], ref)
+        n_rel, _, n_groups = _update_diff(zero, upd["bfloat16"][1], ref)
+        emit("ep_train_bf16_against_float32", world=world,
+             world1_update_rel=w1_rel, world1_worst_by_group=w1_groups,
+             ranks_update_rel=n_rel, ranks_worst_by_group=n_groups)
+    del upd
+
+    # the entry point at world 1, its defaults, on the card
+    args = train_lm.parse_args(["--parallel", "ep"])
+    t0 = time.perf_counter()
+    r = train_lm.train(args)
+    cli_s = time.perf_counter() - t0
+    losses = r["losses"]
+    cli = {"finite": all(math.isfinite(v) for v in losses),
+           "falls": losses[-1] < 0.5 * losses[0],
+           "second_loss_moved": losses[1] != losses[0]}
+    emit("ep_train_cli", steps=len(losses), first_loss=losses[0],
+         last_loss=losses[-1], loss_every_20=losses[::20],
+         seconds=cli_s, first_step_seconds=r["first_step_seconds"],
+         loop_seconds=r["loop_seconds"], checks=cli)
+    return ok and all(cli.values())
 
 
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
@@ -6413,7 +6808,8 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("cluster_elastic", check_cluster_elastic),
           ("netchaos", check_netchaos),
           ("serve_sharded", check_serve_sharded),
-          ("serve_disagg", check_serve_disagg))
+          ("serve_disagg", check_serve_disagg),
+          ("ep_train", check_ep_train))
 
 
 def main() -> int:
@@ -6421,7 +6817,12 @@ def main() -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run; prints no result "
                          "line")
+    ap.add_argument("--ep-world", type=int, default=2,
+                    choices=sorted(EP_WORLDS),
+                    help="ep_train's ranks: 2 on one card (the default) or "
+                         "4 on four cards")
     args = ap.parse_args()
+    EP_WORLD[0] = args.ep_world
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - {name for name, _ in PHASES}
     if unknown:

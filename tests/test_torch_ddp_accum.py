@@ -590,8 +590,7 @@ def test_train_lm_twin_learns_the_permutation_on_cpu():
     assert "Training complete in:" in r.stdout
 
 
-@pytest.mark.parametrize("mode,item", [("tp", "A9.6"), ("pp", "A9.6"),
-                                       ("ep", "A9.5")])
+@pytest.mark.parametrize("mode,item", [("tp", "A9.6"), ("pp", "A9.6")])
 def test_train_lm_twin_names_the_modes_still_to_port(mode, item):
     from tpu_dist_torch.examples import train_lm
     with pytest.raises(NotImplementedError, match=item):

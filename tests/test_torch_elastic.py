@@ -181,19 +181,21 @@ def test_killed_run_restarts_once_and_resumes_bitwise(launched):
     for name in ("plain", "killed"):
         rc, err = res[name]
         assert rc == 0, (name, err[-3000:])
-    assert "restart 1/1" in res["killed"][1]
+    err = res["killed"][1][-3000:]   # every message below names the run
+    assert "restart 1/1" in res["killed"][1], err
     plain, killed = _records(tmp, "plain"), _records(tmp, "killed")
     want = {(r["rank"], r["step"]): r["loss"] for r in plain if "step" in r}
     resumed = {(r["rank"], r["step"]): r["loss"] for r in killed
                if "step" in r and r["gen"] == 1}
-    assert sorted({s for _, s in resumed}) == list(range(4, 8))
-    assert all(resumed[k] == want[k] for k in resumed)
+    assert sorted({s for _, s in resumed}) == list(range(4, 8)), (
+        killed, err)
+    assert resumed == {k: want[k] for k in resumed}, err
     first = {(r["rank"], r["step"]): r["loss"] for r in killed
              if "step" in r and r["gen"] == 0}
-    assert all(first[k] == want[k] for k in first)
+    assert first == {k: want[k] for k in first}, err
     finals = {r["final"] for r in plain + killed if "final" in r}
     starts = {(r["gen"], r["start"]) for r in killed if "final" in r}
-    assert len(finals) == 1 and starts == {(1, 4)}
+    assert len(finals) == 1 and starts == {(1, 4)}, (finals, starts, err)
 
 
 def test_shrink_and_grow_with_zero_resharded(launched):

@@ -88,6 +88,44 @@ def _results(tmp_path, nproc=2):
     return out
 
 
+# rank 0 holds MASTER_PORT's port before it joins: the state of a port
+# that another socket of the host took between the launcher's pick (or the
+# user's) and rank 0's bind (seen as EADDRINUSE under load)
+TAKEN_PORT_WORKER = textwrap.dedent("""
+    import json, os, socket, sys
+    import torch
+    import tpu_dist_torch.dist as dist
+    taken = None
+    if os.environ["RANK"] == "0":
+        taken = socket.socket()
+        taken.bind(("", int(os.environ["MASTER_PORT"])))
+        taken.listen()
+    dist.init_process_group(init_method="env://", device="cpu")
+    t = torch.tensor([1.0])
+    torch.distributed.all_reduce(t)
+    with open(os.path.join(sys.argv[1], f"result{dist.get_rank()}.json"),
+              "w") as f:
+        json.dump({"allreduce": t.item()}, f)
+    dist.destroy_process_group()
+""")
+
+
+@pytest.mark.parametrize("port,nproc", [("negotiated", 2), ("fixed", 2),
+                                        ("negotiated", 1)],
+                         ids=["negotiated", "fixed", "world1"])
+def test_master_port_taken_before_the_bind(tmp_path, port, nproc):
+    """A launch does not depend on its MASTER_PORT staying free until rank
+    0 binds it, whether the launcher negotiated the port or the user fixed
+    it: rank 0 binds torch's store on a port the OS picks and publishes it
+    through the control-plane store (a world of one publishes nothing)."""
+    master = 0 if port == "negotiated" else _free_port()
+    r = _launch(tmp_path, [f"--master_port={master}"],
+                worker=TAKEN_PORT_WORKER, nproc=nproc)
+    assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
+    res = _results(tmp_path, nproc)
+    assert all(res[k] == {"allreduce": float(nproc)} for k in res), res
+
+
 @pytest.mark.parametrize("pure_python", [False, True],
                          ids=["native-store", "python-store"])
 def test_master_port_negotiation_through_store(tmp_path, pure_python):

@@ -603,6 +603,33 @@ def test_int8_disagg_parity_vs_jax_int8_generate(lm):
         rig.close()
 
 
+def test_prefill_warm_sends_caches_and_counts_nothing(lm):
+    """``PrefillWorker.warm`` runs the forward once and leaves no trace: no
+    bytes on the wire, nothing in the prefix cache, no claim or token in
+    the worker's counts; the requests after it still equal JAX
+    ``generate()`` (the first a prefix miss, the second a hit)."""
+    jmodel, params, model = lm
+    rig = bench.DisaggRig(model, 64, slots=2,
+                          prefix=PrefixCache(block_tokens=4, device="cpu"))
+    try:
+        before = rig.worker.stats()
+        assert rig.worker.warm() >= 0.0
+        assert rig.worker.stats() == before
+        assert before["kv_bytes_out"] == 0
+        assert before["prefix_cache"]["inserts"] == 0
+        reqs = [(np.arange(2, 14, dtype=np.int32), 5),
+                (np.arange(2, 18, dtype=np.int32), 4)]
+        refs = _jax_refs(jmodel, params, reqs)
+        for i, (p, g) in enumerate(reqs):
+            assert rig.sched.submit(p, max_new_tokens=g, timeout=60.0) \
+                .wait_done(timeout=120.0) == refs[i]
+        w = rig.worker.stats()
+        assert w["claims"] == rig.engine.stats()["kv"]["transfers"] == 2
+        assert w["prefix_cache"]["hits"] == 1
+    finally:
+        rig.close()
+
+
 def test_bench_serve_disagg_smoke():
     row = bench.run_disagg(smoke=True, device="cpu")
     assert row["tokens_ok"] is True

@@ -51,6 +51,21 @@ def dense_cell(group=None, device=None, batch: int = 2):
     return ddp, ddp.init(seed=0)
 
 
+def ring_subset(grads: dict, blocks: int = 4,
+                skip=("tok.weight", "head.weight")) -> dict:
+    """The leaves of ``grads`` of blocks ``0 .. blocks-1`` and every leaf
+    outside the blocks but ``skip`` (the two 100 MB vocabulary tables): 120
+    MB of the dense cell's 548, every kind of leaf (matrices, biases,
+    norms, the 32768-long head bias), for syncs that must fit a time
+    budget."""
+    def kept(name):
+        if name in skip:
+            return False
+        return (not name.startswith("block")
+                or int(name[5:].split(".")[0]) < blocks)
+    return {k: v for k, v in grads.items() if kept(k)}
+
+
 def rank_grads(ddp, state, rank: int, batch: int = 2) -> dict:
     """The dense cell's float32 gradients on rank ``rank``'s seeded batch:
     one forward and backward through the port's DDP machinery (K1f/K1b

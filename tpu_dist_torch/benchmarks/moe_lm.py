@@ -13,6 +13,13 @@ and ``"dropless"`` is the only dispatch that runs the grouped-matmul kernels
 (K3 ``gmm``, K4 ``tgmm``).  Random tokens from ``np.random.default_rng(0)``,
 as in the JAX benchmark; steps timed with CUDA events after warm-up.
 
+:func:`ep_steps` runs the same configuration under expert parallelism: the
+GSPMD step's counterpart (``examples/train_lm.ep_trainer``: SGD, Switch aux
+loss at 0.01) on the default group's ``(data, expert)`` mesh, each rank
+holding its share of the experts (``chip_smoke.py``'s ``ep_train`` holds it
+against world 1: at data 1 × expert 2 on one card, and with
+``--ep-world 4`` at data 2 × expert 2 on four).
+
     python3 -m tpu_dist_torch.benchmarks.moe_lm [--dispatch D]
 """
 
@@ -30,7 +37,7 @@ from ..ops._build import resolve_device
 from ..parallel import DistributedDataParallel
 from .transformer_lm import time_steps
 
-__all__ = ["build", "run", "active_params"]
+__all__ = ["build", "run", "active_params", "ep_steps"]
 
 
 def build(batch: int = 8, seq_len: int = 2048, dim: int = 768,
@@ -127,6 +134,72 @@ def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
         "tokens_per_expert_last_step": counts,
         "dropped_choices_last_step": dropped,
     }
+
+
+def ep_steps(steps: int = 3, batch: int = 8, seq_len: int = 2048,
+             dim: int = 768, depth: int = 12, heads: int = 12,
+             vocab: int = 32768, experts: int = 8, top_k: int = 2,
+             dispatch: str = "gather", device=None,
+             compute_dtype=torch.bfloat16) -> dict:
+    """``steps`` expert-parallel steps of the benchmark's configuration on
+    the default group's ``(data, expert)`` mesh (world 1, the unsplit
+    layers, without a group): ``train_lm.ep_trainer`` with seed 0,
+    ``lr=0.01``, ``compute_dtype`` over float32 masters and the fused
+    loss, on global batches of ``batch`` rows from
+    ``np.random.default_rng(0)`` (this rank takes its data shard's).
+    Returns each step's float32 loss and wall ms (the card synchronized at
+    both ends), step 1's dropped choices per layer (global) and expert
+    choices of this shard's tokens per layer (``gate_idx``, uint8 on the
+    host), the bytes of the expert banks held here, peak device memory,
+    the model, ``advance`` and its ``state``, and the parameter updates
+    (after − before, on the card)."""
+    import time
+
+    from ..examples.train_lm import ep_trainer
+
+    group = dist.get_default_group() if dist.is_initialized() else None
+    device = group.device if group is not None else resolve_device(device)
+    data = dist.axis_group("data")
+    model = TransformerLM(
+        vocab_size=vocab, dim=dim, depth=depth, num_heads=heads,
+        max_seq_len=seq_len, num_experts=experts, moe_top_k=top_k,
+        moe_dispatch=dispatch, device=device,
+        expert_axis="expert" if group is not None
+        and "expert" in group.axis_names else None)
+    _, state, advance = ep_trainer(model, vocab, 0.01, compute_dtype,
+                                   fused=True)
+    moes = [m for m in model.modules() if isinstance(m, nn.MoELayer)]
+    p0 = {k: v.detach().clone() for k, v in state["params"].items()}
+    rng = np.random.default_rng(0)
+    rows = slice(data.index * (batch // data.size),
+                 (data.index + 1) * (batch // data.size))
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, step_ms, dropped, choices = [], [], None, None
+    for i in range(steps):
+        x = torch.from_numpy(rng.integers(0, vocab, (batch, seq_len))[rows])
+        y = torch.from_numpy(rng.integers(0, vocab, (batch, seq_len))[rows])
+        x, y = x.to(device), y.to(device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, m = advance(state, x, y)
+        torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            dropped = [int(layer.routing["dropped"]) for layer in moes]
+            choices = [layer.routing["gate_idx"].to(torch.uint8).cpu()
+                       for layer in moes]
+    return {"losses": losses, "step_ms": step_ms,
+            "dropped_step1": dropped, "gate_idx_step1": choices,
+            "expert_bytes": sum(getattr(layer, n).numel() * 4
+                                for layer in moes
+                                for n in ("w1", "b1", "w2", "b2")),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
+            "aux_losses": {p: float(v["aux_loss"])
+                           for p, v in state["mstate"].items()},
+            "model": model, "advance": advance, "state": state,
+            "updates": {k: state["params"][k].detach() - p0[k]
+                        for k in p0}}
 
 
 if __name__ == "__main__":

@@ -238,14 +238,19 @@ def init_process_group(backend: Optional[str] = None,
         if name not in ("nccl", "gloo"):
             raise ValueError(f"Unknown backend {backend!r}; use 'nccl' or "
                              f"'gloo'")
-        _rdzv.rendezvous(init_method, world_size=world_size, rank=rank,
-                         timeout=timeout)
+        coordinator, n, me = _rdzv.rendezvous(
+            init_method, world_size=world_size, rank=rank, timeout=timeout)
         kwargs = {}
         if timeout is not None:
             kwargs["timeout"] = datetime.timedelta(seconds=timeout)
-        torch.distributed.init_process_group(
-            name, init_method=init_method, world_size=world_size, rank=rank,
-            **kwargs)
+        c10d = _published_store(coordinator, n, me, timeout)
+        if c10d is not None:
+            torch.distributed.init_process_group(
+                name, store=c10d, world_size=n, rank=me, **kwargs)
+        else:
+            torch.distributed.init_process_group(
+                name, init_method=init_method, world_size=world_size,
+                rank=rank, **kwargs)
         world = torch.distributed.get_world_size()
         me = torch.distributed.get_rank()
         if device.type == "cuda" and world > 1:
@@ -261,6 +266,50 @@ def init_process_group(backend: Optional[str] = None,
             raise
         _DEFAULT_GROUP = group
         return _DEFAULT_GROUP
+
+
+_INITS = [0]   # this process's store-published rendezvous; every rank makes
+#                them in the same order, like every collective
+
+
+def _published_store(coordinator: str, n: int, me: int,
+                     timeout: Optional[float]):
+    """torch's rendezvous store, bound on a port the OS picks, or None when
+    ``init_method``'s port must be bound.  A port picked in advance
+    (MASTER_PORT, the launcher's or the user's) and bound seconds later,
+    after the children import torch, can be taken in between by any
+    socket of the host, and rank 0 would then fail with EADDRINUSE.  A
+    world of one binds where the OS says (no peer looks for it).  Above
+    one, with a control-plane store (``TPU_DIST_STORE_ADDR``, set by the
+    launcher, or ``TPU_DIST_STORE_PREFLIGHT``), rank 0 binds where the OS
+    says and publishes the port there, and the other ranks read it;
+    without one, ``init_method``'s port is the only address the ranks
+    share, and torch binds it."""
+    if coordinator is None:
+        return None
+    host = coordinator.rpartition(":")[0]
+    wait = _rdzv.preflight_timeout(timeout)
+    td = datetime.timedelta(seconds=wait)
+    if n == 1:
+        return torch.distributed.TCPStore(host, 0, 1, is_master=True,
+                                          timeout=td,
+                                          wait_for_workers=False)
+    store = _rdzv.get_store()
+    if store is None:
+        return None
+    seq = _INITS[0]
+    _INITS[0] += 1
+    key = (f"tpu_dist/g{_rdzv.generation()}/c10d_port/{coordinator}/{n}/"
+           f"{seq}")
+    if me == 0:
+        c10d = torch.distributed.TCPStore(host, 0, n, is_master=True,
+                                          timeout=td,
+                                          wait_for_workers=False)
+        store.set(key, str(c10d.port))
+        return c10d
+    store.wait([key], timeout=wait)
+    return torch.distributed.TCPStore(host, int(store.get(key)), n,
+                                      is_master=False, timeout=td)
 
 
 def is_initialized() -> bool:

@@ -132,7 +132,9 @@ def parse_init_method(init_method: Optional[str],
         f"'tcp://host:port'")
 
 
-def _pf_timeout(timeout: Optional[float]) -> float:
+def preflight_timeout(timeout: Optional[float]) -> float:
+    """``timeout``, else ``TPU_DIST_PREFLIGHT_TIMEOUT`` (300 s): how long
+    the rendezvous waits on its peers."""
     return (timeout if timeout is not None else
             float(os.environ.get("TPU_DIST_PREFLIGHT_TIMEOUT", "300")))
 
@@ -148,11 +150,12 @@ def _setup_store(coordinator: str, num_processes: int, process_id: int,
     addr = os.environ.get("TPU_DIST_STORE_ADDR")
     if addr:
         host, _, port = addr.rpartition(":")
-        store = TCPStore(host, int(port), timeout=_pf_timeout(timeout))
+        store = TCPStore(host, int(port),
+                         timeout=preflight_timeout(timeout))
     elif os.environ.get("TPU_DIST_STORE_PREFLIGHT"):
         host, _, port = coordinator.rpartition(":")
         store = TCPStore(host, int(port) + 1, is_master=(process_id == 0),
-                         timeout=_pf_timeout(timeout))
+                         timeout=preflight_timeout(timeout))
     else:
         return None
     _store, _store_num_processes = store, num_processes
@@ -164,7 +167,7 @@ def _preflight(store, num_processes: int, process_id: int,
     """Check in and wait for every peer's liveness key.  Per-rank keys
     rather than an arrival counter: idempotent under retry, and a timeout
     names exactly the ranks that never appeared."""
-    pf_timeout = _pf_timeout(timeout)
+    pf_timeout = preflight_timeout(timeout)
     store.set(f"tpu_dist/alive/{process_id}", str(os.getpid()))
     deadline = time.monotonic() + pf_timeout
     waiting = set(range(num_processes))

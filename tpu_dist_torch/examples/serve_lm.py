@@ -396,6 +396,23 @@ def _run_disagg(args, cache_dtype, device) -> int:
         template = serve.kv_template(
             model.init_slot_cache(1, args.max_seq_len, dtype=cache_dtype))
     kv = serve.KVTransfer(dp, template, wire=args.kv_wire)
+    if ctx.role == serve.ROLE_PREFILL:
+        prefix = None
+        if args.prefix_cache_mb > 0:
+            prefix = serve.PrefixCache(
+                block_tokens=args.prefix_block,
+                capacity_bytes=args.prefix_cache_mb << 20,
+                spill_dir=args.prefix_spill, device=device)
+        worker = serve.PrefillWorker(
+            model, kv, claim_ch=ctx.channel(serve.PREFILL_QUEUE, dp=False),
+            env_chans={d: ctx.channel(serve.kv_channel(d), dp=False)
+                       for d in range(n_decode)},
+            rank=ctx.rank, max_len=args.max_seq_len, dtype=cache_dtype,
+            prefix=prefix)
+        # before the launch counts are zeroed and the pid file is written:
+        # a caller that waits for the pid file sends no request whose
+        # transfer deadline pays the first forward
+        worker.warm()
 
     hb = resilience.Heartbeat(rank=ctx.rank)
     hb.start()
@@ -405,18 +422,6 @@ def _run_disagg(args, cache_dtype, device) -> int:
     _write_pid(args, ctx.rank)
     try:
         if ctx.role == serve.ROLE_PREFILL:
-            prefix = None
-            if args.prefix_cache_mb > 0:
-                prefix = serve.PrefixCache(
-                    block_tokens=args.prefix_block,
-                    capacity_bytes=args.prefix_cache_mb << 20,
-                    spill_dir=args.prefix_spill, device=device)
-            worker = serve.PrefillWorker(
-                model, kv, claim_ch=ctx.channel(serve.PREFILL_QUEUE, dp=False),
-                env_chans={d: ctx.channel(serve.kv_channel(d), dp=False)
-                           for d in range(n_decode)},
-                rank=ctx.rank, max_len=args.max_seq_len, dtype=cache_dtype,
-                prefix=prefix)
             cache_mb = ("off" if prefix is None
                         else f"{args.prefix_cache_mb}MiB")
             print(f"[serve_lm] prefill[{rr}] up (rank {ctx.rank}, prefix "

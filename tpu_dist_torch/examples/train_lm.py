@@ -1,5 +1,5 @@
 """TransformerLM training on a learnable synthetic task — the port's twin of
-``examples/train_lm.py`` in its ``--parallel dp`` and ``sp`` modes.
+``examples/train_lm.py`` in its ``--parallel dp``, ``sp`` and ``ep`` modes.
 
 ``dp``: DistributedDataParallel over the ranks of the default group (one
 card each; ``--device cpu`` for the CPU), the global batch split over them;
@@ -14,9 +14,17 @@ backward, gradients all-reduced and averaged over every rank), which is the
 JAX step's gradient of its twice-``pmean``'d loss; sequence and batch are
 rounded as the JAX example rounds them.
 
+``ep``: expert parallelism on a (data × expert) mesh of the ranks, ``data``
+2 wide when the world is even and above 1 and ``expert`` the rest: every
+block's MLP is a top-2 ``MoELayer`` (``--experts``, rounded up to a multiple
+of the expert axis) holding its rank's experts, the batch split over
+``data``, and the GSPMD step's counterpart (``parallel.
+make_gspmd_train_step``, Switch aux loss at 0.01 in the objective) — the
+JAX example's mode, with routing and capacity over the global batch.
+
 ``--compute-dtype bfloat16`` (the port's one option beyond the JAX
 example's; default float32, the example's) runs the forward and backward in
-bf16 over float32 masters, in either mode.  On the card float32 attention
+bf16 over float32 masters, in every mode.  On the card float32 attention
 takes the flash kernel's CUDA-core design; the long-context step the sp
 mode exists for runs its tensor-core (wgmma) kernels only in bf16, and
 ``benchmarks/sp_lm.py`` drives this trainer on every rank with it rather
@@ -34,11 +42,12 @@ permutation and the prompt are the JAX example's
 (``np.random.default_rng(0)``).
 
 The other modes of the JAX example raise: ``tp`` and ``pp`` (tensor and
-pipeline parallelism: ROADMAP A9.6), ``ep`` (expert parallelism: A9.5)::
+pipeline parallelism: ROADMAP A9.6)::
 
     python -m tpu_dist_torch.examples.train_lm --generate 32
     python -m tpu_dist_torch.examples.train_lm --device cpu --steps 20
     python -m tpu_dist_torch.examples.train_lm --parallel sp --seq-len 8192
+    python -m tpu_dist_torch.examples.train_lm --parallel ep --device cpu
 """
 
 from __future__ import annotations
@@ -50,11 +59,11 @@ from datetime import datetime
 
 import numpy as np
 
-__all__ = ["make_batches", "sp_mesh", "parse_args", "train", "main"]
+__all__ = ["make_batches", "sp_mesh", "ep_trainer", "parse_args",
+           "train", "main"]
 
 _LATER = {"tp": "tensor parallelism (ROADMAP A9.6)",
-          "pp": "pipeline parallelism (ROADMAP A9.6)",
-          "ep": "expert parallelism (ROADMAP A9.5)"}
+          "pp": "pipeline parallelism (ROADMAP A9.6)"}
 
 
 def make_batches(rng, perm, vocab, batch, seq_len, steps):
@@ -65,13 +74,14 @@ def make_batches(rng, perm, vocab, batch, seq_len, steps):
 
 
 def sp_mesh(world: int):
-    """The ``(data, seq)`` mesh shape of ``--parallel sp``: data 2 wide when
-    the world is even and above 1, as in the JAX example."""
+    """The ``(data, seq)`` mesh shape of ``--parallel sp`` (and ``(data,
+    expert)`` of ``ep``): data 2 wide when the world is even and above 1,
+    as in the JAX example."""
     dp = 2 if world % 2 == 0 and world > 1 else 1
     return dp, world // dp
 
 
-def train(args) -> dict:
+def train(args, init_params=None) -> dict:
     """Train (and with ``--generate`` sample) as the script does; returns
     ``{"state", "ddp", "losses", "generated", "consistent", "transitions",
     "seq_len", "batch", "first_step_seconds", "loop_seconds"}``
@@ -80,14 +90,17 @@ def train(args) -> dict:
     than 0; ``seq_len`` and ``batch`` the global shape a step trains on;
     ``first_step_seconds`` the first step's wall time, its one-time set-up
     included, and ``loop_seconds`` the other steps', the card synchronized
-    at each end; both None without steps)."""
-    if args.parallel not in ("dp", "sp"):
+    at each end; both None without steps).  ``init_params(model)``, if
+    given, replaces the seeded initialization (the tests load the JAX
+    example's).  Under ``ep``, ``state`` is ``{"params", "opt_state",
+    "mstate"}`` and ``ddp`` the step function."""
+    if args.parallel in _LATER:
         raise NotImplementedError(
             f"--parallel {args.parallel}: {_LATER[args.parallel]} is not in "
-            f"the port yet; use --parallel dp or sp")
-    if args.parallel == "sp" and args.generate > 0:
-        raise ValueError("--generate samples after dp training; the "
-                         "sequence-parallel model has no KV cache")
+            f"the port yet; use --parallel dp, sp or ep")
+    if args.parallel in ("sp", "ep") and args.generate > 0:
+        raise ValueError(f"--generate samples after dp training, not "
+                         f"after --parallel {args.parallel}")
     import torch
 
     from .. import dist, nn, optim, random
@@ -107,33 +120,50 @@ def train(args) -> dict:
 
     init_method = "env://" if "MASTER_ADDR" in os.environ else None
     world = int(os.environ.get("WORLD_SIZE", 1)) if init_method else 1
-    dp, sp = sp_mesh(world) if args.parallel == "sp" else (world, 1)
+    # the mesh: (data, seq) for dp and sp, (data, expert) for ep
+    dp, other = sp_mesh(world) if args.parallel != "dp" else (world, 1)
+    axis = "expert" if args.parallel == "ep" else "seq"
     pg = dist.init_process_group(
         init_method=init_method,
         device="cpu" if args.device == "cpu" else None,
-        axis_names=("data", "seq"), mesh_shape=(dp, sp))
+        axis_names=("data", axis), mesh_shape=(dp, other))
     try:
         rank = dist.get_rank()
         if args.parallel == "sp":
-            seq_len = max(args.seq_len // sp, 16) * sp  # divisible shards
-            batch = max(args.batch_size // dp, 1) * dp
+            seq_len = max(args.seq_len // other, 16) * other  # divisible
         else:
-            seq_len, batch = args.seq_len, max(args.batch_size // dp, 1) * dp
+            seq_len = args.seq_len
+        batch = max(args.batch_size // dp, 1) * dp
+        compute_dtype = (getattr(torch, args.compute_dtype)
+                         if args.compute_dtype != "float32" else None)
+        # round the experts UP to a multiple of the expert axis: the banks'
+        # leading dim must split evenly over it
+        experts = (-(-max(args.experts, 2) // other) * other
+                   if args.parallel == "ep" else 0)
         model = TransformerLM(
             args.vocab, dim=args.dim, depth=args.depth, num_heads=args.heads,
-            max_seq_len=seq_len, device=pg.device,
+            max_seq_len=seq_len, device=pg.device, num_experts=experts,
             sequence_axis="seq" if args.parallel == "sp" else None,
-            mode=args.sp_mode)
-        ddp = DistributedDataParallel(
-            model, optimizer=optim.SGD(lr=make_lr()),
-            loss_fn=nn.CrossEntropyLoss(), group=pg,
-            compute_dtype=getattr(torch, args.compute_dtype)
-            if args.compute_dtype != "float32" else None)
-        state = ddp.init(seed=0)
+            mode=args.sp_mode,
+            expert_axis="expert" if args.parallel == "ep" else None)
+        if args.parallel == "ep":
+            ddp, state, advance = ep_trainer(model, args.vocab, make_lr(),
+                                             compute_dtype,
+                                             init_params=init_params)
+        else:
+            ddp = DistributedDataParallel(
+                model, optimizer=optim.SGD(lr=make_lr()),
+                loss_fn=nn.CrossEntropyLoss(), group=pg,
+                compute_dtype=compute_dtype)
+            state = ddp.init(seed=0)
+            if init_params is not None:
+                init_params(model)  # the state's tensors are the module's
+            advance = ddp.train_step
         # this rank's block of each global batch: its rows on the data axis,
         # its columns on the seq axis
         di = pg.axis_group("data").index
-        si = pg.axis_group("seq").index
+        si = pg.axis_group("seq").index if args.parallel == "sp" else 0
+        sp = other if args.parallel == "sp" else 1
         rows = slice(di * (batch // dp), (di + 1) * (batch // dp))
         cols = slice(si * (seq_len // sp), (si + 1) * (seq_len // sp))
         losses, marks = [], []
@@ -146,15 +176,22 @@ def train(args) -> dict:
         mark()
         for i, (x, y) in enumerate(make_batches(rng, perm, args.vocab,
                                                 batch, seq_len, args.steps)):
-            state, metrics = ddp.train_step(
+            state, metrics = advance(
                 state, torch.from_numpy(x[rows, cols]).to(pg.device),
                 torch.from_numpy(y[rows, cols]).to(pg.device))
             losses.append(metrics["loss"])
             if i == 0:
                 mark()
             if rank == 0 and (i + 1) % args.log_every == 0:
-                where = (f"  (seq {seq_len} over {sp} ranks, {args.sp_mode})"
-                         if args.parallel == "sp" else "")
+                where = ""
+                if args.parallel == "sp":
+                    where = (f"  (seq {seq_len} over {sp} ranks, "
+                             f"{args.sp_mode})")
+                elif args.parallel == "ep":
+                    aux = sum(float(v["aux_loss"])
+                              for v in state["mstate"].values())
+                    where = (f"  (E={experts} over {other} ranks, aux "
+                             f"{aux:.3f})")
                 print(f"Step [{i + 1}/{args.steps}] "
                       f"loss: {float(metrics['loss']):.4f}{where}",
                       flush=True)
@@ -196,11 +233,52 @@ def train(args) -> dict:
         dist.destroy_process_group()
 
 
+def ep_trainer(model, vocab: int, lr, compute_dtype=None,
+               fused: bool = False, init_params=None):
+    """``(step, state, advance)`` of ``--parallel ep``: the GSPMD step's
+    counterpart over ``model`` seeded with 0 (the JAX example's
+    ``shard_pytree(..., MOE_EP_RULES)`` placement is the layers' own: each
+    draws its whole banks and keeps its slice; ``init_params(model)``
+    replaces the weights), SGD at ``lr``, the Switch aux loss at 0.01,
+    ``CrossEntropyLoss(fused=fused)`` over ``vocab``, and
+    ``advance(state, x, y) -> (state, metrics)`` over ``state = {"params",
+    "opt_state", "mstate"}``.  ``benchmarks/moe_lm.ep_steps`` runs the
+    same step at the benchmark's configuration."""
+    import torch
+
+    from .. import nn, optim
+    from ..nn.module import reset_parameters
+    from ..parallel import make_gspmd_train_step
+
+    reset_parameters(model, torch.Generator(
+        device=model.device).manual_seed(0))
+    if init_params is not None:
+        init_params(model)
+    ce = nn.CrossEntropyLoss(fused=fused)
+    opt = optim.SGD(lr=lr)
+    step = make_gspmd_train_step(
+        model, lambda lg, y: ce(lg.reshape(-1, vocab), y.reshape(-1)),
+        opt, aux_loss_coeff=0.01, compute_dtype=compute_dtype)
+    params = dict(model.named_parameters())
+    state = {"params": params, "opt_state": opt.init(params),
+             "mstate": {p: {"aux_loss": torch.zeros((), device=model.device)}
+                        for p, m in model.named_modules()
+                        if isinstance(m, nn.MoELayer)}}
+
+    def advance(state, x, y):
+        params, opt_state, mstate, metrics = step(
+            state["params"], state["opt_state"], state["mstate"], x, y)
+        return {"params": params, "opt_state": opt_state,
+                "mstate": mstate}, metrics
+
+    return step, state, advance
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parallel", default="dp",
                    choices=["dp", "sp", "tp", "pp", "ep"],
-                   help="dp or sp; tp, pp and ep raise (ROADMAP A9.5, A9.6)")
+                   help="dp, sp or ep; tp and pp raise (ROADMAP A9.6)")
     p.add_argument("--sp-mode", default="ring", choices=["ring", "ulysses"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--compute-dtype", default="float32",
@@ -210,7 +288,7 @@ def parse_args(argv=None):
     p.add_argument("--steps", default=200, type=int)
     p.add_argument("--batch-size", default=8, type=int,
                    help="global batch (split over the ranks; over 'data' "
-                        "under sp)")
+                        "under sp and ep)")
     p.add_argument("--seq-len", default=512, type=int,
                    help="global sequence length (split over 'seq' under sp)")
     p.add_argument("--dim", default=256, type=int)
@@ -222,6 +300,9 @@ def parse_args(argv=None):
                    choices=["none", "warmup_cosine"],
                    help="schedule of the update count (peak = --lr, 10%% "
                         "warmup)")
+    p.add_argument("--experts", default=4, type=int,
+                   help="ep: experts a block (rounded up to a multiple of "
+                        "the expert axis)")
     p.add_argument("--log-every", default=20, type=int)
     p.add_argument("--generate", default=0, type=int,
                    help="after training: sample N tokens with the KV cache "

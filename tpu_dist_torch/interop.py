@@ -24,6 +24,8 @@ flattened map         flattens (h, w, c)      (c, h, w); the rows permute
 MoELayer              router (d, E)           router (d, E)
                       w1 (E, d, h), b1 (E, h) identical
                       w2 (E, h, d), b2 (E, d) identical
+MoELayer under an      w1, b1, w2, b2 (E, ...) this rank's E/ep rows
+expert axis
 MoELayer state        aux_loss                not a parameter: skipped
 QuantLinear           q_weight (in, out) int8 q_weight (out, in) int8
                       scale (out,)            identical
@@ -36,6 +38,12 @@ QuantEmbedding        q_weight, scale         identical
 int8 leaves load as int8; every other leaf goes through float32 into the
 parameter's dtype.  A rope model has no ``pos`` table on either side, and
 an ``nn.Remat`` keeps its module's leaves under ``inner.`` on both.
+
+A MoE layer built with an ``expert_axis`` (``nn/moe.py``) holds its
+rank's slice of each expert bank: :func:`load_jax_params` takes the layer's
+own rows (``first_expert``, ``local_experts``) from the full JAX tree, and
+:func:`jax_params` all-gathers the banks over the expert line (every rank
+of the line calls it), so both trees are the unsplit model's.
 
 A Linear whose input is a flattened (c, h, w) feature map is named in its
 model's ``flattened_inputs`` (``ConvNet.flattened_inputs = {"fc1": (128, 4,
@@ -149,12 +157,28 @@ def _copy_tree(model: torch.nn.Module, ours: dict, params) -> None:
         p.copy_(torch.tensor(a).to(p.dtype))
 
 
+def _split_moes(model: torch.nn.Module) -> list:
+    """``(path, layer)`` of every MoE layer that holds a slice of its
+    experts."""
+    return [(path, m) for path, m in model.named_modules()
+            if isinstance(m, nn.MoELayer)
+            and m.local_experts < m.num_experts]
+
+
 @torch.no_grad()
 def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
     """Copy ``params`` into ``model``'s parameters in place (keeping their
-    dtype and device) and return ``model``.  Raises ``KeyError`` on any
-    missing or extra key and ``ValueError`` on a shape that does not map
-    or a non-int8 leaf for an int8 parameter."""
+    dtype and device) and return ``model``; under an expert axis each
+    expert bank's slice of this rank.  Raises ``KeyError`` on any missing
+    or extra key and ``ValueError`` on a shape that does not map or a
+    non-int8 leaf for an int8 parameter."""
+    split = _split_moes(model)
+    if split:
+        params = {path: dict(leaves) for path, leaves in params.items()}
+        for path, m in split:
+            rows = slice(m.first_expert, m.first_expert + m.local_experts)
+            for leaf in ("w1", "b1", "w2", "b2"):
+                params[path][leaf] = np.asarray(params[path][leaf])[rows]
     _copy_tree(model, dict(model.named_parameters()), params)
     return model
 
@@ -163,7 +187,8 @@ def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
 def jax_params(model: torch.nn.Module) -> dict:
     """``model``'s parameters as a JAX package tree ``{module_path: {leaf:
     array}}`` in the JAX layouts — the inverse of :func:`load_jax_params`,
-    as host numpy (int8 leaves int8, every other leaf float32)."""
+    as host numpy (int8 leaves int8, every other leaf float32); the whole
+    expert banks under an expert axis (a collective over the line)."""
     inverse, flattened = {}, {}
     for path, mod in model.named_modules():
         for cls, leaves in _TRANSPOSED.items():
@@ -176,10 +201,16 @@ def jax_params(model: torch.nn.Module) -> dict:
             flattened[_join(_join(path, sub), "weight")] = \
                 flatten_linear_from_torch(*chw)
     inverse.update(flattened)
+    banks = {}
+    for path, m in _split_moes(model):
+        from .collectives import ops
+        for leaf in ("w1", "b1", "w2", "b2"):
+            banks[_join(path, leaf)] = ops.all_gather(
+                getattr(m, leaf).detach(), m.expert_line, tiled=True)
     out: dict = {}
     for key, p in model.named_parameters():
         path, _, leaf = key.rpartition(".")
-        t = p.detach().cpu()
+        t = banks.get(key, p).detach().cpu()
         a = (t.numpy() if t.dtype == torch.int8
              else t.to(torch.float32).numpy())
         if key in inverse:

@@ -24,7 +24,12 @@ which rank 0 hosts on ``MASTER_PORT``; it carries:
 
 - **MASTER_PORT negotiation**: ``--master_port=0`` makes node 0 pick a free
   port; other nodes read it from the store (a fixed ``--store_port`` is
-  needed then, as the store is the only known address);
+  needed then, as the store is the only known address).  Under this store
+  the port's ``init_process_group`` does not bind MASTER_PORT: global rank
+  0 binds torch's store on a port the OS picks and publishes that port in
+  this store for the others, so no other socket can take the port between
+  the launcher's pick and the bind (MASTER_PORT stays set for any script
+  that starts ``torch.distributed`` itself);
 - **worker liveness**: children check in under ``tpu_dist/alive/<rank>``
   during rendezvous; if the world has not fully checked in after
   ``--liveness_warn`` seconds the launcher names the missing ranks;

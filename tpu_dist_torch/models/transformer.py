@@ -120,13 +120,17 @@ class TransformerLM(torch.nn.Module):
                  moe_dispatch: str = "einsum", norm: str = "layernorm",
                  device=None, sequence_axis: Optional[str] = None,
                  mode: str = "ring", remat: bool = False, rope: bool = False,
-                 rope_theta: float = 10000.0):
+                 rope_theta: float = 10000.0,
+                 expert_axis: Optional[str] = None):
         """``num_experts > 0`` makes the MLP of every block ``i`` with
         ``i % moe_every == moe_every - 1`` a routed MoELayer; its aux loss
         is the layer's ``aux_loss`` after each forward (the DDP collects it
         into ``TrainState.model_state``).  ``moe_dispatch``: ``"einsum"``
         (the default, as in the JAX package), ``"gather"`` or
-        ``"dropless"`` (nn/moe.py).
+        ``"dropless"`` (nn/moe.py).  ``expert_axis``: a mesh axis of the
+        default process group over which each MoE block holds only its
+        rank's experts (nn/moe.py; ``parallel.make_gspmd_train_step``
+        trains it).
 
         ``norm="rmsnorm"`` with ``rope=True`` is the LLaMA-family recipe:
         RMSNorm, and rotary embeddings (``rope_theta``) in place of the
@@ -163,7 +167,8 @@ class TransformerLM(torch.nn.Module):
                 rope_theta=rope_theta,
                 mlp=nn.MoELayer(dim, num_experts, top_k=moe_top_k,
                                 capacity_factor=moe_capacity_factor,
-                                dispatch=moe_dispatch, device=device)
+                                dispatch=moe_dispatch, device=device,
+                                expert_axis=expert_axis)
                 if moe else None))
         self.ln_f = norm_cls(dim, device=device)
         self.head = nn.Linear(dim, vocab_size, device=device)

@@ -12,7 +12,7 @@ from .layers import (GELU, AdaptiveAvgPool2d, AvgPool2d, BatchNorm2d, Conv2d,
 from .loss import CrossEntropyLoss
 from .module import (Module, Remat, Sequential, checkpoint, next_rng,
                      reset_parameters, rng_scope)
-from .moe import MoELayer
+from .moe import ExpertAxisError, MoELayer
 from .quant import (QuantEmbedding, QuantLinear, QuantMultiheadSelfAttention,
                     quantize_linear_weights)
 
@@ -23,5 +23,6 @@ __all__ = ["functional", "init", "Module", "Sequential", "reset_parameters",
            "LayerNorm", "RMSNorm", "GELU", "CrossEntropyLoss",
            "MultiheadSelfAttention", "attention_impl",
            "scaled_dot_product_attention", "rotary_embed", "MoELayer",
+           "ExpertAxisError",
            "QuantLinear", "QuantMultiheadSelfAttention", "QuantEmbedding",
            "quantize_linear_weights"]

@@ -38,20 +38,105 @@ Shared by all three:
   forward, differentiable through the router; the DDP wrapper collects it
   into ``TrainState.model_state`` and does not add it to the objective, as
   in the JAX package.
+
+**Under an expert axis** (``expert_axis=``: a mesh axis of the default
+process group, ``"expert"`` of ``parallel/gspmd.py``'s ``("data",
+"expert")`` mesh; the global batch is split over its ``"data"`` axis).
+The JAX package runs this layer as one global program that XLA
+partitions: the batch is split over ``data`` only, so the ranks of an
+expert line hold the same rows, and routing, capacity and the aux loss
+span the global batch.  The port keeps that function:
+
+- the layer holds only its rank's E/ep experts (``w1`` … ``b2`` have a
+  leading dim of E/ep; the router is replicated);
+- each (choice, token)'s arrival rank is the global choice-major cumsum's:
+  every shard's (k, E) choice counts are gathered over the ``data`` line
+  and shift this shard's own ranks, and ``C = _capacity(dp · N_local)``.
+  So a token of shard 1 drops when shard 0 filled its expert;
+- the rank runs its experts over its kept rows (either capacity dispatch)
+  and the partial outputs are summed over the ``expert`` line;
+- autograd: that sum has an identity backward; the layer input that feeds
+  the dispatch and the router's gates have an identity forward and a
+  backward summed over the ``expert`` line; the aux loss takes the router
+  probabilities apart from the gates, so the objective counts it once.
+  With the step's gradient average (``gspmd.py``) every gradient is the
+  global step's;
+- ``aux_loss`` is the global one (first-choice shares and mean
+  probabilities averaged over the ``data`` line; its gradient is this
+  shard's share); the capacity dispatches' ``routing["counts"]`` and
+  ``["dropped"]`` are global;
+- ``dispatch="dropless"`` with more than one expert rank raises
+  :class:`ExpertAxisError`: the JAX package has no such path (its Pallas
+  grouped matmul cannot be partitioned).
+
+At an expert axis of size 1 and a data axis of size 1 the layer computes
+what it computes with no mesh.  Every collective is an all-reduce or an
+all-gather (``tpu_dist_torch/collectives/ops.py``).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as _F
 
 from . import init as init_lib
+from ..collectives import ops as _ops
 from ..ops._build import resolve_device
 from ..ops.gmm import ceil_to, grouped_linear
 
-__all__ = ["MoELayer"]
+__all__ = ["MoELayer", "ExpertAxisError"]
+
+
+class ExpertAxisError(ValueError):
+    """A layer that an expert axis cannot split: the dropless dispatch over
+    more than one expert rank, or an expert count that the axis does not
+    divide."""
+
+
+class _SumOverLine(torch.autograd.Function):
+    """The sum over a mesh line forward, the identity backward: the combine
+    of the expert ranks' partial outputs (every rank of the line computes
+    the same loss from the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, line):
+        return _ops.psum(x, line)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumGradOverLine(torch.autograd.Function):
+    """The identity forward, the sum over a mesh line backward: a tensor
+    that every rank of the line feeds into its own share of the work."""
+
+    @staticmethod
+    def forward(ctx, x, line):
+        ctx.line = line
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ops.psum(g.contiguous(), ctx.line), None
+
+
+def _mesh_lines(expert_axis):
+    """``(expert line, data line)`` of this rank for ``expert_axis`` of the
+    default process group (the data line of size 1 on a mesh without a
+    ``"data"`` axis), else ``(None, None)``."""
+    if expert_axis is None:
+        return None, None
+    from .. import dist
+    expert = dist.axis_group(expert_axis)
+    if (dist.is_initialized()
+            and dist.DATA_AXIS in dist.get_default_group().axis_names):
+        return expert, dist.axis_group(dist.DATA_AXIS)
+    return expert, dist.AxisGroup(dist.DATA_AXIS, 1, 0,
+                                   (expert.ranks[expert.index],))
 
 
 class _DispatchRows(torch.autograd.Function):
@@ -132,6 +217,8 @@ class MoELayer(torch.nn.Module):
         dispatch: ``"einsum"`` (dense dispatch and combine tensors),
             ``"gather"`` (row gathers by the slot maps) or ``"dropless"``
             (the grouped-matmul kernels; ``capacity_factor`` is ignored).
+        expert_axis: a mesh axis of the default process group that splits
+            the experts (see the module docstring), or None.
 
     After each forward, ``aux_loss`` holds the Switch load-balancing loss
     and ``routing`` the last call's ``gate_idx`` (N, k) and ``counts``
@@ -139,14 +226,17 @@ class MoELayer(torch.nn.Module):
     ``capacity`` and ``dropped`` (choices past it, an int64 0-d tensor),
     the dropless one ``block_groups`` and ``n_live_blocks`` (the kernels'
     block map).  Both attributes are what :func:`~tpu_dist_torch.nn.
-    checkpoint` keeps from the first forward (``forward_state``)."""
+    checkpoint` keeps from the first forward (``forward_state``).
+    ``local_experts`` and ``first_expert`` are the experts this rank holds
+    (all E and 0 without an expert axis); ``data_line`` is the mesh line
+    its expert banks' gradients are averaged over (``parallel/gspmd.py``)."""
 
     forward_state = ("aux_loss", "routing")
 
     def __init__(self, dim: int, num_experts: int, hidden: int = 0,
                  top_k: int = 2, capacity_factor: float = 1.25,
                  normalize_gates: bool = True, dispatch: str = "einsum",
-                 device=None):
+                 device=None, expert_axis: Optional[str] = None):
         super().__init__()
         if num_experts < 2:
             raise ValueError(f"num_experts must be >= 2, got {num_experts}")
@@ -155,6 +245,17 @@ class MoELayer(torch.nn.Module):
         if dispatch not in ("einsum", "gather", "dropless"):
             raise ValueError(f"dispatch must be 'einsum', 'gather', or "
                              f"'dropless', got {dispatch!r}")
+        self.expert_line, self.data_line = _mesh_lines(expert_axis)
+        ep = 1 if self.expert_line is None else self.expert_line.size
+        self._dp = 1 if self.data_line is None else self.data_line.size
+        if num_experts % ep:
+            raise ExpertAxisError(f"{num_experts} experts do not split over "
+                                  f"an expert axis of {ep}")
+        if dispatch == "dropless" and ep > 1:
+            raise ExpertAxisError(
+                "dispatch='dropless' under an expert axis of size "
+                f"{ep}: the JAX package has no such path (its grouped "
+                "matmul cannot be partitioned); use 'gather' or 'einsum'")
         device = resolve_device(device)
         self.dim = dim
         self.num_experts = num_experts
@@ -163,25 +264,36 @@ class MoELayer(torch.nn.Module):
         self.capacity_factor = capacity_factor
         self.normalize_gates = normalize_gates
         self.dispatch = dispatch
-        e, d, h = num_experts, dim, self.hidden
+        self.local_experts = num_experts // ep
+        self.first_expert = (0 if ep == 1 else
+                             self.expert_line.index * self.local_experts)
+        e, el, d, h = num_experts, self.local_experts, dim, self.hidden
 
         def param(*shape):
             return torch.nn.Parameter(torch.empty(*shape, device=device))
 
         self.router = param(d, e)
-        self.w1, self.b1 = param(e, d, h), param(e, h)
-        self.w2, self.b2 = param(e, h, d), param(e, d)
+        self.w1, self.b1 = param(el, d, h), param(el, h)
+        self.w2, self.b2 = param(el, h, d), param(el, d)
         self.aux_loss = None
         self.routing = None
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
         # kaiming_uniform per expert: a stacked (E, in, out) weight gets the
-        # bound an (in, out) Linear would
+        # bound an (in, out) Linear would.  Under an expert axis the whole
+        # bank is drawn and this rank keeps its slice, so a seed gives every
+        # rank the unsplit layer's experts
         init_lib.kaiming_uniform(self.router, self.dim, generator=generator)
+        e0, el = self.first_expert, self.local_experts
         for w, fan_in in ((self.w1, self.dim), (self.w2, self.hidden)):
             bound = math.sqrt(6.0 / fan_in)
-            init_lib.uniform(w, -bound, bound, generator)
+            full = (w if el == self.num_experts else
+                    w.new_empty((self.num_experts,) + tuple(w.shape[1:])))
+            with torch.no_grad():
+                init_lib.uniform(full, -bound, bound, generator)
+                if full is not w:
+                    w.copy_(full[e0:e0 + el])
         with torch.no_grad():
             self.b1.zero_()
             self.b2.zero_()
@@ -197,6 +309,11 @@ class MoELayer(torch.nn.Module):
         if self.normalize_gates and k > 1:
             gate_vals = gate_vals / gate_vals.sum(
                 -1, keepdim=True).clamp_min(1e-9)
+        sharded = self.local_experts < e
+        if sharded:
+            # each rank's gate gradients are 0 on the other ranks' choices,
+            # so their sum is the unsplit layer's, bit for bit
+            gate_vals = _SumGradOverLine.apply(gate_vals, self.expert_line)
 
         # each (choice, token) row's arrival rank at its expert, choices in
         # priority order (all first choices, then all second ...): the
@@ -211,12 +328,48 @@ class MoELayer(torch.nn.Module):
         if self.dispatch == "dropless":
             y = self._forward_dropless(xt, gate_vals, gate_idx, rank, counts)
         else:
-            y = self._forward_capacity(xt, gate_vals, gate_idx, rank, counts)
+            y = self._forward_capacity(
+                _SumGradOverLine.apply(xt, self.expert_line) if sharded
+                else xt,
+                gate_vals, gate_idx, rank, oh, counts)
+            if sharded:
+                y = _SumOverLine.apply(y, self.expert_line)
 
-        # Switch load-balance loss on first-choice assignments
+        # Switch load-balance loss on first-choice assignments; over a data
+        # axis the global shares, with this shard's probabilities carrying
+        # the gradient (the step averages it over the data line)
         frac = _one_hot(gate_idx[:, 0], e).to(xt.dtype).mean(0)
-        self.aux_loss = e * (frac * probs.mean(0)).sum()
+        p_mean = probs.mean(0)
+        if self._dp > 1:
+            both = _ops.psum(torch.stack([frac, p_mean.detach()]),
+                             self.data_line) / self._dp
+            frac = both[0]
+            p_mean = p_mean + (both[1] - p_mean).detach()
+        self.aux_loss = e * (frac * p_mean).sum()
         return y.reshape(*lead, d)
+
+    def _global_ranks(self, rank, gate_idx, oh, counts):
+        """Each (choice, token)'s arrival rank over the global batch and the
+        global choices an expert: this shard's ranks shifted by the choices
+        that come before them in the global choice-major order (earlier
+        choices of every shard, then the same choice of earlier shards),
+        from every shard's (k, E) counts gathered over the data line."""
+        if self._dp == 1:
+            return rank, counts
+        e, k = self.num_experts, self.top_k
+        n = gate_idx.shape[0]
+        mine = oh.reshape(e, k, n).sum(-1, dtype=torch.int32).T  # (k, E)
+        every = _ops.all_gather(mine.contiguous(),
+                                self.data_line)                  # (dp, k, E)
+        total = every.sum(0, dtype=torch.int32)
+
+        def before(t):  # exclusive cumsum over the choices
+            return torch.cumsum(t, 0, dtype=torch.int32) - t
+
+        shift = (before(total) - before(mine)
+                 + every[:self.data_line.index].sum(0, dtype=torch.int32))
+        return (rank + shift.gather(1, gate_idx.T),
+                total.sum(0, dtype=torch.int32))
 
     def _capacity(self, n_tokens: int) -> int:
         c = math.ceil(self.top_k * n_tokens / self.num_experts
@@ -226,50 +379,61 @@ class MoELayer(torch.nn.Module):
         return max(1, min(c, n_tokens))
 
     def _experts(self, xs):
-        """The expert FFNs over the padded rows ``xs`` (E, C, d)."""
+        """This rank's expert FFNs over the padded rows ``xs`` (E, C, d)."""
         hdn = _F.gelu(torch.bmm(xs, self.w1) + self.b1[:, None, :],
                       approximate="tanh")
         return torch.bmm(hdn, self.w2) + self.b2[:, None, :]
 
-    def _forward_capacity(self, xt, gate_vals, gate_idx, rank, counts):
+    def _forward_capacity(self, xt, gate_vals, gate_idx, pos, oh, counts):
+        """``pos``: each (choice, token)'s rank among this shard's choices
+        of its expert, which is its row in this rank's slots: the global
+        rank only grows along the shard's own order, so the rows the
+        capacity keeps are a prefix of them."""
         e, k = self.num_experts, self.top_k
+        el, e0 = self.local_experts, self.first_expert
         n, d = xt.shape
-        c = self._capacity(n)
-        keep = (rank < c).to(xt.dtype)                           # (k, N)
-        w = keep * gate_vals.T
+        rank, counts = self._global_ranks(pos, gate_idx, oh, counts)
+        c = self._capacity(self._dp * n)
+        cl = min(c, n)                   # this shard's slots an expert
+        keep = rank < c                                          # (k, N)
+        w = keep.to(xt.dtype) * gate_vals.T
         self.routing = {"gate_idx": gate_idx.detach(), "counts": counts,
                         "capacity": c,
-                        "dropped": (rank >= c).sum()}
+                        "dropped": (counts - c).clamp_min(0).sum()}
+        local = gate_idx.T - e0                # this rank's expert index
         if self.dispatch == "gather":
-            # forward map (choice, token) → flat slot e·C + rank, dropped
-            # choices at the zero row E·C; the inverse by one int scatter
-            # into E·C + 1 entries, the last of which is then emptied
+            # forward map (choice, token) → flat slot e·C + pos, dropped
+            # choices (and other ranks' experts) at the zero row E·C; the
+            # inverse by one int scatter into E·C + 1 entries, the last of
+            # which is then emptied
             kn = k * n
-            slot = torch.where(rank < c, gate_idx.T * c + rank,
-                               e * c)                            # (k, N)
+            if el < e:
+                keep = keep & (local >= 0) & (local < el)
+            slot = torch.where(keep, local * cl + pos, el * cl)  # (k, N)
             choice_for_slot = torch.full(
-                (e * c + 1,), kn, device=xt.device).scatter_(
+                (el * cl + 1,), kn, device=xt.device).scatter_(
                 0, slot.reshape(-1), torch.arange(kn, device=xt.device))
             choice_for_slot[-1] = kn
             token_for_slot = torch.where(choice_for_slot == kn, n,
                                          choice_for_slot % n)
             xs = _DispatchRows.apply(xt, token_for_slot, slot)   # (EC+1, d)
-            out = self._experts(xs[:-1].reshape(e, c, d))
-            out = torch.cat([out.reshape(e * c, d), out.new_zeros(1, d)])
+            out = self._experts(xs[:-1].reshape(el, cl, d))
+            out = torch.cat([out.reshape(el * cl, d), out.new_zeros(1, d)])
             return _CombineRows.apply(out, w, choice_for_slot, slot)
         # einsum: the (N, E, C) one-hot tensors, built per choice and summed
         # over k as two products (a three-operand einsum could hold the
-        # (k, N, E, C) product); each (n, e, c) has at most one term
-        oh = (gate_idx.T[..., None] == torch.arange(
-            e, device=xt.device)).to(xt.dtype)                   # (k, N, E)
-        slot_oh = _one_hot(rank, c).to(xt.dtype)                 # (k, N, C)
-        dispatch_t = torch.einsum("kne,knc->nec", oh,
-                                  slot_oh * keep[..., None])
-        combine_t = torch.einsum("kne,knc->nec", oh,
+        # (k, N, E, C) product); each (n, e, c) has at most one term, and
+        # other ranks' experts none
+        onehot = (local[..., None] == torch.arange(
+            el, device=xt.device)).to(xt.dtype)                  # (k, N, E)
+        slot_oh = _one_hot(pos, cl).to(xt.dtype)                 # (k, N, C)
+        dispatch_t = torch.einsum("kne,knc->nec", onehot,
+                                  slot_oh * keep.to(xt.dtype)[..., None])
+        combine_t = torch.einsum("kne,knc->nec", onehot,
                                  slot_oh * w[..., None])
-        xs = dispatch_t.reshape(n, e * c).T @ xt                 # (E·C, d)
-        out = self._experts(xs.reshape(e, c, d))
-        return combine_t.reshape(n, e * c) @ out.reshape(e * c, d)
+        xs = dispatch_t.reshape(n, el * cl).T @ xt               # (E·C, d)
+        out = self._experts(xs.reshape(el, cl, d))
+        return combine_t.reshape(n, el * cl) @ out.reshape(el * cl, d)
 
     def _forward_dropless(self, xt, gate_vals, gate_idx, rank, counts):
         e, k = self.num_experts, self.top_k

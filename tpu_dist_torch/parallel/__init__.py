@@ -2,11 +2,13 @@
 
 from .ddp import (DistributedDataParallel, Placement, TrainState,
                   convert_sync_batchnorm)
+from .gspmd import (MOE_EP_RULES, TRANSFORMER_TP_RULES, PartitionRules,
+                    make_gspmd_train_step, shard_pytree)
 from .ring_attention import ring_self_attention, ulysses_self_attention
 from .rules import (DEFAULT_RULES, SERVING_RULES, TRANSFORMER_LAYOUTS,
                     LeafLayout, ShardLayoutError, chunk_bounds, chunk_span,
-                    layout_for, mapped_axes, model_axes, shard_leaf,
-                    spans_for)
+                    layout_for, mapped_axes, model_axes, partition_pairs,
+                    shard_leaf, spans_for, spec_for, spec_for_key)
 from .zero import ZeroOptimizer, ZeroParams, ZeroStateError
 
 __all__ = ["DistributedDataParallel", "TrainState", "Placement",
@@ -15,4 +17,7 @@ __all__ = ["DistributedDataParallel", "TrainState", "Placement",
            "ZeroStateError", "DEFAULT_RULES", "SERVING_RULES",
            "TRANSFORMER_LAYOUTS", "LeafLayout", "ShardLayoutError",
            "chunk_bounds", "chunk_span", "layout_for", "mapped_axes",
-           "model_axes", "shard_leaf", "spans_for"]
+           "model_axes", "shard_leaf", "spans_for", "spec_for",
+           "spec_for_key", "partition_pairs", "PartitionRules",
+           "shard_pytree", "make_gspmd_train_step", "TRANSFORMER_TP_RULES",
+           "MOE_EP_RULES"]

@@ -7,6 +7,11 @@ half of ``tpu_dist/parallel/rules.py``.
 - a **layout table** (:data:`TRANSFORMER_LAYOUTS`) maps parameter paths to
   the logical factorization of each tensor dim (a fused qkv weight's
   columns are ``(qkv3, heads, head_dim)``);
+- :func:`spec_for` / :func:`spec_for_key` / :func:`partition_pairs` bind
+  them into partition specs, the port's plain stand-in for a JAX
+  ``PartitionSpec``: a tuple with one mesh-axis name or ``None`` per
+  leading dim, ``()`` for a replicated leaf (``parallel/gspmd.py``'s
+  :class:`~tpu_dist_torch.parallel.gspmd.PartitionRules` takes the pairs);
 - :func:`spans_for` binds the two into contiguous flat element spans of one
   rank's slice, which :func:`shard_leaf` materializes and
   ``serve/sharded.py`` range-reads out of checkpoints;
@@ -19,9 +24,8 @@ The layouts are the JAX package's: a Linear weight is (in, out), the fused
 ``qkv_weight`` (d, 3d), ``out_weight`` (d, d).  Spans and shards here are
 therefore byte for byte the JAX package's; a port module takes a shard
 through :func:`tpu_dist_torch.interop.load_jax_params`, which transposes
-into torch's (out, in).  The ``PartitionSpec`` half of the JAX module
-(``spec_for``, ``spec_for_key``, ``partition_pairs``) has no counterpart
-here.
+into torch's (out, in).  The specs are the JAX package's entry for entry:
+``tuple(P)`` of its ``PartitionSpec``, trailing ``None``s included.
 """
 
 from __future__ import annotations
@@ -36,8 +40,9 @@ from ..collectives.ring import _bounds as chunk_bounds
 
 __all__ = ["DEFAULT_RULES", "SERVING_RULES", "LeafLayout",
            "TRANSFORMER_LAYOUTS", "ShardLayoutError", "layout_for",
-           "spans_for", "shard_leaf", "chunk_bounds", "chunk_span",
-           "model_axes", "mapped_axes"]
+           "spec_for", "spec_for_key", "partition_pairs", "spans_for",
+           "shard_leaf", "chunk_bounds", "chunk_span", "model_axes",
+           "mapped_axes"]
 
 
 class ShardLayoutError(ValueError):
@@ -142,6 +147,68 @@ def mapped_axes(rules: Dict[str, Optional[str]], mesh_axis: str
                 ) -> Tuple[str, ...]:
     """Logical axes the rule table binds to ``mesh_axis``."""
     return tuple(a for a, m in rules.items() if m == mesh_axis)
+
+
+# ---------------------------------------------------------------------------
+# partition specs
+# ---------------------------------------------------------------------------
+
+def _dim_mesh_axis(factors: Tuple[str, ...],
+                   rules: Dict[str, Optional[str]]) -> Optional[str]:
+    mapped = [rules.get(f) for f in factors if rules.get(f) is not None]
+    if len(set(mapped)) > 1:
+        raise ShardLayoutError(
+            f"dim factored as {factors} maps to multiple mesh axes "
+            f"{sorted(set(mapped))} — a tensor dim shards along at most one")
+    return mapped[0] if mapped else None
+
+
+def _spec(lay: Optional[LeafLayout], rules: Dict[str, Optional[str]]
+          ) -> tuple:
+    if lay is None:
+        return ()
+    entries = tuple(_dim_mesh_axis(f, rules) for f in lay.dims)
+    return entries if any(e is not None for e in entries) else ()
+
+
+def spec_for(path: str, name: str, rules: Dict[str, Optional[str]] = None,
+             table: Sequence[Tuple[str, str, LeafLayout]] = None) -> tuple:
+    """The partition spec of one parameter under a rule binding: one mesh
+    axis or ``None`` per factored dim, ``()`` when no dim is sharded (the
+    spec an unmatched leaf gets from ``PartitionRules``)."""
+    return _spec(layout_for(path, name, table),
+                 DEFAULT_RULES if rules is None else rules)
+
+
+_KEY_RE = re.compile(r"^\['([^']+)'\]\['([^']+)'\]$")
+
+
+def spec_for_key(keystr: str, rules: Dict[str, Optional[str]] = None,
+                 table: Sequence[Tuple[str, str, LeafLayout]] = None
+                 ) -> tuple:
+    """:func:`spec_for` addressed by a JAX ``keystr`` path like
+    ``['block0.attn']['qkv_weight']`` (the form the rule regexes match);
+    ``()`` for any other string."""
+    m = _KEY_RE.match(keystr)
+    if m is None:
+        return ()
+    return spec_for(m.group(1), m.group(2), rules, table)
+
+
+def partition_pairs(rules: Dict[str, Optional[str]] = None,
+                    table: Sequence[Tuple[str, str, LeafLayout]] = None
+                    ) -> List[Tuple[str, tuple]]:
+    """``(keystr regex, spec)`` pairs for :class:`~tpu_dist_torch.parallel.
+    gspmd.PartitionRules`, derived from the layout and rule tables.  Rows
+    that come out fully replicated are dropped (the rules answer ``()`` for
+    an unmatched leaf)."""
+    rules = DEFAULT_RULES if rules is None else rules
+    pairs = []
+    for ppat, npat, lay in (TRANSFORMER_LAYOUTS if table is None else table):
+        spec = _spec(lay, rules)
+        if spec:
+            pairs.append((r"\['" + ppat + r"'\]\['" + npat + r"'\]", spec))
+    return pairs
 
 
 # ---------------------------------------------------------------------------

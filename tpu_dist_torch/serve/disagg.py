@@ -494,6 +494,23 @@ class PrefillWorker:
                          f"{self.max_len}")
 
     @torch.inference_mode()
+    def warm(self) -> float:
+        """Run the forward and the sampling once on a throwaway prompt of
+        the smallest bucket, sending, caching and counting nothing; returns
+        its seconds.  A process's first forward on the card pays one-time
+        costs (the BLAS handle, lazy kernel loading, the allocator's first
+        growth) that can by themselves pass a short ``TPU_DIST_KV_TIMEOUT``;
+        call this before the rank announces itself, so that no request's
+        transfer deadline pays them."""
+        t0 = time.perf_counter()
+        padded = np.zeros(self._bucket_for(1, self.max_len), np.int64)
+        logits, _ = self.model.prefill_rows(padded, 1, self.max_len,
+                                            dtype=self.dtype)
+        sample_host(logits[None], np.zeros(1, np.float32),
+                    random.key(0).numpy()[None], np.zeros(1, np.int64))
+        return time.perf_counter() - t0
+
+    @torch.inference_mode()
     def serve_one(self, desc: dict) -> None:
         """Prefill one descriptor and ship the result (see class doc)."""
         t0 = time.perf_counter_ns()
