@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``tpu_dist_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--only PHASE,...] [--ep-world 4]
+    python3 chip_smoke.py [--only PHASE,...] [--ep-world 4] [--tp-world 4]
 
 Phases, each printed as one JSON line:
 
@@ -308,8 +308,10 @@ Phases, each printed as one JSON line:
    share an NCCL communicator), after a probe that gloo takes each
    collective the layer and the step use on CUDA tensors (``--ep-world
    4``: at ``data 2 × expert 2``, four ranks on four cards over NCCL).
-   Float32 losses and updates within ``COMPOSITION_TOL`` of world 1's,
-   step 1's dropped choices per layer equal, each rank holding 4 of the 8
+   Losses and updates within ``COMPOSITION_TOL`` of world 1's (on four
+   cards: float32 within ``EP_F32_TOL``, bf16 updates by
+   ``SPLIT_BF16_TOL``, ROADMAP C13), step 1's dropped choices per layer
+   equal, each rank holding 4 of the 8
    experts (half the banks' bytes), the replicated leaves bit for bit
    across the ranks, and
    per rank and step K1f/K1b 1 and K2f/K2b 12 launches (wgmma), K3/K4
@@ -318,7 +320,27 @@ Phases, each printed as one JSON line:
    ``ep_train_cli``: ``train_lm --parallel ep`` at world 1 at its defaults
    on the card: finite losses, the last below half the first, the second
    differing from the first (the JAX dry run's check).
-20. ``kernels``: one line over all kernels; the card's name and power limit
+20. ``tp_train``: tensor parallelism and FSDP at full width — the dense
+   GPT-2-small cell (batch 8, T 2048, SGD) through the library's GSPMD
+   step (``benchmarks.transformer_lm.tp_steps``), 3 steps at world 1 in
+   this process in float32 and bf16, then on two rank processes on this
+   card over gloo at ``data 1 × model 2`` (both dtypes) and FSDP at
+   ``data 2`` (bf16) (``--tp-world 4``: four cards over NCCL at ``data 2 ×
+   model 2`` and ``data 1 × fsdp 2 × model 2``, both dtypes).  Float32
+   losses and updates within ``TP_F32_TOL``, bf16 by ``SPLIT_BF16_TOL``
+   (the ranks' bf16 updates no further from world 1's float32 updates
+   than 1.25× world 1's own bf16 ones: ROADMAP C13); every leaf held as
+   the rules split it; K1f/K1b 1 and K2f/K2b 12 launches a rank a step
+   (K1 on the vocab slice, K2 on the local heads), K3/K4 none; greedy
+   ``generate`` under the tp placement equal to world 1's (the serve
+   phases' tie rule, ``SERVE_TIE_GAP``); step ms, tokens/s a rank, the model and fsdp lines' collectives
+   (one more step counted and timed) and peak memory a rank, beside world
+   1's and the ``slice`` phase's DDP step.  ``tp_train_host``: the host
+   route (``TPTrainer`` at dp 1 × tp 2 over socket data planes, full
+   width, depth 2, batch 2 × 1024) bit for bit ``SerialTPRunner``, two
+   steps.  ``tp_train_cli``: ``train_lm --parallel tp`` at world 1 at its
+   defaults: the loss falls.
+21. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
@@ -331,8 +353,8 @@ named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``serve_rope``, ``zero_ddp``, ``zero_opt``, ``elastic``, ``host_ring``,
 ``host_zero``, ``quant_gate``, ``obs``, ``sanitize``, ``roles``,
 ``cluster_failover``, ``cluster_elastic``, ``netchaos``,
-``serve_sharded``, ``serve_disagg``, ``ep_train``) and never prints the
-result line.
+``serve_sharded``, ``serve_disagg``, ``ep_train``, ``tp_train``) and
+never prints the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -845,6 +867,8 @@ def check_slice(results):
     ok_loss = all(math.isfinite(x) for x in res["losses"])
     for name in per_step:
         results.setdefault(name, {})["launches"] = counts[name]
+    results["_slice"] = {"step_ms": res["step_ms"],
+                         "peak_mem_bytes": res["peak_mem_bytes"]}
     emit("slice", tokens_per_s_per_gpu=res["value"], step_ms=res["step_ms"],
          peak_mem_bytes=res["peak_mem_bytes"], n_params=res["n_params"],
          achieved_model_tflops=res["achieved_model_tflops"],
@@ -865,6 +889,36 @@ COMPOSITION_TOL = {
            "0.125, a LayerNorm gain, whose gradient is a sum over all 16384 "
            "tokens that mostly cancels); the run is seeded and its kernels "
            "deterministic"}
+
+
+# ROADMAP C13: a change of split (data, expert or model ranks) rounds every
+# bf16 gradient otherwise, so a split's bf16 step is held to world 1's
+# float32 step relative to world 1's own bf16 step
+SPLIT_BF16_TOL = {
+    "k": 1.25, "loss_rtol": COMPOSITION_TOL["loss_rtol"],
+    "why": "the ranks' bf16 updates may lie no further from world 1's "
+           "float32 updates than k times world 1's own bf16 updates do: "
+           "the measured ratio was 1.005 (0.2359 against 0.2346) at data 2 "
+           "x expert 2 on four H100s at 700 W (ep_train --ep-world 4), "
+           "and k = 1.25 leaves room for another split's rounding while a "
+           "wrong "
+           "gradient (a missed sum or a double count: an update off by "
+           "50% or more in some leaf) lands far outside; losses as "
+           "COMPOSITION_TOL"}
+
+
+def split_bf16_check(upd_w1_f32, upd_w1_bf16, upd_ranks_bf16) -> tuple:
+    """The C13 rule: ``(ok, fields)`` with the ranks' and world 1's bf16
+    update distances from world 1's float32 updates (each a ``{name:
+    tensor}`` of the same leaves, on the host)."""
+    zero = dict.fromkeys(upd_w1_f32, 0.0)
+    w1_rel, _, w1_groups = _update_diff(zero, upd_w1_bf16, upd_w1_f32)
+    n_rel, _, n_groups = _update_diff(zero, upd_ranks_bf16, upd_w1_f32)
+    ratio = n_rel / w1_rel if w1_rel else math.inf
+    return ratio <= SPLIT_BF16_TOL["k"], dict(
+        world1_bf16_from_f32=w1_rel, ranks_bf16_from_f32=n_rel,
+        ratio=ratio, world1_worst_by_group=w1_groups,
+        ranks_worst_by_group=n_groups)
 
 
 def step_vs_plain(**build_kw):
@@ -1391,6 +1445,8 @@ def _update_diff(p0, upd_k, params_p):
     for gname, frags in groups.items():
         members = {k: v for k, v in leaf.items()
                    if any(f in k for f in frags)}
+        if not members:
+            continue
         wk = max(members, key=members.get)
         group_worst[gname] = [wk, members[wk]]
     return rel, leaf, group_worst
@@ -4632,11 +4688,11 @@ HOST_LAYOUT = ("h0", "h0", "h1", "h1")      # 2 hosts x 2 ranks, per rank
 HOST_INT8_BOUND = 0.05
 HOST_RESHARD_TO = 3
 HOST_ZERO_STEPS = 2      # ZeroOptimizer steps of the host_zero phase
-# host_ring and netchaos (obs with the head's weight) reduce the gradients
-# of blocks 0..HOST_RING_BLOCKS-1 and every leaf outside the blocks but the
-# two 100 MB vocabulary tables (host_sync.ring_subset): 120 MB a rank of
-# the 548, every kind of leaf (matrices, biases, norms, the odd 32768-long
-# head bias), so their ring runs fit the script's time
+# host_ring, host_zero and netchaos (obs with the head's weight) reduce the
+# gradients of blocks 0..HOST_RING_BLOCKS-1 and every leaf outside the
+# blocks but the two 100 MB vocabulary tables (host_sync.ring_subset): 120
+# MB a rank of the 548, every kind of leaf (matrices, biases, norms, the odd
+# 32768-long head bias), so their ring runs fit the script's time
 HOST_RING_BLOCKS = 4
 HOST_RING_SKIP = ("tok.weight", "head.weight")
 
@@ -4879,7 +4935,8 @@ def _owned_shards_equal(z, zs, params) -> bool:
 def check_host_zero(results):
     """``ZeroOptimizer(dp=, comm_dtype="int8_block256", error_feedback=True)``
     over AdamW on four thread ranks, :data:`HOST_ZERO_STEPS` steps of the
-    dense cell's gradients: parameters byte-identical across ranks, ``zstate["ef"]``
+    dense cell's gradients (their ``ring_subset``, as ``host_ring``'s):
+    parameters byte-identical across ranks, ``zstate["ef"]``
     shard-shaped on the host, the exact gather equal to the master shards;
     then a sharded save with the residuals (ranks 2 and 3 share a root, the
     others each their own) and a reshard 4 -> 3 in which every fragment a
@@ -4891,12 +4948,14 @@ def check_host_zero(results):
     import numpy as np
 
     from tpu_dist_torch import checkpoint, optim
+    from tpu_dist_torch.benchmarks.host_sync import ring_subset
     from tpu_dist_torch.dist.store import TCPStore
     from tpu_dist_torch.parallel import ZeroOptimizer
     from tpu_dist_torch.resilience import reshard
 
     _, state, grads, counts, _, ok_launch = _dense_rank_grads(HOST_WORLD)
-    params0 = state.params
+    grads = [ring_subset(g, HOST_RING_BLOCKS, HOST_RING_SKIP) for g in grads]
+    params0 = {k: state.params[k] for k in grads[0]}
     store = TCPStore(is_master=True, timeout=120)
     _host_env(False)
     out = tempfile.mkdtemp(prefix="host_zero_", dir=os.environ.get("TMPDIR"))
@@ -5504,7 +5563,7 @@ CLUSTER_KNOBS = {"TPU_DIST_CLUSTER_LEASE_INTERVAL": "0.2",
 CLUSTER_TIMEOUT = 300        # seconds a launched cluster run may take
 # the failover run: the launched path's twin at full width, enough steps
 # that well over 5 s of training follow a kill after the first step
-FAILOVER_STEPS = 120
+FAILOVER_STEPS = 80
 FAILOVER_ARGV = LAUNCH_ARGV[:-4] + ["--steps", str(FAILOVER_STEPS),
                                     "--log-every", "1"]
 FAILOVER_AFTER_KILL_S = 5.0
@@ -6437,9 +6496,11 @@ def check_serve_disagg(results):
 EP_WORLDS = {2: ((1, 2), "gloo"), 4: ((2, 2), "nccl")}
 EP_WORLD = [2]               # set by --ep-world
 # the compute dtypes each world's ranks are held to world 1 in: bf16, the
-# configuration's, and on four cards also float32, where a rank's smaller
-# matmuls round alike and no near-tie of the router flips an expert choice
-EP_DTYPES = {2: ("bfloat16",), 4: ("bfloat16", "float32")}
+# configuration's, and on four cards also float32 (first: the bf16 split is
+# held to its updates by SPLIT_BF16_TOL, ROADMAP C13), where a rank's
+# smaller matmuls round alike and no near-tie of the router flips an expert
+# choice
+EP_DTYPES = {2: ("bfloat16",), 4: ("float32", "bfloat16")}
 EP_F32_TOL = {
     "loss_rtol": 1e-5, "update_rel": 1e-3, "attn_leaf_update_rel": 1e-3,
     "leaf_update_rel": 1e-2,
@@ -6608,12 +6669,15 @@ def _ep_ranks(out: str, world: int, dtype: str) -> tuple:
     return [p.returncode for p in procs], time.perf_counter() - t0, errs
 
 
-def _ep_compare(world: int, dtype: str) -> tuple:
+def _ep_compare(world: int, dtype: str, f32_updates=None) -> tuple:
     """The ``ep_train`` comparison in ``dtype``: 3 steps at world 1 in
     this process, then the same steps on the ranks of ``world``, held to
-    ``COMPOSITION_TOL`` (bfloat16) or ``EP_F32_TOL`` (float32); emits one
-    line (``ep_train``, or ``ep_train_float32``).  Returns ``(ok, world
-    1's updates, the ranks' updates or None)``, on the host."""
+    ``COMPOSITION_TOL`` (bfloat16) or ``EP_F32_TOL`` (float32); given world
+    1's float32 updates (``f32_updates``), the bfloat16 updates are held to
+    them by ``SPLIT_BF16_TOL`` in place of ``COMPOSITION_TOL`` (ROADMAP
+    C13).  Emits one line (``ep_train``, or ``ep_train_float32``).  Returns
+    ``(ok, world 1's updates, the ranks' updates or None)``, on the
+    host."""
     import gc
     import tempfile
 
@@ -6663,15 +6727,19 @@ def _ep_compare(world: int, dtype: str) -> tuple:
         tol = COMPOSITION_TOL if dtype == "bfloat16" else EP_F32_TOL
         loss_err = max(abs(a - b) / abs(b) for r in ranks
                        for a, b in zip(r["losses"], w1["losses"]))
+        updates_ok = (rel <= tol["update_rel"]
+                      and attn[worst_attn] <= tol["attn_leaf_update_rel"]
+                      and leaf[worst] <= tol["leaf_update_rel"])
+        if dtype == "bfloat16" and f32_updates is not None:
+            updates_ok, fields["split_bf16"] = split_bf16_check(
+                f32_updates, upd1, upd2)
         per_rank_counts = [{n: r["launches"][n] for n in EP_PER_STEP}
                            for r in ranks]
         checks.update(
             collectives_on_cuda=all(v is True for r in ranks
                                     for v in r["probe"].values()),
             losses=loss_err <= tol["loss_rtol"],
-            updates=(rel <= tol["update_rel"]
-                     and attn[worst_attn] <= tol["attn_leaf_update_rel"]
-                     and leaf[worst] <= tol["leaf_update_rel"]),
+            updates=updates_ok,
             second_loss_moved=all(r["losses"][1] != r["losses"][0]
                                   for r in ranks),
             dropped_step1_equal=all(r["dropped_step1"] == w1["dropped_step1"]
@@ -6691,7 +6759,7 @@ def _ep_compare(world: int, dtype: str) -> tuple:
         tokens = 8 * 2048
         p50_n = [statistics.median(r["step_ms"][1:]) for r in ranks]
         p50_1 = statistics.median(w1["step_ms"][1:])
-        fields = dict(
+        fields.update(
             losses_ranks=[r["losses"] for r in ranks],
             losses_world1=w1["losses"], loss_rel_err=loss_err,
             update_rel_err=rel, worst_leaf=[worst, leaf[worst]],
@@ -6725,6 +6793,8 @@ def _ep_compare(world: int, dtype: str) -> tuple:
          steps=EP_STEPS, backend=backend, ranks_seconds=ranks_s,
          ranks_rc=rcs,
          tolerance=COMPOSITION_TOL if dtype == "bfloat16" else EP_F32_TOL,
+         split_tolerance=SPLIT_BF16_TOL if dtype == "bfloat16"
+         and f32_updates is not None else None,
          **fields, checks=checks,
          rank_stderr_tails=None if all(checks.values()) else errs)
     return all(checks.values()), upd1, upd2
@@ -6753,7 +6823,8 @@ def check_ep_train(results):
                            f"machine has {torch.cuda.device_count()}")
     ok, upd = True, {}
     for dtype in EP_DTYPES[world]:
-        ok_d, *upd[dtype] = _ep_compare(world, dtype)
+        ok_d, *upd[dtype] = _ep_compare(
+            world, dtype, upd["float32"][0] if "float32" in upd else None)
         ok = ok_d and ok
     if "float32" in upd and upd["bfloat16"][1] is not None:
         # how far the bf16 step lies from the float32 one, unsplit and on
@@ -6778,6 +6849,535 @@ def check_ep_train(results):
            "falls": losses[-1] < 0.5 * losses[0],
            "second_loss_moved": losses[1] != losses[0]}
     emit("ep_train_cli", steps=len(losses), first_loss=losses[0],
+         last_loss=losses[-1], loss_every_20=losses[::20],
+         seconds=cli_s, first_step_seconds=r["first_step_seconds"],
+         loop_seconds=r["loop_seconds"], checks=cli)
+    return ok and all(cli.values())
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism and FSDP
+# ---------------------------------------------------------------------------
+
+# world: ({case: (mesh axes, mesh shape)}, backend): two rank processes on
+# one card over gloo, or four on four cards over NCCL (--tp-world 4)
+TP_WORLDS = {2: ({"tp": (("data", "model"), (1, 2)),
+                  "fsdp": (("data",), (2,))}, "gloo"),
+             4: ({"tp": (("data", "model"), (2, 2)),
+                  "fsdp": (("data", "fsdp", "model"), (1, 2, 2))}, "nccl")}
+TP_WORLD = [2]               # set by --tp-world
+# each case's compute dtypes on the ranks: on one card bf16, the
+# configuration's, held by SPLIT_BF16_TOL to world 1's float32 and bf16
+# steps (both run in this process); on four cards float32 too, held by
+# TP_F32_TOL (a float32 step over gloo on one H100 takes about 3.2 s)
+TP_DTYPES = {2: {"tp": ("bfloat16",), "fsdp": ("bfloat16",)},
+             4: {"tp": ("float32", "bfloat16"),
+                 "fsdp": ("float32", "bfloat16")}}
+TP_F32_TOL = dict(EP_F32_TOL, why=(
+    "float32 compute with TF32 off on both paths: a split sums the "
+    "row-parallel partials and the vocab slices' lse in another order, "
+    "and a rank's matmuls over half the heads or columns may differ from "
+    "world 1's in the last bits (float32 epsilon 1.2e-7); a LayerNorm "
+    "gain's gradient cancels over 16384 tokens (EP_F32_TOL's limits)"))
+TP_STEPS = 3
+TP_TIMEOUT = 600
+TP_PER_STEP = EP_PER_STEP
+TP_FSDP_MIN = 2 ** 12
+# greedy generate under the tp placement: two prompts of 16 tokens, 16 new
+TP_GEN = {"prompts": 2, "prompt_len": 16, "max_new_tokens": 16}
+# the host route: TPTrainer over the socket plane at full width, depth 2,
+# batch 2 x 1024, two steps against SerialTPRunner
+TP_HOST = {"vocab": 32768, "dim": 768, "heads": 12, "depth": 2, "batch": 2,
+           "seq_len": 1024, "steps": 2}
+
+# a rank of the tp_train phase (env:// under a control-plane store this
+# process hosts): each case of the world (tp, then fsdp) in each of its
+# dtypes through benchmarks.transformer_lm.tp_steps (the library's GSPMD
+# step), the launch counts zeroed just before, the mesh collectives of its
+# steps counted (ops.all_reduce on the model line, the fsdp gathers and
+# reduce-scatters: calls and bytes); then the updates gathered whole
+# (interop.jax_params, every rank).  argv: OUT, [CASES, STEPS, BACKEND,
+# PROMPTS, MAX_NEW, FSDP_MIN, DIMS]; each case [name, axes, mesh, dtype];
+# the first case generates from PROMPTS.
+# Writes OUT/{case}_{dtype}_r{rank}.json, and rank 0 the whole updates
+# OUT/{case}_{dtype}_upd.pt.
+TP_WORKER = """
+import contextlib, json, os, sys
+import numpy as np
+import torch
+from tpu_dist_torch import dist, interop
+from tpu_dist_torch.benchmarks.transformer_lm import tp_steps
+from tpu_dist_torch.collectives import ops
+from tpu_dist_torch.ops import KERNELS
+from tpu_dist_torch.parallel import fsdp
+
+out = sys.argv[1]
+cases, steps, backend, prompts, max_new, fsdp_min, dims = json.loads(
+    sys.argv[2])
+device = "cpu" if backend == "gloo" and dims else "cuda"
+for name, axes, mesh, compute in cases:
+    pg = dist.init_process_group(
+        backend=backend, init_method="env://", device=device,
+        axis_names=axes, mesh_shape=mesh)
+    rank = pg.rank
+    for k in KERNELS:
+        k.launches = 0
+        for by in ("launches_by_design", "launches_by_mode"):
+            if hasattr(k, by):
+                getattr(k, by).update(dict.fromkeys(getattr(k, by), 0))
+    seen = {"model": [0, 0], "fsdp": [0, 0]}
+
+    def counted(fn, kind):
+        def wrapped(x, *a, **k):
+            seen[kind][0] += 1
+            seen[kind][1] += x.numel() * x.element_size()
+            return fn(x, *a, **k)
+        return wrapped
+
+    @contextlib.contextmanager
+    def counting():
+        saved = (ops.all_reduce, fsdp.gather_dim, fsdp.reduce_scatter_dim)
+        ops.all_reduce = counted(ops.all_reduce, "model")
+        fsdp.gather_dim = counted(fsdp.gather_dim, "fsdp")
+        fsdp.reduce_scatter_dim = counted(fsdp.reduce_scatter_dim, "fsdp")
+        try:
+            yield
+        finally:
+            ops.all_reduce, fsdp.gather_dim, fsdp.reduce_scatter_dim = saved
+
+    res = tp_steps(steps=steps, compute_dtype=getattr(torch, compute),
+                   fsdp_min_size=fsdp_min,
+                   prompts=[np.array(p) for p in prompts]
+                   if [name, compute] == [cases[0][0], cases[0][3]] else [],
+                   device=device, max_new_tokens=max_new,
+                   around_steps=counting(), **dims)
+    counts = {k.__name__: k.launches for k in KERNELS}
+    by_design = {k.__name__: dict(k.launches_by_design)
+                 for k in KERNELS if hasattr(k, "launches_by_design")}
+    data = pg.axis_group("data")
+    model = res["model"]
+    # the elements each leaf should hold here: its model split, then the
+    # fsdp axis on every leaf of at least fsdp_min elements after it
+    fline = (pg.axis_group("fsdp") if "fsdp" in axes else data
+             if list(axes) == ["data"] and pg.size() > 1 else None)
+    want = {}
+    for k, n in res["full_elements"].items():
+        local = model.get_parameter(k).numel()
+        ways = (n // local) * (fline.size if fline is not None
+                               and local >= fsdp_min else 1)
+        want[k] = n // ways
+    whole = interop.jax_params(model, params=res["updates"])
+    if rank == 0:
+        torch.save({f"{p}.{l}": torch.from_numpy(a)
+                    for p, d in whole.items() for l, a in d.items()},
+                   os.path.join(out, f"{name}_{compute}_upd.pt"))
+    with open(os.path.join(out, f"{name}_{compute}_r{rank}.json"), "w") as f:
+        json.dump({"losses": res["losses"], "step_ms": res["step_ms"],
+                   "generated": res["generated"],
+                   "held_elements": sum(res["held_elements"].values()),
+                   "full_elements": sum(res["full_elements"].values()),
+                   "held_mismatch": sorted(
+                       k for k, n in res["held_elements"].items()
+                       if n != want[k]),
+                   "split_leaves": sum(res["held_elements"][k]
+                                       < res["full_elements"][k]
+                                       for k in want),
+                   "opt_state_elements": res["opt_state_elements"],
+                   "peak_mem_bytes": res["peak_mem_bytes"],
+                   "launches": counts, "launches_by_design": by_design,
+                   "collectives_a_step": {
+                       k: {"calls": c / steps, "bytes": n / steps}
+                       for k, (c, n) in seen.items()}}, f)
+    del res, model, whole
+    dist.destroy_process_group()
+"""
+
+
+def _tp_ranks(out: str, world: int, cases: list, prompts: list,
+              dims: dict = None) -> tuple:
+    """Start the tp_train ranks and wait for them: ``(return codes,
+    seconds, stderr tails)``; every process they started is stopped.  This
+    process hosts their control-plane store, as ``ep_train``'s does."""
+    import signal
+
+    from tpu_dist_torch.dist.store import TCPStore
+
+    backend = TP_WORLDS[world][1]
+    store = TCPStore(is_master=True, timeout=TP_TIMEOUT)
+    env = dict(os.environ, OMP_NUM_THREADS="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(store.port), WORLD_SIZE=str(world),
+               TPU_DIST_STORE_ADDR=f"127.0.0.1:{store.port}",
+               PYTHONPATH=_repo() + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TP_WORKER, out,
+         json.dumps([cases, TP_STEPS, backend, prompts,
+                     TP_GEN["max_new_tokens"], TP_FSDP_MIN, dims or {}])],
+        cwd=out, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+        for r in range(world)]
+    errs = []
+    try:
+        for p in procs:
+            try:
+                errs.append(p.communicate(timeout=TP_TIMEOUT)[1][-3000:])
+            except subprocess.TimeoutExpired:
+                errs.append("timed out")
+    finally:
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            p.wait(timeout=30)
+        store.close()
+    return [p.returncode for p in procs], time.perf_counter() - t0, errs
+
+
+def _tp_prompts() -> list:
+    import numpy as np
+
+    g = np.random.default_rng(2)
+    return [g.integers(0, 32768, TP_GEN["prompt_len"]).tolist()
+            for _ in range(TP_GEN["prompts"])]
+
+
+def _world1_tp(dtype: str, prompts=()) -> dict:
+    """``tp_steps`` at world 1 in this process: losses, step ms, peak
+    memory, launch counts, the generated tokens and the whole updates (on
+    the host, by name)."""
+    import gc
+
+    import numpy as np
+
+    from tpu_dist_torch.benchmarks.transformer_lm import tp_steps
+    from tpu_dist_torch.ops import KERNELS
+
+    zero_launch_counts()
+    res = tp_steps(steps=TP_STEPS, compute_dtype=getattr(torch, dtype),
+                   prompts=[np.array(p) for p in prompts],
+                   max_new_tokens=TP_GEN["max_new_tokens"])
+    out = {k: res[k] for k in ("losses", "step_ms", "peak_mem_bytes",
+                               "generated")}
+    out["launches"] = {k.__name__: k.launches for k in KERNELS}
+    out["updates"] = {k: v.float().cpu() for k, v in res["updates"].items()}
+    out["elements"] = sum(res["held_elements"].values())
+    del res
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _by_jax_name(model_updates: dict) -> dict:
+    """World 1's updates (port names, torch layouts) as the ranks report
+    them: ``interop.jax_params``'s tree flattened to ``path.leaf``."""
+    from tpu_dist_torch.interop import jax_params
+    from tpu_dist_torch.models import TransformerLM
+
+    model = TransformerLM(vocab_size=32768, dim=768, depth=12, num_heads=12,
+                          max_seq_len=2048, device="meta")
+    whole = jax_params(model, params=model_updates)
+    return {f"{p}.{k}": torch.from_numpy(a) for p, d in whole.items()
+            for k, a in d.items()}
+
+
+def _tp_host(device: str = "cuda") -> tuple:
+    """The host route at full width, depth 2, batch 2 x 1024: TPTrainer
+    (dp 1 x tp 2, two thread ranks over socket data planes) against
+    SerialTPRunner, two steps: ``(fields, ok)``."""
+    import threading
+
+    import numpy as np
+
+    from tpu_dist_torch import nn, optim
+    from tpu_dist_torch.collectives.topology import SubGroup
+    from tpu_dist_torch.collectives.transport import DataPlane
+    from tpu_dist_torch.dist.store import TCPStore
+    from tpu_dist_torch.models import TransformerLM
+    from tpu_dist_torch.parallel import SerialTPRunner, TPTrainer
+
+    tp, h = 2, TP_HOST
+
+    def model():
+        return TransformerLM(vocab_size=h["vocab"], dim=h["dim"],
+                             depth=h["depth"], num_heads=h["heads"],
+                             max_seq_len=h["seq_len"], device=device)
+
+    ce = nn.CrossEntropyLoss(fused=True)
+
+    def loss_fn(lg, y):
+        return ce(lg.reshape(-1, h["vocab"]), y.reshape(-1))
+
+    oracle = SerialTPRunner(model(), optim.SGD(lr=0.01), loss_fn, tp=tp)
+    store = TCPStore(is_master=True)
+    planes = [DataPlane(store, r, tp) for r in range(tp)]
+    trainers = [None] * tp
+    models = [model() for _ in range(tp)]
+    g = np.random.default_rng(3)
+    batches = [(g.integers(0, h["vocab"], (h["batch"], h["seq_len"])),
+                g.integers(0, h["vocab"], (h["batch"], h["seq_len"])))
+               for _ in range(h["steps"])]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    got, want, ms_plane, ms_serial = [], [], [], []
+    errs = []
+
+    def threads(fn):
+        ths = [threading.Thread(target=lambda r=r: _catch(fn, r, errs),
+                                daemon=True) for r in range(tp)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(300)
+        if errs:
+            raise errs[0]
+
+    try:
+        def build(r):
+            trainers[r] = TPTrainer(
+                models[r], optim.SGD(lr=0.01), loss_fn, dp=planes[r], tp=tp,
+                tp_group=SubGroup((0, 1), r, tp, instance=0),
+                dp_group=SubGroup((r,), r, tp, instance=0))
+
+        threads(build)
+        for x, y in batches:
+            t0 = time.perf_counter()
+            want.append(oracle.step(x, y)[0])
+            sync()
+            ms_serial.append((time.perf_counter() - t0) * 1e3)
+            out = [None] * tp
+
+            def run(r):
+                out[r] = trainers[r].step(x, y)
+
+            t0 = time.perf_counter()
+            threads(run)
+            sync()
+            ms_plane.append((time.perf_counter() - t0) * 1e3)
+            got.append(out)
+        same = all(torch.equal(t, oracle.params[r][p][k])
+                   for r in range(tp)
+                   for p, d in trainers[r].params.items()
+                   for k, t in d.items())
+        wire = [tr.tp_bytes_sent for tr in trainers]
+    finally:
+        for p in planes:
+            p.close()
+        store.close()
+    checks = {"losses_bitwise": all(o == [w] * tp
+                                    for o, w in zip(got, want)),
+              "params_bitwise": same,
+              "loss_finite": all(math.isfinite(w) for w in want)}
+    return dict(losses_plane=got, losses_serial=want,
+                step_ms_plane=ms_plane, step_ms_serial=ms_serial,
+                tp_bytes_sent=wire, config=h, checks=checks), \
+        all(checks.values())
+
+
+def _catch(fn, r, errs):
+    try:
+        fn(r)
+    except BaseException as e:  # noqa: BLE001 — re-raised by the caller
+        errs.append(e)
+
+
+def _tp_case(world: int, name: str, dtypes, w1: dict, out: str) -> tuple:
+    """One case's comparison from the ranks' files: ``(fields, checks)``
+    for each dtype, held to world 1's."""
+    (cases, backend) = TP_WORLDS[world]
+    axes, mesh = cases[name]
+    sizes = dict(zip(axes, mesh))
+    ways = sizes.get("model", 1) * (sizes.get("fsdp", 1) if "fsdp" in axes
+                                    else sizes["data"] if name == "fsdp"
+                                    else 1)
+    fields, checks = {}, {}
+    ranks_bf16 = None
+    for dtype in dtypes:
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out, f"{name}_{dtype}_r{r}.json")) as f:
+                ranks.append(json.load(f))
+        upd = torch.load(os.path.join(out, f"{name}_{dtype}_upd.pt"))
+        ref = w1[dtype]
+        loss_err = max(abs(a - b) / abs(b) for r in ranks
+                       for a, b in zip(r["losses"], ref["losses"]))
+        zero = dict.fromkeys(ref["updates_jax"], 0.0)
+        rel, leaf, groups = _update_diff(zero, upd, ref["updates_jax"])
+        worst = max(leaf, key=leaf.get)
+        attn = {k: e for k, e in leaf.items() if ".attn." in k}
+        worst_attn = max(attn, key=attn.get)
+        tag = f"{name}_{dtype}"
+        if dtype == "float32":
+            tol = TP_F32_TOL
+            checks[f"{tag}_losses"] = loss_err <= tol["loss_rtol"]
+            checks[f"{tag}_updates"] = (
+                rel <= tol["update_rel"]
+                and attn[worst_attn] <= tol["attn_leaf_update_rel"]
+                and leaf[worst] <= tol["leaf_update_rel"])
+        else:
+            checks[f"{tag}_losses"] = \
+                loss_err <= SPLIT_BF16_TOL["loss_rtol"]
+            checks[f"{tag}_updates"], fields[f"{tag}_split"] = \
+                split_bf16_check(w1["float32"]["updates_jax"],
+                                 ref["updates_jax"], upd)
+            ranks_bf16 = ranks
+        checks[f"{tag}_second_loss_moved"] = all(
+            r["losses"][1] != r["losses"][0] for r in ranks)
+        checks[f"{tag}_held"] = all(
+            not r["held_mismatch"] and r["split_leaves"] > 0
+            and r["held_elements"] < r["full_elements"] for r in ranks)
+        per_rank = [{n: r["launches"][n] for n in TP_PER_STEP}
+                    for r in ranks]
+        checks[f"{tag}_launches"] = all(
+            c == {n: TP_STEPS * v for n, v in TP_PER_STEP.items()}
+            for c in per_rank)
+        if dtype == "bfloat16":
+            checks[f"{tag}_wgmma"] = all(
+                r["launches_by_design"][n]["wgmma"] == r["launches"][n]
+                for r in ranks for n in ("flash_fwd", "flash_bwd"))
+        p50 = max(statistics.median(r["step_ms"][1:]) for r in ranks)
+        p50_1 = statistics.median(ref["step_ms"][1:])
+        cards = world if backend == "nccl" else 1
+        fields[tag] = dict(
+            mesh=dict(zip(axes, mesh)), losses_ranks=[r["losses"]
+                                                      for r in ranks],
+            losses_world1=ref["losses"], loss_rel_err=loss_err,
+            update_rel_err=rel, worst_leaf=[worst, leaf[worst]],
+            worst_attn_leaf=[worst_attn, attn[worst_attn]],
+            worst_leaf_by_group=groups,
+            step_ms_ranks=[r["step_ms"] for r in ranks],
+            step_ms_world1=ref["step_ms"], step_ms_p50_ranks=p50,
+            step_ms_p50_world1=p50_1,
+            tokens_per_s_per_rank=8 * 2048 / max(
+                sizes.get("data", 1), 1) / (p50 / 1e3),
+            tokens_per_s_per_gpu=8 * 2048 / (p50 / 1e3) / cards,
+            tokens_per_s_world1=8 * 2048 / (p50_1 / 1e3),
+            collectives_a_step=[r["collectives_a_step"] for r in ranks],
+            held_elements_ranks=[r["held_elements"] for r in ranks],
+            full_elements=ranks[0]["full_elements"], split_ways=ways,
+            split_leaves=[r["split_leaves"] for r in ranks],
+            opt_state_elements=[r["opt_state_elements"] for r in ranks],
+            peak_mem_bytes_ranks=[r["peak_mem_bytes"] for r in ranks],
+            peak_mem_bytes_world1=ref["peak_mem_bytes"],
+            launches_ranks=per_rank)
+    return fields, checks, ranks_bf16
+
+
+def check_tp_train(results):
+    """Tensor parallelism and FSDP at full width: the dense GPT-2-small
+    cell (vocab 32768, dim 768, 12 layers, 12 heads, T 2048, batch 8, SGD)
+    through the library's GSPMD step (``benchmarks.transformer_lm.
+    tp_steps``), 3 steps at world 1 in this process (float32 and bf16),
+    then the same steps on two rank processes on this card over gloo at
+    data 1 x model 2 (float32 and bf16) and FSDP at data 2 (1-D, bf16)
+    or, with ``--tp-world 4``, a card a rank over NCCL at data 2 x model 2
+    and data 1 x fsdp 2 x model 2 (both dtypes).  Float32 losses and
+    updates within ``TP_F32_TOL``; bf16 by ``SPLIT_BF16_TOL`` (ROADMAP
+    C13); every leaf split as the rules place it (1/model, and
+    1/(fsdp x model) under FSDP, of its elements a rank); K1f/K1b 1 and
+    K2f/K2b 12 launches a rank a step (wgmma in bf16), K3/K4 none; greedy
+    ``generate`` under the tp placement equal to world 1's (the serve
+    phases' tie rule); step ms, tokens/s a rank, the model line's and the fsdp line's
+    collectives and peak memory a rank, against world 1 and the
+    replicated DDP step.  Then the host route (``TPTrainer`` over socket
+    planes against ``SerialTPRunner``, bit for bit) and ``train_lm
+    --parallel tp`` at world 1 at its defaults: the loss falls."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from tpu_dist_torch.examples import train_lm
+
+    world = TP_WORLD[0]
+    cases, backend = TP_WORLDS[world]
+    cards = world if backend == "nccl" else 1
+    if torch.cuda.device_count() < cards:
+        raise RuntimeError(f"--tp-world {world} needs {cards} cards, this "
+                           f"machine has {torch.cuda.device_count()}")
+    prompts = _tp_prompts()
+    w1, parts_s = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        w1[dtype] = _world1_tp(dtype, prompts if dtype == "float32" else ())
+        w1[dtype]["updates_jax"] = _by_jax_name(w1[dtype].pop("updates"))
+        parts_s[f"world1_{dtype}"] = time.perf_counter() - t0
+    ok_w1_launches = all(
+        w1["bfloat16"]["launches"][n] == TP_STEPS * c
+        for n, c in TP_PER_STEP.items())
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="tp_train_", dir=os.environ.get("TMPDIR"))
+    run = [[name, *cases[name], dtype] for name in ("tp", "fsdp")
+           for dtype in TP_DTYPES[world][name]]
+    rcs, ranks_s, errs = _tp_ranks(
+        out, world, [[n, list(a), list(m), d] for n, a, m, d in run],
+        prompts)
+    checks = {"ranks_exit_0": rcs == [0] * world,
+              "world1_launches": ok_w1_launches}
+    parts_s["ranks"] = ranks_s
+    fields = {}
+    if checks["ranks_exit_0"]:
+        for name in ("tp", "fsdp"):
+            f, c, bf16_ranks = _tp_case(world, name, TP_DTYPES[world][name],
+                                        w1, out)
+            fields.update(f)
+            checks.update(c)
+        # greedy generate under the tp placement (the first tp case's rank
+        # 0) against world 1's, under the serve phases' tie rule
+        first = TP_DTYPES[world]["tp"][0]
+        with open(os.path.join(out, f"tp_{first}_r0.json")) as f:
+            got = json.load(f)["generated"]
+        want = w1["float32"]["generated"]
+        checks["generate"] = got == want
+        if got != want:
+            from tpu_dist_torch.examples.train_lm import tp_trainer
+            from tpu_dist_torch.models import TransformerLM
+            model = TransformerLM(vocab_size=32768, dim=768, depth=12,
+                                  num_heads=12, max_seq_len=2048,
+                                  device="cuda")
+            tp_trainer(model, 32768, 0.01)      # the seeded weights
+            reqs = [{"prompt": np.array(p), "temperature": 0, "seed": 0,
+                     "max_new_tokens": TP_GEN["max_new_tokens"]}
+                    for p in prompts]
+            verdicts = _tie_rule(model, reqs, got, want, torch.float32,
+                                 "tp_train")
+            checks["generate"] = all(ok for _, ok, _ in verdicts)
+            del model
+        fields["generate_equal"] = got == want
+    ddp = results.get("_slice")
+    emit("tp_train", world=world, cards=cards, backend=backend,
+         steps=TP_STEPS, cases={n: dict(zip(*cases[n])) for n in cases},
+         ranks_seconds=ranks_s, ranks_rc=rcs,
+         tolerance={"float32": TP_F32_TOL, "bfloat16": SPLIT_BF16_TOL},
+         world1={d: {k: w1[d][k] for k in ("losses", "step_ms",
+                                           "peak_mem_bytes", "launches")}
+                 for d in w1},
+         replicated_ddp_step=ddp, seconds=parts_s, **fields, checks=checks,
+         rank_stderr_tails=None if all(checks.values()) else errs)
+    ok = all(checks.values())
+    del w1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fields, ok_host = _tp_host()
+    emit("tp_train_host", **fields, seconds=time.perf_counter() - t0)
+    ok = ok and ok_host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the entry point at world 1, its defaults, on the card
+    args = train_lm.parse_args(["--parallel", "tp"])
+    t0 = time.perf_counter()
+    r = train_lm.train(args)
+    cli_s = time.perf_counter() - t0
+    losses = r["losses"]
+    cli = {"finite": all(math.isfinite(v) for v in losses),
+           "falls": losses[-1] < 0.5 * losses[0],
+           "second_loss_moved": losses[1] != losses[0]}
+    emit("tp_train_cli", steps=len(losses), first_loss=losses[0],
          last_loss=losses[-1], loss_every_20=losses[::20],
          seconds=cli_s, first_step_seconds=r["first_step_seconds"],
          loop_seconds=r["loop_seconds"], checks=cli)
@@ -6809,7 +7409,7 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("netchaos", check_netchaos),
           ("serve_sharded", check_serve_sharded),
           ("serve_disagg", check_serve_disagg),
-          ("ep_train", check_ep_train))
+          ("ep_train", check_ep_train), ("tp_train", check_tp_train))
 
 
 def main() -> int:
@@ -6821,8 +7421,13 @@ def main() -> int:
                     choices=sorted(EP_WORLDS),
                     help="ep_train's ranks: 2 on one card (the default) or "
                          "4 on four cards")
+    ap.add_argument("--tp-world", type=int, default=2,
+                    choices=sorted(TP_WORLDS),
+                    help="tp_train's ranks: 2 on one card (the default) or "
+                         "4 on four cards")
     args = ap.parse_args()
     EP_WORLD[0] = args.ep_world
+    TP_WORLD[0] = args.tp_world
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - {name for name, _ in PHASES}
     if unknown:

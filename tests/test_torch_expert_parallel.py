@@ -26,7 +26,8 @@
   (``tuple(PartitionSpec)``); ``shard_pytree`` and ``load_jax_params`` give
   each rank its expert slice, and ``jax_params`` gathers the banks back.
 - The refusals: ``dispatch="dropless"`` and an expert count the axis does
-  not divide raise ``ExpertAxisError``; the step raises on a ``model`` axis.
+  not divide raise ``ExpertAxisError``; the step trains a ``model`` axis
+  and raises on a BatchNorm.
 
 One module-scoped launch a world size (the port's launcher, gloo ranks)
 runs every port case."""
@@ -662,13 +663,32 @@ def test_dropless_and_an_uneven_split_raise(world, world2, world4):
         assert "do not split" in str(r["refused:num_experts"])
 
 
-def test_the_step_refuses_a_model_axis():
+def test_the_step_trains_a_model_axis_and_refuses_batchnorm():
+    """A ``model`` axis trains (ROADMAP A9.6a: the MoE model under a data 1
+    × model 1 mesh, three steps, the loss falls); a BatchNorm still raises
+    and names its ROADMAP item."""
     tdist.init_process_group(device="cpu", axis_names=("data", "model"),
                              mesh_shape=(1, 1))
     try:
-        model = TorchLM(**TINY_LM, device="cpu")
-        with pytest.raises(NotImplementedError, match="A9.6"):
-            gspmd.make_gspmd_train_step(model, tnn.CrossEntropyLoss(),
-                                        toptim.SGD(lr=0.1))
+        model = TorchLM(**TINY_LM, device="cpu", model_axis="model")
+        ce = tnn.CrossEntropyLoss()
+        opt = toptim.SGD(lr=0.5)
+        step = gspmd.make_gspmd_train_step(
+            model, lambda lg, y: ce(lg.reshape(-1, TINY_LM["vocab_size"]),
+                                    y.reshape(-1)), opt)
+        params = dict(model.named_parameters())
+        opt_state, mstate = opt.init(params), {}
+        x = torch.from_numpy(np.random.default_rng(0).integers(
+            0, TINY_LM["vocab_size"], (4, TINY_LM["max_seq_len"])))
+        losses = []
+        for _ in range(3):
+            params, opt_state, mstate, m = step(params, opt_state, mstate,
+                                                x, (x + 1) % 16)
+            losses.append(float(m["loss"]))
+        assert losses[-1] < losses[0], losses
+        bn = torch.nn.Sequential(tnn.Conv2d(3, 4, 3, device="cpu"),
+                                 tnn.BatchNorm2d(4, device="cpu"))
+        with pytest.raises(NotImplementedError, match="A9.6b"):
+            gspmd.make_gspmd_train_step(bn, tnn.CrossEntropyLoss(), opt)
     finally:
         tdist.destroy_process_group()

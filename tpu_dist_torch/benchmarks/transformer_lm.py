@@ -19,6 +19,7 @@ benchmark.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 
 import numpy as np
@@ -29,7 +30,7 @@ from ..models import TransformerLM
 from ..ops._build import resolve_device
 from ..parallel import DistributedDataParallel
 
-__all__ = ["build", "run", "run_long", "run_32k", "time_steps"]
+__all__ = ["build", "run", "run_long", "run_32k", "time_steps", "tp_steps"]
 
 
 def build(batch: int = 8, seq_len: int = 2048, dim: int = 768,
@@ -154,6 +155,103 @@ def run_32k(seq_len: int = 32768, batch: int = 1, **kw) -> dict:
     return run(batch=batch, seq_len=seq_len, remat=True,
                metric="transformer_lm_long_context_32k_bf16_tokens_per_sec_"
                       "per_gpu", **kw)
+
+
+def tp_steps(steps: int = 3, batch: int = 8, seq_len: int = 2048,
+             dim: int = 768, depth: int = 12, heads: int = 12,
+             vocab: int = 32768, device=None, compute_dtype=torch.bfloat16,
+             fsdp_min_size: int = 2 ** 12, prompts=(),
+             max_new_tokens: int = 0, around_steps=None) -> dict:
+    """``steps`` steps of the benchmark's configuration under the GSPMD
+    step on the default group's mesh (world 1, the unsplit model, without
+    a group): a ``model`` axis splits the model (``TransformerLM(
+    model_axis="model")``), and an ``fsdp`` axis, or ``data`` on a mesh of
+    that axis alone above one rank, takes FSDP shards of every leaf of at
+    least ``fsdp_min_size`` elements (``parallel.fsdp_shard``; the module's
+    own parameters are then freed).  ``train_lm.tp_trainer`` with seed 0,
+    ``lr=0.01``, ``compute_dtype`` over float32 masters and the fused loss,
+    on global batches of ``batch`` rows from ``np.random.default_rng(0)``
+    (this rank takes its data shard's).  Before the steps, greedy
+    ``generate`` of each of ``prompts`` (int arrays) from the seeded
+    weights in float32.  ``around_steps``: a context manager the steps run
+    in (a counter of their collectives).  Returns each step's float32 loss
+    and wall ms (the
+    card synchronized at both ends), the generated tokens, the elements of
+    each leaf held here against the unsplit model's, the parameter updates
+    (after − before, this rank's slices) and peak device memory (None on
+    the CPU, where the steps are timed without synchronizing)."""
+    from ..examples.train_lm import tp_trainer
+    from ..parallel import fsdp_shard
+
+    group = dist.get_default_group() if dist.is_initialized() else None
+    axes = group.axis_names if group is not None else ()
+    device = group.device if group is not None else resolve_device(device)
+    data = dist.axis_group("data")
+    model = TransformerLM(
+        vocab_size=vocab, dim=dim, depth=depth, num_heads=heads,
+        max_seq_len=seq_len, device=device,
+        model_axis="model" if "model" in axes else None)
+    full = {k: p.numel() for k, p in model.named_parameters()}
+    for path, mod in model.named_modules():
+        for leaf in getattr(getattr(mod, "tp", None), "leaves", ()):
+            key = f"{path}.{leaf}" if path else leaf
+            full[key] = int(np.prod(mod.tp.full[leaf]))
+    _, state, advance = tp_trainer(model, vocab, 0.01, compute_dtype,
+                                   fused=True)
+    generated = []
+    for prompt in prompts:
+        out = model.generate(torch.as_tensor(prompt, device=device)[None],
+                             max_new_tokens)
+        generated.append(out[0, len(prompt):].tolist())
+    fsdp_axis = ("fsdp" if "fsdp" in axes else "data"
+                 if axes == ("data",) and group.size() > 1 else None)
+    if fsdp_axis is not None:
+        state["params"] = fsdp_shard(state["params"], group, fsdp_axis,
+                                     fsdp_min_size)
+        model.to("meta")
+    p0 = {k: v.detach().clone() for k, v in state["params"].items()}
+    held = {k: v.numel() for k, v in state["params"].items()}
+    rng = np.random.default_rng(0)
+    rows = slice(data.index * (batch // data.size),
+                 (data.index + 1) * (batch // data.size))
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, step_ms = [], []
+    with around_steps or contextlib.nullcontext():
+        state = _run_steps(steps, advance, state, rng, vocab, batch,
+                           seq_len, rows, device, cuda, losses, step_ms)
+    return {"losses": losses, "step_ms": step_ms, "generated": generated,
+            "held_elements": held, "full_elements": full,
+            "opt_state_elements": sum(
+                v.numel() for t in state["opt_state"].values()
+                if isinstance(t, dict) for v in t.values()),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(device)
+            if cuda else None,
+            "model": model, "advance": advance, "state": state,
+            "updates": {k: state["params"][k].detach() - p0[k]
+                        for k in p0}}
+
+
+def _run_steps(steps, advance, state, rng, vocab, batch, seq_len, rows,
+               device, cuda, losses, step_ms):
+    """:func:`tp_steps`' loop: each step's loss and wall ms appended;
+    returns the last state."""
+    import time
+
+    for _ in range(steps):
+        x = torch.from_numpy(rng.integers(0, vocab, (batch, seq_len))[rows])
+        y = torch.from_numpy(rng.integers(0, vocab, (batch, seq_len))[rows])
+        x, y = x.to(device), y.to(device)
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, m = advance(state, x, y)
+        if cuda:
+            torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    return state
 
 
 if __name__ == "__main__":

@@ -22,6 +22,15 @@ of the expert axis) holding its rank's experts, the batch split over
 make_gspmd_train_step``, Switch aux loss at 0.01 in the objective) — the
 JAX example's mode, with routing and capacity over the global batch.
 
+``tp``: tensor parallelism on a (data × model) mesh of the ranks, ``data``
+2 wide when the world is even and above 1 and ``model`` the rest: the
+model is split by the JAX package's ``TRANSFORMER_TP_RULES``
+(``TransformerLM(model_axis="model")``: each rank holds its heads, MLP
+columns and vocab rows; the heads rounded to a multiple of the model axis,
+as in the JAX example), the batch split over ``data``, SGD, and the GSPMD
+step's counterpart (``parallel.make_gspmd_train_step``): the JAX example's
+mode, its loss taken on logits split on the vocab.
+
 ``--compute-dtype bfloat16`` (the port's one option beyond the JAX
 example's; default float32, the example's) runs the forward and backward in
 bf16 over float32 masters, in every mode.  On the card float32 attention
@@ -41,13 +50,14 @@ transitions follow the learned permutation.  The data stream, the
 permutation and the prompt are the JAX example's
 (``np.random.default_rng(0)``).
 
-The other modes of the JAX example raise: ``tp`` and ``pp`` (tensor and
-pipeline parallelism: ROADMAP A9.6)::
+The JAX example's ``pp`` mode (pipeline parallelism) raises: ROADMAP
+A9.6b::
 
     python -m tpu_dist_torch.examples.train_lm --generate 32
     python -m tpu_dist_torch.examples.train_lm --device cpu --steps 20
     python -m tpu_dist_torch.examples.train_lm --parallel sp --seq-len 8192
     python -m tpu_dist_torch.examples.train_lm --parallel ep --device cpu
+    python -m tpu_dist_torch.examples.train_lm --parallel tp --device cpu
 """
 
 from __future__ import annotations
@@ -59,11 +69,11 @@ from datetime import datetime
 
 import numpy as np
 
-__all__ = ["make_batches", "sp_mesh", "ep_trainer", "parse_args",
-           "train", "main"]
+__all__ = ["make_batches", "sp_mesh", "ep_trainer", "tp_trainer",
+           "parse_args", "train", "main"]
 
-_LATER = {"tp": "tensor parallelism (ROADMAP A9.6)",
-          "pp": "pipeline parallelism (ROADMAP A9.6)"}
+_LATER = {"pp": "pipeline parallelism (ROADMAP A9.6b)"}
+_AXIS = {"sp": "seq", "ep": "expert", "tp": "model"}
 
 
 def make_batches(rng, perm, vocab, batch, seq_len, steps):
@@ -93,12 +103,13 @@ def train(args, init_params=None) -> dict:
     at each end; both None without steps).  ``init_params(model)``, if
     given, replaces the seeded initialization (the tests load the JAX
     example's).  Under ``ep``, ``state`` is ``{"params", "opt_state",
-    "mstate"}`` and ``ddp`` the step function."""
+    "mstate"}`` and ``ddp`` the step function; under ``tp`` ``{"params",
+    "opt_state"}`` and the step function."""
     if args.parallel in _LATER:
         raise NotImplementedError(
             f"--parallel {args.parallel}: {_LATER[args.parallel]} is not in "
-            f"the port yet; use --parallel dp, sp or ep")
-    if args.parallel in ("sp", "ep") and args.generate > 0:
+            f"the port yet; use --parallel dp, sp, ep or tp")
+    if args.parallel in _AXIS and args.generate > 0:
         raise ValueError(f"--generate samples after dp training, not "
                          f"after --parallel {args.parallel}")
     import torch
@@ -120,9 +131,10 @@ def train(args, init_params=None) -> dict:
 
     init_method = "env://" if "MASTER_ADDR" in os.environ else None
     world = int(os.environ.get("WORLD_SIZE", 1)) if init_method else 1
-    # the mesh: (data, seq) for dp and sp, (data, expert) for ep
+    # the mesh: (data, seq) for dp and sp, (data, expert) for ep, (data,
+    # model) for tp
     dp, other = sp_mesh(world) if args.parallel != "dp" else (world, 1)
-    axis = "expert" if args.parallel == "ep" else "seq"
+    axis = _AXIS.get(args.parallel, "seq")
     pg = dist.init_process_group(
         init_method=init_method,
         device="cpu" if args.device == "cpu" else None,
@@ -140,14 +152,22 @@ def train(args, init_params=None) -> dict:
         # leading dim must split evenly over it
         experts = (-(-max(args.experts, 2) // other) * other
                    if args.parallel == "ep" else 0)
+        # divisible heads under tp, as the JAX example rounds them
+        heads = (max(args.heads // other, 1) * other
+                 if args.parallel == "tp" else args.heads)
         model = TransformerLM(
-            args.vocab, dim=args.dim, depth=args.depth, num_heads=args.heads,
+            args.vocab, dim=args.dim, depth=args.depth, num_heads=heads,
             max_seq_len=seq_len, device=pg.device, num_experts=experts,
             sequence_axis="seq" if args.parallel == "sp" else None,
             mode=args.sp_mode,
-            expert_axis="expert" if args.parallel == "ep" else None)
+            expert_axis="expert" if args.parallel == "ep" else None,
+            model_axis="model" if args.parallel == "tp" else None)
         if args.parallel == "ep":
             ddp, state, advance = ep_trainer(model, args.vocab, make_lr(),
+                                             compute_dtype,
+                                             init_params=init_params)
+        elif args.parallel == "tp":
+            ddp, state, advance = tp_trainer(model, args.vocab, make_lr(),
                                              compute_dtype,
                                              init_params=init_params)
         else:
@@ -192,6 +212,8 @@ def train(args, init_params=None) -> dict:
                               for v in state["mstate"].values())
                     where = (f"  (E={experts} over {other} ranks, aux "
                              f"{aux:.3f})")
+                elif args.parallel == "tp":
+                    where = f"  (tp={other})"
                 print(f"Step [{i + 1}/{args.steps}] "
                       f"loss: {float(metrics['loss']):.4f}{where}",
                       flush=True)
@@ -274,11 +296,47 @@ def ep_trainer(model, vocab: int, lr, compute_dtype=None,
     return step, state, advance
 
 
+def tp_trainer(model, vocab: int, lr, compute_dtype=None,
+               fused: bool = False, init_params=None):
+    """``(step, state, advance)`` of ``--parallel tp``: the GSPMD step's
+    counterpart over ``model`` (built with ``model_axis``) seeded with 0
+    (each split layer draws its whole parameters and keeps its slice, the
+    JAX example's ``shard_pytree(..., TRANSFORMER_TP_RULES)`` placement;
+    ``init_params(model)`` replaces the weights), SGD at ``lr``,
+    ``CrossEntropyLoss(fused=fused)`` over ``vocab`` (taken on the logits
+    split on the vocab), and ``advance(state, x, y) -> (state, metrics)``
+    over ``state = {"params", "opt_state"}``."""
+    import torch
+
+    from .. import nn, optim
+    from ..nn.module import reset_parameters
+    from ..parallel import make_gspmd_train_step
+
+    reset_parameters(model, torch.Generator(
+        device=model.device).manual_seed(0))
+    if init_params is not None:
+        init_params(model)
+    ce = nn.CrossEntropyLoss(fused=fused)
+    opt = optim.SGD(lr=lr)
+    step = make_gspmd_train_step(
+        model, lambda lg, y: ce(lg.reshape(-1, vocab), y.reshape(-1)),
+        opt, compute_dtype=compute_dtype)
+    params = dict(model.named_parameters())
+    state = {"params": params, "opt_state": opt.init(params)}
+
+    def advance(state, x, y):
+        params, opt_state, metrics = step(state["params"],
+                                          state["opt_state"], x, y)
+        return {"params": params, "opt_state": opt_state}, metrics
+
+    return step, state, advance
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parallel", default="dp",
                    choices=["dp", "sp", "tp", "pp", "ep"],
-                   help="dp, sp or ep; tp and pp raise (ROADMAP A9.6)")
+                   help="dp, sp, ep or tp; pp raises (ROADMAP A9.6b)")
     p.add_argument("--sp-mode", default="ring", choices=["ring", "ulysses"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--compute-dtype", default="float32",
@@ -288,7 +346,7 @@ def parse_args(argv=None):
     p.add_argument("--steps", default=200, type=int)
     p.add_argument("--batch-size", default=8, type=int,
                    help="global batch (split over the ranks; over 'data' "
-                        "under sp and ep)")
+                        "under sp, ep and tp)")
     p.add_argument("--seq-len", default=512, type=int,
                    help="global sequence length (split over 'seq' under sp)")
     p.add_argument("--dim", default=256, type=int)

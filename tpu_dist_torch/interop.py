@@ -45,6 +45,16 @@ own rows (``first_expert``, ``local_experts``) from the full JAX tree, and
 :func:`jax_params` all-gathers the banks over the expert line (every rank
 of the line calls it), so both trees are the unsplit model's.
 
+A model split over a model axis (``TransformerLM(model_axis=)``,
+``nn/tensor_parallel.py``) holds its rank's slices: :func:`load_jax_params`
+takes them from the full JAX tree by ``parallel.TRANSFORMER_TP_RULES``
+(``shard_pytree``: the fused qkv's ``[q_r | k_r | v_r]`` columns), and
+:func:`jax_params` gathers them back over the model line.  Under FSDP the
+step's parameters are shards (``parallel/fsdp.py``):
+:func:`shard_jax_params` slices a JAX tree for this rank exactly as the
+JAX placement does (the tp rules first, then ``fsdp_specs``), and
+``jax_params(model, params)`` gathers them back over the fsdp line.
+
 A Linear whose input is a flattened (c, h, w) feature map is named in its
 model's ``flattened_inputs`` (``ConvNet.flattened_inputs = {"fc1": (128, 4,
 4)}``): a plain transpose would give the right shape and the wrong columns.
@@ -66,7 +76,8 @@ import torch
 
 from . import nn
 
-__all__ = ["load_jax_params", "jax_params", "load_jax_opt_state",
+__all__ = ["load_jax_params", "jax_params", "shard_jax_params",
+           "load_jax_opt_state",
            "load_jax_state", "jax_state", "jax_leaf_order",
            "flatten_linear_from_torch", "flatten_linear_to_torch"]
 
@@ -165,13 +176,30 @@ def _split_moes(model: torch.nn.Module) -> list:
             and m.local_experts < m.num_experts]
 
 
-@torch.no_grad()
-def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
-    """Copy ``params`` into ``model``'s parameters in place (keeping their
-    dtype and device) and return ``model``; under an expert axis each
-    expert bank's slice of this rank.  Raises ``KeyError`` on any missing
-    or extra key and ``ValueError`` on a shape that does not map or a
-    non-int8 leaf for an int8 parameter."""
+def _tp_splits(model: torch.nn.Module) -> list:
+    """``(path, layer)`` of every layer split over a model axis."""
+    return [(path, m) for path, m in model.named_modules()
+            if getattr(m, "tp", None) is not None]
+
+
+def _tp_rules(model: torch.nn.Module):
+    """The JAX placement of ``model``'s model axis
+    (``TRANSFORMER_TP_RULES``, its ``"model"`` read as the axis's name),
+    or None for an unsplit model."""
+    split = _tp_splits(model)
+    if not split:
+        return None
+    from .parallel import gspmd, rules
+    axis = split[0][1].tp.line.name
+    binding = {k: (axis if v == "model" else v)
+               for k, v in rules.DEFAULT_RULES.items()}
+    return gspmd.PartitionRules(rules.partition_pairs(binding),
+                                binding=binding)
+
+
+def _expert_rows(model: torch.nn.Module, params) -> dict:
+    """``params`` (a full JAX tree) with each split MoE layer's banks cut
+    to this rank's experts."""
     split = _split_moes(model)
     if split:
         params = {path: dict(leaves) for path, leaves in params.items()}
@@ -179,16 +207,76 @@ def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
             rows = slice(m.first_expert, m.first_expert + m.local_experts)
             for leaf in ("w1", "b1", "w2", "b2"):
                 params[path][leaf] = np.asarray(params[path][leaf])[rows]
-    _copy_tree(model, dict(model.named_parameters()), params)
+    return params
+
+
+def _local_tree(model: torch.nn.Module, params) -> dict:
+    """``params`` (a full JAX tree) cut to this rank's layers: each split
+    MoE layer's rows, each tensor-parallel layer's slices."""
+    params = _expert_rows(model, params)
+    tp = _tp_rules(model)
+    if tp is not None:
+        from .parallel import shard_pytree
+        params = shard_pytree(
+            {path: {leaf: np.asarray(a) for leaf, a in leaves.items()}
+             for path, leaves in params.items()}, None, tp)
+    return params
+
+
+@torch.no_grad()
+def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
+    """Copy ``params`` into ``model``'s parameters in place (keeping their
+    dtype and device) and return ``model``; under an expert axis each
+    expert bank's slice of this rank, under a model axis each split
+    layer's.  Raises ``KeyError`` on any missing or extra key and
+    ``ValueError`` on a shape that does not map or a non-int8 leaf for an
+    int8 parameter."""
+    _copy_tree(model, dict(model.named_parameters()),
+               _local_tree(model, params))
     return model
 
 
 @torch.no_grad()
-def jax_params(model: torch.nn.Module) -> dict:
+def shard_jax_params(model: torch.nn.Module, params, axis: str = "data",
+                     min_size: int = 2 ** 12, mesh=None) -> dict:
+    """This rank's FSDP parameters ``{name: tensor}`` of ``model`` (on its
+    parameters' device and dtype, torch layouts) from a full JAX tree: the
+    JAX placement's slices, by ``parallel.fsdp_specs(tree, mesh, axis,
+    min_size, rules=TRANSFORMER_TP_RULES)`` on a model split over a model
+    axis (its tp slices keep their axis and gain ``axis`` on their largest
+    free dim) and by ``fsdp_specs`` alone otherwise.  Pass the result to
+    ``parallel.make_gspmd_train_step``'s step."""
+    from .parallel import fsdp_shard, fsdp_specs
+    tree = _expert_rows(model, {
+        path: {leaf: np.asarray(a, dtype=np.float32)
+               for leaf, a in leaves.items() if leaf != "aux_loss"}
+        for path, leaves in params.items()})
+    rules = _tp_rules(model)
+    specs = fsdp_specs(tree, mesh, axis, min_size, rules=rules)
+    sliced = fsdp_shard(tree, mesh, axis, specs=specs, rules=rules)
+    layouts = _layouts(model)
+    ours = dict(model.named_parameters())
+    out = {}
+    for key, p in ours.items():
+        path, _, leaf = key.rpartition(".")
+        a = sliced[path][leaf]
+        a = layouts[key](a) if key in layouts else a
+        out[key] = torch.tensor(np.ascontiguousarray(a)).to(p.device,
+                                                           p.dtype)
+    return out
+
+
+@torch.no_grad()
+def jax_params(model: torch.nn.Module, params=None) -> dict:
     """``model``'s parameters as a JAX package tree ``{module_path: {leaf:
     array}}`` in the JAX layouts — the inverse of :func:`load_jax_params`,
     as host numpy (int8 leaves int8, every other leaf float32); the whole
-    expert banks under an expert axis (a collective over the line)."""
+    expert banks under an expert axis and the whole leaves of a split
+    layer under a model axis (collectives over the lines: call it on
+    every rank).  ``params``: the step's parameters by name in place of the
+    module's; FSDP shards among them (smaller than their parameter) are
+    gathered over the step's fsdp axis (the default group's ``"fsdp"``
+    axis, else ``"data"``)."""
     inverse, flattened = {}, {}
     for path, mod in model.named_modules():
         for cls, leaves in _TRANSPOSED.items():
@@ -201,14 +289,32 @@ def jax_params(model: torch.nn.Module) -> dict:
             flattened[_join(_join(path, sub), "weight")] = \
                 flatten_linear_from_torch(*chw)
     inverse.update(flattened)
+    ours = dict(model.named_parameters())
+    if params is not None:
+        from . import dist
+        from .parallel.fsdp import gather_dim
+        ours = {k: v.detach() for k, v in params.items()}
+        for k, v in ours.items():
+            want = tuple(model.get_parameter(k).shape)
+            if tuple(v.shape) != want:
+                axis = ("fsdp" if "fsdp" in
+                        dist.get_default_group().axis_names
+                        else dist.DATA_AXIS)
+                d = next(i for i, (a, b) in enumerate(zip(v.shape, want))
+                         if a != b)
+                ours[k] = gather_dim(v, dist.axis_group(axis), d)
     banks = {}
     for path, m in _split_moes(model):
         from .collectives import ops
         for leaf in ("w1", "b1", "w2", "b2"):
             banks[_join(path, leaf)] = ops.all_gather(
-                getattr(m, leaf).detach(), m.expert_line, tiled=True)
+                ours[_join(path, leaf)].detach(), m.expert_line, tiled=True)
+    for path, m in _tp_splits(model):
+        for leaf in m.tp.leaves:
+            key = _join(path, leaf)
+            banks[key] = m.tp.gather(leaf, ours[key].detach())
     out: dict = {}
-    for key, p in model.named_parameters():
+    for key, p in ours.items():
         path, _, leaf = key.rpartition(".")
         t = banks.get(key, p).detach().cpu()
         a = (t.numpy() if t.dtype == torch.int8

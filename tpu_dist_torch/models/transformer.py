@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import nn
+from ..nn.tensor_parallel import full_logits
 from ..ops._build import resolve_device
 from .. import random
 
@@ -121,7 +122,8 @@ class TransformerLM(torch.nn.Module):
                  device=None, sequence_axis: Optional[str] = None,
                  mode: str = "ring", remat: bool = False, rope: bool = False,
                  rope_theta: float = 10000.0,
-                 expert_axis: Optional[str] = None):
+                 expert_axis: Optional[str] = None,
+                 model_axis: Optional[str] = None):
         """``num_experts > 0`` makes the MLP of every block ``i`` with
         ``i % moe_every == moe_every - 1`` a routed MoELayer; its aux loss
         is the layer's ``aux_loss`` after each forward (the DDP collects it
@@ -131,6 +133,16 @@ class TransformerLM(torch.nn.Module):
         default process group over which each MoE block holds only its
         rank's experts (nn/moe.py; ``parallel.make_gspmd_train_step``
         trains it).
+
+        ``model_axis``: a mesh axis of the default process group over which
+        the model is split by the JAX package's ``TRANSFORMER_TP_RULES``
+        (:func:`nn.tensor_parallel.split_model_axis
+        <tpu_dist_torch.nn.tensor_parallel.split_model_axis>`): each block
+        holds its rank's heads and MLP columns, ``tok`` and ``head`` its
+        vocab rows, and :meth:`forward` returns the logits split on the
+        vocab (:class:`~tpu_dist_torch.nn.tensor_parallel.ShardedLogits`);
+        ``parallel.make_gspmd_train_step`` trains it and :meth:`generate`
+        decodes with it.  Build the model after ``init_process_group``.
 
         ``norm="rmsnorm"`` with ``rope=True`` is the LLaMA-family recipe:
         RMSNorm, and rotary embeddings (``rope_theta``) in place of the
@@ -172,6 +184,12 @@ class TransformerLM(torch.nn.Module):
                 if moe else None))
         self.ln_f = norm_cls(dim, device=device)
         self.head = nn.Linear(dim, vocab_size, device=device)
+        if model_axis is not None:
+            if sequence_axis is not None:
+                raise ValueError("a model axis and a sequence axis do not "
+                                 "compose in the port")
+            from ..nn.tensor_parallel import split_model_axis
+            split_model_axis(self, model_axis)
 
     @property
     def device(self) -> torch.device:
@@ -212,7 +230,12 @@ class TransformerLM(torch.nn.Module):
             else:
                 x = block(x, cache=None if cache is None
                           else cache[f"block{i}.attn"])
-        return self.head(self.ln_f(x))
+        logits = self.head(self.ln_f(x))
+        split = getattr(self.head, "tp", None)   # None: int8 heads too
+        if split is not None:
+            from ..nn.tensor_parallel import ShardedLogits
+            return ShardedLogits(logits, split.line, self.vocab_size)
+        return logits
 
     # -- autoregressive inference ------------------------------------------
 
@@ -270,7 +293,7 @@ class TransformerLM(torch.nn.Module):
                  for path, entry in cache.items()}
         tokens = torch.as_tensor(tokens, device=device).long()[:, None]
         logits = self(tokens, pos_offset=lengths, cache=state)
-        return logits[:, -1], cache
+        return full_logits(logits[:, -1]), cache
 
     @torch.inference_mode()
     def prefill_into_slot(self, prompt, length: int, slot: int, cache: dict):
@@ -297,7 +320,7 @@ class TransformerLM(torch.nn.Module):
         rows = self.init_cache(1, tmax, entry["k"].dtype)
         logits = self(prompt[None], cache=rows)
         write_slot_rows(cache, rows, slot)
-        return logits[0, int(length) - 1], cache
+        return full_logits(logits[:1, int(length) - 1])[0], cache
 
     @torch.inference_mode()
     def prefill_rows(self, prompt, length: int, max_len: int,
@@ -337,7 +360,7 @@ class TransformerLM(torch.nn.Module):
             logits = self(prompt[None], pos_offset=plen, cache=state)
         rows = {path: {k: v for k, v in entry.items() if k != "index"}
                 for path, entry in state.items()}
-        return logits[0, int(length) - plen - 1], rows
+        return full_logits(logits[:1, int(length) - plen - 1])[0], rows
 
     @torch.inference_mode()
     def generate(self, prompt, max_new_tokens: int, temperature: float = 0.0,
@@ -384,7 +407,7 @@ class TransformerLM(torch.nn.Module):
         def sample(logits, step):
             return _sample(logits, key0, step, temperature, top_k, top_p)
 
-        toks = [sample(logits[:, -1], 0)]
+        toks = [sample(full_logits(logits[:, -1]), 0)]
         slot_cache = {path: {k: v for k, v in entry.items() if k != "index"}
                       for path, entry in cache.items()}
         for i in range(max_new_tokens - 1):

@@ -102,12 +102,15 @@ class VisionTransformer(torch.nn.Module):
     """ViT encoder classifier: images (B, 3, H, W) → logits (B, classes).
 
     ``image_size`` must be divisible by ``patch_size``; the MLP's hidden
-    width is ``4 * hidden_dim``, as in every standard ViT (B, L, H)."""
+    width is ``4 * hidden_dim``, as in every standard ViT (B, L, H).
+    ``model_axis`` splits the encoder and the head by the JAX package's
+    ``TRANSFORMER_TP_RULES``, as ``TransformerLM(model_axis=)`` does (the
+    class logits come split, as ``ShardedLogits``)."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 16,
                  num_layers: int = 12, num_heads: int = 12,
                  hidden_dim: int = 768, num_classes: int = 1000,
-                 device=None):
+                 device=None, model_axis=None):
         super().__init__()
         if image_size % patch_size:
             raise ValueError(f"image_size {image_size} not divisible by "
@@ -133,6 +136,10 @@ class VisionTransformer(torch.nn.Module):
             setattr(self, f"block{i}", block)
         self.ln = nn.LayerNorm(hidden_dim, eps=1e-6, device=device)
         self.head = _ZeroLinear(hidden_dim, num_classes, device=device)
+        self.num_classes = num_classes
+        if model_axis is not None:
+            from ..nn.tensor_parallel import split_model_axis
+            split_model_axis(self, model_axis)
 
     def forward(self, x):
         b, c, h, w = x.shape
@@ -145,7 +152,12 @@ class VisionTransformer(torch.nn.Module):
         x = self.tokens(x)                          # (B, N + 1, d)
         for i in range(self.num_layers):
             x = getattr(self, f"block{i}")(x)
-        return self.head(self.ln(x)[:, 0])          # class token only
+        logits = self.head(self.ln(x)[:, 0])        # class token only
+        split = getattr(self.head, "tp", None)
+        if split is not None:
+            from ..nn.tensor_parallel import ShardedLogits
+            return ShardedLogits(logits, split.line, self.num_classes)
+        return logits
 
 
 def vit_b_16(num_classes: int = 1000, image_size: int = 224, device=None):

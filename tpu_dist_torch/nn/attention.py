@@ -124,6 +124,10 @@ class MultiheadSelfAttention(torch.nn.Module):
     and equals the dense computation.  A KV-cache decode runs on gathered
     sequences and refuses it.
 
+    Under a model axis (``nn.tensor_parallel.split_model_axis``) the layer
+    holds its rank's heads: ``num_heads`` is the local count, and the
+    projections are the column- and row-parallel pair.
+
     ``rope=True`` rotates q and k (:func:`rotary_embed`, ``rope_theta``) by
     the positions of this call's tokens: the cache's write index when a
     cache is passed (an int, or the slot pool's (B,) lengths), the shard's
@@ -182,11 +186,25 @@ class MultiheadSelfAttention(torch.nn.Module):
                 self.qkv_bias.zero_()
                 self.out_bias.zero_()
 
+    # set by nn.tensor_parallel.split_model_axis: this rank's heads (the
+    # fused projection's q, k and v rows of them, the out projection's
+    # columns); num_heads is then the local count
+    tp = None
+
     def _qkv_proj(self, x):
+        if self.tp is not None:
+            from .tensor_parallel import SumGradOverLine
+            x = SumGradOverLine.apply(x, self.tp.line)
         return F.linear(x, self.qkv_weight, self.qkv_bias)
 
     def _out_proj(self, out):
-        return F.linear(out, self.out_weight, self.out_bias)
+        if self.tp is None:
+            return F.linear(out, self.out_weight, self.out_bias)
+        # row-parallel: the heads' partial products summed over the line,
+        # the bias added once after the sum
+        from .tensor_parallel import SumOverLine
+        y = SumOverLine.apply(F.linear(out, self.out_weight), self.tp.line)
+        return y if self.out_bias is None else y + self.out_bias
 
     def forward(self, x, cache: Optional[dict] = None):
         """``cache``: this layer's entry of a KV cache (autoregressive
@@ -222,7 +240,8 @@ class MultiheadSelfAttention(torch.nn.Module):
         else:
             out = scaled_dot_product_attention(q, k, v, causal=self.causal,
                                                impl=self.attn_impl)
-        return self._out_proj(out.reshape(b, t, self.embed_dim))
+        return self._out_proj(out.reshape(b, t,
+                                          self.num_heads * self.head_dim))
 
     def _rotate(self, qk, cache):
         """``qk`` (B, t, 2H, D) rotated by its tokens' positions (read

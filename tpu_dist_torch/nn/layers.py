@@ -46,8 +46,20 @@ class Linear(torch.nn.Module):
             init_lib.torch_default_uniform(self.bias, self.in_features,
                                            generator)
 
+    # set by nn.tensor_parallel.split_model_axis: column- or row-parallel
+    tp = None
+
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        if self.tp is None:
+            return F.linear(x, self.weight, self.bias)
+        from .tensor_parallel import SumGradOverLine, SumOverLine
+        line = self.tp.line
+        if self.tp.kind() == "column":
+            return F.linear(SumGradOverLine.apply(x, line), self.weight,
+                            self.bias)
+        # row-parallel: partial products summed, the bias added once after
+        y = SumOverLine.apply(F.linear(x, self.weight), line)
+        return y if self.bias is None else y + self.bias
 
     def extra_repr(self):
         return f"in={self.in_features}, out={self.out_features}"
@@ -278,8 +290,22 @@ class Embedding(torch.nn.Module):
     def reset_parameters(self, generator=None):
         init_lib.normal(self.weight, 1.0, generator)
 
+    # set by nn.tensor_parallel.split_model_axis: this rank's rows
+    tp = None
+
     def forward(self, idx):
-        return torch.nn.functional.embedding(idx, self.weight)
+        if self.tp is None:
+            return torch.nn.functional.embedding(idx, self.weight)
+        # vocab-parallel: this rank's rows, the others masked to zero, the
+        # lookups summed over the line (the JAX host engine's tok_shard)
+        from .tensor_parallel import SumOverLine
+        rows = self.weight.shape[0]
+        rel = idx - self.tp.line.index * rows
+        ok = (rel >= 0) & (rel < rows)
+        e = torch.nn.functional.embedding(rel.clamp(0, rows - 1),
+                                          self.weight)
+        e = torch.where(ok[..., None], e, e.new_zeros(()))
+        return SumOverLine.apply(e, self.tp.line)
 
     def extra_repr(self):
         return f"{self.num_embeddings}, {self.embedding_dim}"

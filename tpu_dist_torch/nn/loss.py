@@ -16,7 +16,14 @@ class CrossEntropyLoss(torch.nn.Module):
     (:func:`tpu_dist_torch.ops.fused_cross_entropy`): one pass over the
     logits forward and one backward, with no log-softmax tensor.  Rows
     labelled ``ignore_index`` are masked outside the kernel, which matches
-    labels by column id."""
+    labels by column id.
+
+    Logits split on the vocab over a mesh line
+    (:class:`~tpu_dist_torch.nn.tensor_parallel.ShardedLogits`, a model
+    split's LM head) take :func:`~tpu_dist_torch.nn.tensor_parallel.
+    vocab_parallel_cross_entropy`: K1f/K1b on this rank's columns with
+    ``fused=True``, their plain versions otherwise; the logits are never
+    gathered."""
 
     def __init__(self, reduction: str = "mean", fused: bool = False,
                  label_smoothing: float = 0.0, ignore_index: int = -100,
@@ -34,6 +41,15 @@ class CrossEntropyLoss(torch.nn.Module):
                 "the fused path)")
 
     def forward(self, logits, labels):
+        from .tensor_parallel import (ShardedLogits,
+                                      vocab_parallel_cross_entropy)
+        if isinstance(logits, ShardedLogits):
+            if self.label_smoothing or self.weight is not None:
+                raise ValueError("logits split on the vocab take plain "
+                                 "softmax CE: no label_smoothing or weight")
+            return vocab_parallel_cross_entropy(
+                logits, labels, self.reduction, self.ignore_index,
+                fused=self.fused)
         if not self.fused:
             return F.cross_entropy(logits, labels, self.reduction,
                                    label_smoothing=self.label_smoothing,

@@ -34,10 +34,15 @@ _TLS = threading.local()
 def reset_parameters(module: Module, generator: torch.Generator) -> None:
     """Re-initialize, in ``named_modules`` order, every submodule that owns
     parameters or buffers directly, from ``generator``.  Deterministic given
-    the generator's seed and the module tree."""
+    the generator's seed and the module tree; a layer split over a model
+    axis draws its whole parameters and keeps its slice."""
     for _, mod in module.named_modules():
         if mod._parameters or mod._buffers:
-            mod.reset_parameters(generator)
+            split = getattr(mod, "tp", None)
+            if split is None:
+                mod.reset_parameters(generator)
+            else:  # split over a model axis: the unsplit layer's draws
+                split.reset(mod, generator)
 
 
 class _Rng:

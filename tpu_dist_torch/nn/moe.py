@@ -86,6 +86,7 @@ from . import init as init_lib
 from ..collectives import ops as _ops
 from ..ops._build import resolve_device
 from ..ops.gmm import ceil_to, grouped_linear
+from .tensor_parallel import SumGradOverLine, SumOverLine
 
 __all__ = ["MoELayer", "ExpertAxisError"]
 
@@ -94,34 +95,6 @@ class ExpertAxisError(ValueError):
     """A layer that an expert axis cannot split: the dropless dispatch over
     more than one expert rank, or an expert count that the axis does not
     divide."""
-
-
-class _SumOverLine(torch.autograd.Function):
-    """The sum over a mesh line forward, the identity backward: the combine
-    of the expert ranks' partial outputs (every rank of the line computes
-    the same loss from the sum)."""
-
-    @staticmethod
-    def forward(ctx, x, line):
-        return _ops.psum(x, line)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _SumGradOverLine(torch.autograd.Function):
-    """The identity forward, the sum over a mesh line backward: a tensor
-    that every rank of the line feeds into its own share of the work."""
-
-    @staticmethod
-    def forward(ctx, x, line):
-        ctx.line = line
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _ops.psum(g.contiguous(), ctx.line), None
 
 
 def _mesh_lines(expert_axis):
@@ -313,7 +286,7 @@ class MoELayer(torch.nn.Module):
         if sharded:
             # each rank's gate gradients are 0 on the other ranks' choices,
             # so their sum is the unsplit layer's, bit for bit
-            gate_vals = _SumGradOverLine.apply(gate_vals, self.expert_line)
+            gate_vals = SumGradOverLine.apply(gate_vals, self.expert_line)
 
         # each (choice, token) row's arrival rank at its expert, choices in
         # priority order (all first choices, then all second ...): the
@@ -329,11 +302,11 @@ class MoELayer(torch.nn.Module):
             y = self._forward_dropless(xt, gate_vals, gate_idx, rank, counts)
         else:
             y = self._forward_capacity(
-                _SumGradOverLine.apply(xt, self.expert_line) if sharded
+                SumGradOverLine.apply(xt, self.expert_line) if sharded
                 else xt,
                 gate_vals, gate_idx, rank, oh, counts)
             if sharded:
-                y = _SumOverLine.apply(y, self.expert_line)
+                y = SumOverLine.apply(y, self.expert_line)
 
         # Switch load-balance loss on first-choice assignments; over a data
         # axis the global shares, with this shard's probabilities carrying
