@@ -39,7 +39,7 @@ Phases, each printed as one JSON line:
 5. ``serve``: the full-width dense model (float32, weights from a seeded
    generator) served through ``ServeClient`` → socket → ``Frontend`` →
    ``Scheduler`` → ``SlotEngine(8 slots, max_len 2048)``: the 16 requests
-   of :func:`smoke_requests` (prompts 16-1536 tokens, one above 1024; 32-128
+   of :func:`smoke_requests` (prompts 16-1536 tokens, one above 1024; 16-64
    new tokens; 12 greedy, 4 sampled at temperature 0.8 with seeds 1-4).
    Every request must end ``done`` with all its tokens and equal
    ``generate()`` alone on the card, and two greedy ones the plain path on
@@ -189,8 +189,8 @@ Phases, each printed as one JSON line:
    deterministic algorithms and without.  No kernel on the elastic path.
 15. ``host_ring``: the dense cell's gradients (four seeded batches of 2
    rows: K1f/K1b 4 and K2f/K2b 48 launches, wgmma; of the 548 MB of CUDA
-   leaves a rank, blocks 0-3 and every other leaf but the two vocabulary
-   tables: 120 MB) reduced by four thread ranks on the host data plane (one port
+   leaves a rank, blocks 0-1 and every other leaf but the two vocabulary
+   tables: 63 MB) reduced by four thread ranks on the host data plane (one port
    TCPStore, a DataPlane and a ``Bucketer(dp=, comm_dtype=)`` a rank), op
    ``avg``: float32, bfloat16 and ``int8_block256`` with an ErrorFeedback
    over the flat TCP ring; float32 and int8 over SHM lanes and over the
@@ -213,7 +213,8 @@ Phases, each printed as one JSON line:
    the bytes pushed and the reshard seconds.  ``quant_gate``: the
    ``accuracy_run`` twin's ConvNet gate at world 2 (two worker processes on
    this card, store and data plane only, no NCCL; 150 steps, batch 128, lr
-   0.02): the int8 + EF accuracy within ±3 SE of the float32 wire's.
+   0.02; the two worlds at once): the int8 + EF accuracy within ±3 SE of
+   the float32 wire's.
 16. ``obs``: the flight recorder on the dense cell's real gradients at
    world 2 — ``python -m tpu_dist_torch.launch --standalone
    --nproc_per_node=2 --flight-recorder --heartbeat_timeout=5`` on a worker
@@ -229,7 +230,8 @@ Phases, each printed as one JSON line:
    ``diagnose`` names rank 1 the straggler and rank 0 pending in the next
    bucket's span and the ring span in it, at the worker's line; ``python
    -m tpu_dist_torch.obs diagnose`` exits 3 and ``merge`` writes two
-   tracks.  Then the same worker under ``--flight-recorder --sanitize``
+   tracks (the stall's launch runs in ``faults``).  The same worker under
+   ``--flight-recorder --sanitize``
    (one launch, shared with ``sanitize``): steps 0-7 with the recorder
    armed on even steps and disarmed on odd ones, the sanitizer off: step
    and sync ms of each arm, and the dumps' bytes.  ``sanitize``: steps 8-9
@@ -248,7 +250,7 @@ Phases, each printed as one JSON line:
    payload equal.
 17. ``cluster_failover``: two ``python -m tpu_dist_torch.cluster.agent``
    processes host the replicated store; the train_lm twin at full width
-   (120 steps, the dense cell's fused loss) under ``--store_endpoints``
+   (80 steps, the dense cell's fused loss) under ``--store_endpoints``
    with heartbeats; the leader's agent SIGKILLed after the first step:
    epoch 1 names node 1's replica, generation 0 throughout, the parameters
    of an unkilled launch, K1 1 and K2 12 a step, the recorder's
@@ -259,13 +261,14 @@ Phases, each printed as one JSON line:
    ``elastic_train`` twin with ``--zero`` over the host data plane, 2 → 1
    → 2 across the node boundary: JAX's plans, each world's phase bit for
    bit a single launcher resumed from a copy of the tree.  ``netchaos``:
-   the dense cell's gradients (the 120 MB ``host_ring`` subset) at world
+   the dense cell's gradients (the 63 MB ``host_ring`` subset) at world
    2 (two rank processes, a Bucketer on the float32 host ring) under
    ``corrupt`` (named ``FrameCorruptError``,
    the launch fails, no result), ``delay`` and an SHM ``conn-reset``
    (byte-identical), ``partition`` (``CollectiveTimeoutError`` within
    ``--coll_timeout`` + 5 s); the served model under ``corrupt:surface=
-   serve`` (8 requests, each a named error).
+   serve`` (8 requests, each a named error).  The ``corrupt`` cells'
+   launches run in ``faults``.
 18. ``serve_sharded``: the served model (GPT-2-small, float32, 8 slots,
    2048 positions, seed 0) as a tensor-parallel group of two rank
    processes on this card over the store and the host data plane
@@ -340,7 +343,38 @@ Phases, each printed as one JSON line:
    width, depth 2, batch 2 × 1024) bit for bit ``SerialTPRunner``, two
    steps.  ``tp_train_cli``: ``train_lm --parallel tp`` at world 1 at its
    defaults: the loss falls.
-21. ``kernels``: one line over all kernels; the card's name and power limit
+21. ``pp_train``: pipeline parallelism at full width — the dense cell
+   (batch 8, T 2048, SGD 0.01, fused loss) through ``PipelineParallel``
+   (``benchmarks.transformer_lm.pp_steps``) on two rank processes on this
+   card over gloo, started by the port's launcher, at pipe 2 and M = 4:
+   GPipe in float32 and bf16, 1F1B in bf16 (``--pp-world 4``: a card a
+   rank over NCCL at ``data 2 × pipe 2`` GPipe and ``data 1 × pipe 4``
+   1F1B, both dtypes), 3 steps held to world 1's (``tp_train``'s, or run
+   here): float32 by ``PP_F32_TOL``, bf16 by ``SPLIT_BF16_TOL``; the
+   replicated embedding and head bit for bit across the ranks; each rank
+   holding its blocks plus them; K1f/K1b and K2f/K2b launches a rank a
+   step as ``pp_per_step`` says (wgmma in bf16), K3/K4 none; greedy
+   ``generate`` from the gathered and unpacked seeded state equal to world
+   1's; step ms, tokens/s a rank and a card, hop bytes, the repl
+   reduction's ms, the measured bubble and peak memory a rank.  In the
+   same launch, ResNet-18/CIFAR-10 (batch 256) under the GSPMD
+   step at data 2 against world 1 on the global batch (float32 over one
+   step by ``BN_TOL``, float64 over two by ``BN_F64_TOL``).
+   ``pp_train_cli``: ``train_lm --parallel pp`` at world 1 at its
+   defaults: the loss falls.  ``pp_host``: the host route at full width
+   (2 stages, M = 4, float32): the in-process rig (a thread and a data
+   plane a stage) runs GPipe, 1F1B and GPipe with the int8_block256 wire,
+   bit for bit ``SerialPipelineRunner`` (the int8 wire within
+   ``PP_INT8``), 1F1B's stash within its bound and below GPipe's;
+   ``pp_host_grid``: ``build_tp_stage_fns`` on a pp 2 × tp 2 grid at
+   depth 2 bit for bit ``SerialTPRunner``.
+22. ``faults``: the launches that wait on an injected fault, at once —
+   ``obs``'s stall (``obs_stall``), ``netchaos``'s corrupt frames
+   (``netchaos_corrupt``) and ``pp_host_twin``: the ``pipeline_train``
+   twin under the launcher with ``PP_KILL``, its gang restart resuming bit
+   for bit the serial oracle.  Checks of function only: the seconds they
+   print are no metric, and no timed window runs beside them.
+23. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
@@ -353,8 +387,8 @@ named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``serve_rope``, ``zero_ddp``, ``zero_opt``, ``elastic``, ``host_ring``,
 ``host_zero``, ``quant_gate``, ``obs``, ``sanitize``, ``roles``,
 ``cluster_failover``, ``cluster_elastic``, ``netchaos``,
-``serve_sharded``, ``serve_disagg``, ``ep_train``, ``tp_train``) and
-never prints the result line.
+``serve_sharded``, ``serve_disagg``, ``ep_train``, ``tp_train``,
+``pp_train``, ``pp_host``, ``faults``) and never prints the result line.
 
 Any failure exits non-zero and prints no result line; so does a machine with
 no CUDA device, or a directory without the ``tpu_dist_torch`` package.
@@ -1537,7 +1571,7 @@ def smoke_requests() -> list:
     """The serve phases' 16 requests for the 2048-position pool, from
     ``np.random.default_rng(0)``: prompt lengths uniform in 16-1536 (the
     longest raised to 1536 when none exceeds 1024, so the longest bucket
-    runs), new-token counts uniform in 32-128, no eos; the last 4 requests
+    runs), new-token counts uniform in 16-64, no eos; the last 4 requests
     at temperature 0.8 with seeds 1-4.  A check of every bucket and of
     sampling, not a traffic mix: the benchmark's traffic is
     ``serve_lm.workload``."""
@@ -1547,7 +1581,7 @@ def smoke_requests() -> list:
     plens = rng.integers(16, 1536 + 1, 16)
     if plens.max() <= 1024:
         plens[int(plens.argmax())] = 1536
-    gens = rng.integers(32, 128 + 1, 16)
+    gens = rng.integers(16, 64 + 1, 16)
     reqs = []
     for i, (p, g) in enumerate(zip(plens, gens)):
         s = i - 12 + 1
@@ -1608,13 +1642,25 @@ def _first_divergence(model, req, got, want, cache_dtype):
 
 
 def _generate(model, req, cache_dtype):
+    """``generate()`` of ``req`` alone; for the serve phases' model (its
+    weights never change) each request's tokens are computed once."""
     from tpu_dist_torch.serve import random_key
+    key = None
+    if model is _SERVE.get("model"):
+        key = ("generate", req["prompt"].tobytes(), req["max_new_tokens"],
+               req.get("temperature", 0.0), req.get("seed", 0),
+               cache_dtype)
+        if key in _SERVE:
+            return _SERVE[key]
     prompt = torch.from_numpy(req["prompt"]).to(model.device)
     out = model.generate(
         prompt[None], req["max_new_tokens"],
-        temperature=req["temperature"], cache_dtype=cache_dtype,
-        rng=random_key(req["seed"]) if req["temperature"] else None)
-    return out[0, len(req["prompt"]):].tolist()
+        temperature=req.get("temperature", 0.0), cache_dtype=cache_dtype,
+        rng=random_key(req["seed"]) if req.get("temperature") else None)
+    got = out[0, len(req["prompt"]):].tolist()
+    if key is not None:
+        _SERVE[key] = got
+    return got
 
 
 def _tie_rule(model, reqs, got, want, cache_dtype, against: str) -> list:
@@ -3279,8 +3325,8 @@ GATEWAY_ARGV = ["--dim", "768", "--depth", "12", "--heads", "12", "--vocab",
                 "32768", "--max-seq-len", "2048", "--slots", "8"]
 LAUNCH_TIMEOUT = 240     # seconds a launched world may take
 GATEWAY_WAIT = 300       # seconds for a request through the gateway
-SUSTAIN_RAMP = 2.0       # seconds from the submits to a window's start
-SUSTAIN_WINDOW = 4.0     # seconds a window of sustained traffic is counted
+SUSTAIN_RAMP = 0.5       # seconds from the submits to a window's start
+SUSTAIN_WINDOW = 1.5     # seconds a window of sustained traffic is counted
 # the order of the sustained windows: each path first and last in turn
 SUSTAIN_ORDER = ("direct", "gateway", "gateway", "direct")
 
@@ -3445,6 +3491,9 @@ def _run_launched(mode: str, extra: list) -> dict:
             False}
 
 
+LAUNCH_RESTART_FLAGS = ["--max_restarts=1", "--restart_backoff=0"]
+
+
 def _digest(params) -> str:
     """sha256 over every parameter's name and bytes, in name order: the
     launched run's final parameters against this process's."""
@@ -3525,8 +3574,7 @@ def check_launch_restart(results):
     ``TPU_DIST_RESTART_COUNT=1`` and the store's ``tpu_dist/generation`` =
     1 and finishes; the launcher exits 0.  The seconds from the failure to
     generation 1's first step."""
-    run = _run_launched("restart", ["--max_restarts=1",
-                                    "--restart_backoff=0"])
+    run = _run_launched("restart", LAUNCH_RESTART_FLAGS)
     g0, g1 = run["recs"].get(0, {}), run["recs"].get(1, {})
     ok = (run["rc"] == 0 and set(run["recs"]) == {0, 1}
           and _contract_ok(g0["env"], 0) and _contract_ok(g1["env"], 1)
@@ -3559,7 +3607,8 @@ def _gateway_requests() -> list:
 
 def _stream_requests(n: int = 320) -> list:
     """``n`` greedy requests drawn as :func:`smoke_requests` draws its
-    (prompt lengths uniform in 16-1536, new-token counts in 32-128) from
+    (prompt lengths uniform in 16-1536, new-token counts in 32-128: its
+    own draws, not those of :func:`smoke_requests`) from
     ``np.random.default_rng(1)``: the traffic of a sustained window."""
     import numpy as np
 
@@ -3801,9 +3850,9 @@ for _ in range(n):
     request(3, f"arrived/{world}", struct.pack("<q", 1))   # ADD
 print("done", flush=True)
 """
-STORE_OPS = 1000         # round trips of each op through one client
+STORE_OPS = 400          # round trips of each op through one client
 STORE_CLIENTS = (8, 64)  # concurrent ranks, one process and connection each
-STORE_CLIENT_OPS = 250   # rounds of set, get and add of each rank
+STORE_CLIENT_OPS = 100   # rounds of set, get and add of each rank
 
 
 def _store_server(python: bool):
@@ -3881,8 +3930,20 @@ def check_store(results):
     servers = {}
     rows, natives, conc = {}, {}, {}
     try:
-        for name in ("native", "python"):
-            servers[name] = _store_server(python=name == "python")
+        # both servers start at once (a process each; their start is not
+        # timed)
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            started = {name: pool.submit(_store_server,
+                                         python=name == "python")
+                       for name in ("native", "python")}
+            for name, f in started.items():
+                try:
+                    servers[name] = f.result()
+                except RuntimeError:
+                    pass
+        if len(servers) < 2:
+            raise RuntimeError("a store server process did not start")
         for name, server, client_py in (
                 ("native", "native", False), ("python", "python", True),
                 ("native_client_python_server", "python", False)):
@@ -4688,12 +4749,13 @@ HOST_LAYOUT = ("h0", "h0", "h1", "h1")      # 2 hosts x 2 ranks, per rank
 HOST_INT8_BOUND = 0.05
 HOST_RESHARD_TO = 3
 HOST_ZERO_STEPS = 2      # ZeroOptimizer steps of the host_zero phase
-# host_ring, host_zero and netchaos (obs with the head's weight) reduce the
-# gradients of blocks 0..HOST_RING_BLOCKS-1 and every leaf outside the
-# blocks but the two 100 MB vocabulary tables (host_sync.ring_subset): 120
-# MB a rank of the 548, every kind of leaf (matrices, biases, norms, the odd
-# 32768-long head bias), so their ring runs fit the script's time
-HOST_RING_BLOCKS = 4
+# host_ring, host_zero and netchaos (obs: blocks 0-3 with the head's
+# weight) reduce the gradients of blocks 0..HOST_RING_BLOCKS-1 and every
+# leaf outside the blocks but the two 100 MB vocabulary tables
+# (host_sync.ring_subset): 63 MB a rank of the 548, every kind of leaf
+# (matrices, biases, norms, the odd 32768-long head bias), so their ring
+# runs fit the script's time
+HOST_RING_BLOCKS = 2
 HOST_RING_SKIP = ("tok.weight", "head.weight")
 
 
@@ -4804,7 +4866,7 @@ def _dense_rank_grads(n: int):
 
 
 def check_host_ring(results):
-    """The dense cell's gradients (the 120 MB of CUDA leaves a rank that
+    """The dense cell's gradients (the 63 MB of CUDA leaves a rank that
     :data:`HOST_RING_BLOCKS` keeps) reduced by four thread ranks on the
     host ring: float32, bfloat16 and
     ``int8_block256`` with an ErrorFeedback over the flat TCP ring; float32
@@ -5057,8 +5119,8 @@ def check_quant_gate(results):
     """The ``accuracy_run`` twin's ConvNet gate at world 2 (two worker
     processes on this one card, store and data plane only, no NCCL): the
     JAX spec (150 steps, batch 128, lr 0.02), float32 wire against
-    ``int8_block256`` with error feedback; ``|delta|`` within the ±3 SE
-    band."""
+    ``int8_block256`` with error feedback (the two worlds at once, four
+    processes); ``|delta|`` within the ±3 SE band."""
     from tpu_dist_torch.benchmarks.accuracy_run import run_quant_ef_gate
     row = run_quant_ef_gate(model="convnet", device="cuda")
     emit("quant_gate", **row)
@@ -5270,11 +5332,10 @@ def _med(xs):
     return statistics.median(xs) if xs else None
 
 
-def check_obs(results):
-    """The flight recorder on the dense cell's real gradients at world 2
-    (two ranks on this card, store and host data plane, no NCCL).
-
-    The stall: ``--flight-recorder --heartbeat_timeout=5`` with rank 1
+def _obs_stall() -> bool:
+    """The flight recorder's stall at world 2 (two ranks on this card, the
+    dense cell's real gradients, store and host data plane, no NCCL):
+    ``--flight-recorder --heartbeat_timeout=5`` with rank 1
     chaos-stalled at step 3.  The launcher exits non-zero naming
     ``RankLostError`` for rank 1 with its last obs position, prints the
     positions table and the dump directory; both ranks' dumps read; up to
@@ -5283,9 +5344,8 @@ def check_obs(results):
     straggler, rank 0 pending in the next bucket's span and the ring span
     nested in it, at the worker's line; the CLI exits 3 and ``merge``
     writes a trace with two tracks; every completed step launched K1 once
-    and K2 12 times.  Then steps 0-7 of the ``timing`` launch, the
-    recorder armed on even steps and disarmed on odd ones: step and sync
-    ms of each, and the dumps' bytes."""
+    and K2 12 times.  A check of function: the launch runs in the
+    ``faults`` phase, beside other fault launches."""
     from tpu_dist_torch import obs
     run = _obs_run("stall", 10, ["--flight-recorder",
                                  f"--heartbeat_timeout={OBS_HB_TIMEOUT}"],
@@ -5334,7 +5394,28 @@ def check_obs(results):
     checks["steps_before_stall"] = [len(run["logs"][r]["steps"])
                                     for r in range(OBS_WORLD)] == [4, 4]
 
+    emit("obs_stall", world=OBS_WORLD, chaos=OBS_STALL,
+         heartbeat_timeout=OBS_HB_TIMEOUT, launcher_rc=run["rc"],
+         launcher_wall_s=run["wall_s"], diagnosis={
+             k: diag.get(k) for k in ("verdict", "straggler",
+                                      "straggler_last_coll", "stuck_coll",
+                                      "stuck_op", "stuck_site",
+                                      "waiting_ranks")},
+         events_per_rank={d["rank"]: len(d["events"]) for d in dumps},
+         stall_dump_bytes=run["dump_bytes"], checks=checks,
+         stderr_tail=None if all(checks.values()) else err[-3000:])
+    return all(checks.values())
+
+
+def check_obs(results):
+    """The flight recorder's cost on the dense cell's real gradients at
+    world 2 (two ranks on this card, store and host data plane, no NCCL):
+    steps 0-7 of the ``timing`` launch, the recorder armed on even steps
+    and disarmed on odd ones — step and sync ms of each, and the dumps'
+    bytes; every step launched K1 once and K2 12 times.  (The recorder's
+    stall and diagnosis: the ``faults`` phase.)"""
     timing = _timing_run(results)
+    checks = {}
     steps = [s for r in range(OBS_WORLD)
              for s in timing["logs"][r]["steps"] if s["step"] < 8]
     checks["timing_steps_done"] = len(steps) == 8 * OBS_WORLD
@@ -5347,15 +5428,7 @@ def check_obs(results):
                "grads_ms": _med([s["grads_ms"] for s in arm[a]])}
            for a in (True, False)}
     nbytes = steps[0]["bytes"] if steps else None
-    emit("obs", world=OBS_WORLD, chaos=OBS_STALL,
-         heartbeat_timeout=OBS_HB_TIMEOUT, launcher_rc=run["rc"],
-         launcher_wall_s=run["wall_s"], diagnosis={
-             k: diag.get(k) for k in ("verdict", "straggler",
-                                      "straggler_last_coll", "stuck_coll",
-                                      "stuck_op", "stuck_site",
-                                      "waiting_ranks")},
-         events_per_rank={d["rank"]: len(d["events"]) for d in dumps},
-         stall_dump_bytes=run["dump_bytes"],
+    emit("obs", world=OBS_WORLD,
          timing={"armed": row[True], "disarmed": row[False],
                  "step_overhead_ms": (row[True]["step_ms"]
                                       - row[False]["step_ms"])
@@ -5364,7 +5437,8 @@ def check_obs(results):
                  "dump_bytes": timing["dump_bytes"],
                  "launcher_wall_s": timing["wall_s"]},
          checks=checks,
-         stderr_tail=None if all(checks.values()) else err[-3000:])
+         stderr_tail=None if all(checks.values())
+         else timing["stderr"][-3000:])
     return all(checks.values())
 
 
@@ -5570,7 +5644,7 @@ FAILOVER_AFTER_KILL_S = 5.0
 # the plans JAX's elastic_plan gives for that run's counts (one host, so
 # ties go by node id): the shrink, then the grow
 CLUSTER_PLANS = ({0: (0, 1), 1: (1, 0)}, {0: (0, 1), 1: (1, 1)})
-NETCHAOS_COLL_TIMEOUT = 10
+NETCHAOS_COLL_TIMEOUT = 5
 
 # the failover run's worker, under ``python -m tpu_dist_torch.launch
 # --nproc_per_node=1 --store_endpoints=FILE --heartbeat_timeout ...
@@ -5857,7 +5931,7 @@ def check_cluster_elastic(results):
 # --standalone --nproc_per_node=2``: both ranks on cuda:0, the group the
 # store and the host data plane only (a rank shim, no NCCL).  The dense
 # cell's gradients on the rank's seeded row (K1 once, K2 12 times), then
-# their 120 MB host_ring subset averaged by a Bucketer over the float32
+# their 63 MB host_ring subset averaged by a Bucketer over the float32
 # host ring.  argv:
 # OUT MODE.  MODE ``once``: one sync (the launch's --netchaos decides its
 # fate; under --flight-recorder a crash leaves each rank's dump).  ``cells``: an unfaulted sync twice (the second timed), then each
@@ -5892,7 +5966,8 @@ group = _Group(rank, world)
 ddp, state = dense_cell(device="cuda:0", batch=1)
 for k in KERNELS:
     k.launches = 0
-grads = ring_subset(rank_grads(ddp, state, rank, batch=1))
+# HOST_RING_BLOCKS's subset: blocks 0-1 and the leaves outside the blocks
+grads = ring_subset(rank_grads(ddp, state, rank, batch=1), 2)
 torch.cuda.synchronize()
 log = {"rank": rank, "launches": {k.__name__: k.launches for k in KERNELS},
        "bytes": sum(v.numel() * v.element_size() for v in grads.values()),
@@ -6040,33 +6115,25 @@ def _serve_corrupt_cell() -> dict:
     return {"requests": rows}
 
 
-def check_netchaos(results):
-    """The network chaos layer on the dense cell's float32 gradients (K1
-    once, K2 12 times a step; their 120 MB host_ring subset) at world 2,
-    two rank processes on this card averaged by a Bucketer on the float32
-    host ring, and on the serve wire.  Cells and their required outcomes:
+def _netchaos_corrupt() -> bool:
+    """The network chaos layer's corrupt frames, a check of function (the
+    ``faults`` phase runs it beside other fault launches):
 
-    - ``corrupt:surface=tcp,rank=1,frame=2`` (``--netchaos``, SHM off): a
+    - ``corrupt:surface=tcp,rank=1,frame=2`` (``--netchaos``, SHM off) on
+      the dense cell's float32 gradients (K1 once, K2 12 times; their 63 MB
+      host_ring subset) at world 2, two rank processes on this card: a
       ``FrameCorruptError`` naming src 1, the tag and the offset; the
       launcher exits non-zero and no rank returns a result;
-    - in one ``--coll_timeout=10`` launch, after an unfaulted sync (SHM
-      off): ``delay:surface=tcp,delay=0.002`` byte-identical;
-      ``conn-reset:surface=shm,rank=0,frame=1`` (lanes on) breaks the lane
-      and is byte-identical; ``partition:surface=tcp,rank=1,peer=0`` a
-      ``CollectiveTimeoutError`` naming the stalled hop within the timeout
-      plus 5 s;
-    - ``corrupt:surface=serve`` on the full-width served model with 8 of
-      :func:`smoke_requests`: every request ends in a named error.
+    - beside it, ``corrupt:surface=serve`` on the full-width served model
+      with 8 of :func:`smoke_requests`: every request ends in a named
+      error.
 
-    Printed: each cell's outcome, the named error and the seconds to it,
-    and the completed syncs' ms beside the unfaulted one."""
+    Printed: the named errors and the seconds to them."""
     import tempfile
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    out = tempfile.mkdtemp(prefix="netchaos_", dir=os.environ.get("TMPDIR"))
+    out = tempfile.mkdtemp(prefix="netchaos_corrupt_",
+                           dir=os.environ.get("TMPDIR"))
     with open(os.path.join(out, "worker.py"), "w") as f:
         f.write(NETCHAOS_WORKER)
-    t0 = time.time()
     corrupt = _netchaos_launch(
         out, "corrupt", "once",
         ["--netchaos=corrupt:surface=tcp,rank=1,frame=2",
@@ -6076,7 +6143,52 @@ def check_netchaos(results):
         _, corrupt_err = corrupt.communicate(timeout=CLUSTER_TIMEOUT)
     finally:
         _stop(corrupt, grace=5)
+    cr = [_json(os.path.join(out, "corrupt", f"r{r}.json"), {})
+          for r in range(2)]
+    named = [c["cells"].get("once", {}) for c in cr if c]
+    fce = _corrupt_frames(os.path.join(out, "corrupt", "obs"))
+    checks = {
+        "corrupt_named": bool(fce) and all(
+            r["rank"] == 0 and r["src"] == 1 and r["tag"]
+            and r["offset"] is not None and r["offset"] >= 0 for r in fce),
+        "corrupt_launcher_failed": corrupt.returncode not in (0, None),
+        "corrupt_no_result": not any("result" in c for c in cr),
+        "serve_every_request_named": len(serve_cell["requests"]) == 8
+        and all(r["error"] in ("ServerGoneError", "RequestFailedError")
+                and r["s"] <= 60 for r in serve_cell["requests"]),
+        "launches_per_rank": all(c.get("launches") == OBS_PER_STEP
+                                 for c in cr if c)}
+    emit("netchaos_corrupt", world=2,
+         corrupt={"launcher_rc": corrupt.returncode, "named": fce,
+                  "ranks": [{k: r.get(k) for k in ("outcome", "error",
+                                                   "detail", "seconds")}
+                            for r in named]},
+         serve=serve_cell, checks=checks,
+         stderr_tail=None if all(checks.values())
+         else corrupt_err[-3000:])
+    return all(checks.values())
+
+
+def check_netchaos(results):
+    """The network chaos layer's cells on the dense cell's float32
+    gradients (K1 once, K2 12 times a step; their 63 MB host_ring subset)
+    at world 2, two rank processes on this card averaged by a Bucketer on
+    the float32 host ring, in one ``--coll_timeout`` launch
+    (``NETCHAOS_COLL_TIMEOUT``): after an unfaulted sync (SHM off),
+    ``delay:surface=tcp,delay=0.002`` byte-identical;
+    ``conn-reset:surface=shm,rank=0,frame=1`` (lanes on) breaks the lane
+    and is byte-identical; ``partition:surface=tcp,rank=1,peer=0`` a
+    ``CollectiveTimeoutError`` naming the stalled hop within the timeout
+    plus 5 s.  (The corrupt frames: the ``faults`` phase.)  Printed: each
+    cell's outcome, the named error and the seconds to it, and the
+    completed syncs' ms beside the unfaulted one."""
+    import tempfile
+    torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="netchaos_", dir=os.environ.get("TMPDIR"))
+    with open(os.path.join(out, "worker.py"), "w") as f:
+        f.write(NETCHAOS_WORKER)
+    t0 = time.time()
     cells = _netchaos_launch(
         out, "cells", "cells", [f"--coll_timeout={NETCHAOS_COLL_TIMEOUT}"])
     try:
@@ -6084,12 +6196,8 @@ def check_netchaos(results):
     finally:
         _stop(cells, grace=5)
     wall = time.time() - t0
-    cr = [_json(os.path.join(out, "corrupt", f"r{r}.json"), {})
-          for r in range(2)]
     cl = [_json(os.path.join(out, "cells", f"r{r}.json"), {})
           for r in range(2)]
-    named = [c["cells"].get("once", {}) for c in cr if c]
-    fce = _corrupt_frames(os.path.join(out, "corrupt", "obs"))
     cells_of = [c.get("cells", {}) for c in cl]
 
     def cell(name):
@@ -6106,11 +6214,6 @@ def check_netchaos(results):
 
     part = cell("partition")
     checks = {
-        "corrupt_named": bool(fce) and all(
-            r["rank"] == 0 and r["src"] == 1 and r["tag"]
-            and r["offset"] is not None and r["offset"] >= 0 for r in fce),
-        "corrupt_launcher_failed": corrupt.returncode not in (0, None),
-        "corrupt_no_result": not any("result" in c for c in cr),
         "unfaulted_ranks_agree": len(want) == 1 and None not in want,
         "delay_byte_identical": identical("delay"),
         "shm_reset_byte_identical": identical("shm_conn_reset"),
@@ -6122,16 +6225,9 @@ def check_netchaos(results):
         "partition_bounded": all(
             r.get("seconds", 1e9) <= NETCHAOS_COLL_TIMEOUT + 5
             for r in part),
-        "serve_every_request_named": len(serve_cell["requests"]) == 8
-        and all(r["error"] in ("ServerGoneError", "RequestFailedError")
-                and r["s"] <= 60 for r in serve_cell["requests"]),
         "launches_per_rank": all(c.get("launches") == OBS_PER_STEP
-                                 for c in cl + cr if c)}
+                                 for c in cl if c)}
     emit("netchaos", world=2, bytes_per_rank=(cl[0] or {}).get("bytes"),
-         corrupt={"launcher_rc": corrupt.returncode, "named": fce,
-                  "ranks": [{k: r.get(k) for k in ("outcome", "error",
-                                                   "detail", "seconds")}
-                            for r in named]},
          cells={name: [{k: r.get(k) for k in (
              "spec", "outcome", "error", "seconds", "ms",
              "shm_active_after", "detail")} for r in cell(name)]
@@ -6139,9 +6235,8 @@ def check_netchaos(results):
                           "partition")},
          sync_ms={name: [r.get("ms") for r in cell(name)]
                   for name in ("unfaulted", "delay", "shm_conn_reset")},
-         serve=serve_cell, wall_s=wall, checks=checks,
-         stderr_tail=None if all(checks.values()) else
-         [corrupt_err[-2000:], cells_err[-2500:]])
+         wall_s=wall, checks=checks,
+         stderr_tail=None if all(checks.values()) else cells_err[-3000:])
     return all(checks.values())
 
 
@@ -7303,6 +7398,8 @@ def check_tp_train(results):
         w1[dtype] = _world1_tp(dtype, prompts if dtype == "float32" else ())
         w1[dtype]["updates_jax"] = _by_jax_name(w1[dtype].pop("updates"))
         parts_s[f"world1_{dtype}"] = time.perf_counter() - t0
+    # pp_train holds its ranks to the same world-1 steps
+    results["_world1_dense"] = w1
     ok_w1_launches = all(
         w1["bfloat16"]["launches"][n] == TP_STEPS * c
         for n, c in TP_PER_STEP.items())
@@ -7384,6 +7481,781 @@ def check_tp_train(results):
     return ok and all(cli.values())
 
 
+# ---------------------------------------------------------------------------
+# pipeline parallelism: the mesh pipeline (pp_train) and the host route
+# (pp_host), ROADMAP A9.6b
+# ---------------------------------------------------------------------------
+
+# each world's cases [name, axes, mesh, dtype, schedule]: on one card two
+# gloo ranks at pipe 2 (GPipe in float32 and bf16, 1F1B in bf16); on four
+# cards a card a rank over NCCL at data 2 x pipe 2 (GPipe, train_lm's mesh
+# rule) and data 1 x pipe 4 (1F1B), both dtypes
+PP_WORLDS = {
+    2: ([["gpipe", ["data", "pipe"], [1, 2], "float32", "gpipe"],
+         ["gpipe", ["data", "pipe"], [1, 2], "bfloat16", "gpipe"],
+         ["1f1b", ["data", "pipe"], [1, 2], "bfloat16", "1f1b"]], "gloo"),
+    4: ([["gpipe", ["data", "pipe"], [2, 2], "float32", "gpipe"],
+         ["gpipe", ["data", "pipe"], [2, 2], "bfloat16", "gpipe"],
+         ["1f1b", ["data", "pipe"], [1, 4], "float32", "1f1b"],
+         ["1f1b", ["data", "pipe"], [1, 4], "bfloat16", "1f1b"]], "nccl")}
+PP_WORLD = [2]               # set by --pp-world
+PP_M = 4                     # microbatches a step
+PP_STEPS = 3
+PP_TIMEOUT = 600
+PP_F32_TOL = dict(EP_F32_TOL, why=(
+    "float32 compute with TF32 off on both paths: the pipeline sums M "
+    "microbatches' gradients (attention and the MLPs on 2-row "
+    "microbatches) where world 1 takes one 8-row batch, so a matmul may "
+    "round in the last bits (float32 epsilon 1.2e-7); a LayerNorm gain's "
+    "gradient cancels over 16384 tokens (EP_F32_TOL's limits)"))
+# a pp rank's device bytes once its state is built may exceed its state's
+# bytes by no more than this: its small tensors and the allocator's
+# 512-byte rounding; the whole float32 model (548 MB) is far outside
+PP_HELD_SLACK = 16 << 20
+# BatchNorm under the GSPMD step: ResNet-18/CIFAR-10 at batch 256, SGD 0.1,
+# data 2 (the pp_train launch's two ranks) against world 1 on the global
+# batch: float32 over one step, float64 over two.  Over two steps float32
+# is no witness of the implementation: its own rounding moves world 1's
+# two-step update by several percent (the phase prints world 1's float32
+# against its float64), while float64 holds data 2 to world 1 to rounding
+BN_CELL = {"batch": 256, "steps": 1, "lr": 0.1, "float64_steps": 2}
+BN_TOL = {
+    "loss_rtol": 1e-4, "stats_rel": 1e-4, "update_rel": 1e-2,
+    "leaf_update_rel": 5e-2,
+    "why": "float32 convolutions with TF32 off: cuDNN may take another "
+           "algorithm at 128 images than at 256 and the global statistics "
+           "are a mean of two ranks' means (last-bit differences); a "
+           "BatchNorm gain's or bias's update is a sum whose terms cancel, "
+           "so its rounding is large against its own norm (the vision "
+           "phases' ResNet-18 leaves, 3e-3 card against CPU)"}
+BN_F64_TOL = {
+    "loss_rtol": 1e-6, "stats_rel": 1e-9, "update_rel": 1e-9,
+    "leaf_update_rel": 1e-7,
+    "why": "float64 (epsilon 2.2e-16): the split's rounding, amplified by "
+           "the second step as float32's is, stays many orders below "
+           "these limits, while a gradient that misses the statistics' "
+           "all-reduce or counts it twice moves updates by 1e-3 or more; "
+           "the losses are printed in float32"}
+# the host route at full width: the in-process rig (a thread a stage),
+# 2 stages, M = 4, batch 8 x 2048, float32, two steps (the first warms up)
+PP_HOST = {"stages": 2, "M": 4, "steps": 2, "batch": 8,
+           "dims": {"vocab": 32768, "dim": 768, "depth": 12, "heads": 12,
+                    "seq": 2048}}
+PP_INT8 = {"compress": "int8_block256", "loss_rtol": 1e-2,
+           "why": "activations block-quantized to int8 (a 1/254 step of "
+                  "each 256-value block's largest magnitude) on the way to "
+                  "stage 1 and their cotangents on the way back: the loss "
+                  "moves by far less than 1%"}
+PP_KILL = "kill:rank=1,step=4"   # after step 4's save: generation 1 at 5
+PP_TWIN_STEPS = 7
+
+# a rank of the pp_train phase (env:// under the port's launcher): each
+# case through benchmarks.transformer_lm.pp_steps (PipelineParallel), the
+# launch counts zeroed just before the steps; then, with BN, ResNet-18
+# under the GSPMD step at data = world (benchmarks.resnet_cifar.
+# gspmd_steps).  argv: OUT, [CASES, STEPS, BACKEND, M, PROMPTS, MAX_NEW,
+# BN, DIMS]; the first case generates from PROMPTS; DIMS (pp_steps' sizes)
+# put the ranks on the CPU, for a rehearsal.  Writes OUT/{case}_{dtype}
+# _r{rank}.json, rank 0 the whole updates OUT/{case}_{dtype}_upd.pt, and
+# with BN every rank OUT/bn_{float32,float64}_r{rank}.pt.
+PP_WORKER = """
+import json, os, sys
+import numpy as np
+import torch
+from tpu_dist_torch import dist
+from tpu_dist_torch.benchmarks.transformer_lm import pp_steps
+from tpu_dist_torch.ops import KERNELS
+
+out = sys.argv[1]
+cases, steps, backend, m, prompts, max_new, bn, dims = json.loads(
+    sys.argv[2])
+device = "cpu" if dims else None
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def zero():
+    for k in KERNELS:
+        k.launches = 0
+        for by in ("launches_by_design", "launches_by_mode"):
+            if hasattr(k, by):
+                getattr(k, by).update(dict.fromkeys(getattr(k, by), 0))
+
+
+for i, (name, axes, mesh, compute, schedule) in enumerate(cases):
+    pg = dist.init_process_group(backend=backend, init_method="env://",
+                                 axis_names=axes, mesh_shape=mesh,
+                                 device=device)
+    rank = pg.rank
+    res = pp_steps(steps=steps, compute_dtype=getattr(torch, compute),
+                   schedule=schedule, microbatches=m,
+                   prompts=[np.array(p) for p in prompts] if i == 0
+                   else [], max_new_tokens=max_new, before_steps=zero,
+                   **dims)
+    tag = f"{name}_{compute}"
+    if rank == 0:
+        torch.save({k: v.float().cpu() for k, v in res["updates"].items()},
+                   os.path.join(out, f"{tag}_upd.pt"))
+    with open(os.path.join(out, f"{tag}_r{rank}.json"), "w") as f:
+        json.dump({
+            "losses": res["losses"], "step_ms": res["step_ms"],
+            "stats": res["stats"], "generated": res["generated"],
+            "held_elements": res["held_elements"],
+            "full_elements": res["full_elements"],
+            "held_bytes": res["held_bytes"],
+            "state_bytes": res["state_bytes"],
+            "peak_mem_bytes": res["peak_mem_bytes"],
+            "stage": res["stage_index"],
+            "data": dist.axis_group("data").index,
+            "repl_digest": res["repl_digest"],
+            "launches": {k.__name__: k.launches for k in KERNELS},
+            "launches_by_design": {
+                k.__name__: dict(k.launches_by_design) for k in KERNELS
+                if hasattr(k, "launches_by_design")}}, f)
+    del res
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+if bn:
+    from tpu_dist_torch.benchmarks.resnet_cifar import gspmd_steps
+    pg = dist.init_process_group(backend=backend, init_method="env://",
+                                 axis_names=["data"],
+                                 mesh_shape=[int(os.environ["WORLD_SIZE"])],
+                                 device=device)
+    for dtype, steps in (("float32", bn["steps"]),
+                         ("float64", bn["float64_steps"])):
+        res = gspmd_steps(batch=bn["batch"], steps=steps, lr=bn["lr"],
+                          dtype=getattr(torch, dtype))
+        torch.save({"losses": res["losses"], "step_ms": res["step_ms"],
+                    "updates": {k: v.cpu()
+                                for k, v in res["updates"].items()},
+                    "stats": {p: {k: v.cpu() for k, v in st.items()}
+                              for p, st in res["stats"].items()}},
+                   os.path.join(out, f"bn_{dtype}_r{pg.rank}.pt"))
+    dist.destroy_process_group()
+"""
+
+
+def _pp_ranks(out: str, world: int, cases: list, prompts: list,
+              bn, dims: dict = None) -> tuple:
+    """The pp_train ranks through the port's launcher (``--standalone
+    --nproc_per_node=world``): ``(return code, seconds, stderr tail)``;
+    every process it started is stopped."""
+    import signal
+
+    backend = PP_WORLDS[world][1]
+    with open(os.path.join(out, "pp_worker.py"), "w") as f:
+        f.write(PP_WORKER)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=_repo() + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                "LOCAL_RANK", "TPU_DIST_STORE_ADDR"):
+        env.pop(var, None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_dist_torch.launch", "--standalone",
+         f"--nproc_per_node={world}", os.path.join(out, "pp_worker.py"),
+         out, json.dumps([cases, PP_STEPS, backend, PP_M, prompts,
+                          TP_GEN["max_new_tokens"], bn, dims or {}])],
+        cwd=out, env=env, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        err = proc.communicate(timeout=PP_TIMEOUT)[1][-4000:]
+    except subprocess.TimeoutExpired:
+        err = "timed out"
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except OSError:
+            pass
+        proc.wait(timeout=30)
+    return proc.returncode, time.perf_counter() - t0, err
+
+
+def pp_per_step(schedule: str, stage: int, stages: int,
+                depth: int = 12) -> dict:
+    """K1/K2 launches a rank a step, as the code implies: every schedule
+    runs the stage's blocks on M microbatches (K2f, K2b each a block a
+    microbatch); GPipe's last stage takes the head and loss once over the
+    M trunk outputs (K1f, K1b once); 1F1B's last stage a microbatch (M
+    each), and its other stages run each forward again in the backward's
+    recompute (K2f twice)."""
+    bps = depth // stages
+    last = stage == stages - 1
+    k2f = bps * PP_M * (2 if schedule == "1f1b" and not last else 1)
+    k1 = (1 if schedule == "gpipe" else PP_M) if last else 0
+    return {"cross_entropy_fwd": k1, "cross_entropy_bwd": k1,
+            "flash_fwd": k2f, "flash_bwd": bps * PP_M, "gmm": 0, "tgmm": 0}
+
+
+def _pp_case(world: int, name: str, dtype: str, axes, mesh, w1: dict,
+             out: str, dims: dict = None) -> tuple:
+    """One case's comparison from the ranks' files: ``(fields, checks)``,
+    held to world 1's (``dims``: the rehearsal's sizes, else the
+    cell's)."""
+    d = {"vocab": 32768, "dim": 768, "depth": 12, "seq_len": 2048,
+         "batch": 8, **(dims or {})}
+    sizes = dict(zip(axes, mesh))
+    stages, dp = sizes["pipe"], sizes["data"]
+    backend = PP_WORLDS[world][1]
+    tag = f"{name}_{dtype}"
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out, f"{tag}_r{r}.json")) as f:
+            ranks.append(json.load(f))
+    upd = _by_jax_name(torch.load(os.path.join(out, f"{tag}_upd.pt")))
+    ref = w1[dtype]
+    checks = {}
+    fields = {}
+    loss_err = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], ref["losses"]))
+    if dtype == "float32":
+        zero = dict.fromkeys(ref["updates_jax"], 0.0)
+        rel, leaf, groups = _update_diff(zero, upd, ref["updates_jax"])
+        worst = max(leaf, key=leaf.get)
+        attn = {k: e for k, e in leaf.items() if ".attn." in k}
+        worst_attn = max(attn, key=attn.get)
+        checks[f"{tag}_losses"] = loss_err <= PP_F32_TOL["loss_rtol"]
+        checks[f"{tag}_updates"] = (
+            rel <= PP_F32_TOL["update_rel"]
+            and attn[worst_attn] <= PP_F32_TOL["attn_leaf_update_rel"]
+            and leaf[worst] <= PP_F32_TOL["leaf_update_rel"])
+        fields.update(update_rel_err=rel, worst_leaf=[worst, leaf[worst]],
+                      worst_attn_leaf=[worst_attn, attn[worst_attn]],
+                      worst_leaf_by_group=groups)
+    else:
+        checks[f"{tag}_losses"] = loss_err <= SPLIT_BF16_TOL["loss_rtol"]
+        checks[f"{tag}_updates"], fields["split"] = split_bf16_check(
+            w1["float32"]["updates_jax"], ref["updates_jax"], upd)
+    checks[f"{tag}_second_loss_moved"] = all(
+        r["losses"][1] != r["losses"][0] for r in ranks)
+    checks[f"{tag}_repl_bitwise"] = len({r["repl_digest"]
+                                         for r in ranks}) == 1
+    full = ranks[0]["full_elements"]
+    # tok, pos, ln_f and head (weight and bias)
+    repl = (2 * d["vocab"] * d["dim"] + d["vocab"]
+            + d["seq_len"] * d["dim"] + 2 * d["dim"])
+    want_held = repl + (full - repl) // stages
+    # and on the card: the bytes the rank holds once its state is built
+    # are its state's, not the whole model's (None in a CPU rehearsal)
+    checks[f"{tag}_held"] = all(
+        r["held_elements"] == want_held
+        and (r["held_bytes"] is None
+             or r["held_bytes"] <= r["state_bytes"] + PP_HELD_SLACK)
+        for r in ranks)
+    per_rank = [{n: r["launches"][n] for n in EP_PER_STEP} for r in ranks]
+    want = [{n: PP_STEPS * v for n, v in pp_per_step(
+        name, r["stage"], stages, d["depth"]).items()} for r in ranks]
+    checks[f"{tag}_launches"] = per_rank == want
+    if dtype == "bfloat16":
+        checks[f"{tag}_wgmma"] = all(
+            r["launches_by_design"][n]["wgmma"] == r["launches"][n]
+            for r in ranks for n in ("flash_fwd", "flash_bwd"))
+    p50 = max(statistics.median(r["step_ms"][1:]) for r in ranks)
+    p50_1 = statistics.median(ref["step_ms"][1:])
+    cards = world if backend == "nccl" else 1
+    steady = [[s for s in r["stats"][1:]] for r in ranks]
+    fields.update(
+        mesh=sizes, schedule=name, losses_ranks=[r["losses"]
+                                                 for r in ranks],
+        losses_world1=ref["losses"], loss_rel_err=loss_err,
+        step_ms_ranks=[r["step_ms"] for r in ranks],
+        step_ms_world1=ref["step_ms"], step_ms_p50_ranks=p50,
+        step_ms_p50_world1=p50_1,
+        tokens_per_s_per_rank=d["batch"] * d["seq_len"] / dp / (p50 / 1e3),
+        tokens_per_s_per_gpu=d["batch"] * d["seq_len"] / (p50 / 1e3)
+        / cards,
+        tokens_per_s_world1=d["batch"] * d["seq_len"] / (p50_1 / 1e3),
+        hop_bytes_a_step=[s[-1]["hop_bytes"] for s in steady],
+        repl_sync_ms=[statistics.median(x["sync_ms"] for x in s)
+                      for s in steady],
+        bubble_measured=[statistics.median(
+            1 - x["busy_ms"] / x["step_ms"] for x in s) for s in steady],
+        held_elements_ranks=[r["held_elements"] for r in ranks],
+        full_elements=full, want_held=want_held,
+        held_bytes_ranks=[r["held_bytes"] for r in ranks],
+        state_bytes_ranks=[r["state_bytes"] for r in ranks],
+        held_slack_bytes=PP_HELD_SLACK,
+        peak_mem_bytes_ranks=[r["peak_mem_bytes"] for r in ranks],
+        peak_mem_bytes_world1=ref["peak_mem_bytes"],
+        launches_ranks=per_rank, launches_want=want)
+    return {tag: fields}, checks, ranks
+
+
+def _bn_check(world: int, out: str, w1) -> tuple:
+    """BatchNorm under the GSPMD step: the ranks' files against world 1's
+    runs (``resnet_cifar.gspmd_steps`` on the global batch), float32 by
+    ``BN_TOL`` and float64 by ``BN_F64_TOL``."""
+    zero = dict.fromkeys(w1["float32"]["updates"], 0.0)
+
+    def diff(ranks, ref):
+        loss = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], ref["losses"]))
+        stats = max(
+            float((r["stats"][p][k] - ref["stats"][p][k]).abs().max())
+            / max(float(ref["stats"][p][k].abs().max()), 1e-12)
+            for r in ranks for p in ref["stats"] for k in ("mean", "var"))
+        rel, leaf, _ = _update_diff(zero, ranks[0]["updates"],
+                                    ref["updates"])
+        worst = max(leaf, key=leaf.get)
+        return loss, stats, rel, [worst, leaf[worst]]
+
+    fields, checks = {}, {}
+    for dtype, tol in (("float32", BN_TOL), ("float64", BN_F64_TOL)):
+        ranks = [torch.load(os.path.join(out, f"bn_{dtype}_r{r}.pt"))
+                 for r in range(world)]
+        ref = w1[dtype]
+        loss, stats, rel, worst = diff(ranks, ref)
+        tag = "bn" if dtype == "float32" else "bn_float64"
+        checks.update({
+            f"{tag}_losses": loss <= tol["loss_rtol"],
+            f"{tag}_stats": stats <= tol["stats_rel"],
+            f"{tag}_updates": rel <= tol["update_rel"]
+            and worst[1] <= tol["leaf_update_rel"],
+            f"{tag}_ranks_equal": all(
+                torch.equal(ranks[0]["updates"][k], r["updates"][k])
+                for r in ranks[1:] for k in ref["updates"])})
+        fields[dtype] = {
+            "steps": len(ref["losses"]),
+            "losses_ranks": [r["losses"] for r in ranks],
+            "losses_world1": ref["losses"], "loss_rel_err": loss,
+            "stats_rel_err": stats, "update_rel_err": rel,
+            "worst_leaf": worst,
+            "step_ms_ranks": [r["step_ms"] for r in ranks],
+            "step_ms_world1": ref["step_ms"], "tolerance": tol}
+    checks["bn_stats_moved"] = any(
+        float((w1["float32"]["stats"][p]["mean"]).abs().max()) > 0
+        for p in w1["float32"]["stats"])
+    # world 1 against itself (the spread of two identical float32 runs),
+    # and float32 against float64 over the float64 run's steps: how far
+    # float32's rounding alone moves the updates
+    _, _, rep_rel, rep_worst = diff([w1["repeat"]], w1["float32"])
+    _, _, f32_rel, f32_worst = diff([w1["float32_long"]], w1["float64"])
+    fields["world1_repeat"] = {"update_rel_err": rep_rel,
+                               "worst_leaf": rep_worst}
+    fields["world1_float32_vs_float64"] = {
+        "steps": len(w1["float64"]["losses"]), "update_rel_err": f32_rel,
+        "worst_leaf": f32_worst}
+    return fields, checks
+
+
+def check_pp_train(results):
+    """Pipeline parallelism at full width: the dense GPT-2-small cell
+    (vocab 32768, dim 768, 12 layers, 12 heads, T 2048, batch 8, SGD 0.01,
+    fused loss), 3 steps.  World 1: the plain step (the GSPMD step of the
+    unsplit model, ``tp_steps``) in this process, float32 and bf16.  Then
+    ``PipelineParallel`` (``transformer_lm.pp_steps``) on two gloo rank
+    processes on this card through the port's launcher at pipe 2, M = 4:
+    GPipe in float32 and bf16, 1F1B in bf16 (``--pp-world 4``: a card a
+    rank over NCCL, data 2 x pipe 2 GPipe and data 1 x pipe 4 1F1B, both
+    dtypes).  Float32 losses and updates within ``PP_F32_TOL``, bf16 by
+    ``SPLIT_BF16_TOL`` (C13); the repl leaves bit for bit across the
+    ranks; each rank holding its blocks plus the repl leaves; K1f/K1b and
+    K2f/K2b launches a rank a step as :func:`pp_per_step` says (wgmma in
+    bf16), K3/K4 none; greedy ``generate`` from the unpacked seeded state
+    equal to world 1's (the serve phases' tie rule).  Step ms p50, tokens/s
+    a rank and a card, hop bytes a step, the repl reduction's ms, the
+    measured bubble, peak memory a rank and the device bytes a rank holds
+    once its state is built (its state's, ``PP_HELD_SLACK``).  With two
+    ranks, ResNet-18 under the GSPMD step at data 2 against world 1
+    (float32 over one step by ``BN_TOL``, float64 over two by
+    ``BN_F64_TOL``, and world 1's float32 against its float64).  Then
+    ``train_lm --parallel pp`` at world 1 at its defaults: the loss
+    falls."""
+    import gc
+    import tempfile
+
+    from tpu_dist_torch.benchmarks.resnet_cifar import gspmd_steps
+    from tpu_dist_torch.examples import train_lm
+
+    world = PP_WORLD[0]
+    cases, backend = PP_WORLDS[world]
+    cards = world if backend == "nccl" else 1
+    if torch.cuda.device_count() < cards:
+        raise RuntimeError(f"--pp-world {world} needs {cards} cards, this "
+                           f"machine has {torch.cuda.device_count()}")
+    prompts = _tp_prompts()
+    # world 1: tp_train's steps when it ran in this call (the same steps)
+    w1, parts_s = results.pop("_world1_dense", None), {}
+    if w1 is None:
+        w1 = {}
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            w1[dtype] = _world1_tp(dtype,
+                                   prompts if dtype == "float32" else ())
+            w1[dtype]["updates_jax"] = _by_jax_name(w1[dtype].pop("updates"))
+            parts_s[f"world1_{dtype}"] = time.perf_counter() - t0
+    bn = dict(BN_CELL) if world == 2 else None
+    w1_bn = None
+    if bn:
+        t0 = time.perf_counter()
+
+        def bn_run(dtype, steps):
+            r = gspmd_steps(batch=bn["batch"], steps=steps, lr=bn["lr"],
+                            dtype=getattr(torch, dtype))
+            r["updates"] = {k: v.cpu() for k, v in r["updates"].items()}
+            r["stats"] = {p: {k: v.cpu() for k, v in st.items()}
+                          for p, st in r["stats"].items()}
+            return r
+
+        # float32 twice (world 1's own run-to-run spread); float64 over
+        # the two steps, and float32 over them for its distance from it
+        w1_bn = {"float32": bn_run("float32", bn["steps"]),
+                 "repeat": bn_run("float32", bn["steps"]),
+                 "float64": bn_run("float64", bn["float64_steps"]),
+                 "float32_long": bn_run("float32", bn["float64_steps"])}
+        parts_s["world1_bn"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="pp_train_", dir=os.environ.get("TMPDIR"))
+    rc, ranks_s, err = _pp_ranks(out, world, cases, prompts, bn)
+    parts_s["ranks"] = ranks_s
+    checks = {"ranks_exit_0": rc == 0}
+    fields = {}
+    if rc == 0:
+        for name, axes, mesh, dtype, _ in cases:
+            f, c, ranks = _pp_case(world, name, dtype, axes, mesh, w1, out)
+            fields.update(f)
+            checks.update(c)
+        first = cases[0]
+        with open(os.path.join(out, f"{first[0]}_{first[3]}_r0.json")) as f:
+            got = json.load(f)["generated"]
+        want = w1["float32"]["generated"]
+        checks["generate"] = got == want
+        if got != want:
+            import numpy as np
+
+            from tpu_dist_torch.examples.train_lm import tp_trainer
+            from tpu_dist_torch.models import TransformerLM
+            model = TransformerLM(vocab_size=32768, dim=768, depth=12,
+                                  num_heads=12, max_seq_len=2048,
+                                  device="cuda")
+            tp_trainer(model, 32768, 0.01)      # the seeded weights
+            reqs = [{"prompt": np.array(p), "temperature": 0, "seed": 0,
+                     "max_new_tokens": TP_GEN["max_new_tokens"]}
+                    for p in prompts]
+            verdicts = _tie_rule(model, reqs, got, want, torch.float32,
+                                 "pp_train")
+            checks["generate"] = all(ok for _, ok, _ in verdicts)
+            del model
+        fields["generate_equal"] = got == want
+        if bn:
+            fields["batchnorm_gspmd"], c = _bn_check(world, out, w1_bn)
+            checks.update(c)
+    emit("pp_train", world=world, cards=cards, backend=backend,
+         steps=PP_STEPS, microbatches=PP_M,
+         cases=[{"name": n, "mesh": dict(zip(a, m)), "dtype": d,
+                 "schedule": s} for n, a, m, d, s in cases],
+         ranks_seconds=ranks_s, ranks_rc=rc,
+         tolerance={"float32": PP_F32_TOL, "bfloat16": SPLIT_BF16_TOL},
+         world1={d: {k: w1[d][k] for k in ("losses", "step_ms",
+                                           "peak_mem_bytes", "launches")}
+                 for d in w1},
+         seconds=parts_s, **fields, checks=checks,
+         rank_stderr_tail=None if all(checks.values()) else err)
+    ok = all(checks.values())
+    del w1, w1_bn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the entry point at world 1, its defaults, on the card
+    args = train_lm.parse_args(["--parallel", "pp"])
+    t0 = time.perf_counter()
+    r = train_lm.train(args)
+    cli_s = time.perf_counter() - t0
+    losses = r["losses"]
+    cli = {"finite": all(math.isfinite(v) for v in losses),
+           "falls": losses[-1] < 0.5 * losses[0],
+           "second_loss_moved": losses[1] != losses[0]}
+    emit("pp_train_cli", steps=len(losses), first_loss=losses[0],
+         last_loss=losses[-1], loss_every_20=losses[::20],
+         seconds=cli_s, first_step_seconds=r["first_step_seconds"],
+         loop_seconds=r["loop_seconds"], checks=cli)
+    return ok and all(cli.values())
+
+
+def _trees_bitwise(a: list, b: list) -> bool:
+    """Two stage lists of ``{path: {leaf: tensor}}`` equal bit for bit."""
+    return all(torch.equal(x[p][k], y[p][k]) for x, y in zip(a, b)
+               for p in x for k in x[p])
+
+
+def _pp_twin(out: str, device: str = "cuda") -> tuple:
+    """The ``pipeline_train`` twin under the launcher on the card
+    (``stage0:1,stage1:1``, ``PP_KILL``, a save every step): ``(fields,
+    checks)`` — one gang restart, generation 1 resuming at step 5 with
+    losses equal to the serial oracle's on the card float for float."""
+    import signal
+
+    from tpu_dist_torch import nn, optim
+    from tpu_dist_torch.examples import pipeline_train as ex
+    from tpu_dist_torch.models import TransformerLM
+    from tpu_dist_torch.pipeline import SerialPipelineRunner
+
+    env = dict(os.environ, TPU_DIST_CHAOS=PP_KILL, OMP_NUM_THREADS="1",
+               PYTHONPATH=_repo() + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_dist_torch.launch", "--roles",
+         "stage0:1,stage1:1", "--max_restarts", "1", "-m",
+         "tpu_dist_torch.examples.pipeline_train", "--device", device,
+         "--steps", str(PP_TWIN_STEPS), "--out", os.path.join(out, "twin"),
+         "--state-root", os.path.join(out, "twin_ckpt"), "--save-every",
+         "1"], cwd=out, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=LAUNCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        err = "timed out"
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except OSError:
+            pass
+        proc.wait(timeout=30)
+    seconds = time.perf_counter() - t0
+    g1 = _json(os.path.join(out, "twin", "stage1_l0_g1.json"), {})
+    model = TransformerLM(vocab_size=ex.VOCAB, dim=ex.DIM, depth=ex.DEPTH,
+                          num_heads=ex.HEADS, max_seq_len=ex.SEQ,
+                          device=device)
+    runner = SerialPipelineRunner(model, optim.SGD(lr=1e-2),
+                                  nn.CrossEntropyLoss(), 2, 4)
+    ref = {}
+    for step in range(PP_TWIN_STEPS):
+        x, y = ex.batch_for_step(step, 0, 8)
+        ref[str(step)] = runner.step(torch.from_numpy(x).long(),
+                                     torch.from_numpy(y).long())
+    got = g1.get("losses", {})
+    checks = {"twin_exit_0": proc.returncode == 0,
+              "twin_gang_restart": "gang restart" in err,
+              "twin_generation_1": g1.get("generation") == 1
+              and g1.get("start") == 5,
+              "twin_resumes_bitwise": bool(got) and got == {
+                  k: ref[k] for k in got} and set(got) == {"5", "6"},
+              "twin_notes_a97": "ROADMAP A9.7" in err}
+    return {"seconds": seconds, "losses_g1": got, "serial": ref,
+            "stderr_tail": None if all(checks.values()) else err[-3000:]}, \
+        checks
+
+
+def _pp_tp_grid(steps: int = 2, cell: dict = None,
+                device: str = "cuda") -> tuple:
+    """dp x tp x pp on the host route at full width, depth 2 (TP_HOST's
+    cell): ``build_tp_stage_fns`` for each (stage, tp rank) of a pp 2 x tp
+    2 grid as ``PipelineStage`` threads (GPipe, M = 1) against
+    ``SerialTPRunner`` at tp 2 (the serial composition), ``steps`` SGD
+    steps: ``(fields, checks)``."""
+    import queue
+    import threading
+
+    import numpy as np
+
+    from tpu_dist_torch import nn, optim
+    from tpu_dist_torch.models import TransformerLM
+    from tpu_dist_torch.parallel import tensor as ttensor
+    from tpu_dist_torch.parallel.rules import DEFAULT_RULES
+    from tpu_dist_torch.pipeline import PipelineStage, partition_model
+
+    class Q:
+        def __init__(self):
+            self.q = queue.Queue()
+
+        def put(self, tree, timeout=None):
+            self.q.put(tree)
+
+        def get(self, timeout=None):
+            return self.q.get(timeout=timeout)
+
+    h = cell or TP_HOST
+    vocab = h["vocab"]
+
+    def lm():
+        return TransformerLM(vocab_size=vocab, dim=h["dim"],
+                             depth=h["depth"], num_heads=h["heads"],
+                             max_seq_len=h["seq_len"], device=device)
+
+    def loss_fn(logits, y):
+        return ce(logits.reshape(-1, vocab), y.reshape(-1))
+
+    ce = nn.CrossEntropyLoss()
+    model = lm()
+    full = ttensor._full_params(model, 0)
+    oracle = ttensor.SerialTPRunner(lm(), optim.SGD(lr=0.1), loss_fn, tp=2,
+                                    seed=0)
+    part = partition_model(model, 2)
+    combiners = [ttensor.LocalCombiner(2) for _ in range(2)]
+    act, grad = [Q(), Q()], [Q(), Q()]
+    opt = optim.SGD(lr=0.1)
+    stages, params, opt_states = {}, {}, {}
+    for s in range(2):
+        for t in range(2):
+            stages[(s, t)] = PipelineStage(
+                ttensor.build_tp_stage_fns(part, s, loss_fn,
+                                           combiners[s].bound(t),
+                                           rules=DEFAULT_RULES),
+                s, 2, num_microbatches=1,
+                out_act=act[t] if s == 0 else None,
+                in_act=act[t] if s == 1 else None,
+                in_grad=grad[t] if s == 0 else None,
+                out_grad=grad[t] if s == 1 else None)
+            params[(s, t)] = ttensor._to_device(ttensor.tp_shard_params(
+                model, part.stage_params(full, s), t, 2, DEFAULT_RULES),
+                device)
+            opt_states[(s, t)] = opt.init(ttensor._flat_keys(
+                params[(s, t)]))
+    losses, want, ms = [], [], []
+    rng = np.random.default_rng(0)
+    try:
+        for _ in range(steps):
+            x = rng.integers(0, vocab, (h["batch"], h["seq_len"]))
+            y = rng.integers(0, vocab, (h["batch"], h["seq_len"]))
+            results, errs = {}, []
+
+            def run(s, t):
+                try:
+                    results[(s, t)] = stages[(s, t)].run_step(
+                        params[(s, t)], x_mb=[xt] if s == 0 else None,
+                        y_mb=[yt] if s == 1 else None)
+                except BaseException as e:  # noqa: BLE001
+                    errs.append(e)
+
+            xt, yt = x, y         # the engine takes the host's ids
+            t0 = time.perf_counter()
+            ths = [threading.Thread(target=run, args=(s, t), daemon=True)
+                   for s in range(2) for t in range(2)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(300)
+            if errs:
+                raise errs[0]
+            for key, res in results.items():
+                opt.update(ttensor._flat_keys(res.grads), opt_states[key],
+                           ttensor._flat_keys(params[key]))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append([float(results[(1, t)].losses[0])
+                           for t in range(2)])
+            want.append(oracle.step(x, y)[0])
+    finally:
+        for st in stages.values():
+            st.close()
+    shards_equal = all(
+        torch.equal(v, oracle.params[t][p][k])
+        for (s, t), tree in params.items() for p, lv in tree.items()
+        for k, v in lv.items())
+    checks = {"grid_losses_bitwise": all(l == [w, w] for l, w in
+                                         zip(losses, want)),
+              "grid_shards_bitwise": shards_equal,
+              "grid_second_loss_moved": want[1] != want[0]}
+    return {"losses": losses, "serial": want, "step_ms": ms}, checks
+
+
+def _pp_rig() -> tuple:
+    """``PP_HOST``'s rig runs and checks: ``(seconds, fields, checks)``."""
+    import gc
+
+    from tpu_dist_torch.benchmarks import bench_pipeline as bp
+    from tpu_dist_torch.pipeline import stash_bound
+
+    h = PP_HOST
+    args = (h["stages"], h["M"], h["steps"], h["batch"])
+    parts_s, checks, fields = {}, {}, {}
+    t0 = time.perf_counter()
+    serial = bp.serial_run(*args, dims=h["dims"])
+    parts_s["serial"] = time.perf_counter() - t0
+    cells = {}
+    for name, sched, comp in (("gpipe", "gpipe", None),
+                              ("1f1b", "1f1b", None),
+                              ("gpipe_int8", "gpipe", PP_INT8["compress"])):
+        t0 = time.perf_counter()
+        cells[name] = bp.run_cell(sched, *args, compress=comp,
+                                  dims=h["dims"])
+        parts_s[name] = time.perf_counter() - t0
+        fields[name] = cells[name]["row"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("gpipe", "1f1b"):
+        checks[f"{name}_losses_bitwise"] = \
+            cells[name]["losses"] == serial["losses"]
+        checks[f"{name}_params_bitwise"] = _trees_bitwise(
+            cells[name]["params"], serial["params"])
+    gp, f1 = cells["gpipe"]["row"], cells["1f1b"]["row"]
+    checks["stash_within_bound"] = all(
+        f1["stash_peak_count"][i] <= stash_bound("1f1b", i, h["stages"],
+                                                 h["M"])
+        and gp["stash_peak_count"][i] == h["M"] for i in range(h["stages"]))
+    checks["stash_1f1b_below_gpipe"] = (f1["stash_peak_bytes"][0]
+                                        < gp["stash_peak_bytes"][0])
+    int8_err = max(abs(a - b) / abs(b) for a, b in zip(
+        cells["gpipe_int8"]["losses"], serial["losses"]))
+    checks["int8_loss_within"] = int8_err <= PP_INT8["loss_rtol"]
+    fields.update(serial_losses=serial["losses"], int8=dict(
+        PP_INT8, losses=cells["gpipe_int8"]["losses"], rel_err=int8_err))
+    del cells, serial
+    gc.collect()
+    torch.cuda.empty_cache()
+    return parts_s, fields, checks
+
+
+def check_pp_host(results):
+    """The host route at full width (``PP_HOST``): the in-process rig
+    (``benchmarks.bench_pipeline.run_cell``: a thread and a data plane a
+    stage) runs GPipe, 1F1B and GPipe with the int8_block256 wire; their
+    losses and final parameters against ``SerialPipelineRunner`` bit for
+    bit (the int8 wire's losses within ``PP_INT8``), 1F1B's stash within
+    its bound and below GPipe's; tokens/s, the closed-form and the measured
+    bubble.  Then dp x tp x pp at depth 2 (``build_tp_stage_fns`` on a pp
+    2 x tp 2 grid against ``SerialTPRunner``, bit for bit).  (The
+    ``pipeline_train`` twin's gang restart: the ``faults`` phase.)  No
+    kernel counts are asserted here: the rig runs float32 (K2's fma
+    design) and the unfused loss, as the JAX bench does."""
+    parts_s, fields, checks = _pp_rig()
+    emit("pp_host", cell=PP_HOST, seconds=parts_s, **fields, checks=checks)
+    ok = all(checks.values())
+    t0 = time.perf_counter()
+    grid, c = _pp_tp_grid()
+    emit("pp_host_grid", cell=TP_HOST, **grid,
+         seconds=time.perf_counter() - t0, checks=c)
+    return ok and all(c.values())
+
+
+def check_faults(results):
+    """The launches that wait on an injected fault, run at once: the
+    flight recorder's stall to the heartbeat deadline (:func:`_obs_stall`),
+    the network chaos layer's corrupt frames (:func:`_netchaos_corrupt`)
+    and the ``pipeline_train`` twin's SIGKILL and gang restart
+    (:func:`_pp_twin`).  Each check is of function (an error named, a
+    diagnosis, a resume bit for bit); the seconds they print share the
+    host and are no metric, and no other phase's timed window runs beside
+    them."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    def twin() -> bool:
+        out = tempfile.mkdtemp(prefix="pp_twin_",
+                               dir=os.environ.get("TMPDIR"))
+        fields, c = _pp_twin(out)
+        emit("pp_host_twin", **fields, checks=c)
+        return all(c.values())
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        runs = [pool.submit(fn) for fn in (_obs_stall, _netchaos_corrupt,
+                                           twin)]
+    oks = []
+    for f in runs:
+        try:
+            oks.append(f.result())
+        except Exception:  # report every launch, then fail
+            traceback.print_exc()
+            oks.append(False)
+    return all(oks)
+
 PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("gmm", check_gmm), ("slice", check_slice),
           ("composition", check_composition), ("moe_slice", check_moe_slice),
@@ -7409,7 +8281,9 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("netchaos", check_netchaos),
           ("serve_sharded", check_serve_sharded),
           ("serve_disagg", check_serve_disagg),
-          ("ep_train", check_ep_train), ("tp_train", check_tp_train))
+          ("ep_train", check_ep_train), ("tp_train", check_tp_train),
+          ("pp_train", check_pp_train), ("pp_host", check_pp_host),
+          ("faults", check_faults))
 
 
 def main() -> int:
@@ -7425,9 +8299,14 @@ def main() -> int:
                     choices=sorted(TP_WORLDS),
                     help="tp_train's ranks: 2 on one card (the default) or "
                          "4 on four cards")
+    ap.add_argument("--pp-world", type=int, default=2,
+                    choices=sorted(PP_WORLDS),
+                    help="pp_train's ranks: 2 on one card (the default) or "
+                         "4 on four cards")
     args = ap.parse_args()
     EP_WORLD[0] = args.ep_world
     TP_WORLD[0] = args.tp_world
+    PP_WORLD[0] = args.pp_world
     only = [p for p in args.only.split(",") if p]
     unknown = set(only) - {name for name, _ in PHASES}
     if unknown:

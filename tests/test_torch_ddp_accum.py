@@ -590,12 +590,23 @@ def test_train_lm_twin_learns_the_permutation_on_cpu():
     assert "Training complete in:" in r.stdout
 
 
-@pytest.mark.parametrize("mode,item", [("pp", "A9.6b")])
-def test_train_lm_twin_names_the_modes_still_to_port(mode, item):
+def test_train_lm_twin_pp_matches_the_dp_mode():
+    """``--parallel pp --device cpu`` at world 1 (a pipe axis of one rank,
+    one microbatch: the plain step through ``PipelineParallel``) trains as
+    the dp mode does: every step's loss within float32 tolerance."""
     from tpu_dist_torch.examples import train_lm
-    with pytest.raises(NotImplementedError, match=item):
-        train_lm.train(train_lm.parse_args(["--parallel", mode,
-                                            "--device", "cpu"]))
+    argv = ["--device", "cpu", "--steps", "12", "--seq-len", "16", "--dim",
+            "32", "--depth", "2", "--heads", "4", "--vocab", "32",
+            "--log-every", "100"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)      # the suite's workers share the cores
+    try:
+        dp = train_lm.train(train_lm.parse_args(argv))
+        pp = train_lm.train(train_lm.parse_args(["--parallel", "pp"] + argv))
+    finally:
+        torch.set_num_threads(threads)
+    np.testing.assert_allclose(pp["losses"], dp["losses"], rtol=1e-5)
+    assert pp["losses"][-1] < pp["losses"][0] / 2
 
 
 def test_train_lm_twin_tp_trains_on_cpu():

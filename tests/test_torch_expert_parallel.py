@@ -26,8 +26,8 @@
   (``tuple(PartitionSpec)``); ``shard_pytree`` and ``load_jax_params`` give
   each rank its expert slice, and ``jax_params`` gathers the banks back.
 - The refusals: ``dispatch="dropless"`` and an expert count the axis does
-  not divide raise ``ExpertAxisError``; the step trains a ``model`` axis
-  and raises on a BatchNorm.
+  not divide raise ``ExpertAxisError``; the step trains a ``model`` axis,
+  and a BatchNorm model at data 1 as the plain step does.
 
 One module-scoped launch a world size (the port's launcher, gloo ranks)
 runs every port case."""
@@ -663,10 +663,12 @@ def test_dropless_and_an_uneven_split_raise(world, world2, world4):
         assert "do not split" in str(r["refused:num_experts"])
 
 
-def test_the_step_trains_a_model_axis_and_refuses_batchnorm():
+def test_the_step_trains_a_model_axis_and_a_batchnorm():
     """A ``model`` axis trains (ROADMAP A9.6a: the MoE model under a data 1
-    × model 1 mesh, three steps, the loss falls); a BatchNorm still raises
-    and names its ROADMAP item."""
+    × model 1 mesh, three steps, the loss falls); a BatchNorm model takes
+    the stateful step, and at data 1 it is the plain step: the loss, the
+    updated parameters and the running statistics of a torch autograd step
+    on the same batch within float32 tolerance."""
     tdist.init_process_group(device="cpu", axis_names=("data", "model"),
                              mesh_shape=(1, 1))
     try:
@@ -686,9 +688,33 @@ def test_the_step_trains_a_model_axis_and_refuses_batchnorm():
                                                 x, (x + 1) % 16)
             losses.append(float(m["loss"]))
         assert losses[-1] < losses[0], losses
-        bn = torch.nn.Sequential(tnn.Conv2d(3, 4, 3, device="cpu"),
-                                 tnn.BatchNorm2d(4, device="cpu"))
-        with pytest.raises(NotImplementedError, match="A9.6b"):
-            gspmd.make_gspmd_train_step(bn, tnn.CrossEntropyLoss(), opt)
+        def bn_net():
+            torch.manual_seed(0)
+            return torch.nn.Sequential(
+                tnn.Conv2d(3, 4, 3, device="cpu"),
+                tnn.BatchNorm2d(4, device="cpu"), torch.nn.Flatten(),
+                tnn.Linear(4 * 4 * 4, 5, device="cpu"))
+        bn, ref = bn_net(), bn_net()
+        g = np.random.default_rng(1)
+        xb = torch.from_numpy(g.standard_normal((8, 3, 6, 6)).astype(
+            np.float32))
+        yb = torch.from_numpy(g.integers(0, 5, 8))
+        ce_bn = tnn.CrossEntropyLoss()
+        step = gspmd.make_gspmd_train_step(bn, ce_bn, opt)
+        bparams = dict(bn.named_parameters())
+        bparams, _, bstate, m = step(bparams, opt.init(bparams), {}, xb, yb)
+        loss = ce_bn(ref(xb), yb)
+        loss.backward()
+        np.testing.assert_allclose(float(m["loss"]), float(loss.detach()),
+                                   rtol=1e-6)
+        with torch.no_grad():
+            for k, p in ref.named_parameters():
+                np.testing.assert_allclose(
+                    bparams[k].numpy(), (p - 0.5 * p.grad).numpy(),
+                    rtol=1e-5, atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(bstate["1"]["mean"].numpy(),
+                                   ref[1].running_mean.numpy(), atol=1e-6)
+        np.testing.assert_allclose(bstate["1"]["var"].numpy(),
+                                   ref[1].running_var.numpy(), atol=1e-6)
     finally:
         tdist.destroy_process_group()

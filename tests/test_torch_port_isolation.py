@@ -115,6 +115,14 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch.cluster.replica
         import tpu_dist_torch.resilience.netchaos
         import tpu_dist_torch.benchmarks.cluster_elastic
+        import tpu_dist_torch.pipeline
+        import tpu_dist_torch.pipeline.partition
+        import tpu_dist_torch.pipeline.schedule
+        import tpu_dist_torch.pipeline.stage
+        import tpu_dist_torch.pipeline.train
+        import tpu_dist_torch.parallel.pipeline
+        import tpu_dist_torch.examples.pipeline_train
+        import tpu_dist_torch.benchmarks.bench_pipeline
         # the native store is built and served with jax and tpu_dist blocked
         from tpu_dist_torch.dist import TCPStore
         s = TCPStore(is_master=True, timeout=10)

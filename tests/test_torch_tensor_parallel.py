@@ -17,8 +17,9 @@ the JAX package's.
 - ``tp_shard_params`` equals the JAX package's on the same tree, bit for
   bit; the combiners fold in rank order (the plane's exchange and ring
   equal the in-process fold); every ``TPConfigError`` case;
-  ``build_tp_stage_fns`` names ROADMAP A9.6b; the ``bench_mesh_rules``
-  twin's ``--smoke``.
+  ``build_tp_stage_fns`` on a pp 2 × tp 2 grid of pipeline stages equals
+  ``SerialTPRunner`` at tp 2 bit for bit; the ``bench_mesh_rules`` twin's
+  ``--smoke``.
 """
 
 import os
@@ -314,9 +315,99 @@ def test_config_errors(case):
         _refusal(case)
 
 
-def test_build_tp_stage_fns_names_a96b():
-    with pytest.raises(NotImplementedError, match="A9.6b"):
-        ttensor.build_tp_stage_fns(None, 0, _torch_loss(), None)
+class _QChan:
+    """An in-process channel endpoint (a queue) for the stage runtime."""
+
+    def __init__(self):
+        import queue
+        self._q = queue.Queue()
+
+    def put(self, tree, timeout=None):
+        self._q.put(tree)
+
+    def get(self, timeout=None):
+        return self._q.get(timeout=timeout)
+
+
+def pp_tp_grid(steps=STEPS, pp_n=2, tp_n=2):
+    """dp × tp × pp on the host route: ``build_tp_stage_fns`` for each
+    (stage, tp rank) of a pp × tp grid, each a ``PipelineStage`` on its own
+    thread (M = 1, GPipe), SGD on each rank's shard; each step's losses
+    of the last stage's tp ranks."""
+    from tpu_dist_torch.pipeline import PipelineStage, partition_model
+
+    model = _torch_lm()
+    part = partition_model(model, pp_n)
+    full = _init_tree()
+    combiners = [ttensor.LocalCombiner(tp_n) for _ in range(pp_n)]
+    act = [_QChan() for _ in range(tp_n)]
+    grad = [_QChan() for _ in range(tp_n)]
+    opt = toptim.SGD(lr=0.1)
+    stages, params, opt_states = {}, {}, {}
+    for st in range(pp_n):
+        for t in range(tp_n):
+            fns = ttensor.build_tp_stage_fns(part, st, _torch_loss(),
+                                             combiners[st].bound(t),
+                                             rules=DEFAULT_RULES)
+            stages[(st, t)] = PipelineStage(
+                fns, st, pp_n, num_microbatches=1,
+                out_act=act[t] if st == 0 else None,
+                in_act=act[t] if st == 1 else None,
+                in_grad=grad[t] if st == 0 else None,
+                out_grad=grad[t] if st == 1 else None)
+            params[(st, t)] = ttensor._to_device(ttensor.tp_shard_params(
+                model, part.stage_params(full, st), t, tp_n, DEFAULT_RULES),
+                "cpu")
+            opt_states[(st, t)] = opt.init(ttensor._flat_keys(
+                params[(st, t)]))
+    losses = []
+    try:
+        for step in range(steps):
+            x, y = _batch(b=4, seed=step)
+            results, errs = {}, []
+
+            def run(st, t):
+                try:
+                    # host ids, as the JAX grid takes them
+                    results[(st, t)] = stages[(st, t)].run_step(
+                        params[(st, t)], x_mb=[x] if st == 0 else None,
+                        y_mb=[y] if st == pp_n - 1 else None)
+                except BaseException as e:  # noqa: BLE001
+                    errs.append(e)
+
+            ths = [threading.Thread(target=run, args=(st, t), daemon=True)
+                   for st in range(pp_n) for t in range(tp_n)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(120)
+            assert not errs, errs
+            losses.append([float(results[(pp_n - 1, t)].losses[0])
+                           for t in range(tp_n)])
+            for key, res in results.items():
+                opt.update(ttensor._flat_keys(res.grads), opt_states[key],
+                           ttensor._flat_keys(params[key]))
+    finally:
+        for stage in stages.values():
+            stage.close()
+    return losses, params
+
+
+def test_build_tp_stage_fns_pp2_tp2_matches_the_serial_runner():
+    """dp × tp × pp: a pp 2 × tp 2 grid of ``build_tp_stage_fns`` stages on
+    threads (GPipe, M = 1) equals ``SerialTPRunner`` at tp 2 bit for bit,
+    three steps: the same segments and combines in the same order."""
+    losses, params = pp_tp_grid()
+    oracle = _port_runner(tp=2)
+    for step in range(STEPS):
+        x, y = _batch(b=4, seed=step)
+        want = oracle.step(x, y)[0]
+        assert losses[step] == [want, want], (step, losses[step], want)
+    for (st, t), shard in params.items():
+        for path, leaves in shard.items():
+            for leaf, v in leaves.items():
+                assert torch.equal(v, oracle.params[t][path][leaf]), \
+                    (st, t, path, leaf)
 
 
 def test_bench_mesh_rules_smoke():

@@ -174,13 +174,19 @@ def run_quant_ef_gate(model: str = "convnet", steps: int = 150,
                       device: str = "cuda") -> dict:
     """The gate: the float32 wire against ``scheme`` with error feedback,
     the delta banded at ±3 binomial standard errors (the JAX row's keys,
-    with the device)."""
+    with the device).  The two worlds run at once: each has its own store
+    and processes, and its accuracy does not depend on the other's
+    timing."""
+    from concurrent.futures import ThreadPoolExecutor
+
     spec = {"model": model, "steps": steps, "batch": batch,
             "n_train": n_train, "n_test": n_test, "lr": lr,
             "device": device}
     t0 = time.perf_counter()
-    base = _run_quant_gate_config(None, spec)
-    quant = _run_quant_gate_config(scheme, spec)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        runs = [pool.submit(_run_quant_gate_config, comm, spec)
+                for comm in (None, scheme)]
+        base, quant = (f.result() for f in runs)
     p = max(min(base["accuracy"], 1 - 1e-6), 1e-6)
     se3 = 3.0 * (p * (1 - p) / n_test) ** 0.5
     delta = quant["accuracy"] - base["accuracy"]

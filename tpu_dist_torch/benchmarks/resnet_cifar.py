@@ -27,7 +27,7 @@ from ..parallel import DistributedDataParallel
 from .convnet import DTYPES
 from .transformer_lm import time_steps
 
-__all__ = ["build", "run"]
+__all__ = ["build", "run", "gspmd_steps"]
 
 
 def build(batch: int = 1024, dtype: str = "bfloat16", group=None,
@@ -84,6 +84,56 @@ def run(batch: int = 1024, steps: int = 30, warmup: int = 3,
         "steps_run": warmup + steps,
         "losses": res["losses"],
     }
+
+
+def gspmd_steps(batch: int = 256, steps: int = 2, lr: float = 0.1,
+                device=None, dtype=torch.float32) -> dict:
+    """``steps`` SGD steps of resnet18(num_classes=10), seed 0, in
+    ``dtype`` (float64 shows how far float32's rounding moves a result),
+    under the GSPMD step (``parallel.make_gspmd_train_step``: BatchNorm
+    statistics over the global batch) on the default group's ``data``
+    axis (world 1 without a group), on one global batch of ``batch``
+    32x32 images from ``np.random.default_rng(0)`` (this rank takes its
+    rows).  Returns each step's loss and wall ms (the card synchronized at
+    both ends), the updates by name (after − before) and the running
+    statistics ``{path: {"mean", "var"}}``."""
+    import time
+
+    from ..nn.module import reset_parameters
+    from ..parallel import make_gspmd_train_step
+
+    group = dist.get_default_group() if dist.is_initialized() else None
+    device = group.device if group is not None else resolve_device(device)
+    data = dist.axis_group("data")
+    net = resnet18(num_classes=10, device=device)
+    reset_parameters(net, torch.Generator(device=device).manual_seed(0))
+    net.to(dtype)
+    opt = optim.SGD(lr=lr)
+    step = make_gspmd_train_step(net, nn.CrossEntropyLoss(), opt)
+    params = dict(net.named_parameters())
+    p0 = {k: v.detach().clone() for k, v in params.items()}
+    opt_state, mstate = opt.init(params), {}
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(batch, 3, 32, 32)).astype(np.float32)
+    y = rng.integers(0, 10, batch)
+    rows = slice(data.index * (batch // data.size),
+                 (data.index + 1) * (batch // data.size))
+    x = torch.from_numpy(x[rows]).to(device, dtype)
+    y = torch.from_numpy(y[rows]).to(device)
+    cuda = device.type == "cuda"
+    losses, step_ms = [], []
+    for _ in range(steps):
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        params, opt_state, mstate, m = step(params, opt_state, mstate, x, y)
+        if cuda:
+            torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "step_ms": step_ms,
+            "updates": {k: params[k].detach() - p0[k] for k in p0},
+            "stats": mstate}
 
 
 if __name__ == "__main__":

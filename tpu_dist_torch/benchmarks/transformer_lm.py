@@ -30,7 +30,8 @@ from ..models import TransformerLM
 from ..ops._build import resolve_device
 from ..parallel import DistributedDataParallel
 
-__all__ = ["build", "run", "run_long", "run_32k", "time_steps", "tp_steps"]
+__all__ = ["build", "run", "run_long", "run_32k", "time_steps", "tp_steps",
+           "pp_steps"]
 
 
 def build(batch: int = 8, seq_len: int = 2048, dim: int = 768,
@@ -231,6 +232,140 @@ def tp_steps(steps: int = 3, batch: int = 8, seq_len: int = 2048,
             "model": model, "advance": advance, "state": state,
             "updates": {k: state["params"][k].detach() - p0[k]
                         for k in p0}}
+
+
+def pp_steps(steps: int = 3, batch: int = 8, seq_len: int = 2048,
+             dim: int = 768, depth: int = 12, heads: int = 12,
+             vocab: int = 32768, compute_dtype=torch.bfloat16,
+             schedule: str = "gpipe", microbatches: int = 4, prompts=(),
+             max_new_tokens: int = 0, before_steps=None) -> dict:
+    """``steps`` steps of the benchmark's configuration under
+    ``parallel.PipelineParallel`` on the default group's ``("data",
+    "pipe")`` mesh (``train_lm.pp_trainer``: seed 0, ``lr=0.01``,
+    ``compute_dtype`` over float32 masters, the fused loss, ``schedule``,
+    ``microbatches`` a step), on :func:`tp_steps`' batches (this rank takes
+    its data shard's rows).  Before the steps, with ``prompts``, the seeded
+    state is gathered over the pipe line, unpacked into a whole model, and
+    each prompt decoded greedily from it in float32 (on data rank 0 of the
+    pipe line's first rank, by a whole model built for that and freed).
+    The updates' base is the seeded weights, kept on the host by
+    ``init``'s ``init_params`` hook.
+    Returns each step's loss, wall ms and ``PipelineParallel.stats``, the
+    generated tokens, the elements held here (the stage's blocks and the
+    repl leaves) against the whole model's, the device bytes the rank
+    holds once its state is built (``held_bytes``) against the state's own
+    (``state_bytes``), the whole model's updates by parameter name (after
+    − before, gathered on every rank, on the host) and peak device memory
+    (``held_bytes`` and it None on the CPU, where the steps are timed
+    without synchronizing).  ``before_steps()``
+    runs just before the first step (a launch counter's reset)."""
+    import time
+
+    from ..examples.train_lm import pp_trainer
+
+    group = dist.get_default_group()
+    device = group.device
+    data = dist.axis_group("data")
+    cuda = device.type == "cuda"
+    config = dict(vocab_size=vocab, dim=dim, depth=depth, num_heads=heads,
+                  max_seq_len=seq_len)
+    base = torch.cuda.memory_allocated(device) if cuda else None
+    model = TransformerLM(**config, device=device)
+    full = sum(p.numel() for p in model.parameters())
+    p0 = {}
+
+    def keep(seeded):
+        """The seeded weights on the host, before the module gives its
+        tensors up: the updates' base."""
+        p0.update({k: v.detach().cpu() for k, v in seeded.named_parameters()})
+
+    pp, state, advance = pp_trainer(model, 0.01, microbatches,
+                                    compute_dtype, fused=True,
+                                    schedule=schedule, init_params=keep)
+    pp.timing = True
+    # what the rank holds on the card once the state is built: its state
+    # alone (the module gave its tensors up), against the state's bytes
+    held_bytes = (torch.cuda.memory_allocated(device) - base if cuda
+                  else None)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for part in (state.params, state.opt_state)
+                      for t in _leaves(part) if isinstance(t, torch.Tensor))
+
+    def whole(st):
+        """The whole model's parameters by name (float32, on the host)."""
+        tree = pp.unpack_params(pp.gather_params(st))
+        return {f"{p}.{k}": torch.as_tensor(v)
+                for p, lv in tree.items() for k, v in lv.items()}
+
+    generated = []
+    if prompts:
+        unpacked = whole(state)    # every rank of the pipe line gathers
+    if prompts and pp.stage_index == 0 and data.index == 0:
+        # a whole model for the check alone, freed before the steps
+        gen = TransformerLM(**config, device=device)
+        with torch.no_grad():
+            for k, v in unpacked.items():
+                gen.get_parameter(k).copy_(v)
+        for prompt in prompts:
+            out = gen.generate(torch.as_tensor(prompt, device=device)[None],
+                               max_new_tokens)
+            generated.append(out[0, len(prompt):].tolist())
+        del gen, out
+    if prompts:
+        del unpacked
+        if cuda:
+            torch.cuda.empty_cache()
+    held = sum(t.numel() for tree in state.params.values()
+               for lv in tree.values() for t in _leaves(lv))
+    rng = np.random.default_rng(0)
+    rows = slice(data.index * (batch // data.size),
+                 (data.index + 1) * (batch // data.size))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, step_ms, stats = [], [], []
+    if before_steps is not None:
+        before_steps()
+    for _ in range(steps):
+        x = torch.from_numpy(rng.integers(0, vocab, (batch, seq_len))[rows])
+        y = torch.from_numpy(rng.integers(0, vocab, (batch, seq_len))[rows])
+        x, y = x.to(device), y.to(device)
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, m = advance(state, x, y)
+        if cuda:
+            torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        stats.append(dict(pp.stats))
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    p1 = whole(state)
+    return {"losses": losses, "step_ms": step_ms, "stats": stats,
+            "generated": generated, "held_elements": held,
+            "full_elements": full, "held_bytes": held_bytes,
+            "state_bytes": state_bytes, "peak_mem_bytes": peak,
+            "stage_index": pp.stage_index, "pp": pp, "state": state,
+            "updates": {k: p1[k] - p0[k] for k in p0},
+            "repl_digest": _digest(state.params["repl"])}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _digest(tree) -> str:
+    """sha256 of a tree's tensors' bytes, in sorted key order."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            h.update(_digest(v).encode())
+        else:
+            h.update(v.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _run_steps(steps, advance, state, rng, vocab, batch, seq_len, rows,

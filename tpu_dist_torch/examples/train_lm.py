@@ -50,14 +50,21 @@ transitions follow the learned permutation.  The data stream, the
 permutation and the prompt are the JAX example's
 (``np.random.default_rng(0)``).
 
-The JAX example's ``pp`` mode (pipeline parallelism) raises: ROADMAP
-A9.6b::
+``pp``: pipeline parallelism on a (data × pipe) mesh of the ranks, ``data``
+2 wide when the world is even and above 1 and ``pipe`` the rest
+(``parallel.PipelineParallel``, GPipe, one stage a rank): the depth rounded
+to a multiple of the pipe axis and the batch to data × ``--microbatches``
+(default: the pipe axis), SGD and the unfused cross-entropy — the JAX
+example's mode.
+
+::
 
     python -m tpu_dist_torch.examples.train_lm --generate 32
     python -m tpu_dist_torch.examples.train_lm --device cpu --steps 20
     python -m tpu_dist_torch.examples.train_lm --parallel sp --seq-len 8192
     python -m tpu_dist_torch.examples.train_lm --parallel ep --device cpu
     python -m tpu_dist_torch.examples.train_lm --parallel tp --device cpu
+    python -m tpu_dist_torch.examples.train_lm --parallel pp --device cpu
 """
 
 from __future__ import annotations
@@ -70,10 +77,9 @@ from datetime import datetime
 import numpy as np
 
 __all__ = ["make_batches", "sp_mesh", "ep_trainer", "tp_trainer",
-           "parse_args", "train", "main"]
+           "pp_trainer", "parse_args", "train", "main"]
 
-_LATER = {"pp": "pipeline parallelism (ROADMAP A9.6b)"}
-_AXIS = {"sp": "seq", "ep": "expert", "tp": "model"}
+_AXIS = {"sp": "seq", "ep": "expert", "tp": "model", "pp": "pipe"}
 
 
 def make_batches(rng, perm, vocab, batch, seq_len, steps):
@@ -104,11 +110,8 @@ def train(args, init_params=None) -> dict:
     given, replaces the seeded initialization (the tests load the JAX
     example's).  Under ``ep``, ``state`` is ``{"params", "opt_state",
     "mstate"}`` and ``ddp`` the step function; under ``tp`` ``{"params",
-    "opt_state"}`` and the step function."""
-    if args.parallel in _LATER:
-        raise NotImplementedError(
-            f"--parallel {args.parallel}: {_LATER[args.parallel]} is not in "
-            f"the port yet; use --parallel dp, sp, ep or tp")
+    "opt_state"}`` and the step function; under ``pp`` the rank's
+    ``PipeTrainState`` and the ``PipelineParallel``."""
     if args.parallel in _AXIS and args.generate > 0:
         raise ValueError(f"--generate samples after dp training, not "
                          f"after --parallel {args.parallel}")
@@ -155,8 +158,11 @@ def train(args, init_params=None) -> dict:
         # divisible heads under tp, as the JAX example rounds them
         heads = (max(args.heads // other, 1) * other
                  if args.parallel == "tp" else args.heads)
+        # divisible stages under pp
+        depth = (max(args.depth // other, 1) * other
+                 if args.parallel == "pp" else args.depth)
         model = TransformerLM(
-            args.vocab, dim=args.dim, depth=args.depth, num_heads=heads,
+            args.vocab, dim=args.dim, depth=depth, num_heads=heads,
             max_seq_len=seq_len, device=pg.device, num_experts=experts,
             sequence_axis="seq" if args.parallel == "sp" else None,
             mode=args.sp_mode,
@@ -170,6 +176,13 @@ def train(args, init_params=None) -> dict:
             ddp, state, advance = tp_trainer(model, args.vocab, make_lr(),
                                              compute_dtype,
                                              init_params=init_params)
+        elif args.parallel == "pp":
+            ddp, state, advance = pp_trainer(
+                model, make_lr(), args.microbatches, compute_dtype,
+                init_params=init_params)
+            # divisible microbatches on every data row
+            mb = ddp.num_microbatches
+            batch = max(args.batch_size // (dp * mb), 1) * dp * mb
         else:
             ddp = DistributedDataParallel(
                 model, optimizer=optim.SGD(lr=make_lr()),
@@ -214,6 +227,9 @@ def train(args, init_params=None) -> dict:
                              f"{aux:.3f})")
                 elif args.parallel == "tp":
                     where = f"  (tp={other})"
+                elif args.parallel == "pp":
+                    where = (f"  ({other} stages x {ddp.num_microbatches} "
+                             f"microbatches)")
                 print(f"Step [{i + 1}/{args.steps}] "
                       f"loss: {float(metrics['loss']):.4f}{where}",
                       flush=True)
@@ -332,11 +348,31 @@ def tp_trainer(model, vocab: int, lr, compute_dtype=None,
     return step, state, advance
 
 
+def pp_trainer(model, lr, microbatches: int = 0, compute_dtype=None,
+               fused: bool = False, schedule: str = "gpipe",
+               init_params=None):
+    """``(pp, state, advance)`` of ``--parallel pp``: ``PipelineParallel``
+    over ``model`` on the default group's ``("data", "pipe")`` mesh,
+    seeded with 0 (``init_params(model)`` replaces the weights), SGD at
+    ``lr``, ``CrossEntropyLoss(fused=fused)``, ``microbatches`` a step
+    (0: the pipe axis's size, the JAX example's default) and
+    ``advance(state, x, y) -> (state, metrics)``."""
+    from .. import nn, optim
+    from ..parallel import PipelineParallel
+
+    pp = PipelineParallel(model, optimizer=optim.SGD(lr=lr),
+                          loss_fn=nn.CrossEntropyLoss(fused=fused),
+                          num_microbatches=microbatches or None,
+                          compute_dtype=compute_dtype, schedule=schedule)
+    state = pp.init(seed=0, init_params=init_params)
+    return pp, state, pp.train_step
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parallel", default="dp",
                    choices=["dp", "sp", "tp", "pp", "ep"],
-                   help="dp, sp, ep or tp; pp raises (ROADMAP A9.6b)")
+                   help="dp, sp, tp, pp or ep")
     p.add_argument("--sp-mode", default="ring", choices=["ring", "ulysses"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--compute-dtype", default="float32",
@@ -358,6 +394,8 @@ def parse_args(argv=None):
                    choices=["none", "warmup_cosine"],
                    help="schedule of the update count (peak = --lr, 10%% "
                         "warmup)")
+    p.add_argument("--microbatches", default=0, type=int,
+                   help="pp: microbatches a step (0: the pipe axis's size)")
     p.add_argument("--experts", default=4, type=int,
                    help="ep: experts a block (rounded up to a multiple of "
                         "the expert axis)")

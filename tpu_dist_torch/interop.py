@@ -77,7 +77,7 @@ import torch
 from . import nn
 
 __all__ = ["load_jax_params", "jax_params", "shard_jax_params",
-           "load_jax_opt_state",
+           "load_jax_opt_state", "load_jax_pipe_params", "jax_pipe_params",
            "load_jax_state", "jax_state", "jax_leaf_order",
            "flatten_linear_from_torch", "flatten_linear_to_torch"]
 
@@ -138,6 +138,24 @@ def _layouts(model: torch.nn.Module) -> dict:
                 flatten_linear_to_torch(*chw)
     # a flattened input's permutation replaces the Linear's plain transpose
     return {**out, **flattened}
+
+
+def _inverse_layouts(model: torch.nn.Module) -> dict:
+    """``{parameter key: transform}`` from torch's layout to the JAX
+    package's, for every leaf whose layouts differ (:func:`_layouts`'
+    inverse)."""
+    inverse, flattened = {}, {}
+    for path, mod in model.named_modules():
+        for cls, leaves in _TRANSPOSED.items():
+            if isinstance(mod, cls):
+                for leaf in leaves:
+                    inverse[_join(path, leaf)] = np.transpose
+        if isinstance(mod, nn.Conv2d):
+            inverse[_join(path, "weight")] = lambda a: a.transpose(2, 3, 1, 0)
+        for sub, chw in getattr(mod, "flattened_inputs", {}).items():
+            flattened[_join(_join(path, sub), "weight")] = \
+                flatten_linear_from_torch(*chw)
+    return {**inverse, **flattened}
 
 
 def _copy_tree(model: torch.nn.Module, ours: dict, params) -> None:
@@ -277,18 +295,7 @@ def jax_params(model: torch.nn.Module, params=None) -> dict:
     module's; FSDP shards among them (smaller than their parameter) are
     gathered over the step's fsdp axis (the default group's ``"fsdp"``
     axis, else ``"data"``)."""
-    inverse, flattened = {}, {}
-    for path, mod in model.named_modules():
-        for cls, leaves in _TRANSPOSED.items():
-            if isinstance(mod, cls):
-                for leaf in leaves:
-                    inverse[_join(path, leaf)] = np.transpose
-        if isinstance(mod, nn.Conv2d):
-            inverse[_join(path, "weight")] = lambda a: a.transpose(2, 3, 1, 0)
-        for sub, chw in getattr(mod, "flattened_inputs", {}).items():
-            flattened[_join(_join(path, sub), "weight")] = \
-                flatten_linear_from_torch(*chw)
-    inverse.update(flattened)
+    inverse = _inverse_layouts(model)
     ours = dict(model.named_parameters())
     if params is not None:
         from . import dist
@@ -323,6 +330,51 @@ def jax_params(model: torch.nn.Module, params=None) -> dict:
             a = inverse[key](a)
         out.setdefault(path, {})[leaf] = np.ascontiguousarray(a)
     return out
+
+
+def _check_stages(pp, packed) -> None:
+    """``packed``'s stacked stage leaves must hold ``pp``'s stage count."""
+    for canon, leaves in packed["stages"].items():
+        for leaf, a in leaves.items():
+            n = np.shape(a)[0] if np.ndim(a) else None
+            if n != pp.num_stages:
+                raise ValueError(
+                    f"stages.{canon}.{leaf}: a stacked stage axis of {n} "
+                    f"does not map to {pp.num_stages} pipeline stages")
+
+
+@torch.no_grad()
+def load_jax_pipe_params(pp, params, step: int = 0):
+    """A rank's :class:`~tpu_dist_torch.parallel.PipeTrainState` for
+    :class:`~tpu_dist_torch.parallel.PipelineParallel` ``pp`` from a JAX
+    ``PipeTrainState.params`` (``{"repl", "stages"}``, numpy, the stage
+    leaves stacked on a leading axis of ``pp.num_stages``): the whole tree
+    goes into ``pp.model`` through :func:`load_jax_params` as ``pp.init``'s
+    ``init_params`` (``KeyError`` on a missing or extra key, ``ValueError``
+    on a shape that does not map), and this rank keeps its stage row and
+    the repl leaves, with a fresh optimizer state."""
+    _check_stages(pp, params)
+    state = pp.init(init_params=lambda model: load_jax_params(
+        model, pp.unpack_params(params)))
+    return state._replace(step=step)
+
+
+@torch.no_grad()
+def jax_pipe_params(pp, state) -> dict:
+    """The JAX package's packed ``{"repl", "stages"}`` tree (numpy float32,
+    JAX layouts, stage leaves stacked over every stage) of a rank's
+    ``PipeTrainState``: gathered over the pipe line (every rank of the line
+    calls it) — the inverse of :func:`load_jax_pipe_params`."""
+    whole = pp.unpack_params(pp.gather_params(state))
+    inverse = _inverse_layouts(pp.model)
+    out = {}
+    for path, leaves in whole.items():
+        for leaf, a in leaves.items():
+            key = _join(path, leaf)
+            a = np.asarray(a, dtype=np.float32)
+            out.setdefault(path, {})[leaf] = np.ascontiguousarray(
+                inverse[key](a) if key in inverse else a)
+    return pp.pack_params(out)
 
 
 @torch.no_grad()

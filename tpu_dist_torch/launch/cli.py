@@ -75,6 +75,7 @@ import argparse
 import json
 import os
 import random
+import re
 import signal
 import socket
 import subprocess
@@ -932,6 +933,12 @@ def _run_role_graph(args) -> int:
     except RoleGraphError as e:
         sys.stderr.write(f"--roles: {e}\n")
         return 2
+    if sum(1 for r in graph.roles
+           if re.fullmatch(r"stage\d+", r.name)) >= 2:
+        # the JAX launcher pre-flights a pipelined graph's act/grad ring
+        # with its protocol verifier before any spawn
+        sys.stderr.write(f"--roles: note: pipelined graph launched without "
+                         f"the verifier's pre-flight ({_VERIFIER})\n")
     argv = [sys.executable]
     argv += ["-m", args.script] if args.module else [args.script]
     argv += args.script_args

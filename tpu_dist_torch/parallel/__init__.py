@@ -6,6 +6,7 @@ from .fsdp import fsdp_shard, fsdp_specs
 from .gspmd import (MOE_EP_RULES, TRANSFORMER_TP_RULES, PartitionRules,
                     make_gspmd_train_step, shard_pytree)
 from .mesh import get_mesh, mesh_shape_for
+from .pipeline import PipelineParallel, PipeTrainState
 from .ring_attention import ring_self_attention, ulysses_self_attention
 from .rules import (DEFAULT_RULES, SERVING_RULES, TRANSFORMER_LAYOUTS,
                     LeafLayout, ShardLayoutError, chunk_bounds, chunk_span,
@@ -29,4 +30,5 @@ __all__ = ["DistributedDataParallel", "DDP", "TrainState", "Placement",
            "shard_pytree", "make_gspmd_train_step", "TRANSFORMER_TP_RULES",
            "MOE_EP_RULES", "fsdp_shard", "fsdp_specs", "get_mesh",
            "mesh_shape_for", "TPTrainer", "SerialTPRunner", "TPConfigError",
-           "tp_shard_params", "build_tp_stage_fns"]
+           "tp_shard_params", "build_tp_stage_fns", "PipelineParallel",
+           "PipeTrainState"]

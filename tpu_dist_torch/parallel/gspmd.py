@@ -222,20 +222,46 @@ def _fsdp_leaves(model: torch.nn.Module, params: dict, line) -> dict:
     return shards
 
 
+class _BatchLine:
+    """A data line as a BatchNorm's ``process_group`` (``size()`` and
+    ``torch_group``): the statistics are averaged over its ranks."""
+
+    def __init__(self, line):
+        self.torch_group = line.group
+        self._size = line.size
+
+    def size(self) -> int:
+        return self._size
+
+
+@torch.no_grad()
+def _load_bn_state(bns, mstate) -> None:
+    """Copy ``mstate``'s ``{path: {"mean", "var"}}`` into the BatchNorm
+    layers' running buffers (a path it lacks keeps the layer's own)."""
+    for path, m in bns:
+        st = (mstate or {}).get(path)
+        if st is None or not m.track_running_stats:
+            continue
+        m.running_mean.copy_(torch.as_tensor(st["mean"]))
+        m.running_var.copy_(torch.as_tensor(st["var"]))
+
+
 def make_gspmd_train_step(model: torch.nn.Module, loss_fn, optimizer,
                           aux_loss_coeff: float = 0.0,
                           compute_dtype=None) -> Callable:
     """Build the step: ``step(params, opt_state, x, y) -> (params,
-    opt_state, metrics)``, or, for a model with MoE layers (module state:
-    their aux losses), ``step(params, opt_state, mstate, x, y) -> (params,
-    opt_state, new_mstate, metrics)``.
+    opt_state, metrics)``, or, for a model with MoE or BatchNorm layers
+    (module state: aux losses, running statistics), ``step(params,
+    opt_state, mstate, x, y) -> (params, opt_state, new_mstate,
+    metrics)``.
 
     ``params`` are this rank's parameters by name (the module's own, or
     slices: :func:`shard_pytree`'s, ``interop``'s, or fsdp shards from
     :func:`~tpu_dist_torch.parallel.fsdp_shard`), updated in place;
     ``x``/``y`` this rank's rows of the global batch (its ``data`` shard;
     every rank of an expert, model or fsdp line passes the same rows).
-    ``mstate`` is ``{path: {"aux_loss": scalar}}`` per MoE layer.
+    ``mstate`` is ``{path: {"aux_loss": scalar}}`` per MoE layer and
+    ``{path: {"mean", "var"}}`` per BatchNorm.
     ``metrics``: ``loss`` (the global mean) and ``correct`` (the global
     count), device scalars.
 
@@ -243,18 +269,25 @@ def make_gspmd_train_step(model: torch.nn.Module, loss_fn, optimizer,
     objective, once.  ``compute_dtype`` runs the forward and backward in
     that dtype over the float32 parameters (the DDP's option; fsdp shards
     are gathered in it).  The mesh is the default group's (world 1 without
-    one); the fsdp axis is its ``"fsdp"`` axis, else ``"data"``.  A
-    BatchNorm raises: its global batch statistics are not ported."""
+    one); the fsdp axis is its ``"fsdp"`` axis, else ``"data"``.
+
+    BatchNorm takes the **global** batch's statistics, as the JAX step
+    does (its program is written globally): each BatchNorm's mean and mean
+    of squares are all-reduced over the data line (the layer's
+    ``E[x²] − E[x]²`` in the compute dtype, differentiably), ``n`` counts
+    every rank's rows, and the running statistics update alike on every
+    rank.  A model with BatchNorm layers takes the stateful signature:
+    ``mstate`` carries ``{path: {"mean", "var"}}`` for each (the JAX
+    package's model state), loaded into the layers' buffers before the
+    forward and read back after it."""
     from .. import dist
     from ..nn.layers import BatchNorm2d
     from ..nn.moe import MoELayer
     from .fsdp import Gatherer
 
     group = dist.get_default_group() if dist.is_initialized() else None
-    if any(isinstance(m, BatchNorm2d) for m in model.modules()):
-        raise NotImplementedError(
-            "BatchNorm under the GSPMD step (global batch statistics) is "
-            "not in the port yet (ROADMAP A9.6b)")
+    bns = [(p, m) for p, m in model.named_modules()
+           if isinstance(m, BatchNorm2d)]
     moes = [(p, m) for p, m in model.named_modules()
             if isinstance(m, MoELayer)]
     axes = () if group is None else group.axis_names
@@ -322,8 +355,23 @@ def make_gspmd_train_step(model: torch.nn.Module, loss_fn, optimizer,
                 out[k] = v.view_as(grads[k])
         return out
 
-    def run(params, opt_state, x, y):
+    bn_line = _BatchLine(data) if data is not None and data.size > 1 \
+        else None
+
+    def run(params, opt_state, x, y, mstate=None):
         model.train()
+        if bns:
+            _load_bn_state(bns, mstate)
+        saved = [m.process_group for _, m in bns]
+        for _, m in bns:
+            m.process_group = bn_line
+        try:
+            return _run(params, opt_state, x, y)
+        finally:
+            for (_, m), g in zip(bns, saved):
+                m.process_group = g
+
+    def _run(params, opt_state, x, y):
         shards = _fsdp_leaves(model, params, fsdp)
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
@@ -354,11 +402,14 @@ def make_gspmd_train_step(model: torch.nn.Module, loss_fn, optimizer,
             new_params, new_opt = optimizer.update(grads, opt_state, params)
             mstate = {p: {"aux_loss": m.aux_loss.detach().to(
                 torch.float32, copy=True)} for p, m in moes}
+            mstate.update({p: {"mean": m.running_mean.detach().clone(),
+                               "var": m.running_var.detach().clone()}
+                           for p, m in bns if m.track_running_stats})
         return new_params, new_opt, mstate, {"loss": loss, "correct": correct}
 
-    if moes:
+    if moes or bns:
         def stateful_step(params, opt_state, mstate, x, y):
-            return run(params, opt_state, x, y)
+            return run(params, opt_state, x, y, mstate)
         return stateful_step
 
     def stateless_step(params, opt_state, x, y):

@@ -34,7 +34,9 @@ tests hold the two within float32 tolerance.
 Composes as ``dp`` × ``tp`` in :class:`TPTrainer` (tp gangs and dp gangs
 are ``new_group`` sub-groups of one flat world; gradients ride the
 bucketer over the dp gang).  ``tp`` inside a pipeline stage
-(:func:`build_tp_stage_fns`) is ROADMAP A9.6b.
+(:func:`build_tp_stage_fns`: a stage's span of the engine as
+:class:`~tpu_dist_torch.pipeline.stage.StageFns`) makes dp × tp × pp on the
+host route.
 """
 
 from __future__ import annotations
@@ -443,6 +445,10 @@ class _TPEngine:
                       else self.axes["vocab"])
 
     def _t(self, a) -> torch.Tensor:
+        """``a`` (a host array or a tensor on any device) on the engine's
+        device."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # -- segment param views (local leaves, original key layout) ----------
@@ -481,7 +487,7 @@ class _TPEngine:
         activation; stash holds each branch's input for the backward."""
         st: Dict[str, object] = {"a_in": {}, "m_in": {}}
         if self.embed:
-            idx = self._t(np.asarray(x)).long()
+            idx = self._t(x).long()
             st["idx"] = idx
             wtok = params["tok"]["weight"]
             if self.vocab_sharded:
@@ -523,7 +529,7 @@ class _TPEngine:
     def loss(self, params, x, y):
         logits, _ = self._run(params, x)
         return _lossgrad(self.loss_fn, logits,
-                         self._t(np.asarray(y)).long())[0]
+                         self._t(y).long())[0]
 
     # -- backward (recompute + per-segment autograd) ----------------------
 
@@ -535,7 +541,7 @@ class _TPEngine:
         loss = None
         if from_loss:
             loss, g = _lossgrad(self.loss_fn, out,
-                                self._t(np.asarray(gy)).long())
+                                self._t(gy).long())
         else:
             g = torch.as_tensor(gy, device=self.device)
         grads: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -805,8 +811,27 @@ class SerialTPRunner:
 
 
 def build_tp_stage_fns(part, stage: int, loss_fn, port, rules=None):
-    """Tensor parallelism inside a pipeline stage (dp×tp×pp): the pipeline
-    package is ROADMAP A9.6b, not in the port yet."""
-    raise NotImplementedError(
-        "build_tp_stage_fns: tp inside a pipeline stage needs the pipeline "
-        "package, which is not in the port yet (ROADMAP A9.6b)")
+    """Tensor-parallel :class:`~tpu_dist_torch.pipeline.stage.StageFns`
+    over ``part.spans[stage]`` of a
+    :class:`~tpu_dist_torch.pipeline.partition.TransformerPartition` —
+    drop-in for ``pipeline.PipelineStage(fns=...)``, so a (pp stage × tp
+    rank) grid runs dp × tp × pp training on the host path.
+
+    Every tp peer of a stage runs the same pipeline schedule, hence issues
+    the same combiner sequence per F/B op — the recompute inside ``bwd``
+    re-fires its forward combines in lockstep too.  Params are this tp
+    rank's shard (:func:`tp_shard_params`, JAX layouts, as tensors on the
+    model's device) of ``part.stage_params(...)`` of the JAX tree."""
+    from ..pipeline.stage import StageFns
+    lo, hi = part.spans[stage]
+    first, last = part.is_first(stage), part.is_last(stage)
+    engine = _TPEngine(part.model, rules, port, lo=lo, hi=hi, embed=first,
+                       head=last, loss_fn=loss_fn)
+    return StageFns(
+        fwd=None if last else (lambda p, x: engine.forward(p, x)),
+        fwd_loss=(lambda p, x, y: engine.loss(p, x, y)) if last else None,
+        bwd=None if last else (
+            lambda p, x, g: engine.backward(p, x, g, from_loss=False)[1:]),
+        bwd_loss=(lambda p, x, y:
+                  engine.backward(p, x, y, from_loss=True)[1:])
+        if last else None)
