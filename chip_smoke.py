@@ -26,7 +26,11 @@ Phases, each printed as one JSON line:
 3. ``slice``: the dense GPT-2-small-shaped TransformerLM trained at full
    width through the port's DDP (bf16, fused cross-entropy, flash attention
    at T = 2048), with every kernel's launch count over that run (every
-   flash launch must be the wgmma design); then
+   flash launch must be the wgmma design); then one more step, untimed,
+   inside ``tpu_dist_torch.utils.profiler.trace``: the exported Chrome
+   trace must hold K1f, K1b, K2f and K2b's kernels as many times as the
+   wrappers counted launches (K2b: a dQ and a dK/dV kernel a launch), and
+   ``utils.memory`` must read what ``torch.cuda`` reads; then
    ``composition``: one step against the plain composition (dense attention,
    unfused loss) on the same weights and batch.
 4. ``moe_slice``: the same trunk with a top-2-of-8 dropless MoE in every
@@ -230,7 +234,10 @@ Phases, each printed as one JSON line:
    ``diagnose`` names rank 1 the straggler and rank 0 pending in the next
    bucket's span and the ring span in it, at the worker's line; ``python
    -m tpu_dist_torch.obs diagnose`` exits 3 and ``merge`` writes two
-   tracks (the stall's launch runs in ``faults``).  The same worker under
+   tracks; ``tpu_dist_torch.analysis.replay_dir`` over the dumps finds no
+   TD110 and one TD115 error naming rank 1 at ``diagnose``'s stuck
+   collective, its diagnosis ``diagnose``'s (the stall's launch runs in
+   ``faults``).  The same worker under
    ``--flight-recorder --sanitize``
    (one launch, shared with ``sanitize``): steps 0-7 with the recorder
    armed on even steps and disarmed on odd ones, the sanitizer off: step
@@ -371,8 +378,9 @@ Phases, each printed as one JSON line:
 22. ``faults``: the launches that wait on an injected fault, at once —
    ``obs``'s stall (``obs_stall``), ``netchaos``'s corrupt frames
    (``netchaos_corrupt``) and ``pp_host_twin``: the ``pipeline_train``
-   twin under the launcher with ``PP_KILL``, its gang restart resuming bit
-   for bit the serial oracle.  Checks of function only: the seconds they
+   twin under the launcher with ``PP_KILL``, the launcher's automatic
+   ``--verify_graph`` pre-flight first, its gang restart resuming bit for
+   bit the serial oracle.  Checks of function only: the seconds they
    print are no metric, and no timed window runs beside them.
 23. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
@@ -885,24 +893,24 @@ def check_flash(results):
 
 def check_slice(results):
     from tpu_dist_torch.benchmarks.transformer_lm import run
-    from tpu_dist_torch.ops import KERNELS
 
     zero_launch_counts()
-    res = run()
-    counts = {k.__name__: k.launches for k in KERNELS}
+    res = run(then=_traced_dense_step)
+    traced = res["then"]
     steps, depth = res["steps_run"], res["model"]["depth"]
+    # the timed run's counts, read by the hook before its own step
+    counts, by_design = traced.pop("counts_before")
     per_step = {"cross_entropy_fwd": 1, "cross_entropy_bwd": 1,
                 "flash_fwd": depth, "flash_bwd": depth}
     ok_counts = all(counts[n] == steps * c for n, c in per_step.items())
     # every flash launch of the path ran the wgmma design
-    by_design = {k.__name__: dict(k.launches_by_design)
-                 for k in KERNELS if hasattr(k, "launches_by_design")}
     ok_design = all(d["wgmma"] == counts[n] for n, d in by_design.items())
     ok_loss = all(math.isfinite(x) for x in res["losses"])
     for name in per_step:
         results.setdefault(name, {})["launches"] = counts[name]
     results["_slice"] = {"step_ms": res["step_ms"],
                          "peak_mem_bytes": res["peak_mem_bytes"]}
+    emit("slice_trace", **traced)
     emit("slice", tokens_per_s_per_gpu=res["value"], step_ms=res["step_ms"],
          peak_mem_bytes=res["peak_mem_bytes"], n_params=res["n_params"],
          achieved_model_tflops=res["achieved_model_tflops"],
@@ -910,7 +918,73 @@ def check_slice(results):
          launches_per_step_expected=per_step, ok_launches=ok_counts,
          launches_by_design=by_design, ok_design=ok_design,
          losses=res["losses"], ok_losses_finite=ok_loss)
-    return ok_counts and ok_design and ok_loss
+    return ok_counts and ok_design and ok_loss and all(
+        traced["checks"].values()) and traced["launches"] == {
+            k: v // steps for k, v in counts.items() if k in per_step}
+
+
+# K1f, K1b, K2f, K2b: the kernel-name fragments a profiler trace shows
+# (K2b launches a dQ and a dK/dV kernel a call)
+TRACE_KERNELS = {"cross_entropy_fwd": ("cross_entropy_fwd_kernel",),
+                 "cross_entropy_bwd": ("cross_entropy_bwd_kernel",),
+                 "flash_fwd": ("flash_fwd_",),
+                 "flash_bwd": ("flash_dq_", "flash_dkv_")}
+
+
+def _traced_dense_step(ddp, state, x, y) -> dict:
+    """One untimed full-width dense step (the ``slice`` cell's trained
+    model, after its timed steps) inside ``utils.profiler.trace``:
+    ``{"kernels_in_trace", "launches", "memory", "checks", ...}``.  The
+    trace's kernel events of K1f/K1b/K2f/K2b must number the wrappers'
+    launches of that step (two K2b kernels a launch); ``utils.memory``
+    must read ``torch.cuda``'s own numbers right after it.
+    ``counts_before``: the timed run's launch counts and launches by
+    design, read first."""
+    import tempfile
+
+    from tpu_dist_torch.ops import KERNELS
+    from tpu_dist_torch.utils import memory, profiler
+
+    t0 = time.perf_counter()
+    counts_before = ({k.__name__: k.launches for k in KERNELS},
+                     {k.__name__: dict(k.launches_by_design)
+                      for k in KERNELS if hasattr(k, "launches_by_design")})
+    logdir = tempfile.mkdtemp(prefix="slice_trace_",
+                              dir=os.environ.get("TMPDIR"))
+    zero_launch_counts()
+    with profiler.trace(logdir):
+        state, m = ddp.train_step(state, x, y)
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    loss = float(m["loss"])
+    counts = {k.__name__: k.launches for k in KERNELS}
+    dev = ddp.device
+    mem = {"memory_allocated": [memory.memory_allocated(),
+                                torch.cuda.memory_allocated(dev)],
+           "max_memory_allocated": [memory.max_memory_allocated(),
+                                    torch.cuda.max_memory_allocated(dev)],
+           "mem_get_info_total": [memory.mem_get_info()[1],
+                                  torch.cuda.mem_get_info(dev)[1]]}
+    (name,) = os.listdir(logdir)
+    with open(os.path.join(logdir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    in_trace = {k: sum(1 for n in kernels if any(frag in n for frag in frags))
+                for k, frags in TRACE_KERNELS.items()}
+    launches = {k: counts[k] for k in TRACE_KERNELS}
+    checks = {
+        "trace_equals_launches": all(
+            in_trace[k] == launches[k] * len(TRACE_KERNELS[k])
+            for k in TRACE_KERNELS),
+        "loss_finite": math.isfinite(loss),
+        "memory_equals_torch_cuda": all(a == b and a > 0
+                                        for a, b in mem.values())}
+    return {"trace_file_bytes": os.path.getsize(os.path.join(logdir, name)),
+            "kernel_events": len(kernels), "kernels_in_trace": in_trace,
+            "launches": launches, "memory": mem, "loss": loss,
+            "traced_step_seconds": step_s,
+            "seconds": time.perf_counter() - t0, "checks": checks,
+            "counts_before": counts_before}
 
 
 COMPOSITION_TOL = {
@@ -5393,6 +5467,19 @@ def _obs_stall() -> bool:
     checks["launches_per_step"] = _steps_launch_ok(run["logs"])
     checks["steps_before_stall"] = [len(run["logs"][r]["steps"])
                                     for r in range(OBS_WORLD)] == [4, 4]
+    # the offline replay over the same dumps, in process
+    from tpu_dist_torch.analysis import replay_dir
+    t0 = time.perf_counter()
+    report = replay_dir(run["obs_dir"])
+    replay_s = time.perf_counter() - t0
+    td115 = [f for f in report.findings if f.rule == "TD115"]
+    checks["replay_no_td110"] = not any(f.rule == "TD110"
+                                        for f in report.findings)
+    checks["replay_td115_names_rank1"] = (
+        len(td115) == 1 and td115[0].severity == "error"
+        and "rank 1 " in td115[0].message
+        and f"collective #{diag.get('stuck_coll')} " in td115[0].message)
+    checks["replay_diagnosis_is_diagnose"] = report.diagnosis == diag
 
     emit("obs_stall", world=OBS_WORLD, chaos=OBS_STALL,
          heartbeat_timeout=OBS_HB_TIMEOUT, launcher_rc=run["rc"],
@@ -5402,7 +5489,10 @@ def _obs_stall() -> bool:
                                       "stuck_op", "stuck_site",
                                       "waiting_ranks")},
          events_per_rank={d["rank"]: len(d["events"]) for d in dumps},
-         stall_dump_bytes=run["dump_bytes"], checks=checks,
+         stall_dump_bytes=run["dump_bytes"],
+         replay_findings=[[f.rule, f.severity] for f in report.findings],
+         replay_td115=[f.message for f in td115], replay_seconds=replay_s,
+         checks=checks,
          stderr_tail=None if all(checks.values()) else err[-3000:])
     return all(checks.values())
 
@@ -8034,7 +8124,10 @@ def _pp_twin(out: str, device: str = "cuda") -> tuple:
               and g1.get("start") == 5,
               "twin_resumes_bitwise": bool(got) and got == {
                   k: ref[k] for k in got} and set(got) == {"5", "6"},
-              "twin_notes_a97": "ROADMAP A9.7" in err}
+              "twin_preflight_ran":
+                  "--verify_graph: note: graph from the --roles spec" in err,
+              "twin_no_missing_preflight_note":
+                  "without the verifier's pre-flight" not in err}
     return {"seconds": seconds, "losses_g1": got, "serial": ref,
             "stderr_tail": None if all(checks.values()) else err[-3000:]}, \
         checks

@@ -165,14 +165,51 @@ def test_coll_timeout_reaches_the_child_as_under_the_jax_launcher(tmp_path):
     assert seen["port"] == seen["jax"] == "5.0"
 
 
+_DEADLOCK = textwrap.dedent("""
+    from tpu_dist_torch.roles import ChannelSpec
+
+    FWD = ChannelSpec("fwd", src="{a}", dst="{b}", depth=2)
+    BWD = ChannelSpec("bwd", src="{b}", dst="{a}", depth=2)
+""")
+
+
 @pytest.mark.parametrize("flag,item", [
-    ("--verify_graph", "A9.7"), ("--no_verify_graph", "A9.7")])
-def test_unported_flag_exits_2_naming_its_item(tmp_path, worker, capfd,
+    ("--verify_graph", "TD101"), ("--no_verify_graph", "TD101")])
+def test_unported_flag_exits_2_naming_its_item(tmp_path, capfd, monkeypatch,
                                                flag, item):
-    assert tcli.main([*flag.split(), str(worker), str(tmp_path), "ok"]) == 2
-    err = capfd.readouterr().err
-    assert flag.split()[-1].split("=")[0] in err and item in err
-    assert os.listdir(tmp_path) == ["probe.py"]   # nothing was spawned
+    """The verifier's flags, ported: a graph whose script declares a
+    deadlocking queue cycle is refused with exit 2 naming the finding
+    (``item``) before anything is spawned, by both launchers.
+    ``--verify_graph`` asks for the pre-flight on any graph; a pipelined
+    graph (``stageN`` roles) gets it unasked, and ``--no_verify_graph``
+    skips that automatic pre-flight (the graph goes to the spawner)."""
+    import tpu_dist.roles as jroles
+    import tpu_dist_torch.roles as troles
+    spawned = []
+    for mod in (jroles, troles):
+        monkeypatch.setattr(mod, "spawn_graph",
+                            lambda graph, *a, **k: spawned.append(graph)
+                            or 0)
+    a, b = ("a", "b") if flag == "--verify_graph" else ("stage0", "stage1")
+    script = tmp_path / "dead.py"
+    script.write_text(_DEADLOCK.format(a=a, b=b))
+    roles = ["--roles", f"{a}:1,{b}:1"]
+    argv = roles + ([flag] if flag == "--verify_graph" else []) + [
+        str(script)]
+    errs = {}
+    for name, cli in (("jax", jcli), ("port", tcli)):
+        assert cli.main(argv) == 2
+        errs[name] = capfd.readouterr().err
+    assert not spawned                       # nothing was spawned
+    for err in errs.values():
+        assert item in err and "witness schedule" in err
+        assert "--verify_graph: refusing to launch" in err
+    assert "python -m tpu_dist_torch.analysis graph" in errs["port"]
+    if flag == "--no_verify_graph":
+        for cli in (jcli, tcli):
+            assert cli.main(roles + [flag, str(script)]) == 0
+            assert "--verify_graph" not in capfd.readouterr().err
+        assert len(spawned) == 2
 
 
 @pytest.mark.parametrize("flags", [

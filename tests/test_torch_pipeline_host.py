@@ -206,6 +206,26 @@ class TestSchedule:
             == [tuple(getattr(c, f) for f in fields) for c in want.channels]
         assert json.loads(got.to_json()) == json.loads(want.to_json())
 
+    def test_underdepth_graph_flagged_by_verifier(self):
+        """The twin of the JAX test: the port's verifier refuses the
+        under-depth act ring (TD101 "under-depth") with the JAX
+        verifier's findings, and both schedules verify clean."""
+        from tpu_dist.analysis import verify_graph as jverify
+        from tpu_dist_torch.analysis import verify_graph
+        kw = dict(num_microbatches=4, act_depth=1)
+        g = tpipe.build_pipeline_graph(3, **kw)
+        errs = [f for f in verify_graph(g) if f.severity == "error"]
+        assert errs and all(f.rule == "TD101" for f in errs)
+        assert "under-depth" in errs[0].message
+        assert [(f.rule, f.message) for f in verify_graph(g)] == [
+            (f.rule, f.message)
+            for f in jverify(jpipe.build_pipeline_graph(3, **kw))]
+        # the well-depthed graphs verify clean, both schedules
+        for schedule in ("gpipe", "1f1b"):
+            g = tpipe.build_pipeline_graph(3, num_microbatches=4,
+                                           schedule=schedule)
+            assert verify_graph(g) == []
+
 
 # -- stage runtime ------------------------------------------------------------
 
@@ -396,7 +416,7 @@ def test_launched_twin_stage_death_and_dp_lanes(tmp_path):
     """Two launches at once.  (a) SIGKILL the last stage after its step-2
     checkpoint: one gang restart, generation 1 resumes at step 3 and its
     losses equal the uninterrupted serial oracle float for float; the
-    launcher notes the verifier's pre-flight is not in the port.  (b) 2
+    launcher's automatic verifier pre-flight ran first.  (b) 2
     lanes × 2 stages: per-lane channels carry distinct batches, the stage
     sub-groups run the bucketed grad sync, both lanes record every step."""
     out, ckpt, out_dp = tmp_path / "out", tmp_path / "ckpt", tmp_path / "dp"
@@ -421,7 +441,9 @@ def test_launched_twin_stage_death_and_dp_lanes(tmp_path):
                 p.kill()
                 p.wait()
     assert kill.returncode == 0, f"stdout:\n{k_out}\nstderr:\n{k_err}"
-    assert "gang restart" in k_err and "ROADMAP A9.7" in k_err
+    assert "gang restart" in k_err
+    assert "--verify_graph: note: graph from the --roles spec" in k_err
+    assert "without the verifier's pre-flight" not in k_err
     g1 = json.load(open(out / "stage1_l0_g1.json"))
     assert g1["generation"] == 1 and g1["restart_count"] == 1
     assert g1["start"] == 3 and set(g1["losses"]) == {"3", "4"}

@@ -99,6 +99,23 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch.obs.__main__
         import tpu_dist_torch.analysis
         import tpu_dist_torch.analysis.sanitizer
+        import tpu_dist_torch.analysis.findings
+        import tpu_dist_torch.analysis.rules
+        import tpu_dist_torch.analysis.linter
+        import tpu_dist_torch.analysis.protocol
+        import tpu_dist_torch.analysis.replay
+        import tpu_dist_torch.analysis.__main__
+        import tpu_dist_torch.utils.memory
+        import tpu_dist_torch.utils.profiler
+        import tpu_dist_torch.utils.metrics
+        # the tools run with jax and tpu_dist blocked
+        from tpu_dist_torch.analysis import lint_source, replay_dumps
+        from tpu_dist_torch.analysis.protocol import build_graph
+        assert lint_source("store.wait(keys)")[0].rule == "TD004"
+        g, _, _ = build_graph(roles_spec="a:1,b:1",
+                              channels_spec="x:a>b:2,y:b>a:2")
+        assert tpu_dist_torch.analysis.verify_graph(g)[0].rule == "TD101"
+        assert replay_dumps([]).findings == []
         import tpu_dist_torch.roles
         import tpu_dist_torch.roles.channel
         import tpu_dist_torch.roles.launcher

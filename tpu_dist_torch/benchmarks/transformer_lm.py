@@ -96,11 +96,14 @@ def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
         depth: int = 12, heads: int = 12, vocab: int = 32768,
         steps: int = 20, warmup: int = 3, device=None, remat: bool = False,
         norm: str = "layernorm", rope: bool = False,
-        metric: str = "transformer_lm_bf16_train_tokens_per_sec_per_gpu"
-        ) -> dict:
+        metric: str = "transformer_lm_bf16_train_tokens_per_sec_per_gpu",
+        then=None) -> dict:
     """Train ``warmup + steps`` steps and time the last ``steps`` with CUDA
     events.  Returns tokens/s/GPU, step ms, peak device memory, the
-    parameter count and every step's loss."""
+    parameter count and every step's loss.  ``then(ddp, state, x, y)``, if
+    given, runs after the timed steps and before the process group goes
+    (an untimed extra step on the trained model); its result is returned
+    under ``"then"``."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError("run() times the card with CUDA events; on the "
@@ -115,6 +118,7 @@ def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
         res = time_steps(ddp, x, y, steps, warmup)
         n_params = sum(p.numel() for p in res["state"].params.values())
         world = pg.size()
+        after = then(ddp, res.pop("state"), x, y) if then else None
     finally:
         if own_group:
             dist.destroy_process_group()
@@ -138,6 +142,7 @@ def run(batch: int = 8, seq_len: int = 2048, dim: int = 768,
         "world_size": world,
         "steps_run": warmup + steps,
         "losses": res["losses"],
+        **({"then": after} if then else {}),
     }
 
 

@@ -60,7 +60,8 @@ import torch
 from . import _lowp, _tree
 # the ring's flat chunk contract (``parallel.rules.chunk_bounds``)
 from .ring import _bounds as chunk_bounds
-from .work import Work, completed_work, drain_pending, engine_for, wait_all
+from .work import (Work, completed_work, drain_pending, engine_for, wait_all,
+                   wait_handle)
 
 __all__ = ["Bucketer", "BucketWork", "bucketed_all_reduce",
            "bucketed_reduce_scatter", "chunk_bounds", "DEFAULT_BUCKET_BYTES"]
@@ -337,7 +338,7 @@ class Bucketer:
         h = torch.distributed.reduce_scatter_tensor(chunk, buf, op=red,
                                                     group=tg, async_op=True)
         if op in ("avg", "mean"):
-            h.wait()   # on NCCL a stream wait: the host goes on
+            wait_handle(h, tg)   # on NCCL a stream wait: the host goes on
             # a 0-d device divisor: the card divides by a host scalar as a
             # multiply by its reciprocal, which rounds otherwise
             chunk = chunk / torch.tensor(float(n), dtype=acc,
@@ -345,19 +346,18 @@ class Bucketer:
             handles = []
         else:
             handles = [h]
-        stream = group.backend == "nccl"
         if scatter:
             def then():
                 return [v.to(out_dt) for v in lay.split_chunk(chunk, r)]
-            return Work(label, handles, then, on_stream=stream)
+            return Work(label, handles, then, group=tg)
         if handles:
-            handles[0].wait()
+            wait_handle(handles[0], tg)
         full = buf.new_empty(n * lay.width)
         h2 = torch.distributed.all_gather_into_tensor(full, chunk, group=tg,
                                                       async_op=True)
         return Work(label, [h2],
                     lambda: [v.to(out_dt) for v in lay.unpack(full)],
-                    on_stream=stream)
+                    group=tg)
 
     # -- the host ring (the JAX Bucketer's path) ------------------------------
 

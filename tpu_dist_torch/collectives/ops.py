@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ._tree import tree_map as _tree_map
+from .work import wait_handle
 
 __all__ = ["all_reduce", "psum", "pmean", "all_gather", "reduce_scatter",
            "broadcast", "all_to_all", "ppermute", "ring_all_reduce"]
@@ -195,7 +196,7 @@ def _exchange(v: torch.Tensor, line: _Line, send_to: Optional[int],
                                            line.group))
     if ops:
         for req in torch.distributed.batch_isend_irecv(ops):
-            req.wait()
+            wait_handle(req, line.group)
     return out
 
 

@@ -115,6 +115,7 @@ class _Watchdog:
     def recv(self, dp, src: int, tag: str, pos: int, hi: int):
         """One blocking frame recv under the collective deadline."""
         if self.deadline is None:
+            # tpudlint: disable=TD004  # recv_array applies TPU_DIST_DP_TIMEOUT
             return dp.recv_array(src, tag)
         left = self.deadline - time.monotonic()
         if left <= 0:

@@ -997,6 +997,7 @@ class DataPlane:
                         _sendv_paced(sock, header, parts, plan.rate)
                     else:
                         _sendv(sock, header, *parts)
+            # tpudlint: disable=TD009  # stored in send_err and re-raised below, outside the send lock
             except PeerGoneError as e:
                 send_err = e  # _connect diagnosed the peer; the obs-tail
                 # enrichment still happens below, outside the lock

@@ -6,13 +6,12 @@ collectives.bucketer.Bucketer` and ZeRO's parameter gather return a
 :class:`Work`.  It wraps one of two things:
 
 - **torch.distributed async handles** (the device collectives: bucket
-  reduce-scatters and all-gathers, ZeRO's gather).  ``wait()`` calls the
-  handles' ``wait``, which on NCCL makes the *current stream* wait for the
-  collective's stream and returns without blocking the host (torch's
-  semantics), then returns the result the issuer attached.  A handle
-  issued on the card's stream (``on_stream``) ignores ``wait``'s timeout:
-  torch's ``wait(timeout)`` would block the host until the collective ends,
-  and NCCL's own watchdog (the process group's timeout) bounds a hung one;
+  reduce-scatters and all-gathers, ZeRO's gather), each waited by
+  :func:`wait_handle`: on NCCL the *current stream* waits for the
+  collective's stream and the host goes on (torch's semantics; the
+  process group's watchdog bounds a hung collective by the group's
+  timeout), elsewhere the host waits under the group's timeout or the
+  caller's; then ``wait()`` returns the result the issuer attached;
 - **a body run on the ordered executor** (the eager host collectives): one
   FIFO worker thread per process, so async collectives run in issue order,
   the order every peer sees (stream semantics).
@@ -34,7 +33,39 @@ from collections import deque
 from typing import Callable, List, Optional, Sequence
 
 __all__ = ["Work", "completed_work", "wait_all", "drain_pending", "reset",
-           "engine", "engine_for"]
+           "engine", "engine_for", "wait_handle"]
+
+
+def _group_timeout(group=None) -> float:
+    """Seconds of a torch process group's own timeout (the default
+    group's when ``group`` is None): the deadline its collectives run
+    under."""
+    import torch
+    dist = torch.distributed
+    try:
+        g = group if group is not None else dist.group.WORLD
+        opts = g._get_backend(torch.device("cpu")).options
+        return opts._timeout.total_seconds()
+    except Exception:   # a backend without options: torch's default
+        return dist.distributed_c10d._get_default_timeout(
+            dist.get_backend(group)).total_seconds()
+
+
+def wait_handle(handle, group=None, timeout: Optional[float] = None):
+    """Wait one ``torch.distributed`` async handle issued on ``group`` (a
+    torch process group; the default group when None) under a deadline.
+
+    On NCCL the wait is a stream wait, as torch's ``wait()``: the current
+    stream waits for the collective's and the host goes on, and the
+    group's watchdog aborts a collective that outlives the group's
+    timeout.  Elsewhere (gloo) the host waits at most ``timeout`` seconds,
+    the group's own timeout when None, and torch raises past it."""
+    import torch
+    if torch.distributed.get_backend(group) == "nccl":
+        # tpudlint: disable=TD004  # NCCL stream wait: the host goes on, the group's watchdog enforces its timeout
+        return handle.wait()
+    secs = _group_timeout(group) if timeout is None else timeout
+    return handle.wait(timeout=datetime.timedelta(seconds=secs))
 
 
 class Work:
@@ -45,18 +76,17 @@ class Work:
     (None while pending or on success); ``result`` is ``wait``."""
 
     __slots__ = ("_done", "_result", "_exc", "_label", "_handles", "_then",
-                 "_on_stream", "issued_ns", "started_ns", "site")
+                 "_group", "issued_ns", "started_ns", "site")
 
     def __init__(self, label: str = "work", handles: Sequence = (),
-                 then: Optional[Callable[[], object]] = None,
-                 on_stream: bool = False):
+                 then: Optional[Callable[[], object]] = None, group=None):
         self._done = threading.Event()
         self._result = None
         self._exc: Optional[BaseException] = None
         self._label = label
         self._handles = list(handles)
         self._then = then
-        self._on_stream = on_stream
+        self._group = group
         self.issued_ns = time.monotonic_ns()
         self.started_ns: Optional[int] = None
         self.site: Optional[str] = None
@@ -67,16 +97,17 @@ class Work:
         self._done.set()
 
     def _complete_handles(self, timeout: Optional[float]) -> None:
-        """Wait the torch handles (a stream wait on NCCL), then run the
-        issuer's ``then`` for the result."""
+        """Wait the torch handles (a stream wait on NCCL, else under the
+        group's timeout or ``timeout``), then run the issuer's ``then``
+        for the result."""
         deadline = None if timeout is None else time.monotonic() + timeout
         for h in self._handles:
-            if deadline is None or self._on_stream:
-                h.wait()
+            if deadline is None:
+                wait_handle(h, self._group)
                 continue
             left = max(deadline - time.monotonic(), 0.001)
             try:
-                h.wait(timeout=datetime.timedelta(seconds=left))
+                wait_handle(h, self._group, left)
             except RuntimeError as e:
                 if "imed out" not in str(e) and "imeout" not in str(e):
                     self._finish(exc=e)

@@ -398,7 +398,10 @@ def barrier(group: Optional[ProcessGroup] = None) -> None:
     kw = {"group": g.torch_group} if g.torch_group is not None else {}
     if g.backend == "nccl":
         kw["device_ids"] = [g.device.index]
-    torch.distributed.barrier(**kw)
+    from ..collectives.work import wait_handle
+    # tpudlint: disable=TD004  # async_op: wait_handle bounds the wait
+    work = torch.distributed.barrier(async_op=True, **kw)
+    wait_handle(work, kw.get("group"))
 
 
 _MB_SEQ = [0]  # this process's monitored_barrier calls (every process

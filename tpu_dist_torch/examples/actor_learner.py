@@ -40,7 +40,9 @@ PUT_TIMEOUT = 60.0    # actor's backpressure budget
 
 
 def build_graph(n_actors: int):
-    from ..roles import ChannelSpec, Role, RoleGraph
+    # absolute: the launcher's --verify_graph pre-flight loads this file
+    # by path
+    from tpu_dist_torch.roles import ChannelSpec, Role, RoleGraph
     return RoleGraph(
         roles=[Role("learner", 1),
                Role("actor", n_actors, restart="solo")],

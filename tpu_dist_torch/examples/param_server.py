@@ -41,7 +41,9 @@ PUT_TIMEOUT = 60.0    # worker's backpressure budget
 
 
 def build_graph(n_workers: int):
-    from ..roles import ChannelSpec, Role, RoleGraph
+    # absolute: the launcher's --verify_graph pre-flight loads this file
+    # by path
+    from tpu_dist_torch.roles import ChannelSpec, Role, RoleGraph
     return RoleGraph(
         roles=[Role("server", 1),
                Role("worker", n_workers, restart="solo")],

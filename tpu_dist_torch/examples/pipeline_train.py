@@ -11,10 +11,11 @@ depth).  Run it under the role-graph launcher::
     python -m tpu_dist_torch.launch --roles stage0:1,stage1:1:gang \\
         -m tpu_dist_torch.examples.pipeline_train --out ./pipe_out
 
-The JAX launcher pre-flights pipelined graphs with its protocol verifier;
-the port's verifier is ROADMAP A9.7, so the port's launcher runs them
-without it (one stderr note).  :func:`build_graph` reads the same
-``PIPELINE_*`` env knobs as the JAX example's.
+Pipeline launches get the ``--verify_graph`` pre-flight automatically:
+launched by path, the launcher model-checks :func:`build_graph`'s graph
+(which reads the same ``PIPELINE_*`` env knobs as the JAX example's) and
+refuses an under-depth act/grad ring before anything is spawned; launched
+with ``-m``, it checks the ``--roles`` spec.
 
 Data parallelism composes per stage (``--dp N`` plus a matching ``--roles
 stage0:N,...`` spec): each stage's lanes run the existing bucketed/ZeRO
@@ -53,8 +54,9 @@ def build_graph(num_stages=None, dp=None, num_microbatches=None,
     """The example's role graph.  A no-argument call reads the PIPELINE_*
     env knobs (``PIPELINE_STAGES``, ``PIPELINE_DP``,
     ``PIPELINE_MICROBATCHES``, ``PIPELINE_SCHEDULE``,
-    ``PIPELINE_ACT_DEPTH``), as the JAX example's does."""
-    from ..pipeline import build_pipeline_graph
+    ``PIPELINE_ACT_DEPTH``), as the JAX example's does.  The launcher's
+    pre-flight loads this file by path, hence the absolute import."""
+    from tpu_dist_torch.pipeline import build_pipeline_graph
 
     env = os.environ
     act_depth = (int(env["PIPELINE_ACT_DEPTH"])

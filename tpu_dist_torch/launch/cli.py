@@ -64,9 +64,14 @@ agents (``python -m tpu_dist_torch.cluster.agent``) is transparent;
 hosts the replicating store, the others a follower and an agent).
 ``--netchaos`` exports ``TPU_DIST_NETCHAOS`` to every worker.
 
+**The pre-flight**: ``--verify_graph`` model-checks the role graph with
+the protocol verifier (:mod:`tpu_dist_torch.analysis.protocol`) before
+anything is spawned and refuses a graph with an error-severity finding
+(exit 2); pipelined graphs (two or more ``stageN`` roles) get it
+automatically unless ``--no_verify_graph`` is given.
+
 The names are the JAX package's, so either package's launcher starts either
-package's workers.  Flags whose machinery is a later ROADMAP item exit 2
-before anything is spawned, naming the item.
+package's workers.
 """
 
 from __future__ import annotations
@@ -92,15 +97,8 @@ __all__ = ["main", "build_parser", "reap_process"]
 # until the call returns, which it never does once a peer is gone
 _KILL_GRACE = 15.0
 
-# flags whose machinery is a later item: (dest, flag, default, what)
-_VERIFIER = "the role-graph protocol verifier, ROADMAP A9.7"
-_LATER = (
-    ("verify_graph", "--verify_graph", False, _VERIFIER),
-    ("no_verify_graph", "--no_verify_graph", False, _VERIFIER))
-
 
 def build_parser() -> argparse.ArgumentParser:
-    later = " (not in the port yet: exits 2 naming its ROADMAP item)"
     p = argparse.ArgumentParser(
         prog="python -m tpu_dist_torch.launch",
         description="Launch a script across processes/nodes with the "
@@ -252,10 +250,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-rank respawn budget of solo-policy roles within "
                         "one generation (--roles)")
     p.add_argument("--verify_graph", "--verify-graph", action="store_true",
-                   help="role-graph model check" + later)
+                   help="statically model-check the role graph before "
+                        "spawning anything (tpu_dist_torch.analysis."
+                        "protocol): the graph is the script's "
+                        "build_graph() when it has one, else the --roles "
+                        "spec with the script's ChannelSpec literals, "
+                        "checked for bounded-queue deadlock cycles (TD101, "
+                        "witness schedule printed), claim-safety, "
+                        "restart-policy and placement soundness.  Any "
+                        "error-severity finding REFUSES the launch with "
+                        "exit 2 (--roles only).  Pipeline launches (>= 2 "
+                        "stageN roles) run this pre-flight automatically")
     p.add_argument("--no_verify_graph", "--no-verify-graph",
-                   action="store_true", help="skip the role-graph model "
-                                             "check" + later)
+                   action="store_true",
+                   help="skip the automatic --verify_graph pre-flight "
+                        "that pipeline launches (>= 2 stageN roles) "
+                        "otherwise get")
     p.add_argument("--standalone", action="store_true",
                    help="single-node mode with automatic rendezvous "
                         "(torchrun parity): forces --nnodes=1 "
@@ -862,15 +872,6 @@ def _cluster_agree(args, store, rnd: int, local_rc: int,
     return ("restart", rc_port)
 
 
-def _refuse_later_flags(args) -> Optional[str]:
-    """The first flag given whose machinery the port lacks, as a message
-    naming its ROADMAP item; None when every such flag is at its default."""
-    for dest, flag, default, what in _LATER:
-        if getattr(args, dest) != default:
-            return f"{flag}: {what} is not in tpu_dist_torch yet"
-    return None
-
-
 def _start_sidecar(args, store_addr: str) -> list:
     """The ``--store_replica`` control plane inside the launcher: node 0's
     store is the initial leader (it writes the endpoints file at epoch 0
@@ -907,6 +908,57 @@ def _stop_gateway(proc: Optional[subprocess.Popen]) -> None:
             reap_process(proc)
 
 
+def _verify_role_graph(args) -> int:
+    """``--verify_graph`` pre-flight: statically model-check the role
+    graph and its channel topology (:mod:`tpu_dist_torch.analysis.protocol`)
+    BEFORE spawning anything, refusing a provably hazardous graph.  A TD101
+    deadlock finding prints its witness schedule — the put/get
+    interleaving that wedges every role of the cycle.  With ``-m
+    pkg.mod`` the graph is the ``--roles`` spec alone, as in the JAX
+    launcher; a note names the graph's source either way."""
+    from ..analysis.protocol import build_graph, verify_graph
+
+    src = args.script if (args.script and not args.module
+                          and os.path.exists(args.script)) else None
+    label = src or "<--roles spec>"
+    graph = None
+    findings: list = []
+    notes: list = []
+    if src:
+        # a script exporting a module-level build_graph() hands over the
+        # REAL graph — builder-constructed ChannelSpecs that literal
+        # extraction cannot see.  Anything else falls back to extraction.
+        try:
+            graph = build_graph(graph_target=f"{src}:build_graph",
+                                path=label)[0]
+            notes.append(f"graph from {src}:build_graph()")
+        except Exception:
+            graph = None
+    if graph is None:
+        graph, findings, notes = build_graph(roles_spec=args.roles,
+                                             script=src, path=label)
+        notes = ["graph from the --roles spec"
+                 + (f" and {src}'s ChannelSpec literals" if src else "")
+                 ] + notes
+    if graph is not None:
+        findings = list(findings) + verify_graph(graph, nnodes=args.nnodes,
+                                                 path=label)
+    for note in notes:
+        sys.stderr.write(f"--verify_graph: note: {note}\n")
+    for f in findings:
+        sys.stderr.write(f.render() + "\n")
+    errors = [f for f in findings if f.severity == "error"
+              and not f.suppressed]
+    if errors:
+        sys.stderr.write(
+            f"--verify_graph: refusing to launch — {len(errors)} "
+            f"error-severity protocol finding(s) above (run "
+            f"'python -m tpu_dist_torch.analysis graph' for the full "
+            f"report)\n")
+        return 2
+    return 0
+
+
 def _run_role_graph(args) -> int:
     """``--roles``: launch a heterogeneous role graph instead of one SPMD
     world.  The graph supervisor (:func:`tpu_dist_torch.roles.spawn_graph`)
@@ -933,12 +985,15 @@ def _run_role_graph(args) -> int:
     except RoleGraphError as e:
         sys.stderr.write(f"--roles: {e}\n")
         return 2
-    if sum(1 for r in graph.roles
-           if re.fullmatch(r"stage\d+", r.name)) >= 2:
-        # the JAX launcher pre-flights a pipelined graph's act/grad ring
-        # with its protocol verifier before any spawn
-        sys.stderr.write(f"--roles: note: pipelined graph launched without "
-                         f"the verifier's pre-flight ({_VERIFIER})\n")
+    # pipeline launches (>= 2 stageN roles) get the pre-flight
+    # automatically: a mis-depthed act/grad ring deadlocks every stage,
+    # so refusing before spawn with a witness beats hanging after
+    pipelined = sum(1 for r in graph.roles
+                    if re.fullmatch(r"stage\d+", r.name)) >= 2
+    if args.verify_graph or (pipelined and not args.no_verify_graph):
+        rc = _verify_role_graph(args)
+        if rc:
+            return rc
     argv = [sys.executable]
     argv += ["-m", args.script] if args.module else [args.script]
     argv += args.script_args
@@ -1022,10 +1077,6 @@ def _run_role_graph(args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    refused = _refuse_later_flags(args)
-    if refused:
-        sys.stderr.write(refused + "\n")
-        return 2
     if args.standalone:
         overridden = [f for f, default in (("--nnodes", 1),
                                            ("--node_rank", 0),

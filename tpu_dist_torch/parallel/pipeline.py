@@ -58,6 +58,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..collectives.work import wait_handle
 from ..pipeline.partition import (_Embed, _Head, flat_params, param_tree,
                                   run_block)
 
@@ -143,7 +144,7 @@ class _Hops:
             ops.append(dist.P2POp(dist.irecv, buf, peer))
         if ops:
             for w in dist.batch_isend_irecv(ops):
-                w.wait()
+                wait_handle(w)   # the default group's
         return [b.to(self.device) if self.host else b for b in bufs]
 
 

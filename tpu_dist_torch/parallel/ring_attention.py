@@ -44,6 +44,7 @@ from typing import Optional
 import torch
 
 from .. import dist
+from ..collectives.work import wait_handle
 from ..ops.flash_attention import (flash_bwd, flash_bwd_plain, flash_fwd,
                                    flash_fwd_plain, merge_lse)
 
@@ -126,7 +127,7 @@ def _shift(tensors, axis):
         ops.append(torch.distributed.P2POp(torch.distributed.irecv, o, src,
                                            axis.group, tag))
     for req in torch.distributed.batch_isend_irecv(ops):
-        req.wait()
+        wait_handle(req, axis.group)
     return out
 
 

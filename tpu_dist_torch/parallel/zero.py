@@ -404,7 +404,7 @@ class ZeroOptimizer:
                 full, send, group=group.torch_group, async_op=True)
             works.append(Work(f"zero_gather/{key}", [h],
                               lambda full=full: full,
-                              on_stream=group.backend == "nccl"))
+                              group=group.torch_group))
 
         def assemble(results):
             out: List = [None] * len(plan.sizes)

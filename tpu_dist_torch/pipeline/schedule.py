@@ -31,9 +31,8 @@ for GPipe) means no put ever reaches the backpressure wall.  Gradient
 edges carry at most ``M`` messages per step, so ``depth = M`` never
 blocks.  These bounds are exported to the static verifier as
 ``ChannelSpec.credits`` annotations: the act/grad edges form a directed
-cycle, and the JAX package's TD101 admits it exactly when every edge has
-``depth >= credits`` (the port's verifier is ROADMAP A9.7; the
-annotations ride the graph all the same).
+cycle, and TD101 (:mod:`tpu_dist_torch.analysis.protocol`) admits it
+exactly when every edge has ``depth >= credits``.
 """
 
 from __future__ import annotations
@@ -160,10 +159,9 @@ def build_pipeline_graph(num_stages: int, dp: int = 1,
 
     Channel depths default to the schedule's in-flight bounds and carry
     matching ``credits`` annotations, so the act/grad cycle verifies
-    clean under the JAX package's TD101; pass ``act_depth``/``grad_depth``
-    to override (an under-credit override is refused there by the
-    ``--verify_graph`` pre-flight with a witness; the port's verifier is
-    ROADMAP A9.7).  With ``dp > 1`` each data lane gets its
+    clean under TD101; pass ``act_depth``/``grad_depth`` to override (an
+    under-credit override is refused by the launcher's ``--verify_graph``
+    pre-flight with a witness).  With ``dp > 1`` each data lane gets its
     own single-rank channel pair (``act0.l1``, ...) so activations keep
     riding the p2p frame path (multi-consumer channels fall back to the
     store funnel).

@@ -130,9 +130,10 @@ class ChannelSpec:
       ``get_latest`` waits for a newer version): the parameter-broadcast
       shape, where consumers want the freshest value, not every value.
 
-    Verification hints for the JAX package's static graph verifier (the
-    port's is ROADMAP A9.7); pure annotations with no runtime effect, kept
-    so the spec, and :meth:`RoleGraph.to_json`, match the JAX package's:
+    Verification hints for the static graph verifier
+    (:mod:`tpu_dist_torch.analysis.protocol`); pure annotations with no
+    runtime effect, the same as the JAX package's, so the spec and
+    :meth:`RoleGraph.to_json` match it:
 
     - ``payload_bytes`` — expected per-message array payload.  With a
       multi-rank consumer role the payload cannot ride the p2p lane, so

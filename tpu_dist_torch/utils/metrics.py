@@ -1,16 +1,31 @@
-"""Latency percentiles — counterpart of ``tpu_dist/utils/metrics.py``
-(:class:`LatencyHistogram` only: the same buckets and the same
-``summary()`` keys, so the port's serving stats read like the JAX
-package's).  The JAX package's accuracy metrics and collective counters
-come with later slices."""
+"""Evaluation metrics, latency percentiles and per-collective transport
+counters — counterpart of ``tpu_dist/utils/metrics.py``.
+
+The reference computes accuracy host-side per batch (argmax + eq + sum);
+these helpers keep the computation on the tensors' device (one scalar
+out) and add the standard top-k form, with the JAX package's results.
+:class:`LatencyHistogram` has the JAX package's buckets and ``summary()``
+keys, so the port's serving stats read like the JAX package's.
+
+The collective counters aggregate bytes/latency per (op, transport) for
+the eager host collectives.  They live in :mod:`tpu_dist_torch.obs.recorder`
+— the collectives record into ONE ingestion point (``record_transport``)
+that feeds both the aggregates and the armed event stream, so the counters
+and the flight recorder can never disagree; the three functions below are
+the stable public API over it.
+"""
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
-__all__ = ["LatencyHistogram"]
+import torch
+
+__all__ = ["topk_accuracy", "accuracy", "confusion_matrix",
+           "record_collective", "collective_counters",
+           "reset_collective_counters", "LatencyHistogram"]
 
 
 class LatencyHistogram:
@@ -116,3 +131,76 @@ class LatencyHistogram:
         return {"count": n, "mean": s / n, "max": mx,
                 "p50": self.percentile(50), "p95": self.percentile(95),
                 "p99": self.percentile(99)}
+
+
+# -- host-collective transport counters (shims over tpu_dist_torch.obs) -------
+
+
+def record_collective(op: str, transport: str, nbytes: int,
+                      seconds: float) -> None:
+    """Account one eager collective: ``op`` (all_reduce, send, ...) over
+    ``transport`` ('dataplane' | 'store' | 'mesh') moving ``nbytes`` of
+    array payload in ``seconds`` of wall time.  Shim over
+    :func:`tpu_dist_torch.obs.recorder.record_transport` — the flight
+    recorder's ingestion point."""
+    from ..obs import recorder as _obs
+    _obs.record_transport(op, transport, nbytes, seconds)
+
+
+def collective_counters(reset: bool = False) -> Dict[str, Dict[str, float]]:
+    """Snapshot of the per-``op/transport`` counters, each entry
+    ``{calls, bytes, seconds, mb_per_s, ...}``.  ``reset=True`` atomically
+    clears after reading (per-step deltas).  Reads the obs event-stream
+    aggregates (:func:`tpu_dist_torch.obs.recorder.transport_counters`)."""
+    from ..obs import recorder as _obs
+    return _obs.transport_counters(reset=reset)
+
+
+def reset_collective_counters() -> None:
+    from ..obs import recorder as _obs
+    _obs.reset_transport_counters()
+
+
+def topk_accuracy(logits: torch.Tensor, targets: torch.Tensor,
+                  ks: Sequence[int] = (1, 5)):
+    """Fraction of rows whose target is within the top-k logits, for each
+    ``k`` — the torchvision ``accuracy(output, target, topk=(1, 5))``
+    recipe, one ``torch.topk`` shared across ks.
+
+    ``logits``: (..., C); ``targets``: (...) int.  Returns a tuple of
+    float32 0-d tensors in [0, 1], one per k, in the order given.
+    """
+    ks = tuple(int(k) for k in ks)
+    c = logits.shape[-1]
+    if not ks or any(k < 1 or k > c for k in ks):
+        raise ValueError(f"every k must be in [1, {c}] and ks non-empty, "
+                         f"got {ks}")
+    flat = logits.reshape(-1, c)
+    tgt = targets.reshape(-1)
+    top = torch.topk(flat, max(ks), dim=-1).indices     # (N, max_k)
+    hit = top == tgt[:, None]                            # (N, max_k) bool
+    return tuple(hit[:, :k].any(dim=1).float().mean() for k in ks)
+
+
+def accuracy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Top-1 accuracy as a float32 0-d tensor in [0, 1]."""
+    return (logits.reshape(-1, logits.shape[-1]).argmax(-1)
+            == targets.reshape(-1)).float().mean()
+
+
+def confusion_matrix(predictions, targets,
+                     num_classes: int) -> torch.Tensor:
+    """(num_classes, num_classes) int32 count matrix, rows = true class,
+    cols = predicted (sklearn orientation).  Scatter-add on the inputs'
+    device; out-of-range entries are dropped (not clamped into a real
+    class)."""
+    preds = torch.as_tensor(predictions).reshape(-1).long()
+    tgt = torch.as_tensor(targets, device=preds.device).reshape(-1).long()
+    valid = ((preds >= 0) & (preds < num_classes)
+             & (tgt >= 0) & (tgt < num_classes))
+    idx = torch.where(valid, tgt * num_classes + preds,
+                      torch.zeros_like(preds))
+    counts = torch.zeros(num_classes * num_classes, dtype=torch.int32,
+                         device=preds.device)
+    counts.index_add_(0, idx, valid.to(torch.int32))
+    return counts.reshape(num_classes, num_classes)
