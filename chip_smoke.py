@@ -219,7 +219,33 @@ Phases, each printed as one JSON line:
    this card, store and data plane only, no NCCL; 150 steps, batch 128, lr
    0.02; the two worlds at once): the int8 + EF accuracy within ±3 SE of
    the float32 wire's.
-16. ``obs``: the flight recorder on the dense cell's real gradients at
+16. ``vgg``: ``vgg11_bn(num_classes=10)`` and ``vgg16(num_classes=10)``
+   at 32×32, batch 16, float32 with TF32 off: one DDP step each (SGD 0.01,
+   momentum 0.9, both dropouts live) against the same step on a CPU copy of
+   the port (``VGG_STEP_TOL``: ``VISION_STEP_TOL``, and the convolution
+   biases under a BatchNorm, whose exact gradient is 0, at most 1e-4 of
+   the next BatchNorm bias's update), every BatchNorm statistic moved and
+   finite; ``vgg16`` forward at 224², batch 8, in bf16 (finite logits);
+   images/s and peak memory of the ``vgg16`` bf16 DDP step at batch 64,
+   32² (torch's default TF32 permissions).  ``accuracy``: the
+   ``accuracy_run`` twin's MNIST low-SNR oracle at the JAX spec (4 epochs,
+   20,000 training and 10,000 test images, world 1): the final accuracy in
+   [0.7625, 0.7875], the ceiling 0.775 ± 3 binomial SE; its torch-parity
+   row (the literal ``torch.nn`` ConvNet and ``torch.optim.SGD`` against the
+   port's, 200 steps at lr 0.05, TF32 off): the largest step loss delta
+   below 4e-3 and the mean below 4e-4.  ``twins``: the ``generate`` twin at
+   full width and short lengths (batch 2, prompt 16, 32 and 8 new tokens):
+   its greedy tokens equal ``generate()`` on the same seeded model, its
+   implied parameter-read bandwidth no more than the card's memory rate;
+   the ``attention`` twin at T = 1024 and 2048 (b 4, h 8, d 64, bf16):
+   flash's output and q/k/v gradients against dense's (the float32
+   composition) within ``FLASH_BF16_TOL`` — dq no further from it than
+   flash's plain version plus one tolerance — and against the plain
+   version within it, the K2f/K2b launches of each row equal to its flash
+   calls; the ``input_pipeline`` twin at a small image
+   count: every JAX key present and every rate above 0.  No kernel launches
+   in ``vgg`` and ``accuracy``; in ``twins`` only the attention rows'.
+17. ``obs``: the flight recorder on the dense cell's real gradients at
    world 2 — ``python -m tpu_dist_torch.launch --standalone
    --nproc_per_node=2 --flight-recorder --heartbeat_timeout=5`` on a worker
    this script writes (both ranks on this card, the store and the host data
@@ -255,7 +281,7 @@ Phases, each printed as one JSON line:
    queue, no kernel launch and no NCCL; the dumps' channel put, claim and
    ack events; then the ``bench_roles`` twin's channel cells, every
    payload equal.
-17. ``cluster_failover``: two ``python -m tpu_dist_torch.cluster.agent``
+18. ``cluster_failover``: two ``python -m tpu_dist_torch.cluster.agent``
    processes host the replicated store; the train_lm twin at full width
    (80 steps, the dense cell's fused loss) under ``--store_endpoints``
    with heartbeats; the leader's agent SIGKILLed after the first step:
@@ -276,7 +302,7 @@ Phases, each printed as one JSON line:
    ``--coll_timeout`` + 5 s); the served model under ``corrupt:surface=
    serve`` (8 requests, each a named error).  The ``corrupt`` cells'
    launches run in ``faults``.
-18. ``serve_sharded``: the served model (GPT-2-small, float32, 8 slots,
+19. ``serve_sharded``: the served model (GPT-2-small, float32, 8 slots,
    2048 positions, seed 0) as a tensor-parallel group of two rank
    processes on this card over the store and the host data plane
    (``ShardedDecoder``/``ShardedSlotEngine``/``ShardFollower``), each rank's
@@ -310,7 +336,7 @@ Phases, each printed as one JSON line:
    workload unified against disaggregated: tokens/s and p99 TTFT; the KV
    send's ms and MB/s; the prefix-heavy row), no kernel launch there
    either.
-19. ``ep_train``: expert parallelism at full width — the JAX ``moe_lm``
+20. ``ep_train``: expert parallelism at full width — the JAX ``moe_lm``
    configuration (gather dispatch, batch 8, bf16, SGD, aux 0.01) through
    the library's GSPMD step (``benchmarks.moe_lm.ep_steps``), 3 steps at
    world 1 in this process, then the same steps at ``data 1 × expert 2``:
@@ -330,7 +356,7 @@ Phases, each printed as one JSON line:
    ``ep_train_cli``: ``train_lm --parallel ep`` at world 1 at its defaults
    on the card: finite losses, the last below half the first, the second
    differing from the first (the JAX dry run's check).
-20. ``tp_train``: tensor parallelism and FSDP at full width — the dense
+21. ``tp_train``: tensor parallelism and FSDP at full width — the dense
    GPT-2-small cell (batch 8, T 2048, SGD) through the library's GSPMD
    step (``benchmarks.transformer_lm.tp_steps``), 3 steps at world 1 in
    this process in float32 and bf16, then on two rank processes on this
@@ -350,7 +376,7 @@ Phases, each printed as one JSON line:
    width, depth 2, batch 2 × 1024) bit for bit ``SerialTPRunner``, two
    steps.  ``tp_train_cli``: ``train_lm --parallel tp`` at world 1 at its
    defaults: the loss falls.
-21. ``pp_train``: pipeline parallelism at full width — the dense cell
+22. ``pp_train``: pipeline parallelism at full width — the dense cell
    (batch 8, T 2048, SGD 0.01, fused loss) through ``PipelineParallel``
    (``benchmarks.transformer_lm.pp_steps``) on two rank processes on this
    card over gloo, started by the port's launcher, at pipe 2 and M = 4:
@@ -375,14 +401,14 @@ Phases, each printed as one JSON line:
    ``PP_INT8``), 1F1B's stash within its bound and below GPipe's;
    ``pp_host_grid``: ``build_tp_stage_fns`` on a pp 2 × tp 2 grid at
    depth 2 bit for bit ``SerialTPRunner``.
-22. ``faults``: the launches that wait on an injected fault, at once —
+23. ``faults``: the launches that wait on an injected fault, at once —
    ``obs``'s stall (``obs_stall``), ``netchaos``'s corrupt frames
    (``netchaos_corrupt``) and ``pp_host_twin``: the ``pipeline_train``
    twin under the launcher with ``PP_KILL``, the launcher's automatic
    ``--verify_graph`` pre-flight first, its gang restart resuming bit for
    bit the serial oracle.  Checks of function only: the seconds they
    print are no metric, and no timed window runs beside them.
-23. ``kernels``: one line over all kernels; the card's name and power limit
+24. ``kernels``: one line over all kernels; the card's name and power limit
    as ``nvidia-smi`` gives them; and, last, the result line.
 
 Each phase's wall time is printed (``phase_seconds``).  ``--only`` runs the
@@ -393,7 +419,8 @@ named phases (``cross_entropy``, ``flash``, ``gmm``, ``slice``,
 ``augment``, ``imagenet``, ``vit``, ``launch``, ``launch_restart``,
 ``gateway``, ``store``, ``moe_dispatch``, ``llama``, ``long_32k``,
 ``serve_rope``, ``zero_ddp``, ``zero_opt``, ``elastic``, ``host_ring``,
-``host_zero``, ``quant_gate``, ``obs``, ``sanitize``, ``roles``,
+``host_zero``, ``quant_gate``, ``vgg``, ``accuracy``, ``twins``, ``obs``,
+``sanitize``, ``roles``,
 ``cluster_failover``, ``cluster_elastic``, ``netchaos``,
 ``serve_sharded``, ``serve_disagg``, ``ep_train``, ``tp_train``,
 ``pp_train``, ``pp_host``, ``faults``) and never prints the result line.
@@ -1961,12 +1988,18 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-def step_against_cpu(ddp, make_cpu_model, x, y, tol: dict, prepare=None):
+def step_against_cpu(ddp, make_cpu_model, x, y, tol: dict, prepare=None,
+                     null_leaves=None):
     """One float32 train step of ``ddp`` on the card against the same step
     of a CPU copy of the port (same weights, state and batch), TF32 off:
     the loss, every parameter's update and every BatchNorm statistic.
     ``prepare(module)`` changes the initialized weights in place first.
-    Returns the fields to print and whether each is within ``tol``."""
+    ``null_leaves`` (``{leaf: reference leaf}``): leaves whose exact
+    gradient is 0 (a convolution's bias under a BatchNorm's batch mean),
+    whose update on either side must be at most ``tol["null_rel"]`` of the
+    reference leaf's, in place of the relative check (their update is
+    rounding, with no norm of its own to hold an error to).  Returns the
+    fields to print and whether each is within ``tol``."""
     from tpu_dist_torch.parallel import DistributedDataParallel
 
     with tf32(False):
@@ -1981,11 +2014,19 @@ def step_against_cpu(ddp, make_cpu_model, x, y, tol: dict, prepare=None):
         p0 = {k: v.detach().cpu().clone() for k, v in state.params.items()}
         state, m = ddp.train_step(state, x, y)
         cpu_state, m_cpu = cpu.train_step(cpu_state, x.cpu(), y.cpu())
-    leaf = {}
+    leaf, upd_norm = {}, {}
     for k, p in state.params.items():
         upd_c = cpu_state.params[k].detach() - p0[k]
+        upd_norm[k] = max(float(upd_c.norm()),
+                          float((p.detach().cpu() - p0[k]).norm()))
         err = float((p.detach().cpu() - p0[k] - upd_c).norm())
         leaf[k] = err / max(float(upd_c.norm()), 1e-30)
+    null = {k: upd_norm[k] / max(float(
+        (cpu_state.params[ref].detach() - p0[ref]).norm()), 1e-30)
+        for k, ref in (null_leaves or {}).items()}
+    for k in null:
+        del leaf[k]
+    worst_null = max(null, key=null.get) if null else None
     bn = {}
     for path, leaves in state.model_state.items():
         for name, t in leaves.items():
@@ -1998,13 +2039,17 @@ def step_against_cpu(ddp, make_cpu_model, x, y, tol: dict, prepare=None):
     ok = (abs(loss - loss_cpu) <= tol["loss_rtol"] * abs(loss_cpu)
           and leaf[worst] <= tol["update_rel"]
           and (not bn or bn[worst_bn] <= tol["state_rel"])
+          and (not null or null[worst_null] <= tol["null_rel"])
           and int(m["correct"]) == int(m_cpu["correct"]))
-    return {"loss_card": loss, "loss_cpu": loss_cpu,
-            "correct_card": int(m["correct"]),
-            "correct_cpu": int(m_cpu["correct"]),
-            "worst_update_leaf": [worst, leaf[worst]],
-            "worst_bn_stat": [worst_bn, bn.get(worst_bn)],
-            "tolerance": tol, "ok": ok}
+    out = {"loss_card": loss, "loss_cpu": loss_cpu,
+           "correct_card": int(m["correct"]),
+           "correct_cpu": int(m_cpu["correct"]),
+           "worst_update_leaf": [worst, leaf[worst]],
+           "worst_bn_stat": [worst_bn, bn.get(worst_bn)],
+           "tolerance": tol, "ok": ok}
+    if null:
+        out["worst_null_leaf"] = [worst_null, null[worst_null]]
+    return out
 
 
 def example_args(module, argv):
@@ -5202,6 +5247,246 @@ def check_quant_gate(results):
 
 
 # ---------------------------------------------------------------------------
+# VGG, the recipes to accuracy and the benchmark twins (slice 21)
+# ---------------------------------------------------------------------------
+
+VGG_BATCH = 16
+VGG_STEP_TOL = dict(
+    VISION_STEP_TOL, null_rel=1e-4,
+    why_null="a convolution's bias under a BatchNorm (torchvision keeps it "
+             "in the _bn variants) has an exact gradient of 0: the batch "
+             "mean takes it out; its float32 update is rounding, at most "
+             "8.7e-6 of the next BatchNorm bias's update in a CPU step of "
+             "the port (1e-15 in float64), so 1e-4 of it bounds both sides")
+VGG_TIMED = {"batch": 64, "steps": 10, "warmup": 3}
+
+
+def check_vgg(results):
+    """``vgg11_bn`` and ``vgg16`` (10 classes, 32x32, batch 16, float32,
+    TF32 off): one DDP step each against the CPU copy, the BatchNorm
+    statistics moved and finite; ``vgg16``'s bf16 forward at 224², batch
+    8; images/s and peak memory of its bf16 DDP step at batch 64, 32².  No
+    hand-written kernel may launch."""
+    import numpy as np
+
+    from tpu_dist_torch import models, nn, optim
+    from tpu_dist_torch.benchmarks.transformer_lm import time_steps
+    from tpu_dist_torch.parallel import DistributedDataParallel
+
+    zero_launch_counts()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(VGG_BATCH, 3, 32, 32)).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 10, VGG_BATCH)).cuda()
+
+    def ddp_of(name, device, **kw):
+        return DistributedDataParallel(
+            getattr(models, name)(num_classes=10, device=device),
+            optimizer=optim.SGD(lr=0.01, momentum=0.9),
+            loss_fn=nn.CrossEntropyLoss(), **kw)
+
+    ok_all = True
+    for name in ("vgg11_bn", "vgg16"):
+        ddp = ddp_of(name, "cuda")
+        feats = list(ddp.module.features)
+        null = {f"features.{i}.bias": f"features.{i + 1}.bias"
+                for i, mod in enumerate(feats[:-1])
+                if isinstance(mod, nn.Conv2d)
+                and isinstance(feats[i + 1], nn.BatchNorm2d)}
+        cmp_ = step_against_cpu(
+            ddp, lambda: getattr(models, name)(num_classes=10, device="cpu"),
+            x, y, VGG_STEP_TOL, null_leaves=null)
+        stats = {p: {"mean": m.running_mean, "var": m.running_var}
+                 for p, m in ddp.module.named_modules()
+                 if isinstance(m, nn.BatchNorm2d)}
+        moved = bn_moved(stats)
+        ok = cmp_["ok"] and moved and len(stats) == (
+            8 if name == "vgg11_bn" else 0)
+        emit("vgg", model=name, step_vs_cpu=cmp_, bn_layers=len(stats),
+             bn_stats_moved_and_finite=moved, ok=ok)
+        ok_all = ok_all and ok
+        del ddp
+
+    big = models.vgg16(num_classes=10, device="cuda").to(
+        torch.bfloat16).eval()
+    with torch.no_grad():
+        out = big(torch.from_numpy(rng.normal(size=(8, 3, 224, 224)).astype(
+            np.float32)).cuda().to(torch.bfloat16))
+    ok_224 = tuple(out.shape) == (8, 10) and bool(torch.isfinite(out).all())
+    del big, out
+    torch.cuda.empty_cache()
+
+    b = VGG_TIMED["batch"]
+    xb = torch.from_numpy(rng.normal(size=(b, 3, 32, 32)).astype(
+        np.float32)).cuda()
+    yb = torch.from_numpy(rng.integers(0, 10, b)).cuda()
+    with tf32(True):
+        res = time_steps(ddp_of("vgg16", "cuda",
+                                compute_dtype=torch.bfloat16),
+                         xb, yb, VGG_TIMED["steps"], VGG_TIMED["warmup"])
+    losses_ok = all(map(math.isfinite, res["losses"]))
+    counts = launch_counts()
+    ok_launches = not any(counts.values())
+    emit("vgg", vgg16_bf16_224={"shape": [8, 3, 224, 224], "finite": ok_224},
+         timing={"model": "vgg16", "per_gpu_batch": b, "image_size": 32,
+                 "dtype": "bfloat16", "step_ms": res["step_ms"],
+                 "images_per_s": b / res["step_ms"] * 1e3,
+                 "peak_mem_bytes": res["peak_mem_bytes"],
+                 "losses_finite": losses_ok},
+         timing_note="torch's default TF32 permissions (cuDNN yes, cuBLAS "
+                     "no); images/s/GPU at world 1",
+         kernel_launches=counts, ok_launches_zero=ok_launches)
+    return ok_all and ok_224 and losses_ok and ok_launches
+
+
+# the low-SNR oracle's band at 10,000 test images (ceiling 0.775 ± 3 SE) and
+# the torch-parity bounds at lr 0.05 (tests/test_torch_e2e_parity.py)
+ORACLE_BAND = (0.7625, 0.7875)
+PARITY_BOUNDS = {"max_step_loss_delta": 4e-3, "mean_step_loss_delta": 4e-4}
+
+
+def check_accuracy(results):
+    """The ``accuracy_run`` twin on the card: the MNIST low-SNR oracle at
+    the JAX spec in its band, and the torch-parity row within the JAX
+    test's bounds (TF32 off inside the row).  No hand-written kernel may
+    launch."""
+    from tpu_dist_torch.benchmarks import accuracy_run
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    oracle = accuracy_run.run_noisy_oracle(device="cuda")
+    oracle_s = time.perf_counter() - t0
+    lo, hi = ORACLE_BAND
+    acc = oracle["final_test_accuracy"]
+    ok_oracle = (oracle["in_band"] and lo <= acc <= hi
+                 and oracle["test_samples"] == 10000
+                 and oracle["expected_band"] == [lo, hi])
+    emit("accuracy", row="mnist_low_snr_oracle", **oracle,
+         seconds=oracle_s, ok=ok_oracle)
+    t0 = time.perf_counter()
+    parity = accuracy_run.run_torch_parity(device="cuda")
+    ok_parity = all(parity[k] < v for k, v in PARITY_BOUNDS.items())
+    emit("accuracy", row="torch_e2e_curve_parity",
+         **{k: v for k, v in parity.items() if not k.startswith("curve")},
+         bounds=PARITY_BOUNDS, seconds=time.perf_counter() - t0,
+         ok=ok_parity)
+    counts = launch_counts()
+    ok_launches = not any(counts.values())
+    emit("accuracy", kernel_launches=counts, ok_launches_zero=ok_launches)
+    return ok_oracle and ok_parity and ok_launches
+
+
+TWIN_GEN = {"batch": 2, "prompt_len": 16, "gen_long": 32, "gen_short": 8,
+            "reps": 3}
+TWIN_ATTN_ROWS = ((1024, True, None), (2048, True, None))
+TWIN_PIPELINE = {"batch": 32, "n_images": 64, "workers": (0, 2),
+                 "step_batch": 32}
+
+
+def _flash_against_dense(t: int, tol: dict) -> dict:
+    """The attention twin's two routes on one (4, t, 8, 64) bf16 causal
+    input, the output and the q/k/v gradients for one seeded upstream
+    gradient: flash (K2f/K2b) against the dense composition in float32 on
+    the same values, and against flash's plain version (the same route on
+    CPU copies).  o, dk and dv must hold to dense within ``tol``; dq no
+    further from dense than the plain version's dq is, plus one tolerance:
+    at the first causal queries dq is a sum that cancels, and ``delta =
+    rowsum(dO·O)`` from the bf16 output leaves its rounding there, in the
+    plain version as in the kernel (measured on an H100: both at a margin
+    of 26-31 from dense at the second query of a head); and every gradient
+    must hold to the plain version within ``tol``."""
+    from tpu_dist_torch.nn.attention import scaled_dot_product_attention
+
+    g = torch.Generator(device="cuda").manual_seed(t)
+    q, k, v, do = (torch.randn(4, t, 8, 64, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+
+    def route(impl, dtype, dev):
+        leaves = [a.to(dev, dtype).requires_grad_(True) for a in (q, k, v)]
+        o = scaled_dot_product_attention(*leaves, causal=True, impl=impl)
+        return (o, *torch.autograd.grad(o, leaves, do.to(dev, dtype)))
+
+    got = route("flash", torch.bfloat16, "cuda")
+    dense = route("dense", torch.float32, "cuda")
+    plain = route("flash", torch.bfloat16, "cpu")
+    lims = (tol["rtol"], tol["atol"], tol["atol_row"], tol["atol_all"])
+    out = {}
+    for name, a, d, p in zip(("o", "dq", "dk", "dv"), got, dense, plain):
+        err, _, margin, ok_d = compare(a, d, *lims)
+        m_plain = compare(p, d.cpu(), *lims)[2]
+        ok_p = compare(a.cpu(), p, *lims)[3]
+        if name == "dq":
+            ok_d = margin <= m_plain + 1.0
+        out[name] = {"max_abs_err": err, "margin": margin,
+                     "plain_margin": m_plain, "kernel_within_plain": ok_p,
+                     "ok": ok_d and ok_p}
+    return out
+
+
+def check_twins(results):
+    """The benchmark twins at small sizes: ``generate`` (tokens equal
+    ``generate()``, the implied bandwidth within the card's rate),
+    ``attention`` at T = 1024 and 2048 (flash and dense agree; K2f/K2b
+    launches equal each row's flash calls) and ``input_pipeline`` (every
+    JAX key, every rate above 0)."""
+    from tpu_dist_torch.benchmarks import attention, generate, input_pipeline
+
+    zero_launch_counts()
+    row = generate.run(keep_tokens=True, **TWIN_GEN)
+    model = generate.build_lm(TWIN_GEN["prompt_len"] + TWIN_GEN["gen_long"],
+                              False)
+    want = model.generate(torch.tensor(row["prompt"], device="cuda"),
+                          TWIN_GEN["gen_long"], cache_dtype=torch.bfloat16)
+    del model
+    ok_tokens = row.pop("tokens") == want.tolist()
+    row.pop("prompt")
+    ok_bw = row["implied_weight_read_gb_per_sec"] * 1e9 <= PEAK_BYTES_S
+    ok_gen = ok_tokens and ok_bw and row["value"] > 0
+    counts_gen = launch_counts()
+    emit("twins", twin="generate", **row, tokens_equal_generate=ok_tokens,
+         bandwidth_within_peak=ok_bw, kernel_launches=counts_gen, ok=ok_gen)
+
+    agree = {t: _flash_against_dense(t, FLASH_BF16_TOL)
+             for t, _, _ in TWIN_ATTN_ROWS}
+    ok_agree = all(c["ok"] for case in agree.values() for c in case.values())
+    zero_launch_counts()
+    attn = attention.run(rows=TWIN_ATTN_ROWS, sweep=(), reps=5)
+    ok_calls = all(
+        r["flash_launches"] == {"flash_fwd": r["flash_calls"]["fwd"],
+                                "flash_bwd": r["flash_calls"]["bwd"]}
+        for r in attn["rows"])
+    counts_attn = launch_counts()
+    ok_attn = ok_agree and ok_calls and all(
+        counts_attn[f"flash_{d}"] == sum(r["flash_calls"][d]
+                                          for r in attn["rows"])
+        for d in ("fwd", "bwd"))
+    emit("twins", twin="attention", flash_vs_dense=agree,
+         tolerance=FLASH_BF16_TOL, **attn, launches_equal_calls=ok_calls,
+         kernel_launches=counts_attn, ok=ok_attn)
+
+    zero_launch_counts()
+    pipe = input_pipeline.run(**TWIN_PIPELINE)
+    keys = {"metric", "host_augment_images_per_sec",
+            "raw_host_images_per_sec", "device_augment_images_per_sec",
+            "resnet50_bf16_step_images_per_sec",
+            "chip_consume_images_per_sec", "loader_over_step",
+            "loader_keeps_chip_fed", "host_cores",
+            "host_augment_cores_to_feed_estimate", "batch", "image_size",
+            "raw_size", "note"}
+    rates = [*pipe["host_augment_images_per_sec"].values(),
+             pipe["raw_host_images_per_sec"],
+             pipe["device_augment_images_per_sec"],
+             pipe["resnet50_bf16_step_images_per_sec"]]
+    counts_pipe = launch_counts()
+    ok_pipe = (keys <= set(pipe) and all(r > 0 for r in rates)
+               and not any(counts_pipe.values())
+               and not any(counts_gen.values()))
+    emit("twins", twin="input_pipeline", **pipe, kernel_launches=counts_pipe,
+         ok=ok_pipe)
+    return ok_gen and ok_attn and ok_pipe
+
+
+# ---------------------------------------------------------------------------
 # The control plane: flight recorder, sanitizer, role graphs (slice 14)
 # ---------------------------------------------------------------------------
 
@@ -8368,7 +8653,9 @@ PHASES = (("cross_entropy", check_cross_entropy), ("flash", check_flash),
           ("zero_ddp", check_zero_ddp), ("zero_opt", check_zero_opt),
           ("elastic", check_elastic), ("host_ring", check_host_ring),
           ("host_zero", check_host_zero), ("quant_gate", check_quant_gate),
-          ("obs", check_obs), ("sanitize", check_sanitize),
+          ("vgg", check_vgg), ("accuracy", check_accuracy),
+          ("twins", check_twins), ("obs", check_obs),
+          ("sanitize", check_sanitize),
           ("roles", check_roles), ("cluster_failover", check_cluster_failover),
           ("cluster_elastic", check_cluster_elastic),
           ("netchaos", check_netchaos),

@@ -1,6 +1,7 @@
 """The port stands alone: ``tpu_dist_torch`` imports neither ``jax`` nor
-``tpu_dist`` (nor ``ml_dtypes``, which the card's machine lacks), and its
-entry points do not move to the CPU on their own."""
+``tpu_dist`` (nor ``ml_dtypes``, which the card's machine lacks, nor the
+repo's ``tests``), and its entry points do not move to the CPU on their
+own."""
 
 import ast
 import pathlib
@@ -14,7 +15,7 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "tpu_dist_torch"
-FORBIDDEN = ("jax", "tpu_dist", "ml_dtypes")
+FORBIDDEN = ("jax", "tpu_dist", "ml_dtypes", "tests")
 
 
 def test_imports_with_jax_and_tpu_dist_blocked():
@@ -140,6 +141,11 @@ def test_imports_with_jax_and_tpu_dist_blocked():
         import tpu_dist_torch.parallel.pipeline
         import tpu_dist_torch.examples.pipeline_train
         import tpu_dist_torch.benchmarks.bench_pipeline
+        import tpu_dist_torch.models.vgg
+        import tpu_dist_torch.benchmarks.generate
+        import tpu_dist_torch.benchmarks.attention
+        import tpu_dist_torch.benchmarks.input_pipeline
+        import tpu_dist_torch.benchmarks.scaling
         # the native store is built and served with jax and tpu_dist blocked
         from tpu_dist_torch.dist import TCPStore
         s = TCPStore(is_master=True, timeout=10)
@@ -234,6 +240,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                   cluster_elastic):
         assert bench.main([]) == 2
     assert accuracy_run.main(["--quant-gate-only"]) == 2
+    for mode in ([], ["--quick"], ["--torch-parity-only"],
+                 ["--noisy-oracle-only"], ["--cifar-oracle-only"]):
+        assert accuracy_run.main(mode) == 2   # before any work or file
+    from tpu_dist_torch.benchmarks import (attention, generate,
+                                           input_pipeline, scaling)
+    from tpu_dist_torch.models import vgg11, vgg16_bn
+    for fn in (generate.run, generate.run_prefill, attention.run,
+               input_pipeline.run, scaling.run,
+               lambda: vgg11(num_classes=10), vgg16_bn):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
     loader = data.DataLoader(data.TensorDataset(np.zeros(4), np.zeros(4)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         data.DeviceLoader(loader)
