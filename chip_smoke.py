@@ -22,7 +22,17 @@ Phases, each printed as one JSON line:
    wrapper's host work included) into the card's own time (``device_ms``,
    the host kept ahead) and the wrapper's host time (``host_ms``); K2b's
    line also gives its dQ and dK/dV kernels' card time (``dq_ms``,
-   ``dkv_ms``, from ``torch.profiler`` over ten calls).
+   ``dkv_ms``, from ``torch.profiler`` over ten calls).  The ``gmm``
+   phase ends with B2, ``gmm(activation=)``: each activation of
+   ``ACTIVATIONS`` in each design (wgmma at the path shape, also with
+   float32 output and on a transpose view; mma_sync at a ragged shape and
+   through ``_older``; fma in float32) against ``gmm_plain`` with the same
+   callable, the dead tail exact zeros, the product without its activation
+   (and, in float32, the tanh GELU against the erf one) rejected, an
+   unknown callable refused on the card; timed with ``gelu_tanh`` at the
+   path shape beside K3 alone (in turns), the plain version and the
+   two-call composition ``torch._grouped_mm`` + ``F.gelu(approximate=
+   "tanh")`` (no one PyTorch call computes it: ``library_ms`` is null).
 3. ``slice``: the dense GPT-2-small-shaped TransformerLM trained at full
    width through the port's DDP (bf16, fused cross-entropy, flash attention
    at T = 2048), with every kernel's launch count over that run (every
@@ -501,6 +511,9 @@ KERNEL_INFO = {
             "tpu_dist/ops/gmm.py:74"),
     "tgmm": ("K4", "cuda", "tpu_dist_torch/csrc/gmm.cu",
              "tpu_dist/ops/gmm.py:181"),
+    # gmm(activation=): act(acc + bias) in the K3 kernels' epilogue
+    "gmm_activation": ("B2", "cuda", "tpu_dist_torch/csrc/gmm.cu",
+                       "tpu_dist/ops/gmm.py:141"),
 }
 
 
@@ -1163,7 +1176,8 @@ def zero_launch_counts():
     from tpu_dist_torch.ops import KERNELS
     for k in KERNELS:
         k.launches = 0
-        for by in ("launches_by_design", "launches_by_mode"):
+        for by in ("launches_by_design", "launches_by_mode",
+                   "launches_by_activation"):
             if hasattr(k, by):
                 getattr(k, by).update(dict.fromkeys(getattr(k, by), 0))
 
@@ -1423,6 +1437,213 @@ def check_gmm(results):
     run_case("grouped_wgmma_small",
              grouped_case([300, 0, 517, 129, 64], 128, 256, 640,
                           torch.bfloat16, g, g_w2), 128, bf16_tol, "wgmma")
+    ok_b2 = check_gmm_activation(results, bf16_tol, f32_tol)
+    return ok_all and ok_b2
+
+
+def check_gmm_activation(results, bf16_tol, f32_tol):
+    """B2, ``gmm(activation=)``, inside the ``gmm`` phase: every activation
+    in every design against ``gmm_plain`` with the same callable (the K3
+    tolerances), the dead tail exact zeros, planted faults rejected, an
+    unknown callable refused; the B2 launches of these checks are the
+    kernels line's.  Then the path shape timed with ``gelu_tanh``."""
+    import functools
+
+    import torch.nn.functional as F
+
+    gm = importlib.import_module("tpu_dist_torch.ops.gmm")
+    acts = {"gelu_tanh": gm.gelu_tanh, "gelu": F.gelu, "relu": F.relu,
+            "silu": F.silu, "sigmoid": torch.sigmoid, "tanh": torch.tanh}
+    ok_all = set(acts) == set(gm.ACTIVATIONS)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    probs = torch.randn(16384, 8, device="cuda", generator=g).softmax(-1)
+    counts = torch.bincount(probs.topk(2, dim=-1).indices.reshape(-1),
+                            minlength=8).tolist()
+    path = grouped_case(counts, 512, 768, 3072, torch.bfloat16, g)
+    ragged = [37, 0, 81, 5, 60]
+    bf16_ragged = grouped_case(ragged, 24, 200, 360, torch.bfloat16, g)
+    f32_ragged = grouped_case(ragged, 8, 200, 360, torch.float32, g)
+
+    def b2_compare(got, want, pre, tol):
+        """K3's tolerance carried through the activation: the kernel's and
+        the plain version's sums differ as K3's do, and an activation
+        moves that difference by at most its slope (1.13 for the GELUs, at
+        most 1.1 for the other four), so the floor is 1.13 x atol_all of
+        the rms of the sums before the activation (the rms of its output
+        would shrink it where relu or tanh flatten the sums)."""
+        return compare(got, want, tol["rtol"], 1.13 * tol["atol_all"]
+                       * float(pre.float().pow(2).mean().sqrt()))
+
+    # (case, block_rows, weights, bias, out_dtype, design, tolerance,
+    # activations, _older): the path's w1 form in wgmma with each
+    # activation, its float32-output store, the transpose-view weights (the
+    # K-major kernel) with sigmoid (act(0) = 0.5, so a dead-tail leak
+    # shows), mma_sync on the path shape and at a ragged one, fma in
+    # float32; the tolerance by input type, as run_case's
+    cases = {
+        "wgmma": (path, 512, path["w"], path["bias"], None, "wgmma",
+                  bf16_tol, list(acts), False),
+        "wgmma_f32_out": (path, 512, path["w"], path["bias"], torch.float32,
+                          "wgmma", bf16_tol, ["gelu_tanh"], False),
+        "wgmma_w_view": (path, 512, path["w2"].transpose(1, 2), None, None,
+                         "wgmma", bf16_tol, ["sigmoid"], False),
+        "mma_sync_older": (path, 512, path["w"], path["bias"], None,
+                           "mma_sync", bf16_tol, list(acts), True),
+        "mma_sync_ragged": (bf16_ragged, 24, bf16_ragged["w"],
+                            bf16_ragged["bias"], None, "mma_sync", bf16_tol,
+                            list(acts), False),
+        "mma_sync_ragged_f32_out": (bf16_ragged, 24, bf16_ragged["w"],
+                                    bf16_ragged["bias"], torch.float32,
+                                    "mma_sync", bf16_tol, ["silu"], False),
+        "fma": (f32_ragged, 8, f32_ragged["w"], f32_ragged["bias"], None,
+                "fma", f32_tol, list(acts), False),
+    }
+    gm.gmm.launches_by_activation.update(
+        dict.fromkeys(gm.gmm.launches_by_activation, 0))
+    calls, path_errs = 0, []
+    for label, (c, b, w, bias, out_dtype, design, tol, names,
+                older) in cases.items():
+        x, bg, n_live = c["x"], c["bg"], c["n_live"]
+        dead = int(n_live) * b
+        errs, margins, ok, dead_zero = {}, {}, True, True
+        # the sums before the activation: the floor of the tolerance, and a
+        # planted fault (the product without its activation)
+        pre = gm.gmm_plain(x, w, bg, n_live, bias=bias, block_rows=b,
+                           out_dtype=out_dtype)
+        before = dict(gm.gmm.launches_by_design)
+        for name in names:
+            out_k = gm.gmm(x, w, bg, n_live, bias=bias, block_rows=b,
+                           out_dtype=out_dtype, activation=acts[name],
+                           _older=older)
+            out_p = gm.gmm_plain(x, w, bg, n_live, bias=bias, block_rows=b,
+                                 out_dtype=out_dtype, activation=acts[name])
+            calls += 1
+            errs[name], _, margins[name], ok_t = b2_compare(out_k, out_p,
+                                                            pre, tol)
+            dead_zero = dead_zero and not out_k[dead:].any()
+            ok = ok and ok_t and dead_zero
+        ran = {d: gm.gmm.launches_by_design[d] - before[d]
+               for d in gm.DESIGNS}
+        ok_design = ran[design] == len(names) == sum(ran.values())
+        # planted faults: the product without its activation, and in
+        # float32 the tanh GELU held to the erf one (jax.nn.gelu's trap)
+        caught = {"no_activation": b2_compare(out_k, pre, pre, tol)[2]}
+        if x.dtype == torch.float32:
+            caught["tanh_gelu_as_erf"] = b2_compare(
+                gm.gmm(x, w, bg, n_live, bias=bias, block_rows=b,
+                       activation=gm.gelu_tanh),
+                gm.gmm_plain(x, w, bg, n_live, bias=bias, block_rows=b,
+                             activation=F.gelu), pre, tol)[2]
+            calls += 1
+        torch.cuda.synchronize()
+        ok = ok and ok_design and all(m > 1.0 for m in caught.values())
+        ok_all = ok_all and ok
+        if design == "wgmma":
+            path_errs += list(errs.values())
+        emit("kernel", name=f"gmm_activation_{label}", design=design,
+             launches_by_design=ran, ok_design=ok_design,
+             shape={"x": list(x.shape), "w": list(w.shape),
+                    "dtype": str(x.dtype).split(".")[-1], "block_rows": b,
+                    "out_dtype": str(out_dtype or x.dtype).split(".")[-1],
+                    "bias": bias is not None, "live_blocks": int(n_live),
+                    "blocks": bg.numel()},
+             max_abs_err=errs, margin=margins, dead_tail_zero=dead_zero,
+             planted_faults_margin=caught, tolerance=tol["why"][:60], ok=ok)
+    # refused on the card, before any launch: callables with no epilogue
+    before = gm.gmm.launches
+    refused = {}
+    for label, fn in {"lambda": lambda v: v,
+                      "partial_gelu_tanh": functools.partial(
+                          F.gelu, approximate="tanh")}.items():
+        try:
+            gm.gmm(path["x"], path["w"], path["bg"], path["n_live"],
+                   block_rows=512, activation=fn)
+            refused[label] = False
+        except ValueError as exc:
+            refused[label] = "no epilogue" in str(exc)
+    by_act = dict(gm.gmm.launches_by_activation)
+    ok_refused = all(refused.values()) and gm.gmm.launches == before
+    ok_count = sum(by_act.values()) == calls
+    ok_all = ok_all and ok_refused and ok_count
+
+    # the path shape, gelu_tanh: B2 and K3 alone in turns (b2, k3, k3,
+    # b2), B2 also without the bias; the plain version; the two-call
+    # composition, which has no bias (torch._grouped_mm takes none), beside
+    # B2 without it
+    x, w, bias, bg, n_live = (path[k] for k in ("x", "w", "bias", "bg",
+                                                 "n_live"))
+    live, ends = int(n_live) * 512, path["ends"]
+
+    def b2(bb=bias):
+        return gm.gmm(x, w, bg, n_live, bias=bb, block_rows=512,
+                      activation=gm.gelu_tanh)
+
+    def k3(bb=bias):
+        return gm.gmm(x, w, bg, n_live, bias=bb, block_rows=512)
+
+    t = {"b2": time_ms(b2), "k3": time_ms(k3)}
+    t["k3"] = (t["k3"] + time_ms(k3)) / 2
+    t["b2"] = (t["b2"] + time_ms(b2)) / 2
+    t["b2_no_bias"] = time_ms(lambda: b2(None))
+    t["b2_device"] = time_ms(b2, hide_host=True)
+    t["k3_device"] = time_ms(k3, hide_host=True)
+    t["plain"] = time_ms(lambda: gm.gmm_plain(
+        x, w, bg, n_live, bias=bias, block_rows=512,
+        activation=gm.gelu_tanh), reps=3)
+    label, grouped = library_grouped(
+        [("torch._grouped_mm", lambda: torch._grouped_mm(x[:live], w,
+                                                         offs=ends)),
+         ("torch._grouped_mm (column-major b)", lambda: torch._grouped_mm(
+             x[:live], w.transpose(1, 2).contiguous().transpose(1, 2),
+             offs=ends))])
+    comp = {"composition": f"{label} + F.gelu(approximate='tanh')"
+            if grouped else None}
+    if grouped:
+        def composed():
+            return F.gelu(grouped(), approximate="tanh")
+
+        t["composition"] = time_ms(composed)
+        t["composition_device"] = time_ms(composed, hide_host=True)
+        # the yardstick computes the same function as B2 without the bias:
+        # it rounds the product to bf16 before the GELU (half a bf16 step
+        # of the product, times the slope, at most 1.13) and the GELU's
+        # output after it, B2 only the output; sums in other orders may
+        # flip each rounding, so twice those, plus 1e-5 of the rms
+        want = b2(None)[:live].float()
+        pre = k3(None)[:live].float()
+        limit = (2.0 ** -7 * (1.13 * pre.abs() + want.abs())
+                 + 1e-5 * float(want.pow(2).mean().sqrt()))
+        comp["composition_margin"] = float(
+            ((composed().float() - want).abs() / limit).max())
+        del want, pre, limit
+    el, (e, d, h) = x.element_size(), w.shape
+    # bytes: x's routed rows, w, the bias read once, the output written;
+    # operations: the routed rows' products on the tensor cores, and the
+    # tanh GELU's 9 float32 operations on each live output (x sigmoid(2u),
+    # its exponential and reciprocal one each; CUDA cores, alongside: the
+    # bound is the larger)
+    bytes_b2 = (path["routed"] * d + e * d * h + e * h
+                + x.shape[0] * h) * el
+    bt = bound(bytes_b2, 2 * path["routed"] * d * h, "bf16_tensor")
+    act_ms = live * h * 9 / PEAK_OPS_S["f32"] * 1e3
+    bound_b2 = max(bt, (act_ms, "operations"))
+    results["gmm_activation"] = dict(
+        launches=sum(by_act.values()), max_abs_err=max(path_errs),
+        ms=t["b2"], plain_ms=t["plain"], library_ms=None,
+        bound_ms=bound_b2[0], bound_by=bound_b2[1])
+    emit("kernel", name="gmm_activation", activation="gelu_tanh",
+         ms=t["b2"], k3_ms=t["k3"], b2_over_k3=t["b2"] / t["k3"],
+         device_ms=t["b2_device"], k3_device_ms=t["k3_device"],
+         no_bias_ms=t["b2_no_bias"],
+         plain_ms=t["plain"], composition_ms=t.get("composition"),
+         composition_device_ms=t.get("composition_device"), **comp,
+         library_ms=None, bound_ms=bound_b2[0], bound_by=bound_b2[1],
+         activation_ops_ms=act_ms, launches_by_activation=by_act,
+         launches=sum(by_act.values()), calls=calls, ok_count=ok_count,
+         refused=refused, ok_refused=ok_refused,
+         tflops=2 * path["routed"] * d * h / t["b2"] / 1e9)
+    if grouped:
+        ok_all = ok_all and comp["composition_margin"] <= 1.0
     return ok_all
 
 
@@ -1432,7 +1653,7 @@ def check_gmm(results):
 
 def check_moe_slice(results):
     from tpu_dist_torch.benchmarks.moe_lm import run
-    from tpu_dist_torch.ops import KERNELS
+    from tpu_dist_torch.ops import KERNELS, gmm
 
     zero_launch_counts()
     res = run(dispatch="dropless")
@@ -1448,6 +1669,10 @@ def check_moe_slice(results):
     ok_design = all(d["wgmma"] == counts[n] for n, d in by_design.items())
     ok_loss = all(math.isfinite(x) for x in res["losses"])
     ok_aux = all(math.isfinite(x) for x in res["aux_losses_last_step"].values())
+    # the experts' GELU stays outside the kernel, as in the JAX package: no
+    # launch with an activation (B2)
+    b2 = dict(gmm.launches_by_activation)
+    ok_no_b2 = not any(b2.values())
     for name in ("gmm", "tgmm"):
         results.setdefault(name, {})["launches"] = counts[name]
     emit("moe_slice", tokens_per_s_per_gpu=res["value"],
@@ -1457,10 +1682,11 @@ def check_moe_slice(results):
          model=res["model"], steps_run=steps, launches=counts,
          launches_per_step_expected=per_step, ok_launches=ok_counts,
          launches_by_design=by_design, ok_design=ok_design,
+         launches_by_activation=b2, ok_no_activation=ok_no_b2,
          losses=res["losses"], ok_losses_finite=ok_loss,
          aux_losses_last_step=res["aux_losses_last_step"], ok_aux_finite=ok_aux,
          tokens_per_expert_last_step=res["tokens_per_expert_last_step"])
-    return ok_counts and ok_design and ok_loss and ok_aux
+    return ok_counts and ok_design and ok_loss and ok_aux and ok_no_b2
 
 
 MOE_LAYER_TOL = {

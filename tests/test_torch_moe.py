@@ -151,13 +151,15 @@ def test_moe_layer_refuses_what_is_not_ported():
         tnn.MoELayer(8, 1, dispatch="dropless", device="cpu")
     with pytest.raises(ValueError, match="top_k"):
         tnn.MoELayer(8, 4, top_k=5, dispatch="dropless", device="cpu")
-    # K3's in-kernel activation (ROADMAP B2) has no caller and is not ported
+    # K3's in-kernel activation (B2) is ported, though the layer passes none
+    # (its GELU stays outside, as in the JAX package): on the CPU it applies
+    # to the plain product
     import importlib
     gm = importlib.import_module("tpu_dist_torch.ops.gmm")
-    with pytest.raises(NotImplementedError):
-        gm.gmm(torch.zeros(8, 4), torch.zeros(2, 4, 4),
-               torch.zeros(1, dtype=torch.int32), 8,
-               activation=torch.tanh)
+    out = gm.gmm(torch.ones(8, 4), torch.full((2, 4, 4), 0.25),
+                 torch.zeros(1, dtype=torch.int32), 1, block_rows=8,
+                 activation=torch.tanh)
+    torch.testing.assert_close(out, torch.tanh(torch.ones(8, 4)))
     # the JAX package's default dispatch, "einsum", is the port's default
     model = TorchLM(vocab_size=11, dim=8, depth=1, num_heads=2,
                     num_experts=4, device="cpu")

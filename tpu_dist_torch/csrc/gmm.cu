@@ -1,7 +1,8 @@
 // Grouped matrix multiply for Hopper (sm_90a): the dropless-MoE kernel pair.
 //
 // Replaces the Pallas TPU kernels of tpu_dist/ops/gmm.py:
-//   gmm_*   <- gmm  (:74)   out[block i] = x[block i] @ w[groups[i]] (+ bias)
+//   gmm_*   <- gmm  (:74)   out[block i] = act(x[block i] @ w[groups[i]] (+ bias)),
+//                           act from gmm(activation=) (:141-142), or none
 //   tgmm_*  <- tgmm (:181)  dw[e] = sum over e's row blocks of x_blk^T dy_blk,
 //                           db[e] = the row sums of e's dy
 //
@@ -78,7 +79,17 @@
 // 3. FMA (float32): shared-memory FMA kernels on 64 x 64 tiles, which keep
 //    full f32 precision for the tests and ragged shapes.
 //
-// Not yet done (later work): the in-kernel activation of the TPU gmm.
+// The activation epilogue (the TPU gmm's activation=): every gmm design
+// applies act(acc + bias) to the float32 sum before the output is rounded,
+// so an activated product costs no extra trip of the (M, H) output through
+// device memory.  The activations are a fixed set of codes (apply_act;
+// ops/gmm.py maps the torch callables onto them).  Dead tail tiles still
+// write zeros, never act(0).  The FMA and mma.sync kernels switch on the
+// code per element in their epilogues; the wgmma kernel is instantiated once
+// per code, each with its one epilogue after the last wgmma wait (one
+// kernel switching on the code spilled, and took 2-12% longer on an H100 at
+// 700 W: PERF.md), so the kernel without an activation is the one it was.
+// tgmm shares the wgmma store (store_tile) with the identity code.
 //
 // Layouts: x (M, D) and dy (M, H) contiguous; w (E, D, H) contiguous, or
 // (E, H, D) contiguous read as its transpose (w_nk); bias (E, H); groups
@@ -112,6 +123,7 @@ struct GmmParams {
   const int* n_live;
   void* out;
   int M, K, N, block_rows, tiles_per_block, out_f32;
+  int act;  // the epilogue's activation code (Act)
 };
 
 struct TgmmParams {
@@ -124,6 +136,41 @@ struct TgmmParams {
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// gmm's epilogue activations, by the code ops/gmm.py's ACTIVATIONS gives.
+enum Act { kActNone = 0, kGeluTanh, kGelu, kRelu, kSilu, kSigmoid, kTanh, kNumActs };
+
+// 1 / (1 + e^-z) from ex2.approx and div.approx, 2 ulp each, plus |z| 2^-24
+// relative from rounding the argument: about 1e-6 relative at |z| = 16, and
+// the float32 design is held to 1e-5.  An e^-z that overflows gives
+// 0, as the exact value underflows.
+__device__ __forceinline__ float sigmoid_fast(float z) {
+  return __fdividef(1.0f, 1.0f + __expf(-z));
+}
+
+// act(v) on the float32 sum.  The tanh GELU as x sigmoid(2u), the same
+// function as torch's 0.5 x (1 + tanh(u)) without its cancellation for x
+// below -3; the erf GELU and tanh with the accurate erff and tanhf
+// (tanh.approx.f32's 2^-11 relative error would not hold the float32
+// design to 1e-5).
+__device__ __forceinline__ float apply_act(float v, int act) {
+  switch (act) {
+    case kGeluTanh:  // jax.nn.gelu's default; torch's gelu(approximate="tanh")
+      return v * sigmoid_fast(1.5957691216057308f * (v + 0.044715f * v * v * v));
+    case kGelu:  // the exact erf form
+      return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
+    case kRelu:
+      return v < 0.0f ? 0.0f : v;  // NaN stays NaN, as in torch.relu
+    case kSilu:
+      return v * sigmoid_fast(v);
+    case kSigmoid:
+      return sigmoid_fast(v);
+    case kTanh:
+      return tanhf(v);
+    default:
+      return v;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // mma.sync building blocks (as in flash_attention.cu).  Fragment layouts
@@ -336,8 +383,9 @@ __global__ void __launch_bounds__(kThreads) gmm_mma_kernel(GmmParams p) {
       for (int r = 0; r < 2; ++r) {
         const int row = t.r0 + wm + mt * 16 + gr + r * 8;
         if (row < t.r_end)
-          store2(p.out, (long long)row * p.N + col, acc[mt][nt][2 * r] + b0,
-                 acc[mt][nt][2 * r + 1] + b1, p.out_f32);
+          store2(p.out, (long long)row * p.N + col,
+                 apply_act(acc[mt][nt][2 * r] + b0, p.act),
+                 apply_act(acc[mt][nt][2 * r + 1] + b1, p.act), p.out_f32);
       }
   }
 }
@@ -477,7 +525,8 @@ __global__ void __launch_bounds__(kF32Threads) gmm_f32_kernel(GmmParams p) {
       const int col = n0 + tcol + 16 * j;
       if (col < p.N)
         store1(p.out, (long long)row * p.N + col,
-               acc[i][j] + (bias ? bias[(long long)g * p.N + col] : 0.0f), p.out_f32);
+               apply_act(acc[i][j] + (bias ? bias[(long long)g * p.N + col] : 0.0f), p.act),
+               p.out_f32);
     }
   }
 }
@@ -690,13 +739,15 @@ __device__ __forceinline__ void load_bias(__nv_bfloat162 (&bv)[WN / 8], const bf
 
 // Writes a warpgroup's 64 x 192 accumulator tile at (row0, col0) of the
 // output, if row0 < row_end (then all 64 rows are in range: row_end is a
-// multiple of 64), at columns below col_end (a multiple of 8), plus the
-// thread's bias pairs (load_bias) in f32.  No branch here depends on the
+// multiple of 64), at columns below col_end (a multiple of 8), as
+// apply_act(acc + bias, ACT) with the thread's bias pairs (load_bias) in f32
+// (kActNone: the sum itself, as tgmm stores it).  No branch here depends on the
 // thread or its warpgroup: one around a use of the accumulators would make
 // the compiler serialize the wgmma.  So a warpgroup past row_end stores its
 // float32 into its staging instead, and the bf16 TMA store clips it.  float32 leaves as 8-byte pairs, four lanes
 // filling one 32-byte sector, into `out` (row stride ld); bf16 through
 // `out_map` (2-D, or 3-D at `group` when group >= 0).
+template <int ACT>
 __device__ __forceinline__ void store_tile(const float (&acc)[96], const CUtensorMap* out_map,
                                            int group, void* out, long long ld, int row0,
                                            int row_end, int col0, int col_end,
@@ -716,7 +767,8 @@ __device__ __forceinline__ void store_tile(const float (&acc)[96], const CUtenso
       for (int h = 0; h < 2; ++h)
         store2(rows_in ? out : staging,
                rows_in ? (long long)(row0 + r_lo + 8 * h) * ld + col : 2 * t,
-               acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1, 1);
+               apply_act(acc[4 * j + 2 * h] + b0, ACT),
+               apply_act(acc[4 * j + 2 * h + 1] + b1, ACT), 1);
     }
     return;
   }
@@ -733,7 +785,8 @@ __device__ __forceinline__ void store_tile(const float (&acc)[96], const CUtenso
       const int r = r_lo + 8 * h;
       *reinterpret_cast<__nv_bfloat162*>(staging + (j / 8) * CHUNK + r * 128 +
                                          (((j % 8) ^ (r & 7)) * 16) + c_lo * 2) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
+          __floats2bfloat162_rn(apply_act(acc[4 * j + 2 * h] + b0, ACT),
+                                apply_act(acc[4 * j + 2 * h + 1] + b1, ACT));
     }
   }
   fence_async_shared();
@@ -765,8 +818,9 @@ __device__ __forceinline__ void zero_tile(void* out, long long ld, int row0, int
 // map_x: x as (M, K), boxes of 128 rows x 64 k.  map_w: w as (E, K, N) with
 // boxes of 64 k x 64 n (MN-major), or, W_NK, as (E, N, K) with boxes of 192
 // n x 64 k (K-major).  map_out: out as (M, N) in 64 x 64 boxes (bf16 only).
-// block_rows is a multiple of 128, K of 64.
-template <bool W_NK>
+// block_rows is a multiple of 128, K of 64.  ACT: the epilogue's activation
+// code (p.act), kActNone for the plain product.
+template <bool W_NK, int ACT>
 __global__ void __launch_bounds__(kWThreads, 1)
     gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                      const __grid_constant__ CUtensorMap map_w,
@@ -827,8 +881,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
 #pragma unroll
       for (int i = 0; i < 96; ++i) acc[i] = 0.0f;
       consume<false, !W_NK>(ring, acc, n_k, wg * CHUNK);
-      store_tile(acc, &map_out, -1, p.out, p.N, row0, row0 + 64, n0, col_end, bv,
-                 p.out_f32, staging, 2 + wg);
+      store_tile<ACT>(acc, &map_out, -1, p.out, p.N, row0, row0 + 64, n0, col_end, bv,
+                      p.out_f32, staging, 2 + wg);
     }
     if ((threadIdx.x & 127) == 0) tma_store_wait();
   }
@@ -987,7 +1041,7 @@ __global__ void __launch_bounds__(kWThreads, 1)
 #pragma unroll
       for (int i = 0; i < 96; ++i) acc[i] = 0.0f;
       consume<true, true>(ring, acc, t.n_k, wg * CHUNK);
-      store_tile(acc, &map_out, t.e,
+      store_tile<kActNone>(acc, &map_out, t.e,
                  static_cast<unsigned char*>(p.dw) + (long long)t.e * p.D * p.H * es, p.H,
                  t.dt * WM + 64 * wg, p.D, t.h0, min(t.h0 + WN, p.H), no_bias, p.out_f32,
                  staging, 2 + wg);
@@ -1048,17 +1102,32 @@ int launch_wgmma(Kernel kernel, int n_tiles, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+// The wgmma gmm kernel of an activation code (0 to kNumActs - 1).
+template <bool W_NK>
+auto gmm_wgmma_for(int act) {
+  switch (act) {
+    case kGeluTanh: return &gmm_wgmma_kernel<W_NK, kGeluTanh>;
+    case kGelu: return &gmm_wgmma_kernel<W_NK, kGelu>;
+    case kRelu: return &gmm_wgmma_kernel<W_NK, kRelu>;
+    case kSilu: return &gmm_wgmma_kernel<W_NK, kSilu>;
+    case kSigmoid: return &gmm_wgmma_kernel<W_NK, kSigmoid>;
+    case kTanh: return &gmm_wgmma_kernel<W_NK, kTanh>;
+    default: return &gmm_wgmma_kernel<W_NK, kActNone>;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; out_f32: write float32 (else the input
 // dtype).  w_nk: w is the transpose view of a contiguous (E, N, K) tensor.
-// design: 0 = FMA (float32), 1 = mma.sync, 2 = wgmma (bf16).  Returns a
-// cudaError_t, or kErrNoEncoder / kErrEncode for a tensor map.
+// design: 0 = FMA (float32), 1 = mma.sync, 2 = wgmma (bf16).  act: the
+// epilogue's activation code (Act; 0 = none).  Returns a cudaError_t, or
+// kErrNoEncoder / kErrEncode for a tensor map.
 int gmm_launch(const void* x, const void* w, const void* bias, const int* groups,
                const int* n_live, void* out, int M, int K, int N, int E, int block_rows,
-               int w_nk, int dtype, int out_f32, int design, void* stream) {
+               int w_nk, int dtype, int out_f32, int design, int act, void* stream) {
   GmmParams p;
   p.x = x;
   p.w = w;
@@ -1071,9 +1140,11 @@ int gmm_launch(const void* x, const void* w, const void* bias, const int* groups
   p.N = N;
   p.block_rows = block_rows;
   p.out_f32 = out_f32;
+  p.act = act;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_blocks = M / block_rows;
   if ((design == kFma) != (dtype == 0)) return cudaErrorInvalidValue;
+  if (act < 0 || act >= kNumActs) return cudaErrorInvalidValue;
   if (design == kWgmma) {
     if (block_rows % WM || K % WK || N % 64) return cudaErrorInvalidValue;
     CUtensorMap map_x, map_w;
@@ -1099,10 +1170,8 @@ int gmm_launch(const void* x, const void* w, const void* bias, const int* groups
       if (err != 0) return err;
     }
     const int n_tiles = (M / WM) * cdiv(N, WN);
-    return w_nk ? launch_wgmma(gmm_wgmma_kernel<true>, n_tiles, wgmma_smem(), s, map_x,
-                               map_w, map_out, p)
-                : launch_wgmma(gmm_wgmma_kernel<false>, n_tiles, wgmma_smem(), s, map_x,
-                               map_w, map_out, p);
+    const auto kernel = w_nk ? gmm_wgmma_for<true>(act) : gmm_wgmma_for<false>(act);
+    return launch_wgmma(kernel, n_tiles, wgmma_smem(), s, map_x, map_w, map_out, p);
   }
   if (design == kMmaSync) {
     p.tiles_per_block = cdiv(block_rows, BM);

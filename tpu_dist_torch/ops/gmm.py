@@ -7,6 +7,7 @@ into block-aligned segments; every row block belongs to one group:
     x (M, D) sorted by group, M a multiple of ``block_rows``
     w (E, D, H) stacked per-group weights
     out[block i] = x[block i] @ w[block_groups[i]]   (K3, :func:`gmm`)
+    out[block i] = act(x[block i] @ w[...] + bias)   (B2, ``activation=``)
     dw[e] = sum over e's blocks of x_blkᵀ @ dy_blk   (K4, :func:`tgmm`)
 
 The kernels live in ``tpu_dist_torch/csrc/gmm.cu`` and are built for
@@ -21,6 +22,14 @@ built from per-block float32 products: the CPU takes it, the kernels are held
 against it on the card, and :func:`gmm_impl` selects it explicitly for a
 comparison run.
 
+``gmm(activation=f)`` applies ``f`` to the float32 sum (after the bias,
+before the output is rounded) inside the kernel, in every design, as the TPU
+kernel does: no extra trip of the (M, H) output through device memory.  The
+kernels know the element-wise functions of :data:`ACTIVATIONS`, recognised by
+identity; on a CPU tensor any callable works, as in the JAX package.  Mind the
+GELU: ``jax.nn.gelu`` defaults to the tanh form (:func:`gelu_tanh`), torch's
+``F.gelu`` to the exact erf form.
+
 :func:`grouped_linear` is the differentiable grouped linear of the JAX
 package: its three backward passes are grouped products over the same block
 map (dx through :func:`gmm` against ``wᵀ``, dw/db through :func:`tgmm`), with
@@ -33,19 +42,21 @@ import contextlib
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 __all__ = ["gmm", "tgmm", "grouped_linear", "gmm_plain", "tgmm_plain",
-           "gmm_impl", "gmm_design", "group_offsets", "ceil_to", "DESIGNS"]
+           "gmm_impl", "gmm_design", "group_offsets", "ceil_to", "DESIGNS",
+           "ACTIVATIONS", "activation_name", "gelu_tanh"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _LIB = "gmm"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, w, bias, block_groups, n_live, out | M, K, N, E, block_rows, w_nk,
-    # dtype, out_f32, design, stream
-    "gmm_launch": [_P] * 6 + [_I] * 9 + [_P],
+    # dtype, out_f32, design, act, stream
+    "gmm_launch": [_P] * 6 + [_I] * 10 + [_P],
     # x, dy, block_groups, n_live, offsets, dw, db | M, E, D, H, block_rows,
     # dtype, out_f32, design, stream
     "tgmm_launch": [_P] * 7 + [_I] * 8 + [_P],
@@ -55,6 +66,44 @@ DESIGNS = ("fma", "mma_sync", "wgmma")
 _WGMMA_ROWS = 128   # the wgmma kernels' row tile
 _WGMMA_COLS = 64    # their TMA boxes' width along D and H
 _IMPL: list = []
+
+
+def gelu_tanh(x):
+    """GELU in its tanh form, ``0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715
+    x^3)))``: ``jax.nn.gelu``'s default (``approximate=True``) and the MoE
+    experts' activation.  Not ``F.gelu``, whose default is the exact erf
+    form: the counterpart of the JAX package's ``activation=jax.nn.gelu`` is
+    this function."""
+    return F.gelu(x, approximate="tanh")
+
+
+# the activation epilogues of csrc/gmm.cu: name -> the code its apply_act
+# takes (enum Act; 0 is none)
+ACTIVATIONS = {"gelu_tanh": 1, "gelu": 2, "relu": 3, "silu": 4, "sigmoid": 5,
+               "tanh": 6}
+# the callables a caller passes for each, recognised by identity
+_ACTIVATION_FNS = {
+    "gelu_tanh": {"gelu_tanh": gelu_tanh},
+    "gelu": {"F.gelu": F.gelu},
+    "relu": {"F.relu": F.relu, "torch.relu": torch.relu},
+    "silu": {"F.silu": F.silu},
+    "sigmoid": {"torch.sigmoid": torch.sigmoid, "F.sigmoid": F.sigmoid},
+    "tanh": {"torch.tanh": torch.tanh, "F.tanh": F.tanh},
+}
+
+
+def activation_name(activation) -> str:
+    """The name in :data:`ACTIVATIONS` of the kernel epilogue that computes
+    ``activation`` (a callable, by identity).  ValueError for any other: a
+    CUDA call does not fall back to the plain version."""
+    for name, fns in _ACTIVATION_FNS.items():
+        if any(activation is fn for fn in fns.values()):
+            return name
+    known = "; ".join(f"{name}: {', '.join(fns)}"
+                      for name, fns in _ACTIVATION_FNS.items())
+    raise ValueError(f"gmm: the kernel has no epilogue for activation "
+                     f"{activation!r}; it knows {known} (jax.nn.gelu is "
+                     f"gelu_tanh, not F.gelu)")
 
 
 def ceil_to(x: int, m: int) -> int:
@@ -170,16 +219,19 @@ def _group_onehot(block_groups, n_groups: int, live=None) -> torch.Tensor:
 
 
 def gmm_plain(x, w, block_groups, n_live_blocks, *, bias=None,
-              block_rows: int, out_dtype=None):
+              block_rows: int, out_dtype=None, activation=None):
     """Plain version of K3: each row block's float32 product with its
-    group's weights (+ bias), rounded to ``out_dtype``; blocks at index
-    ``n_live_blocks`` or beyond are zeros."""
+    group's weights (+ bias), passed through ``activation`` (any callable)
+    in float32 and rounded to ``out_dtype``; blocks at index
+    ``n_live_blocks`` or beyond are zeros, not ``activation(0)``."""
     m, d = x.shape
     nb = m // block_rows
     wb = w.float()[block_groups.long()]                       # (nb, D, H)
     out = torch.bmm(x.float().reshape(nb, block_rows, d), wb)
     if bias is not None:
         out = out + bias.float()[block_groups.long()][:, None, :]
+    if activation is not None:
+        out = activation(out)
     live = _live_blocks(n_live_blocks, nb, x.device)
     out = torch.where(live[:, None, None], out, torch.zeros_like(out))
     return out.reshape(m, -1).to(out_dtype or x.dtype)
@@ -284,15 +336,17 @@ def gmm(x, w, block_groups, n_live_blocks, *, bias=None,
             this are written as zeros and issue no product.
         bias: optional (E, H), added in float32 before rounding.
         block_rows: any positive multiple of 8.
-        activation: not ported yet (ROADMAP); raises if given.
+        activation: optional element-wise callable applied in the kernel to
+            the float32 ``acc + bias`` before rounding (dead blocks stay
+            zeros).  On a CUDA tensor one of :data:`ACTIVATIONS`'s callables
+            (:func:`activation_name`; else ValueError); on a CPU tensor any.
+            ``jax.nn.gelu`` is :func:`gelu_tanh`, not ``F.gelu``.
     Returns:
         (M, H) in ``out_dtype`` (default ``x.dtype``; float32 also taken).
     A CPU tensor takes :func:`gmm_plain`; a CUDA tensor launches the kernel
-    that :func:`gmm_design` picks.
+    that :func:`gmm_design` picks.  A launch with an activation also counts
+    in ``gmm.launches_by_activation``.
     """
-    if activation is not None:
-        raise NotImplementedError("gmm(activation=...) is not ported yet "
-                                  "(ROADMAP B, K3)")
     out_dtype = out_dtype or x.dtype
     _check_layout(x.shape[0], block_rows, block_groups.shape[0])
     if w.shape[1] != x.shape[1]:
@@ -300,7 +354,9 @@ def gmm(x, w, block_groups, n_live_blocks, *, bias=None,
                          f"{x.shape[1]}")
     if x.device.type == "cpu":
         return gmm_plain(x, w, block_groups, n_live_blocks, bias=bias,
-                         block_rows=block_rows, out_dtype=out_dtype)
+                         block_rows=block_rows, out_dtype=out_dtype,
+                         activation=activation)
+    act = None if activation is None else activation_name(activation)
     w_nk = _check_operands(x, w, block_groups, bias, out_dtype)
     m, d = x.shape
     e, _, h = w.shape
@@ -317,15 +373,19 @@ def gmm(x, w, block_groups, n_live_blocks, *, bias=None,
                          out.data_ptr(), m, d, h, e, block_rows, int(w_nk),
                          int(x.dtype == torch.bfloat16),
                          int(out_dtype == torch.float32),
-                         DESIGNS.index(design), _stream(x))
+                         DESIGNS.index(design), ACTIVATIONS.get(act, 0),
+                         _stream(x))
     _build.check(lib, _LIB, err, "gmm")
     gmm.launches += 1
     gmm.launches_by_design[design] += 1
+    if act is not None:
+        gmm.launches_by_activation[act] += 1
     return out
 
 
 gmm.launches = 0
 gmm.launches_by_design = dict.fromkeys(DESIGNS, 0)
+gmm.launches_by_activation = dict.fromkeys(ACTIVATIONS, 0)
 
 
 def tgmm(x, dy, block_groups, n_groups: int, *, block_rows: int = 512,
